@@ -8,9 +8,12 @@ Run from the root of a checkout, on a machine with one CUDA card:
 It builds the port's CUDA kernels from the sources in the checkout, holds
 each against its plain PyTorch version on the card, drives the serving
 main path (``repro_torch.launch.serve``) at paper width (d = 1,000,000
-features, m = 12 regions) in int8 and fp32, shows that path launched both
-kernels, times the kernels beside their plain versions, their memory
-bound and one library call, and ends with one JSON line::
+features, m = 12 regions) in int8 and fp32 and the training main path
+(``repro_torch.launch.train --sparse``, OWLQN+ at the same width, then
+serving the Theta it trained), shows that each path launched its kernels,
+holds the card's OWLQN+ trajectory against the CPU's, times the kernels
+beside their plain versions, their bound and one library call, and ends
+with one JSON line::
 
     {"ok": true, "device": {"platform": "gpu", "kind": "<name>", "count": 1}}
 
@@ -39,12 +42,32 @@ FP32_OPS_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores
 Z_RTOL, Z_ATOL, P_ATOL = 1e-5, 1e-6, 1e-6
 TIMED_RUNS, WARM_RUNS = 30, 3
 SPIN_CYCLES = 10_000_000  # ~5 ms of device spin ahead of each timed run
-SOURCE = "src/repro_torch/kernels/lsplm_sparse_fused/csrc/lsplm_sparse_fused.cu"
+SESSIONS = 4000  # launch default of the training driver
+TRAIN_ITERS = 10
+LAM = BETA = 0.05
+B2_REL, B2_ABS = 1e-5, 1e-6  # |err| <= B2_REL * sum |terms| + B2_ABS
+B3_RTOL, B3_ATOL = 1e-5, 1e-6
+TRAJ_F_RTOL, TRAJ_RTOL, TRAJ_ATOL = 2e-4, 2e-3, 2e-5
+PATTERN_SHARE = 1e-5  # zero-pattern flips allowed at paper width
+_FUSED = "src/repro_torch/kernels/lsplm_sparse_fused/csrc/lsplm_sparse_fused.cu"
+SOURCES = {
+    "lsplm_sparse_fused_forward": _FUSED,
+    "lsplm_sparse_fused_int8_forward": _FUSED,
+    "lsplm_sparse_scatter_compact":
+        "src/repro_torch/kernels/lsplm_sparse_scatter/csrc/"
+        "lsplm_sparse_scatter.cu",
+    "owlqn_direction":
+        "src/repro_torch/kernels/owlqn_direction/csrc/owlqn_direction.cu",
+}
 REPLACES = {
     "lsplm_sparse_fused_forward":
         "src/repro/kernels/lsplm_sparse_fused/lsplm_sparse_fused.py:73",
     "lsplm_sparse_fused_int8_forward":
         "src/repro/kernels/lsplm_sparse_fused/lsplm_sparse_fused.py:151",
+    "lsplm_sparse_scatter_compact":
+        "src/repro/kernels/lsplm_sparse_scatter/lsplm_sparse_scatter.py:50",
+    "owlqn_direction":
+        "src/repro/kernels/owlqn_direction/owlqn_direction.py:23",
 }
 
 
@@ -347,6 +370,520 @@ def phase_times(torch, dev, theta, codes, scales):
     return out
 
 
+# ------------------------------------------------------------ phase 5
+def _scatter_cases(torch, dev, rng):
+    """(tag, ids (N, K) int32, vals, num_rows): a small batch with pad
+    slots, one of all-unique ids, and one with a hot run of 600 entries
+    (cut into three pieces)."""
+    d_rows = 1001
+    pads = rng.integers(0, d_rows - 1, (300, 8)).astype(np.int32)
+    pads[:, ::3] = d_rows - 1
+    unique = rng.permutation(d_rows - 1)[:960].astype(np.int32).reshape(
+        120, 8)
+    hot = rng.integers(0, d_rows - 1, (300, 8)).astype(np.int32)
+    hot[:, :2] = 17
+    cases = []
+    for tag, ids in (("pad ids", pads), ("all-unique ids", unique),
+                     ("one hot run", hot)):
+        vals = rng.normal(size=ids.shape).astype(np.float32)
+        vals[ids == d_rows - 1] = 0.0
+        cases.append((tag, torch.from_numpy(ids).to(dev),
+                      torch.from_numpy(vals).to(dev), d_rows))
+    return cases
+
+
+def _check_scatter(torch, sops, plan, vals, dz, tag):
+    """B2 against its plain version (the class gathers) on the card:
+    within B2_REL of the summed |terms|, bitwise repeatable, untouched and
+    pad rows exactly 0. Returns the max abs error."""
+    got = sops.scatter_add_planned(plan, vals, dz)
+    again = sops.scatter_add_planned(plan, vals, dz)
+    plain = sops._compact_classes(plan, vals, dz).index_select(
+        0, plan.inv_compact)
+    scale = sops._compact_classes(plan, vals.abs(), dz.abs()).index_select(
+        0, plan.inv_compact)
+    torch.cuda.synchronize()
+    check(torch.equal(got, again), f"B2 not bitwise repeatable ({tag})")
+    err = (got - plain).abs()
+    check(bool((err <= B2_REL * scale + B2_ABS).all()),
+          f"B2 vs plain beyond {B2_REL} x sum|terms| + {B2_ABS} ({tag}): "
+          f"max |err| {float(err.max()):.3e}")
+    untouched = plan.inv_sorted == plan.num_unique
+    check(bool(untouched[-1]) and bool((got[untouched] == 0).all()),
+          f"B2 left a non-zero pad or untouched row ({tag})")
+    return float(err.max())
+
+
+def _direction_inputs(rng, d_rows, m2):
+    theta = rng.normal(size=(d_rows, m2)).astype(np.float32)
+    theta[rng.random((d_rows, m2)) < 0.4] = 0.0
+    theta[rng.random((d_rows, m2)) < 0.05] = -0.0
+    theta[rng.random(d_rows) < 0.2] = 0.0  # whole zero rows (case c)
+    grad = rng.normal(size=(d_rows, m2)).astype(np.float32)
+    grad[rng.random((d_rows, m2)) < 0.05] = 0.0
+    return theta, grad
+
+
+def _b1_at_training_shapes(torch, batches, theta):
+    """B1 against its plain version at the shapes the training path gives
+    it: both id tensors of each batch, after the dedup pre-pass, on the
+    padded Theta. Returns (max abs error, the shapes checked)."""
+    from repro_torch.kernels.lsplm_sparse_fused import ops
+    from repro_torch.kernels.lsplm_sparse_fused.lsplm_sparse_fused import (
+        lsplm_sparse_fused_forward,
+    )
+
+    tp = ops.pad_theta(theta)
+    pad = tp.shape[0] - 1
+    err, shapes = 0.0, []
+    for tag, batch in batches:
+        for side, ids, vals in (("user", batch.user_ids, batch.user_vals),
+                                ("ad", batch.ad_ids, batch.ad_vals)):
+            ki, kv = ops.dedup_tile_ids(ids, vals, pad)
+            p, z = lsplm_sparse_fused_forward(ki, kv, tp)
+            z_ref = ops._chunked_zmap(ids, vals, tp)
+            p_ref = ops.finalize_p(z_ref)
+            torch.cuda.synchronize()
+            where = f"{tag} {side} ids {tuple(ids.shape)}"
+            check(_z_ok(z, z_ref), f"B1 z vs plain at the {where}")
+            check(float((p - p_ref).abs().max()) <= P_ATOL,
+                  f"B1 p vs plain at the {where}")
+            err = max(err, float((z - z_ref).abs().max()),
+                      float((p - p_ref).abs().max()))
+            shapes.append(f"{tag} {side} {tuple(ids.shape)}")
+    return err, shapes
+
+
+def phase_training_kernels(torch, dev, train, test, theta0):
+    from repro_torch.kernels.lsplm_sparse_scatter import ops as sops
+    from repro_torch.kernels.lsplm_sparse_scatter.plan import (
+        build_transpose_plan,
+    )
+    from repro_torch.kernels.owlqn_direction.owlqn_direction import (
+        owlqn_direction,
+    )
+    from repro_torch.kernels.owlqn_direction.ref import owlqn_direction_ref
+
+    e, shapes = _b1_at_training_shapes(
+        torch, (("training", train), ("test", test)), theta0)
+    print(f"phase 5: B1 vs plain at the training path's shapes "
+          f"({', '.join(shapes)}; u**10 Zipf ids, dedup on, the driver's "
+          f"dense Theta0): z rtol {Z_RTOL}/atol {Z_ATOL}, p atol {P_ATOL}; "
+          f"max |err| {e:.3e}")
+    rng = np.random.default_rng(SEED + 7)
+    err = {"lsplm_sparse_fused_forward": e,
+           "lsplm_sparse_scatter_compact": 0.0, "owlqn_direction": 0.0}
+    lines = []
+    for side, vals, plan in (("user", train.user_vals, train.user_plan),
+                             ("ad", train.ad_vals, train.ad_plan)):
+        dz = torch.from_numpy(rng.normal(size=(vals.shape[0], 2 * REGIONS))
+                              .astype(np.float32)).to(dev)
+        e = _check_scatter(torch, sops, plan, vals, dz, f"{side} side")
+        err["lsplm_sparse_scatter_compact"] = max(
+            err["lsplm_sparse_scatter_compact"], e)
+        lines.append(f"{side} side E'={plan.num_kept:,} U={plan.num_unique:,}"
+                     f" pieces={plan.piece_run.numel():,} max|err| {e:.2e}")
+    for tag, ids, vals, d_rows in _scatter_cases(torch, dev, rng):
+        plan = build_transpose_plan(ids, d_rows, pad_id=d_rows - 1).to(dev)
+        dz = torch.from_numpy(rng.normal(size=(ids.shape[0], 2 * REGIONS))
+                              .astype(np.float32)).to(dev)
+        e = _check_scatter(torch, sops, plan, vals, dz, tag)
+        unplanned = sops.scatter_add_unplanned(ids, vals, dz, d_rows,
+                                               d_rows - 1)
+        check(torch.equal(unplanned, sops.scatter_add_planned(plan, vals, dz)),
+              f"B2 on the card-sorted entries differs from the plan's ({tag})")
+        err["lsplm_sparse_scatter_compact"] = max(
+            err["lsplm_sparse_scatter_compact"], e)
+        lines.append(f"{tag} max|err| {e:.2e}")
+    print("phase 5: B2 (run-length dTheta scatter) vs the plain class "
+          f"gathers on the card, |err| <= {B2_REL} x sum|terms| + {B2_ABS}, "
+          "bitwise repeatable, pad and untouched rows exactly 0, the "
+          "card-sorted (unplanned) layout bitwise equal: " + "; ".join(lines))
+
+    lines = []
+    for d_rows, m2 in ((1000, 2 * REGIONS), (1000, 70),
+                       (D_FEATURES, 2 * REGIONS)):
+        theta_np, grad_np = _direction_inputs(rng, d_rows, m2)
+        theta = torch.from_numpy(theta_np).to(dev)
+        grad = torch.from_numpy(grad_np).to(dev)
+        for lam, beta in ((0.5, 0.3), (0.0, 0.3), (0.2, 0.0), (LAM, BETA)):
+            got = owlqn_direction(theta, grad, lam, beta)
+            want = owlqn_direction_ref(theta, grad, lam, beta)
+            torch.cuda.synchronize()
+            tag = f"D={d_rows:,} 2m={m2} lam={lam} beta={beta}"
+            check(bool(((got - want).abs()
+                        <= B3_ATOL + B3_RTOL * want.abs()).all()),
+                  f"B3 vs plain beyond rtol {B3_RTOL}/atol {B3_ATOL} at {tag}")
+            check(torch.equal(got == 0, want == 0),
+                  f"B3 zero pattern differs from the plain version at {tag}")
+            err["owlqn_direction"] = max(err["owlqn_direction"],
+                                         float((got - want).abs().max()))
+        lines.append(f"D={d_rows:,} 2m={m2}")
+    print(f"phase 5: B3 (Eq. 9 direction) vs plain on the card at "
+          f"{', '.join(lines)}, 4 (lam, beta) pairs, with exact zeros, -0.0 "
+          f"and zero rows: within rtol {B3_RTOL}/atol {B3_ATOL}, zero pattern "
+          f"equal; max |err| {err['owlqn_direction']:.2e}")
+    return err
+
+
+# ------------------------------------------------------------ phase 6
+def _reset(counters):
+    for launches in counters:
+        for name in launches:
+            launches[name] = 0
+
+
+def phase_training(torch, dev, problem, test, tmp: Path):
+    from repro_torch.io import checkpoint
+    from repro_torch.kernels.lsplm_sparse_fused.lsplm_sparse_fused import (
+        LAUNCHES as B1,
+    )
+    from repro_torch.kernels.lsplm_sparse_scatter.lsplm_sparse_scatter import (
+        LAUNCHES as B2,
+    )
+    from repro_torch.kernels.owlqn_direction.owlqn_direction import (
+        LAUNCHES as B3,
+    )
+    from repro_torch.launch import serve, train as train_driver
+
+    ckpt = str(tmp / "trained.npz")
+    argv = ["--sparse", "--sparse-features", str(D_FEATURES), "--regions",
+            str(REGIONS), "--sessions", str(SESSIONS), "--lam", str(LAM),
+            "--beta", str(BETA), "--iters", str(TRAIN_ITERS), "--seed",
+            str(SEED), "--ckpt", ckpt, "--device", str(dev)]
+    _reset((B1, B2, B3))
+    t0 = time.perf_counter()
+    rep = train_driver.run(argv)
+    wall = time.perf_counter() - t0
+    launches = {"lsplm_sparse_fused_forward": B1["lsplm_sparse_fused_forward"],
+                **B2, **B3}
+    for name, count in launches.items():
+        check(count > 0, f"the training path never launched {name}")
+    its = rep["iters"]
+    check(len(its) == TRAIN_ITERS, "the training driver stopped early")
+    check(all(np.isfinite([r["f_new"] for r in its])), "f is not finite")
+    check(its[-1]["f_new"] < its[0]["f"],
+          f"f did not fall: {its[0]['f']:.2f} -> {its[-1]['f_new']:.2f}")
+    check(its[-1]["nnz"] < its[0]["nnz"],
+          f"nnz did not fall: {its[0]['nnz']:,} -> {its[-1]['nnz']:,}")
+    check(rep["test_auc"] > 0.5, f"test AUC {rep['test_auc']:.4f} <= 0.5")
+    ls = sum(r["ls_iters"] for r in its)
+    print(f"phase 6: training main path (OWLQN+, d={D_FEATURES:,}, "
+          f"m={REGIONS}, {SESSIONS:,} sessions, lam=beta={LAM}, "
+          f"{TRAIN_ITERS} iterations) in {wall:.2f} s wall "
+          f"(set-up {rep['setup_s']:.2f} s, iterations {rep['train_s']:.3f} s"
+          f" = {rep['s_per_iter'] * 1e3:.1f} ms/iter, median "
+          f"{np.median([r['wall_s'] for r in its]) * 1e3:.1f} ms, {ls} "
+          f"line-search "
+          f"trials); f {its[0]['f']:.2f} -> {its[-1]['f_new']:.2f}, nnz "
+          f"{its[0]['nnz']:,} -> {its[-1]['nnz']:,}, test AUC "
+          f"{rep['test_auc']:.4f}; launches {launches} (expected: B1 2 per "
+          f"loss evaluation = {2 * (TRAIN_ITERS + ls)}, plus 2 per test-AUC "
+          f"evaluation = {2 * sum('test_auc' in r for r in its)}; B2 2 per "
+          f"gradient = {2 * TRAIN_ITERS}; B3 1 per step = {TRAIN_ITERS})")
+    print("  per iteration (ms): " + ", ".join(
+        f"{r['wall_s'] * 1e3:.1f}" for r in its))
+
+    train, _, opt = problem
+    theta = checkpoint.load(ckpt, {"theta": torch.zeros(
+        (D_FEATURES, 2 * REGIONS), device=dev)})["theta"]
+    b1_err, _ = _b1_at_training_shapes(
+        torch, (("training", train), ("test", test)), theta)
+    print(f"phase 6: B1 vs plain on the trained Theta "
+          f"({int((theta != 0).sum()):,} non-zeros) at the same four shapes: "
+          f"max |err| {b1_err:.3e}")
+    _profile_step(torch, opt, theta)
+
+    _reset((B1,))
+    t0 = time.perf_counter()
+    srep = serve.run(["--ckpt", ckpt, "--requests", "128", "--seed",
+                      str(SEED), "--device", str(dev)])
+    serve_launches = B1["lsplm_sparse_fused_forward"]
+    check(serve_launches > 0, "serving the trained Theta never launched B1")
+    eng = srep["engine"]
+    print(f"phase 6: served the trained checkpoint in "
+          f"{time.perf_counter() - t0:.1f} s: {srep['rows_alive']:,} rows "
+          f"alive of {D_FEATURES:,}, {eng['requests']} requests, "
+          f"{eng['candidates_per_sec']:,.0f} candidates/s, driver asserts "
+          f"held (pruned == full, single == batched bitwise); B1 launches "
+          f"{serve_launches}")
+    return launches, b1_err
+
+
+def _profile_step(torch, opt, theta) -> None:
+    """Where one OWLQN+ step's time goes (torch.profiler): host wall
+    against the device's kernel time, and the top kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    state, _ = opt.step(opt.init(theta))  # a history pair for the next
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, stats = opt.step(state)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels: dict[str, list] = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            k = kernels.setdefault(e.name, [0.0, 0])
+            k[0] += e.time_range.elapsed_us()
+            k[1] += 1
+    busy_us = sum(v[0] for v in kernels.values())
+    if not kernels:
+        print(f"  profile of one OWLQN+ step: {wall_us / 1e3:.2f} ms wall; "
+              "device time not measured (no device events)")
+        return
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:8]
+    ours: dict[str, list] = {}
+    for label in ("fused_forward_kernel", "piece_sums_kernel",
+                  "run_sums_kernel", "owlqn_direction_kernel"):
+        for name, (us, n) in kernels.items():
+            if label in name:
+                k = ours.setdefault(label, [0.0, 0])
+                k[0] += us
+                k[1] += n
+    ours_us = sum(v[0] for v in ours.values())
+    print(f"  profile of one OWLQN+ step ({stats.ls_iters} line-search "
+          f"trials, under torch.profiler): {wall_us / 1e3:.2f} ms wall, "
+          f"{busy_us / 1e3:.2f} ms of device kernels in "
+          f"{sum(v[1] for v in kernels.values())} launches (device idle "
+          f"{1 - busy_us / wall_us:.1%}); the hand-written kernels "
+          f"{ours_us / 1e3:.3f} ms ({ours_us / busy_us:.1%} of device time: "
+          + ", ".join(f"{label} x{n} {us / 1e3:.3f} ms"
+                      for label, (us, n) in ours.items())
+          + "); top: "
+          + "; ".join(f"{name[:70]} x{n} {us / 1e3:.3f} ms"
+                      for name, (us, n) in top))
+
+
+# ------------------------------------------------------------ phase 7
+def _trajectory(torch, opt, theta0, steps):
+    state = opt.init(theta0)
+    fs, zeros, wall = [], [], 0.0
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        state, stats = opt.step(state)  # ends in host syncs
+        wall += time.perf_counter() - t0
+        fs.append(stats.f_new)
+        zeros.append((state.theta == 0).cpu().numpy())
+    return state.theta.cpu().numpy(), fs, zeros, wall
+
+
+def _beyond_bar(theta, ref):
+    ref = ref.astype(np.float64)
+    return ~(np.abs(theta - ref) <= TRAJ_ATOL + TRAJ_RTOL * np.abs(ref))
+
+
+def _witness(card, cpu, exact) -> str:
+    """Which side the float64 trajectory follows where the card's and the
+    CPU's float32 trajectories part: in each step's zero pattern, in f,
+    and in the elements beyond the Theta bar."""
+    (t_card, f_card, z_card, _), (t_cpu, f_cpu, z_cpu, _) = card, cpu
+    t_64, f_64, z_64, _ = exact
+    with_card = with_cpu = apart = 0
+    for a, b, c in zip(z_card, z_cpu, z_64):
+        flip = a != b
+        with_card += int((flip & (c == a)).sum())
+        with_cpu += int((flip & (c == b)).sum())
+        apart += int((~flip & (c != a)).sum())
+    parts = []
+    for tag, t, f in (("card", t_card, f_card), ("CPU", t_cpu, f_cpu)):
+        out = _beyond_bar(t, t_64)
+        diff = np.abs(t.astype(np.float64) - t_64)
+        f_rel = float(np.max(np.abs(np.subtract(f, f_64)) / np.abs(f_64)))
+        parts.append(f"{tag} f rel {f_rel:.2e}, Theta beyond the bar in "
+                     f"{int(out.sum())} elements (max |diff| "
+                     f"{float(diff.max()):.2e})")
+    return (f"float64 CPU witness: of the (element, step) pairs where the "
+            f"card's and the CPU's zero patterns part, it follows the card "
+            f"in {with_card} and the CPU in {with_cpu}; it parts from both "
+            f"where they agree in {apart}; against it: " + "; ".join(parts))
+
+
+def phase_trajectory(torch, dev, problem):
+    """The port's OWLQN+ on the card (kernels) against the CPU (plain
+    versions) on one batch and Theta0.
+
+    fp32 sums reassociate between the two, so an element that lands
+    within an ulp of zero can be zeroed by the orthant projection on one
+    side only (a flip); a flip changes its row's Eq. 9 case, and the
+    row's later values with it. At d = 50,000 no flip and no element
+    beyond the Theta bar is allowed. At paper width at most
+    PATTERN_SHARE of the elements may flip at some step, and as many may
+    lie beyond the Theta bar, flipped rows included. There a float64
+    trajectory on the CPU shows which side the flips follow."""
+    from repro_torch.launch.train import sparse_problem
+
+    kw = dict(lam=LAM, beta=BETA, seed=SEED, batch_seed=SEED + 1)
+    for d, sessions, steps, seen_only, share in (
+            (50_000, 256, 6, True, 0.0),
+            (D_FEATURES, SESSIONS, 3, False, PATTERN_SHARE)):
+        _, theta0, card_opt = (
+            problem if d == D_FEATURES
+            else sparse_problem(d, REGIONS, sessions, **kw, device=dev))
+        cpu_batch, _, cpu_opt = sparse_problem(d, REGIONS, sessions, **kw,
+                                               device="cpu")
+        theta0 = theta0.cpu()
+        if seen_only:  # rows no id touches start at exact zero
+            seen = torch.zeros(d, dtype=torch.bool)
+            for ids in (cpu_batch.user_ids, cpu_batch.ad_ids):
+                seen[ids[ids < d].long()] = True
+            theta0 = theta0 * seen[:, None]
+        card = _trajectory(torch, card_opt, theta0.to(dev), steps)
+        cpu = _trajectory(torch, cpu_opt, theta0, steps)
+        (t_card, f_card, z_card, w_card), (t_cpu, f_cpu, z_cpu, w_cpu) = (
+            card, cpu)
+        allowed = int(share * t_cpu.size)
+        tag = f"d={d:,}, {sessions} sessions, {steps} steps"
+        f_err = float(np.max(np.abs(np.subtract(f_card, f_cpu))
+                             / np.abs(f_cpu)))
+        check(f_err <= TRAJ_F_RTOL, f"f card vs CPU rtol {f_err:.2e} at {tag}")
+        flipped = np.zeros(t_cpu.shape, bool)
+        for a, b in zip(z_card, z_cpu):
+            flipped |= a != b
+        flips = int(flipped.sum())
+        rows = flipped.any(axis=1)
+        check(flips <= allowed,
+              f"zero pattern card vs CPU differs in {flips} elements at {tag}"
+              f" (allowed {allowed})")
+        beyond = _beyond_bar(t_card, t_cpu)
+        check(int(beyond.sum()) <= allowed,
+              f"Theta card vs CPU beyond rtol {TRAJ_RTOL}/atol {TRAJ_ATOL} "
+              f"in {int(beyond.sum())} elements at {tag} (allowed {allowed})")
+        diff = np.abs(t_card - t_cpu)
+        print(f"phase 7: OWLQN+ card vs CPU at {tag}, m={REGIONS}: f max "
+              f"rel diff {f_err:.2e} (bar {TRAJ_F_RTOL}); zero pattern "
+              f"flipped at some step in {flips} of {t_cpu.size:,} elements, "
+              f"{int((z_card[-1] != z_cpu[-1]).sum())} differ at the end, in "
+              f"{int(rows.sum())} rows; Theta beyond rtol {TRAJ_RTOL}/atol "
+              f"{TRAJ_ATOL} in {int(beyond.sum())} elements "
+              f"({int((beyond & rows[:, None]).sum())} in flipped rows; "
+              f"allowed {allowed} flips and {allowed} elements beyond), max "
+              f"|diff| {float(diff.max()):.2e} (outside flipped rows "
+              f"{float(diff[~rows].max(initial=0.0)):.2e}); nnz "
+              f"{int((t_card != 0).sum()):,}; step wall card {w_card:.2f} s, "
+              f"CPU {w_cpu:.2f} s")
+        if share:
+            _, theta0_64, opt_64 = sparse_problem(
+                d, REGIONS, sessions, **kw, device="cpu", dtype=torch.float64)
+            check(torch.equal(theta0_64.float(), theta0),
+                  "the float64 witness starts from another Theta0")
+            exact = _trajectory(torch, opt_64, theta0_64, steps)
+            print(f"  {_witness(card, cpu, exact)}; its steps took "
+                  f"{exact[3]:.2f} s")
+
+
+# ------------------------------------------------------------ timings
+def phase_training_times(torch, dev, train, theta0):
+    """B1 and B2 at both sides of the launch-default batch and B3 at
+    D = 1,000,000, each beside its plain version, its bound and the
+    library call computing the same function (B1 ``embedding_bag``, B2
+    ``index_add_``)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.lsplm_sparse_fused import ops
+    from repro_torch.kernels.lsplm_sparse_fused.lsplm_sparse_fused import (
+        lsplm_sparse_fused_forward,
+    )
+    from repro_torch.kernels.lsplm_sparse_scatter import ops as sops
+    from repro_torch.kernels.lsplm_sparse_scatter.lsplm_sparse_scatter import (
+        lsplm_sparse_scatter_compact,
+    )
+    from repro_torch.kernels.owlqn_direction.owlqn_direction import (
+        owlqn_direction,
+    )
+    from repro_torch.kernels.owlqn_direction.ref import owlqn_direction_ref
+
+    rng = np.random.default_rng(SEED + 8)
+    m2 = 2 * REGIONS
+    flush = torch.empty(128 * 2**20 // 4, dtype=torch.float32, device=dev)
+    out = {}
+    tp = ops.pad_theta(theta0)
+    pad = tp.shape[0] - 1
+    for side, ids, vals in (("ad", train.ad_ids, train.ad_vals),
+                            ("user", train.user_ids, train.user_vals)):
+        ki, kv = ops.dedup_tile_ids(ids, vals, pad)  # as the main path does
+        bound_ms, bound_by = _bound(torch, ki, pad, m2 * 4, m2, 2)
+        row = {"side": side, "n": ids.shape[0], "k": ids.shape[1],
+               "ms": _time_ms(
+                   torch, lambda: lsplm_sparse_fused_forward(ki, kv, tp),
+                   flush),
+               "plain_ms": _time_ms(torch, lambda: ops.finalize_p(
+                   ops._chunked_zmap(ki, kv, tp)), flush),
+               "library_ms": _time_ms(torch, lambda: F.embedding_bag(
+                   ki, tp, per_sample_weights=kv, mode="sum",
+                   padding_idx=pad), flush),
+               "bound_ms": bound_ms, "bound_by": bound_by}
+        out.setdefault("lsplm_sparse_fused_forward", []).append(row)
+        print(f"phase 8: lsplm_sparse_fused_forward training {side} side "
+              f"(N={row['n']:,} K={row['k']}, after dedup, Theta0): kernel "
+              f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by}, "
+              f"{bound_ms / row['ms']:.1%} of it reached), library "
+              f"{row['library_ms']:.4f} ms (embedding_bag)")
+    for side, vals, plan in (("ad", train.ad_vals, train.ad_plan),
+                             ("user", train.user_vals, train.user_plan)):
+        n, e, u = vals.shape[0], plan.num_kept, plan.num_unique
+        dz = torch.from_numpy(rng.normal(size=(n, m2)).astype(np.float32)
+                              ).to(dev)
+        vals_sorted = vals.reshape(-1).index_select(0, plan.order)
+        counts = torch.unique_consecutive(plan.row_ids, return_counts=True)[1]
+        run_of_entry = torch.repeat_interleave(
+            torch.arange(u, device=dev), counts)
+
+        def kernel():
+            return lsplm_sparse_scatter_compact(
+                plan.piece_start, plan.piece_run, plan.run_piece_start,
+                plan.sample_sorted, vals_sorted, dz)
+
+        def library():
+            return torch.zeros((u + 1, m2), device=dev).index_add_(
+                0, run_of_entry,
+                vals_sorted[:, None] * dz.index_select(0, plan.sample_sorted))
+
+        lib_err = float((library() - kernel()).abs().max())
+        nbytes = e * 12 + n * m2 * 4 + (u + 1) * m2 * 4
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        t_ops = e * m2 * 2 / FP32_OPS_PER_S
+        row = {"side": side, "entries": e, "unique": u, "n": n,
+               "ms": _time_ms(torch, kernel, flush),
+               "plain_ms": _time_ms(
+                   torch, lambda: sops._compact_classes(plan, vals, dz),
+                   flush),
+               "library_ms": _time_ms(torch, library, flush),
+               "bound_ms": max(t_bytes, t_ops) * 1e3,
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+        out.setdefault("lsplm_sparse_scatter_compact", []).append(row)
+        print(f"phase 8: lsplm_sparse_scatter_compact {side} side (E'={e:,},"
+              f" U={u:,}, N={n:,}): kernel {row['ms']:.4f} ms, plain "
+              f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']}, {row['bound_ms'] / row['ms']:.1%} of it "
+              f"reached), library {row['library_ms']:.4f} ms (index_add_, "
+              f"max |diff| vs kernel {lib_err:.1e})")
+
+    theta_np, grad_np = _direction_inputs(rng, D_FEATURES, m2)
+    theta = torch.from_numpy(theta_np).to(dev)
+    grad = torch.from_numpy(grad_np).to(dev)
+    nbytes = 3 * D_FEATURES * m2 * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = 16 * D_FEATURES * m2 / FP32_OPS_PER_S  # ~16 flops per element
+    row = {"d": D_FEATURES, "m2": m2,
+           "ms": _time_ms(torch, lambda: owlqn_direction(theta, grad, LAM,
+                                                         BETA), flush),
+           "plain_ms": _time_ms(torch, lambda: owlqn_direction_ref(
+               theta, grad, LAM, BETA), flush),
+           "library_ms": None, "bound_ms": max(t_bytes, t_ops) * 1e3,
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    out["owlqn_direction"] = [row]
+    print(f"phase 8: owlqn_direction D={D_FEATURES:,} 2m={m2}: kernel "
+          f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, bound "
+          f"{row['bound_ms']:.4f} ms ({row['bound_by']}, "
+          f"{row['bound_ms'] / row['ms']:.1%} of it reached), library n/a "
+          f"(no single PyTorch call)")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -360,6 +897,7 @@ def main() -> int:
     except ImportError as e:
         raise SmokeFailure(f"the port is not beside this script: {e}") from e
     dev = resolve_device("cuda")
+    t_start = time.perf_counter()
     phase_device(torch)
 
     rng = np.random.default_rng(SEED + 3)
@@ -373,23 +911,57 @@ def main() -> int:
 
     err, _ = phase_kernels(torch, dev, theta, codes, scales)
     with tempfile.TemporaryDirectory() as tmp:
-        launches, _, _ = phase_main_path(torch, Path(tmp))
+        serve_launches, _, _ = phase_main_path(torch, Path(tmp))
     times = phase_times(torch, dev, theta, codes, scales)
+    del theta, codes, scales
+
+    from repro_torch.launch.train import sparse_problem, sparse_test_batch
+
+    # the training driver's batch, Theta0 and optimizer at its launch
+    # defaults (batch seed --seed + 1, test batch --seed + 2)
+    problem = sparse_problem(D_FEATURES, REGIONS, SESSIONS, lam=LAM,
+                             beta=BETA, seed=SEED, batch_seed=SEED + 1,
+                             device=dev)
+    train, theta0, _ = problem
+    test = sparse_test_batch(D_FEATURES, SESSIONS, seed=SEED + 2, device=dev)
+    for name, e in phase_training_kernels(torch, dev, train, test,
+                                          theta0).items():
+        err[name] = max(err.get(name, 0.0), e)
+    with tempfile.TemporaryDirectory() as tmp:
+        train_launches, b1_err = phase_training(torch, dev, problem, test,
+                                                Path(tmp))
+    err["lsplm_sparse_fused_forward"] = max(
+        err["lsplm_sparse_fused_forward"], b1_err)
+    phase_trajectory(torch, dev, problem)
+    train_times = phase_training_times(torch, dev, train, theta0)
+    # B1's first shape is the training path's, whose launches it reports
+    times["lsplm_sparse_fused_forward"][:0] = train_times.pop(
+        "lsplm_sparse_fused_forward")
+    times.update(train_times)
 
     kernels = []
     for name in ("lsplm_sparse_fused_forward",
-                 "lsplm_sparse_fused_int8_forward"):
-        main_shape, large = times[name]
+                 "lsplm_sparse_fused_int8_forward",
+                 "lsplm_sparse_scatter_compact", "owlqn_direction"):
+        main_shape, *others = times[name]
+        by_path = {"serve": serve_launches.get(name, 0),
+                   "train": train_launches.get(name, 0)}
         kernels.append({
-            "name": name, "route": "cuda", "source": SOURCE,
-            "replaces": REPLACES[name], "launches": launches[name],
+            "name": name, "route": "cuda", "source": SOURCES[name],
+            "replaces": REPLACES[name],
+            "launches": by_path["train"] or by_path["serve"],
+            "launches_by_path": by_path,
             "max_abs_err": err[name], "ms": main_shape["ms"],
             "plain_ms": main_shape["plain_ms"],
             "bound_ms": main_shape["bound_ms"],
             "bound_by": main_shape["bound_by"],
             "library_ms": main_shape["library_ms"],
-            "shape": [main_shape["n"], main_shape["k"]], "large": large,
+            "shape": {k: v for k, v in main_shape.items()
+                      if k in ("n", "k", "side", "entries", "unique", "d",
+                               "m2")},
+            "other_shapes": others,
         })
+    print(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

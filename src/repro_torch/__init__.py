@@ -9,6 +9,10 @@ It imports ``torch`` and numpy only -- never ``jax`` and nothing from
 
 Ported so far: the serving path (pruned/int8 artifacts, the session-shared
 scorer, the bucketed engine, the micro-batching queue and the
-``python -m repro_torch.launch.serve`` driver) on two hand-written CUDA
-kernels (``repro_torch/kernels/lsplm_sparse_fused/csrc``).
+``python -m repro_torch.launch.serve`` driver) and sparse OWLQN+ training
+(padded-COO batches with transpose plans, the sparse objective, the Eq. 9
+direction, L-BFGS, OWLQN+ and the ``python -m repro_torch.launch.train
+--sparse`` driver), on four hand-written CUDA kernels
+(``repro_torch/kernels/*/csrc``): the fused sparse forward in fp32 and
+int8, the run-length dTheta scatter and the Eq. 9 direction.
 """

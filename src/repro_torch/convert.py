@@ -10,13 +10,16 @@ Both packages keep the same flat-npz layout, so the crossing is arrays:
     -> the port's artifact;
   * :func:`to_numpy` — the other way: a port artifact -> the dict of
     arrays ``repro.serve`` rebuilds its artifact from (and
-    ``save_artifact`` writes a file ``repro.serve.load_artifact`` reads).
+    ``save_artifact`` writes a file ``repro.serve.load_artifact`` reads);
+  * :func:`sparse_batch_from_numpy` — the arrays of a reference
+    ``SparseCTRBatch`` -> the port's batch with its transpose plans.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.data.sparse import SparseCTRBatch, build_batch_plans
 from repro_torch.serve.compress import (  # noqa: F401
     QuantizedArtifact,
     ServingArtifact,
@@ -42,3 +45,22 @@ def to_numpy(artifact: ServingArtifact | QuantizedArtifact) -> dict:
     return {f: (getattr(artifact, f) if f == "num_features"
                 else getattr(artifact, f).detach().cpu().numpy())
             for f in artifact._fields}
+
+
+def sparse_batch_from_numpy(fields: dict, num_features: int,
+                            device) -> SparseCTRBatch:
+    """A sparse batch from the arrays of a reference ``SparseCTRBatch``
+    (``user_ids``, ``user_vals``, ``ad_ids``, ``ad_vals``, ``session_id``,
+    ``y``, given as numpy arrays), on ``device``, with its transpose plans
+    built on the host and moved there once."""
+    dtypes = {"user_ids": torch.int32, "user_vals": torch.float32,
+              "ad_ids": torch.int32, "ad_vals": torch.float32,
+              "session_id": torch.int32, "y": torch.float32}
+    missing = sorted(set(dtypes) - set(fields))
+    if missing:
+        raise ValueError(f"missing batch fields {missing}")
+    batch = SparseCTRBatch(
+        **{k: torch.from_numpy(np.ascontiguousarray(fields[k])).to(
+            device=device, dtype=t) for k, t in dtypes.items()},
+        num_features=int(num_features))
+    return build_batch_plans(batch)

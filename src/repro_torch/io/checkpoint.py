@@ -4,7 +4,8 @@ A nested tree (dicts, lists/tuples, NamedTuples) of tensors, numpy arrays
 and python scalars is flattened to ``a/b/c`` keys and written with
 ``np.savez`` -- the same layout as ``repro.io.checkpoint``, so a file
 written by either package loads in the other. Tensors are copied to the
-host first.
+host first. :func:`load` restores into the structure of a ``like`` tree,
+:func:`load_nested` rebuilds a nested dict from the keys alone.
 """
 from __future__ import annotations
 
@@ -42,6 +43,44 @@ def save(path: str, tree) -> str:
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     np.savez(path, **_flatten(tree))
     return path if path.endswith(".npz") else path + ".npz"
+
+
+def load(path: str, like):
+    """Restore into the structure of ``like`` (dicts, lists/tuples,
+    NamedTuples). A tensor leaf of ``like`` comes back as a tensor of its
+    dtype on its device, a python scalar as the same python type, any
+    other leaf as a numpy array. A leaf whose shape differs from ``like``'s
+    raises: the file was saved under another configuration."""
+    with np.load(path) as data:
+        flat = dict(data.items())
+
+    def rebuild(tree, prefix=""):
+        if isinstance(tree, dict):
+            return {k: rebuild(v, f"{prefix}{k}/") for k, v in tree.items()}
+        if hasattr(tree, "_fields"):
+            return type(tree)(*(rebuild(getattr(tree, k), f"{prefix}{k}/")
+                                for k in tree._fields))
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(rebuild(v, f"{prefix}{i}/")
+                              for i, v in enumerate(tree))
+        key = prefix.rstrip("/")
+        if key not in flat:
+            raise KeyError(f"checkpoint {path!r} has no leaf {key!r}")
+        leaf = flat[key]
+        if isinstance(tree, (bool, int, float)):
+            return type(tree)(leaf.item())
+        want = getattr(tree, "shape", None)
+        if want is not None and tuple(leaf.shape) != tuple(want):
+            raise ValueError(
+                f"checkpoint leaf {key!r} has shape {tuple(leaf.shape)}, "
+                f"expected {tuple(want)}: the checkpoint was saved under a "
+                f"different configuration")
+        if isinstance(tree, torch.Tensor):
+            return torch.from_numpy(leaf).to(device=tree.device,
+                                             dtype=tree.dtype)
+        return leaf
+
+    return rebuild(like)
 
 
 def load_nested(path: str) -> dict:

@@ -1,10 +1,12 @@
-"""Public fused sparse LS-PLM ops (forward half): kernel or plain version.
+"""Public fused sparse LS-PLM ops: kernel or plain version.
 
 The port's counterpart of ``repro/kernels/lsplm_sparse_fused/ops.py``
-(``:79-135, 165-179, 371-504``):
+(``:79-135, 165-179, 254-367, 371-517``):
 
-  * ``sparse_gather_matmul(ids, vals, theta) -> z (N, 2m)`` — the region
-    logits;
+  * ``sparse_gather_matmul(ids, vals, theta, plan=) -> z (N, 2m)`` — the
+    region logits, differentiable;
+  * ``lsplm_sparse_logps`` — stable (log_p1, log_p0) on top of it, the
+    training path;
   * ``lsplm_sparse_forward(ids, vals, theta) -> p (N,)`` — fully fused
     probabilities;
   * ``sparse_gather_matmul_int8`` / ``lsplm_sparse_forward_int8`` — the
@@ -22,8 +24,14 @@ at a time with ``index_select`` and add them into z in slot order (the
 pre-pass does not apply there, as on the reference's jnp path). There is
 no fallback: a CUDA call launches its kernel or raises.
 
-Serving needs no gradient, so no ``torch.autograd.Function`` wraps these
-yet; the training slice adds one around the same forward.
+Training differentiates ``sparse_gather_matmul`` (and
+``lsplm_sparse_logps`` on top of it) through :class:`_GatherMatmul`, a
+``torch.autograd.Function`` around the same forward; its backward is the
+transposed scatter of ``repro_torch.kernels.lsplm_sparse_scatter``
+(B2 on the card; the plain class gathers, or the ``index_add_`` oracle
+without a plan, on the CPU), and dvals is computed only when asked for.
+The p-level forms (``lsplm_sparse_forward*``) serve scores and carry no
+gradient.
 """
 from __future__ import annotations
 
@@ -33,6 +41,13 @@ import torch.nn.functional as F
 from repro_torch.kernels.lsplm_sparse_fused.lsplm_sparse_fused import (
     lsplm_sparse_fused_forward,
     lsplm_sparse_fused_int8_forward,
+)
+from repro_torch.kernels.lsplm_sparse_scatter.ops import (
+    TransposePlan,
+    dvals_planned,
+    dvals_unplanned,
+    scatter_add_planned,
+    scatter_add_unplanned,
 )
 
 DEFAULT_CHUNK = 8  # slots gathered per step by the plain versions
@@ -107,12 +122,12 @@ def dedup_tile_ids(ids: torch.Tensor, vals: torch.Tensor,
 
 def _chunked_zmap(ids: torch.Tensor, vals: torch.Tensor, theta: torch.Tensor,
                   chunk: int = DEFAULT_CHUNK) -> torch.Tensor:
-    """Plain forward z (N, 2m): gather ``chunk`` slots of rows at a time
-    (``index_select``, int64 ids) and add their ``vals * row`` terms into
-    z one slot at a time, in slot order -- so a row's z never depends on
-    N or on the other rows. Pad slots add exact zeros."""
+    """Plain forward z (N, 2m) in Theta's dtype: gather ``chunk`` slots of
+    rows at a time (``index_select``, int64 ids) and add their ``vals *
+    row`` terms into z one slot at a time, in slot order -- so a row's z
+    never depends on N or on the other rows. Pad slots add exact zeros."""
     n, k = ids.shape
-    z = torch.zeros((n, theta.shape[1]), dtype=torch.float32,
+    z = torch.zeros((n, theta.shape[1]), dtype=theta.dtype,
                     device=theta.device)
     for k0 in range(0, k, chunk):
         c = min(chunk, k - k0)
@@ -194,12 +209,58 @@ def _forward_int8(ids, vals, codes, scales, dedup):
     return None, _chunked_zmap_int8(ids, vals, codes, scales)
 
 
-def sparse_gather_matmul(ids, vals, theta, *, dedup: bool = True
-                         ) -> torch.Tensor:
-    """z = x @ Theta from padded COO. (N, K) -> (N, 2m). ``dedup=False``
-    skips the kernel path's duplicate-id collapse for batches known to be
-    duplicate-free."""
-    return _forward(ids, vals, theta, dedup)[1]
+class _GatherMatmul(torch.autograd.Function):
+    """z = x @ Theta with the transposed scatter as its backward.
+
+    Forward: B1 on the card (after ``dedup_tile_ids`` when asked), the
+    plain ``_chunked_zmap`` on the CPU. Backward: dTheta by
+    ``scatter_add_planned`` when the batch's plan is given, else by
+    ``scatter_add_unplanned`` (the card sorts the entries itself and runs
+    the same kernel); dvals only when ``vals`` requires grad. ids and the
+    plan get no gradient."""
+
+    @staticmethod
+    def forward(ctx, ids, vals, theta, plan, dedup):
+        z = _forward(ids, vals, theta, dedup)[1]
+        ctx.save_for_backward(ids, vals, theta)
+        ctx.plan = plan
+        return z
+
+    @staticmethod
+    def backward(ctx, dz):
+        ids, vals, theta = ctx.saved_tensors
+        plan = ctx.plan
+        dz = dz.contiguous()
+        dvals = dtheta = None
+        if ctx.needs_input_grad[2]:
+            if plan is not None:
+                dtheta = scatter_add_planned(plan, vals, dz)
+            else:
+                dtheta = scatter_add_unplanned(ids, vals, dz, theta.shape[0],
+                                               theta.shape[0] - 1)
+            dtheta = dtheta.to(theta.dtype)
+        if ctx.needs_input_grad[1]:
+            dvals = (dvals_planned(plan, theta, dz, tuple(ids.shape))
+                     if plan is not None else dvals_unplanned(ids, theta, dz))
+            dvals = dvals.to(vals.dtype)
+        return None, dvals, dtheta, None, None
+
+
+def sparse_gather_matmul(ids, vals, theta, *, dedup: bool = True,
+                         plan: TransposePlan | None = None) -> torch.Tensor:
+    """z = x @ Theta from padded COO. (N, K) -> (N, 2m), differentiable in
+    ``theta`` and ``vals``. Pass the batch's ``plan`` (built once per
+    batch, on Theta's device) so the backward needs no sort.
+    ``dedup=False`` skips the kernel path's duplicate-id collapse for
+    batches known to be duplicate-free."""
+    _check_theta(theta)
+    if plan is not None:
+        plan.validate(tuple(ids.shape), theta.shape[0])
+        if plan.device != theta.device:
+            raise ValueError(f"the plan lies on {plan.device}, Theta on "
+                             f"{theta.device}: move it once with "
+                             "plan.to(device)")
+    return _GatherMatmul.apply(ids, vals, theta, plan, dedup)
 
 
 def lsplm_sparse_forward(ids, vals, theta, *, dedup: bool = True
@@ -222,3 +283,12 @@ def lsplm_sparse_forward_int8(ids, vals, codes, scales, *,
     """p(y=1|x) per Eq. 2 on int8 codes, fully fused. Returns (N,)."""
     p, z = _forward_int8(ids, vals, codes, scales, dedup)
     return finalize_p(z) if p is None else p
+
+
+def lsplm_sparse_logps(ids, vals, theta, *, dedup: bool = True,
+                       plan: TransposePlan | None = None
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Stable (log_p1, log_p0) for Eq. 5 on padded COO -- the training
+    path, differentiable through :func:`sparse_gather_matmul`."""
+    return logps_from_z(sparse_gather_matmul(ids, vals, theta, dedup=dedup,
+                                             plan=plan))

@@ -1,12 +1,17 @@
 """Serving driver: load -> prune -> engine replay (the §4 deploy path as
 one command), on the card by default.
 
-The port's counterpart of ``repro/launch/serve.py`` (its ``--ckpt``
-path). Serve a training checkpoint (``{"theta": ...}``, as saved by
-``repro.launch.train --ckpt``):
+The port's counterpart of ``repro/launch/serve.py``. Serve a training
+checkpoint (``{"theta": ...}``, as saved by ``repro_torch.launch.train
+--ckpt`` or ``repro.launch.train --ckpt``):
 
   PYTHONPATH=src python -m repro_torch.launch.serve --ckpt /tmp/lsplm.npz \\
       --requests 512 --int8 --load-qps 500,2000 --coalesce
+
+Without ``--ckpt`` the driver first trains a small sparse model with
+OWLQN+ (``--sparse-features``, ``--regions``, ``--sessions``, ``--lam``,
+``--beta``, ``--train-iters``: the training driver's path), so the
+artifact carries real L2,1 sparsity, not a synthetic mask.
 
 The driver prints the prune ledger (rows alive, MiB shipped), proves
 pruned-vs-full scores bitwise equal on a probe batch, then replays ragged
@@ -38,6 +43,7 @@ from repro_torch import obs
 from repro_torch.convert import theta_from_numpy
 from repro_torch.device import resolve_device
 from repro_torch.io import checkpoint
+from repro_torch.launch.train import sparse_problem
 from repro_torch.serve.compress import (
     compress,
     load_artifact,
@@ -62,7 +68,14 @@ from repro_torch.serve.traffic import (
 def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.serve")
     ap.add_argument("--ckpt", default=None,
-                    help="training checkpoint with a 'theta' entry")
+                    help="training checkpoint with a 'theta' entry; "
+                         "omitted -> train a small sparse model first")
+    ap.add_argument("--train-iters", type=int, default=10)
+    ap.add_argument("--sparse-features", type=int, default=20_000)
+    ap.add_argument("--sessions", type=int, default=256)
+    ap.add_argument("--regions", type=int, default=4)
+    ap.add_argument("--lam", type=float, default=0.05)
+    ap.add_argument("--beta", type=float, default=0.05)
     ap.add_argument("--artifact", default=None,
                     help="write the pruned serving artifact here")
     ap.add_argument("--requests", type=int, default=256,
@@ -103,9 +116,6 @@ def run(argv: list[str] | None = None) -> dict:
     numbers, the engine stats and one queue report per offered rate."""
     argv = sys.argv[1:] if argv is None else list(argv)
     args = _parser().parse_args(argv)
-    if not args.ckpt:
-        raise SystemExit("--ckpt is required: training a model first "
-                         "arrives with the port's training slice")
     if args.real_clock and not args.load_qps:
         raise SystemExit("--real-clock paces the queue with wall-time "
                          "Poisson arrivals; combine it with --load-qps")
@@ -155,12 +165,32 @@ def _real_clock_smoke(engine, requests, *, qps: float, config: QueueConfig,
     return rep
 
 
+def _trained_theta(args, device: torch.device) -> torch.Tensor:
+    """--ckpt loads a saved Theta; otherwise train a small sparse model
+    (the path of ``repro_torch.launch.train --sparse``)."""
+    if args.ckpt:
+        data = checkpoint.load_nested(args.ckpt)
+        if "theta" not in data:
+            raise SystemExit(f"--ckpt {args.ckpt!r} has no 'theta' entry")
+        theta = theta_from_numpy(data["theta"], device)
+        obs.log(f"loaded theta {tuple(theta.shape)} from {args.ckpt} onto "
+                f"{device}")
+        return theta
+    # the reference's serve driver seeds the batch with --seed itself
+    _, theta0, opt = sparse_problem(
+        args.sparse_features, args.regions, args.sessions, lam=args.lam,
+        beta=args.beta, seed=args.seed, batch_seed=args.seed, device=device)
+    t0 = time.perf_counter()
+    theta, trace = opt.run(theta0, max_iters=args.train_iters)
+    obs.log(f"trained {len(trace)} OWLQN+ iters on "
+            f"d={args.sparse_features:,} in "
+            f"{time.perf_counter() - t0:.1f}s (f={trace[-1].f_new:.2f}, "
+            f"nnz={trace[-1].nnz:,})")
+    return theta
+
+
 def _serve(args, device: torch.device) -> dict:
-    data = checkpoint.load_nested(args.ckpt)
-    if "theta" not in data:
-        raise SystemExit(f"--ckpt {args.ckpt!r} has no 'theta' entry")
-    theta = theta_from_numpy(data["theta"], device)
-    obs.log(f"loaded theta {tuple(theta.shape)} from {args.ckpt} onto {device}")
+    theta = _trained_theta(args, device)
     d = theta.shape[0]
     report: dict = {"device": str(device), "num_features": d,
                     "regions": theta.shape[1] // 2}

@@ -18,6 +18,7 @@ from .ledger import (  # noqa: F401
     get_ledger,
     log,
     read_jsonl,
+    render_train_iter,
     set_ledger,
     validate_event,
     validate_events,
@@ -113,23 +114,26 @@ def add_flags(parser) -> None:
                         help="record spans and write Chrome-trace JSON on "
                              "exit (open in chrome://tracing or Perfetto)")
     parser.add_argument("--ledger-out", default=None, metavar="PATH",
-                        help="append typed run-ledger records (JSONL), one "
-                             "per dispatch")
+                        help="append typed run-ledger records (JSONL): one "
+                             "per dispatch or training iteration")
     parser.add_argument("--trace-annotate", action="store_true",
                         help="with --trace-out: mirror spans into "
                              "torch.profiler / NVTX ranges so a profiler "
                              "trace shows them on the device timeline")
 
 
-def configure_from_args(args, *, driver: str, device,
-                        argv: list[str]) -> ObsSession:
+def configure_from_args(args, *, driver: str, device, argv: list[str],
+                        mode: str | None = None) -> ObsSession:
     """:func:`configure` from parsed :func:`add_flags` arguments, with a
-    ``run_meta`` record carrying the driver's ``argv`` and the device
-    context (``device`` is the resolved ``torch.device`` it runs on)."""
+    ``run_meta`` record carrying the driver's ``argv``, its ``mode`` (if
+    any) and the device context (``device`` is the resolved
+    ``torch.device`` it runs on)."""
     import torch
 
     meta: dict = {"driver": driver, "backend": device.type,
                   "argv": list(argv)}
+    if mode is not None:
+        meta["mode"] = mode
     if device.type == "cuda":
         meta["device_count"] = torch.cuda.device_count()
         meta["device_name"] = torch.cuda.get_device_name(device)

@@ -5,6 +5,10 @@ ported drivers emit. Records use the reference's schema unchanged, so a
 port ledger passes ``python -m repro.obs.ledger --check`` as well as
 this module's own ``python -m repro_torch.obs.ledger --check``:
 
+  * ``train_iter``     one OWLQN+ iteration: objective before/after,
+                       accepted step, line-search trials, direction norm
+                       (the Eq. 4 optimality measure), non-zero count,
+                       wall and (every few iterations) test AUC;
   * ``serve_dispatch`` one engine dispatch: envelope key, group size,
                        occupancy, queue delay, measured wall, flush
                        reason;
@@ -43,6 +47,12 @@ SCHEMA: dict[str, dict[str, dict[str, Any]]] = {
     "log": {
         "required": {"text": str},
         "optional": {},
+    },
+    "train_iter": {
+        "required": {"step": int, "f": _NUM, "f_new": _NUM, "alpha": _NUM,
+                     "grad_norm": _NUM, "nnz": int},
+        "optional": {"ls_iters": int, "wall_s": _NUM, "day": int,
+                     "window_iter": int, "test_auc": _NUM},
     },
     "serve_dispatch": {
         "required": {"envelope": list, "g": int, "requests": int,
@@ -181,6 +191,18 @@ def log(text: str, *, kind: str = "log", ledger=None,
     if led.enabled:
         led.emit(kind, text=text, **fields)
     printer(text)
+
+
+def render_train_iter(rec: dict, *, nnz_width: int = 8) -> str:
+    """The training driver's per-iteration line, rendered from a
+    ``train_iter`` record (``test_auc``/``wall_s`` included if present)."""
+    out = (f"iter {rec['step']:3d}  f={rec['f_new']:12.2f} "
+           f"alpha={rec['alpha']:.3g} nnz={rec['nnz']:{nnz_width}d}")
+    if "test_auc" in rec:
+        out += f" test_auc={rec['test_auc']:.4f} "
+    if "wall_s" in rec:
+        out += f" ({rec['wall_s'] * 1e3:.0f} ms/iter)"
+    return out
 
 
 # ----------------------------------------------------- offline validation

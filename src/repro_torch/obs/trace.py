@@ -93,6 +93,13 @@ class Tracer:
             return NULL_SPAN
         return _Span(self, name, args)
 
+    def step_span(self, name: str, step: int, **args):
+        """A span for one optimizer step (``step`` recorded in its args);
+        no-op when disabled."""
+        if not self.enabled:
+            return NULL_SPAN
+        return _Span(self, name, {"step": step, **args})
+
     def _record(self, name: str, t0_ns: int, t1_ns: int, args: dict) -> None:
         tid = threading.get_ident()
         ev = {

@@ -348,8 +348,6 @@ def report_engine_steady(report):
 
 
 def test_launch_serve_refuses_what_it_cannot_do(tmp_path):
-    with pytest.raises(SystemExit, match="training slice"):
-        tlaunch.run(["--device", "cpu"])
     ckpt = str(tmp_path / "c.npz")
     np.savez(ckpt, weights=np.zeros((3, 4), np.float32))
     with pytest.raises(SystemExit, match="theta"):

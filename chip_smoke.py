@@ -8,12 +8,14 @@ Run from the root of a checkout, on a machine with one CUDA card:
 It builds the port's CUDA kernels from the sources in the checkout, holds
 each against its plain PyTorch version on the card, drives the serving
 main path (``repro_torch.launch.serve``) at paper width (d = 1,000,000
-features, m = 12 regions) in int8 and fp32 and the training main path
+features, m = 12 regions) in int8 and fp32, the sparse training main path
 (``repro_torch.launch.train --sparse``, OWLQN+ at the same width, then
-serving the Theta it trained), shows that each path launched its kernels,
-holds the card's OWLQN+ trajectory against the CPU's, times the kernels
-beside their plain versions, their bound and one library call, and ends
-with one JSON line::
+serving the Theta it trained) and the dense one (``repro_torch.launch.
+train``, common-feature OWLQN+ at d = 32,768, then scoring its test rows
+through ``serve.predict``), shows that each path launched its kernels,
+holds the card's OWLQN+ trajectories against the CPU's, times the
+kernels beside their plain versions, their bound and one library call,
+and ends with one JSON line::
 
     {"ok": true, "device": {"platform": "gpu", "kind": "<name>", "count": 1}}
 
@@ -24,6 +26,7 @@ It imports nothing of JAX and nothing of the JAX package ``repro``.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import tempfile
@@ -39,6 +42,7 @@ REGIONS = 12  # m: 2m = 24 columns
 ALIVE_FRACTION = 0.02  # rows surviving L2,1 pruning (paper Table 2 regime)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_OPS_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores
+BF16_OPS_PER_S = 989e12  # H100 SXM bf16 on the tensor cores, fp32 sums
 Z_RTOL, Z_ATOL, P_ATOL = 1e-5, 1e-6, 1e-6
 TIMED_RUNS, WARM_RUNS = 30, 3
 SPIN_CYCLES = 10_000_000  # ~5 ms of device spin ahead of each timed run
@@ -49,6 +53,17 @@ B2_REL, B2_ABS = 1e-5, 1e-6  # |err| <= B2_REL * sum |terms| + B2_ABS
 B3_RTOL, B3_ATOL = 1e-5, 1e-6
 TRAJ_F_RTOL, TRAJ_RTOL, TRAJ_ATOL = 2e-4, 2e-3, 2e-5
 PATTERN_SHARE = 1e-5  # zero-pattern flips allowed at paper width
+# the dense path: the batch of launch/dryrun_lsplm.py's production stand-in
+# (2^12 sessions x 4 ads = 2^14 samples, d_c = d / 2, m = 12) with d cut
+# from 2^19 to 2^15, the width the reference generator's host arrays allow
+DENSE_SESSIONS = 4096
+DENSE_USER, DENSE_AD, DENSE_NOISE = 16_384, 16_368, 16
+DENSE_D = DENSE_USER + DENSE_AD + DENSE_NOISE  # 32,768
+DENSE_LAM = DENSE_BETA = 0.1  # lam = beta = 1.0 zeroes every row there
+DENSE_ITERS = 10
+DENSE_STEPS = 6  # card vs CPU steps at the launch defaults
+LOSS_RTOL, GRAD_ATOL = 2e-5, 3e-5  # gradient after / max(1, max |g|)
+B5_TOL, B5_BF16_TOL = 1e-5, 2e-2  # tests/test_kernels.py:46,59
 _FUSED = "src/repro_torch/kernels/lsplm_sparse_fused/csrc/lsplm_sparse_fused.cu"
 SOURCES = {
     "lsplm_sparse_fused_forward": _FUSED,
@@ -58,6 +73,8 @@ SOURCES = {
         "lsplm_sparse_scatter.cu",
     "owlqn_direction":
         "src/repro_torch/kernels/owlqn_direction/csrc/owlqn_direction.cu",
+    "lsplm_fused_forward":
+        "src/repro_torch/kernels/lsplm_fused/csrc/lsplm_fused.cu",
 }
 REPLACES = {
     "lsplm_sparse_fused_forward":
@@ -68,6 +85,7 @@ REPLACES = {
         "src/repro/kernels/lsplm_sparse_scatter/lsplm_sparse_scatter.py:50",
     "owlqn_direction":
         "src/repro/kernels/owlqn_direction/owlqn_direction.py:23",
+    "lsplm_fused_forward": "src/repro/kernels/lsplm_fused/lsplm_fused.py:27",
 }
 
 
@@ -95,11 +113,15 @@ def phase_device(torch):
     libs = _build.build_all()
     print(f"phase 1: built {sorted(libs)} in {time.perf_counter() - t0:.2f} s "
           f"(nvcc {_build.nvcc()})")
-    for path in libs.values():
+    for name, path in sorted(libs.items()):
         log = path.with_name(path.name + ".log").read_text()
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas: {line.strip()}")
+        regs = [int(n) for n in re.findall(r"Used (\d+) registers", log)]
+        spills = [int(n) for n in re.findall(r"(\d+) bytes spill stores",
+                                             log)]
+        print(f"  ptxas {name}: {len(regs)} kernels, {min(regs, default=0)}-"
+              f"{max(regs, default=0)} registers, spill stores in "
+              f"{sum(b > 0 for b in spills)} (at most {max(spills, default=0)}"
+              f" bytes)")
 
 
 # ------------------------------------------------------------ phase 2
@@ -424,6 +446,25 @@ def _direction_inputs(rng, d_rows, m2):
     return theta, grad
 
 
+def _check_b3(torch, theta, grad, lam, beta, tag) -> float:
+    """B3 against its plain version on the same inputs: within rtol
+    B3_RTOL/atol B3_ATOL, zero pattern equal. Returns the max abs error."""
+    from repro_torch.kernels.owlqn_direction.owlqn_direction import (
+        owlqn_direction,
+    )
+    from repro_torch.kernels.owlqn_direction.ref import owlqn_direction_ref
+
+    got = owlqn_direction(theta, grad, lam, beta)
+    want = owlqn_direction_ref(theta, grad, lam, beta)
+    torch.cuda.synchronize()
+    tag = f"{tag} lam={lam} beta={beta}"
+    check(bool(((got - want).abs() <= B3_ATOL + B3_RTOL * want.abs()).all()),
+          f"B3 vs plain beyond rtol {B3_RTOL}/atol {B3_ATOL} at {tag}")
+    check(torch.equal(got == 0, want == 0),
+          f"B3 zero pattern differs from the plain version at {tag}")
+    return float((got - want).abs().max())
+
+
 def _b1_at_training_shapes(torch, batches, theta):
     """B1 against its plain version at the shapes the training path gives
     it: both id tensors of each batch, after the dedup pre-pass, on the
@@ -459,10 +500,6 @@ def phase_training_kernels(torch, dev, train, test, theta0):
     from repro_torch.kernels.lsplm_sparse_scatter.plan import (
         build_transpose_plan,
     )
-    from repro_torch.kernels.owlqn_direction.owlqn_direction import (
-        owlqn_direction,
-    )
-    from repro_torch.kernels.owlqn_direction.ref import owlqn_direction_ref
 
     e, shapes = _b1_at_training_shapes(
         torch, (("training", train), ("test", test)), theta0)
@@ -501,28 +538,24 @@ def phase_training_kernels(torch, dev, train, test, theta0):
           "card-sorted (unplanned) layout bitwise equal: " + "; ".join(lines))
 
     lines = []
+    # the sparse and the dense training paths' shapes and weights
+    pairs = ((0.5, 0.3), (0.0, 0.3), (0.2, 0.0), (LAM, BETA),
+             (DENSE_LAM, DENSE_BETA))
     for d_rows, m2 in ((1000, 2 * REGIONS), (1000, 70),
-                       (D_FEATURES, 2 * REGIONS)):
+                       (D_FEATURES, 2 * REGIONS), (DENSE_D, 2 * REGIONS)):
         theta_np, grad_np = _direction_inputs(rng, d_rows, m2)
         theta = torch.from_numpy(theta_np).to(dev)
         grad = torch.from_numpy(grad_np).to(dev)
-        for lam, beta in ((0.5, 0.3), (0.0, 0.3), (0.2, 0.0), (LAM, BETA)):
-            got = owlqn_direction(theta, grad, lam, beta)
-            want = owlqn_direction_ref(theta, grad, lam, beta)
-            torch.cuda.synchronize()
-            tag = f"D={d_rows:,} 2m={m2} lam={lam} beta={beta}"
-            check(bool(((got - want).abs()
-                        <= B3_ATOL + B3_RTOL * want.abs()).all()),
-                  f"B3 vs plain beyond rtol {B3_RTOL}/atol {B3_ATOL} at {tag}")
-            check(torch.equal(got == 0, want == 0),
-                  f"B3 zero pattern differs from the plain version at {tag}")
-            err["owlqn_direction"] = max(err["owlqn_direction"],
-                                         float((got - want).abs().max()))
+        for lam, beta in pairs:
+            err["owlqn_direction"] = max(
+                err["owlqn_direction"],
+                _check_b3(torch, theta, grad, lam, beta,
+                          f"D={d_rows:,} 2m={m2}"))
         lines.append(f"D={d_rows:,} 2m={m2}")
     print(f"phase 5: B3 (Eq. 9 direction) vs plain on the card at "
-          f"{', '.join(lines)}, 4 (lam, beta) pairs, with exact zeros, -0.0 "
-          f"and zero rows: within rtol {B3_RTOL}/atol {B3_ATOL}, zero pattern "
-          f"equal; max |err| {err['owlqn_direction']:.2e}")
+          f"{', '.join(lines)}, {len(pairs)} (lam, beta) pairs, with exact "
+          f"zeros, -0.0 and zero rows: within rtol {B3_RTOL}/atol {B3_ATOL}, "
+          f"zero pattern equal; max |err| {err['owlqn_direction']:.2e}")
     return err
 
 
@@ -533,7 +566,7 @@ def _reset(counters):
             launches[name] = 0
 
 
-def phase_training(torch, dev, problem, test, tmp: Path):
+def phase_training(torch, dev, problem, test, setup_s, tmp: Path):
     from repro_torch.io import checkpoint
     from repro_torch.kernels.lsplm_sparse_fused.lsplm_sparse_fused import (
         LAUNCHES as B1,
@@ -553,7 +586,7 @@ def phase_training(torch, dev, problem, test, tmp: Path):
             str(SEED), "--ckpt", ckpt, "--device", str(dev)]
     _reset((B1, B2, B3))
     t0 = time.perf_counter()
-    rep = train_driver.run(argv)
+    rep = train_driver.run(argv, prebuilt=(problem, test))
     wall = time.perf_counter() - t0
     launches = {"lsplm_sparse_fused_forward": B1["lsplm_sparse_fused_forward"],
                 **B2, **B3}
@@ -571,7 +604,8 @@ def phase_training(torch, dev, problem, test, tmp: Path):
     print(f"phase 6: training main path (OWLQN+, d={D_FEATURES:,}, "
           f"m={REGIONS}, {SESSIONS:,} sessions, lam=beta={LAM}, "
           f"{TRAIN_ITERS} iterations) in {wall:.2f} s wall "
-          f"(set-up {rep['setup_s']:.2f} s, iterations {rep['train_s']:.3f} s"
+          f"(set-up {setup_s:.2f} s before it, iterations "
+          f"{rep['train_s']:.3f} s"
           f" = {rep['s_per_iter'] * 1e3:.1f} ms/iter, median "
           f"{np.median([r['wall_s'] for r in its]) * 1e3:.1f} ms, {ls} "
           f"line-search "
@@ -610,9 +644,14 @@ def phase_training(torch, dev, problem, test, tmp: Path):
     return launches, b1_err
 
 
-def _profile_step(torch, opt, theta) -> None:
+SPARSE_STEP_KERNELS = ("fused_forward_kernel", "piece_sums_kernel",
+                       "run_sums_kernel", "owlqn_direction_kernel")
+
+
+def _profile_step(torch, opt, theta, labels=SPARSE_STEP_KERNELS) -> None:
     """Where one OWLQN+ step's time goes (torch.profiler): host wall
-    against the device's kernel time, and the top kernels."""
+    against the device's kernel time, the hand-written kernels (device
+    events whose names hold one of ``labels``) and the top kernels."""
     from torch.profiler import ProfilerActivity, profile
 
     state, _ = opt.step(opt.init(theta))  # a history pair for the next
@@ -636,8 +675,7 @@ def _profile_step(torch, opt, theta) -> None:
         return
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:8]
     ours: dict[str, list] = {}
-    for label in ("fused_forward_kernel", "piece_sums_kernel",
-                  "run_sums_kernel", "owlqn_direction_kernel"):
+    for label in labels:
         for name, (us, n) in kernels.items():
             if label in name:
                 k = ours.setdefault(label, [0.0, 0])
@@ -884,6 +922,338 @@ def phase_training_times(torch, dev, train, theta0):
     return out
 
 
+# ------------------------------------------------------------ phase 9
+def _b5_inputs(torch, dev, rng, b, d, m, dtype):
+    """x = 0.3 N(0, 1) (b, d) and one Theta = 0.1 N(0, 1) (d, 2m) whose
+    halves are U and W, in ``dtype`` on the card."""
+    x = torch.from_numpy((0.3 * rng.normal(size=(b, d))).astype(np.float32))
+    theta = torch.from_numpy(
+        (0.1 * rng.normal(size=(d, 2 * m))).astype(np.float32))
+    return x.to(dev, dtype), theta.to(dev, dtype)
+
+
+def _check_b5(torch, x, theta, tol, tag):
+    """B5 against its plain version on the card at rtol = atol = ``tol``,
+    bitwise repeatable, a row's bits independent of its batch (17 rows
+    alone), and the same bits from U, W as separate tensors as from the
+    halves of one Theta. Returns the max abs error (in float32)."""
+    from repro_torch.kernels.lsplm_fused.lsplm_fused import (
+        lsplm_fused_forward,
+    )
+    from repro_torch.kernels.lsplm_fused.ref import lsplm_forward_ref
+
+    m = theta.shape[1] // 2
+    u, w = theta[:, :m], theta[:, m:]
+    got = lsplm_fused_forward(x, u, w)
+    again = lsplm_fused_forward(x, u, w)
+    rows = torch.linspace(0, x.shape[0] - 1, min(17, x.shape[0]),
+                          device=x.device).long().unique()
+    alone = lsplm_fused_forward(x.index_select(0, rows), u, w)
+    apart = lsplm_fused_forward(x, u.contiguous(), w.contiguous())
+    want = lsplm_forward_ref(x, u, w)
+    torch.cuda.synchronize()
+    check(got.dtype == x.dtype and got.shape == (x.shape[0],),
+          f"B5 output dtype/shape at {tag}")
+    err = (got.float() - want.float()).abs()
+    check(bool((err <= tol + tol * want.float().abs()).all()),
+          f"B5 vs plain beyond rtol = atol = {tol} at {tag}: max |err| "
+          f"{float(err.max()):.3e}")
+    check(torch.equal(got, again), f"B5 not bitwise repeatable at {tag}")
+    check(torch.equal(alone, got.index_select(0, rows)),
+          f"B5 rows scored alone differ from the batch's at {tag}")
+    check(torch.equal(apart, got),
+          f"B5 on separate U, W differs from Theta's halves at {tag}")
+    return float(err.max())
+
+
+def phase_dense_kernel(torch, dev, x_test):
+    """B5 (dense fused forward) against its plain version on the card:
+    the reference test's shapes and the chip run's (the 3,276 dense test
+    rows of the dense main path, and their first 512), fp32 and bf16."""
+    rng = np.random.default_rng(SEED + 9)
+    f32, bf16 = torch.float32, torch.bfloat16
+    err, lines = 0.0, []
+    for b, d, m, dtypes in ((64, 128, 12, (f32, bf16)), (128, 256, 4,
+                            (f32, bf16)), (32, 512, 1, (f32, bf16)),
+                            (50, 100, 5, (f32,)), (1, 7, 5, (f32,)),
+                            (33, 130, 5, (f32,)), (257, 513, 5, (f32,)),
+                            (70, 300, 64, (f32,)), (40, 200, 128, (f32,))):
+        for dtype in dtypes:
+            x, theta = _b5_inputs(torch, dev, rng, b, d, m, dtype)
+            tol = B5_TOL if dtype == f32 else B5_BF16_TOL
+            e = _check_b5(torch, x, theta, tol, f"B={b} d={d} m={m} {dtype}")
+            if dtype == f32:
+                err = max(err, e)
+        lines.append(f"({b}, {d}, m={m})")
+    d = x_test.shape[1]
+    theta = torch.from_numpy((0.1 * rng.normal(size=(d, 2 * REGIONS)))
+                             .astype(np.float32)).to(dev)
+    for rows in (x_test.shape[0], 512):
+        e = _check_b5(torch, x_test[:rows], theta, B5_TOL,
+                      f"the dense test rows {rows} x {d:,}")
+        err = max(err, e)
+        lines.append(f"test rows {rows} x {d:,} (max |err| {e:.2e})")
+    e16 = _check_b5(torch, x_test.to(bf16), theta.to(bf16), B5_BF16_TOL,
+                    f"the dense test rows {x_test.shape[0]} x {d:,} bf16")
+    print(f"phase 9: B5 (dense fused forward) vs plain on the card at "
+          f"{', '.join(lines)}; fp32 within rtol = atol = {B5_TOL}, bf16 "
+          f"within {B5_BF16_TOL} (the reference shapes and the "
+          f"{x_test.shape[0]}-row test batch, max |err| {e16:.2e}); every "
+          f"case bitwise repeatable, rows scored alone equal to the same "
+          f"rows in their batch, separate U, W equal to Theta's halves; max"
+          f" |err| fp32 {err:.3e}")
+    return err
+
+
+# ------------------------------------------------------------ phase 10
+def _float64_on_cpu(batch):
+    """The same batch on the CPU, its floating fields in float64."""
+    return batch._replace(**{
+        f: None if t is None else t.cpu().double()
+        if t.is_floating_point() else t.cpu()
+        for f, t in batch._asdict().items()})
+
+
+def _dense_step_inputs(torch, batch, batch64, theta, tag):
+    """The Eq. 13 loss and gradient of the dense batch at ``theta`` on
+    the card against a float64 evaluation of the same batch on the CPU
+    (``batch64``; loss rtol LOSS_RTOL, gradient atol GRAD_ATOL after
+    dividing by max(1, max |g|)), then B3 on that Theta and gradient at
+    the driver's weights against its plain version. Returns (loss rel
+    err, scaled gradient err, B3 max abs err)."""
+    from repro_torch.core.objective import smooth_loss_and_grad
+
+    loss, grad = smooth_loss_and_grad(theta, batch, common_feature=True)
+    loss64, grad64 = smooth_loss_and_grad(theta.cpu().double(), batch64,
+                                          common_feature=True)
+    loss_err = abs(float(loss) - float(loss64)) / abs(float(loss64))
+    scale = max(1.0, float(grad64.abs().max()))
+    grad_err = float((grad.cpu().double() - grad64).abs().max()) / scale
+    check(loss_err <= LOSS_RTOL, f"dense loss on the card {loss_err:.2e} "
+          f"from float64 at {tag}")
+    check(grad_err <= GRAD_ATOL, f"dense gradient on the card {grad_err:.2e}"
+          f" (over max |g|) from float64 at {tag}")
+    b3 = _check_b3(torch, theta, grad, DENSE_LAM, DENSE_BETA,
+                   f"the dense driver's {tag} and its gradient")
+    return loss_err, grad_err, b3
+
+
+def phase_dense_training(torch, dev, problem, test, setup_s, tmp: Path):
+    """The dense main path: the training driver's default mode at
+    d = 32,768, then its checkpoint served through ``serve.predict`` as
+    a full Theta, a pruned artifact and an int8 one. Around the run, the
+    loss and gradient at Theta0 and at the trained Theta against float64
+    on the CPU, and B3 on each Theta and its gradient against plain."""
+    from repro_torch import serve
+    from repro_torch.io import checkpoint
+    from repro_torch.kernels.lsplm_fused.lsplm_fused import LAUNCHES as B5
+    from repro_torch.kernels.lsplm_fused.ref import lsplm_forward_ref
+    from repro_torch.kernels.lsplm_sparse_fused.lsplm_sparse_fused import (
+        LAUNCHES as B1,
+    )
+    from repro_torch.kernels.lsplm_sparse_scatter.lsplm_sparse_scatter import (
+        LAUNCHES as B2,
+    )
+    from repro_torch.kernels.owlqn_direction.owlqn_direction import (
+        LAUNCHES as B3,
+    )
+    from repro_torch.launch import train as train_driver
+
+    batch, theta0, opt = problem
+    t0 = time.perf_counter()
+    batch64 = _float64_on_cpu(batch)
+    checks = [_dense_step_inputs(torch, batch, batch64, theta0, "Theta0")]
+    check_s = time.perf_counter() - t0
+    ckpt = str(tmp / "dense.npz")
+    argv = ["--sessions", str(DENSE_SESSIONS), "--user-features",
+            str(DENSE_USER), "--ad-features", str(DENSE_AD),
+            "--noise-features", str(DENSE_NOISE), "--regions", str(REGIONS),
+            "--lam", str(DENSE_LAM), "--beta", str(DENSE_BETA), "--iters",
+            str(DENSE_ITERS), "--seed", str(SEED), "--ckpt", ckpt,
+            "--device", str(dev)]
+    _reset((B1, B2, B3, B5))
+    t0 = time.perf_counter()
+    rep = train_driver.run(argv, prebuilt=(problem, test))
+    wall = time.perf_counter() - t0
+    launches = {**B5, **B3}
+    its = rep["iters"]
+    evals = sum("test_auc" in r for r in its)
+    check(len(its) == DENSE_ITERS, "the dense training driver stopped early")
+    check(B5["lsplm_fused_forward"] == evals,
+          f"B5 launched {B5['lsplm_fused_forward']} times for {evals} "
+          f"test-AUC evaluations")
+    check(B3["owlqn_direction"] == DENSE_ITERS,
+          f"B3 launched {B3['owlqn_direction']} times in {DENSE_ITERS} steps")
+    check(sum(B1.values()) + sum(B2.values()) == 0,
+          "the dense path launched a sparse kernel")
+    check(all(np.isfinite([r["f_new"] for r in its])), "f is not finite")
+    check(its[-1]["f_new"] < its[0]["f"],
+          f"f did not fall: {its[0]['f']:.2f} -> {its[-1]['f_new']:.2f}")
+    check(its[-1]["nnz"] < its[0]["nnz"],
+          f"nnz did not fall: {its[0]['nnz']:,} -> {its[-1]['nnz']:,}")
+    check(rep["test_auc"] > 0.5, f"test AUC {rep['test_auc']:.4f} <= 0.5")
+    steady = [r["wall_s"] * 1e3 for r in its[1:]]
+    ls = sum(r["ls_iters"] for r in its)
+    print(f"phase 10: dense main path (repro_torch.launch.train, OWLQN+ on "
+          f"the Eq. 13 objective, d={rep['num_features']:,} = "
+          f"{DENSE_USER:,} common + {DENSE_AD + DENSE_NOISE:,} per sample, "
+          f"m={REGIONS}, {rep['samples']:,} samples in {rep['sessions']:,} "
+          f"sessions, lam=beta={DENSE_LAM}, {DENSE_ITERS} iterations) in "
+          f"{wall:.2f} s wall (set-up {setup_s:.2f} s before it, iterations "
+          f"{rep['train_s']:.3f} s; iteration 0 {its[0]['wall_s'] * 1e3:.1f}"
+          f" ms, iterations 1-{DENSE_ITERS - 1} median "
+          f"{np.median(steady):.2f} ms, mean {np.mean(steady):.2f} ms; {ls} "
+          f"line-search trials); f {its[0]['f']:.2f} -> "
+          f"{its[-1]['f_new']:.2f}, nnz {its[0]['nnz']:,} -> "
+          f"{its[-1]['nnz']:,}, test AUC " + ", ".join(
+              f"{r['test_auc']:.4f}" for r in its if "test_auc" in r)
+          + f" ({rep['test_rows']:,} rows); launches {launches} (expected: "
+          f"B5 1 per test-AUC evaluation = {evals}, B3 1 per step = "
+          f"{DENSE_ITERS}; B1 and B2 none)")
+    print("  per iteration (ms): " + ", ".join(
+        f"{r['wall_s'] * 1e3:.2f}" for r in its))
+
+    theta = checkpoint.load(ckpt, {"theta": torch.zeros(
+        (rep["num_features"], 2 * REGIONS), device=dev)})["theta"]
+    t0 = time.perf_counter()
+    checks.append(_dense_step_inputs(torch, batch, batch64, theta,
+                                     "trained Theta"))
+    del batch64
+    check_s += time.perf_counter() - t0
+    loss_err, grad_err, b3_err = (max(c) for c in zip(*checks))
+    print(f"phase 10: the Eq. 13 loss and gradient on the card at Theta0 "
+          f"and at the trained Theta against float64 on the CPU: loss max "
+          f"rel diff {loss_err:.2e} (bar {LOSS_RTOL}), gradient max |diff| "
+          f"/ max(1, max |g|) {grad_err:.2e} (bar {GRAD_ATOL}); B3 on each "
+          f"Theta and its gradient, lam=beta={DENSE_LAM}, vs plain: max |err|"
+          f" {b3_err:.2e}, zero pattern equal; {check_s:.1f} s for both")
+    _profile_step(torch, opt, theta, labels=("owlqn_direction_kernel",))
+
+    art = serve.compress(theta)
+    quant = serve.quantize(art)
+    _reset((B5,))
+    t0 = time.perf_counter()
+    p_full = serve.predict(theta, test.x)
+    p_pruned = serve.predict(art, test.x)
+    p_int8 = serve.predict(quant, test.x)
+    torch.cuda.synchronize()
+    serve_ms = (time.perf_counter() - t0) * 1e3
+    serve_launches = B5["lsplm_fused_forward"]
+    check(serve_launches == 3, f"serving the dense rows launched B5 "
+          f"{serve_launches} times, not once per model form")
+    for tag, p in (("full", p_full), ("pruned", p_pruned), ("int8", p_int8)):
+        check(p.shape == (test.x.shape[0],) and bool(torch.isfinite(p).all())
+              and bool(((p >= 0) & (p <= 1)).all()),
+              f"dense scores of the {tag} model are not probabilities")
+    d_pruned = float((p_pruned - p_full).abs().max())
+    d_int8 = float((p_int8 - p_full).abs().max())
+    check(d_pruned <= P_ATOL, f"pruned dense scores {d_pruned:.2e} from full")
+    check(d_int8 <= 1e-2, f"int8 dense scores {d_int8:.2e} from fp32")
+    from repro_torch.eval.metrics import auc
+
+    served_auc = float(auc(test.y.cpu().numpy(), p_full.cpu().numpy()))
+    check(served_auc == rep["test_auc"],
+          f"served AUC {served_auc} differs from the driver's "
+          f"{rep['test_auc']}")
+    rows = slice(0, 64)
+    theta_cpu = theta.cpu()
+    p_cpu = lsplm_forward_ref(test.x[rows].cpu(), theta_cpu[:, :REGIONS],
+                              theta_cpu[:, REGIONS:])
+    d_cpu = float((p_full[rows].cpu() - p_cpu).abs().max())
+    check(d_cpu <= P_ATOL, f"dense scores on the card {d_cpu:.2e} from the "
+          "plain version on the CPU")
+    print(f"phase 10: served the trained checkpoint's {test.x.shape[0]:,} "
+          f"test rows through serve.predict as full Theta, pruned artifact "
+          f"({art.num_alive:,} rows alive of {rep['num_features']:,}) and "
+          f"int8 artifact in {serve_ms:.1f} ms: pruned max |dp| "
+          f"{d_pruned:.2e} (bar {P_ATOL}), int8 {d_int8:.2e} (bar 1e-2), "
+          f"served AUC {served_auc:.4f} equal to the driver's, 64 rows "
+          f"within {d_cpu:.1e} of the plain version on the CPU; B5 launches "
+          f"{serve_launches}")
+    return {"dense_train": launches, "dense_serve": serve_launches,
+            "b3_err": b3_err}
+
+
+# ------------------------------------------------------------ phase 11
+def phase_dense_trajectory(torch, dev):
+    """The dense OWLQN+ on the card against the CPU at the launch
+    defaults (d = 128, 4,000 sessions, lam = beta = 1.0): f, Theta and
+    the zero pattern of every step."""
+    from repro_torch.data.synthetic_ctr import CTRDataConfig
+    from repro_torch.launch.train import dense_problem
+
+    cfg = CTRDataConfig(num_user_features=64, num_ad_features=48,
+                        noise_features=16, seed=SEED)  # launch defaults
+    runs = []
+    for device in (dev, "cpu"):
+        _, theta0, opt = dense_problem(cfg, REGIONS, SESSIONS, lam=1.0,
+                                       beta=1.0, seed=SEED, device=device)
+        runs.append(_trajectory(torch, opt, theta0, DENSE_STEPS))
+    (t_card, f_card, z_card, w_card), (t_cpu, f_cpu, z_cpu, w_cpu) = runs
+    tag = f"d={cfg.num_features}, {SESSIONS} sessions, {DENSE_STEPS} steps"
+    f_err = float(np.max(np.abs(np.subtract(f_card, f_cpu))
+                         / np.abs(f_cpu)))
+    check(f_err <= TRAJ_F_RTOL, f"dense f card vs CPU rtol {f_err:.2e} at "
+          f"{tag}")
+    flips = sum(int((a != b).sum()) for a, b in zip(z_card, z_cpu))
+    check(flips == 0, f"dense zero pattern card vs CPU differs in {flips} "
+          f"(element, step) pairs at {tag}")
+    beyond = _beyond_bar(t_card, t_cpu)
+    check(not beyond.any(), f"dense Theta card vs CPU beyond rtol "
+          f"{TRAJ_RTOL}/atol {TRAJ_ATOL} in {int(beyond.sum())} elements at "
+          f"{tag}")
+    print(f"phase 11: dense OWLQN+ card vs CPU at {tag}, m={REGIONS}, "
+          f"lam=beta=1.0: f max rel diff {f_err:.2e} (bar {TRAJ_F_RTOL}); "
+          f"zero pattern equal at every step; Theta max |diff| "
+          f"{float(np.abs(t_card - t_cpu).max()):.2e} (bar rtol "
+          f"{TRAJ_RTOL}/atol {TRAJ_ATOL}); nnz {int((t_card != 0).sum()):,} "
+          f"of {t_card.size:,}; step wall card {w_card:.2f} s, CPU "
+          f"{w_cpu:.2f} s")
+
+
+# ------------------------------------------------------------ phase 12
+def phase_dense_times(torch, dev, x_test, theta):
+    """B5 at the dense main path's shapes (the 3,276 test rows, the first
+    512 of them, and the 3,276 rows in bf16) beside its plain version,
+    its bound and the contraction alone on cuBLAS (``x @ Theta``, the
+    nearest single PyTorch call; none fuses the head)."""
+    from repro_torch.kernels.lsplm_fused.lsplm_fused import (
+        lsplm_fused_forward,
+    )
+    from repro_torch.kernels.lsplm_fused.ref import lsplm_forward_ref
+
+    flush = torch.empty(128 * 2**20 // 4, dtype=torch.float32, device=dev)
+    out = []
+    for rows, dtype in ((x_test.shape[0], torch.float32),
+                        (512, torch.float32),
+                        (x_test.shape[0], torch.bfloat16)):
+        x = x_test[:rows].to(dtype)
+        th = theta.to(dtype)
+        u, w = th[:, :REGIONS], th[:, REGIONS:]
+        b, d = x.shape
+        size = x.element_size()
+        nbytes = (b * d + d * 2 * REGIONS + b) * size
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        peak = FP32_OPS_PER_S if dtype == torch.float32 else BF16_OPS_PER_S
+        t_ops = 2 * b * d * 2 * REGIONS / peak
+        row = {"n": b, "d": d, "m": REGIONS, "dtype": str(dtype),
+               "ms": _time_ms(torch, lambda: lsplm_fused_forward(x, u, w),
+                              flush),
+               "plain_ms": _time_ms(torch, lambda: lsplm_forward_ref(x, u, w),
+                                    flush),
+               "library_ms": _time_ms(torch, lambda: x @ th, flush),
+               "bound_ms": max(t_bytes, t_ops) * 1e3,
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+        out.append(row)
+        print(f"phase 12: lsplm_fused_forward {b:,} x {d:,}, m={REGIONS}, "
+              f"{dtype}: kernel {row['ms']:.4f} ms, plain "
+              f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']}, {row['bound_ms'] / row['ms']:.1%} of it "
+              f"reached), library {row['library_ms']:.4f} ms (x @ Theta on "
+              f"cuBLAS, the contraction alone)")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -919,17 +1289,20 @@ def main() -> int:
 
     # the training driver's batch, Theta0 and optimizer at its launch
     # defaults (batch seed --seed + 1, test batch --seed + 2)
+    t0 = time.perf_counter()
     problem = sparse_problem(D_FEATURES, REGIONS, SESSIONS, lam=LAM,
                              beta=BETA, seed=SEED, batch_seed=SEED + 1,
                              device=dev)
     train, theta0, _ = problem
     test = sparse_test_batch(D_FEATURES, SESSIONS, seed=SEED + 2, device=dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
     for name, e in phase_training_kernels(torch, dev, train, test,
                                           theta0).items():
         err[name] = max(err.get(name, 0.0), e)
     with tempfile.TemporaryDirectory() as tmp:
         train_launches, b1_err = phase_training(torch, dev, problem, test,
-                                                Path(tmp))
+                                                setup_s, Path(tmp))
     err["lsplm_sparse_fused_forward"] = max(
         err["lsplm_sparse_fused_forward"], b1_err)
     phase_trajectory(torch, dev, problem)
@@ -938,18 +1311,53 @@ def main() -> int:
     times["lsplm_sparse_fused_forward"][:0] = train_times.pop(
         "lsplm_sparse_fused_forward")
     times.update(train_times)
+    del problem, train, theta0, test
+
+    from repro_torch.data.synthetic_ctr import CTRDataConfig
+    from repro_torch.launch.train import dense_problem, dense_test_batch
+
+    # the dense driver's batch, Theta0, optimizer and test rows at the
+    # configuration phase 10 trains (data seeds 1 and 2, as the driver's)
+    dense_cfg = CTRDataConfig(num_user_features=DENSE_USER,
+                              num_ad_features=DENSE_AD,
+                              noise_features=DENSE_NOISE, seed=SEED)
+    t0 = time.perf_counter()
+    dense = dense_problem(dense_cfg, REGIONS, DENSE_SESSIONS, lam=DENSE_LAM,
+                          beta=DENSE_BETA, seed=SEED, device=dev)
+    dense_test = dense_test_batch(dense_cfg, DENSE_SESSIONS, device=dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    print(f"dense problem built in {setup_s:.1f} s: "
+          f"x_common {tuple(dense[0].x_common.shape)}, x_noncommon "
+          f"{tuple(dense[0].x_noncommon.shape)}, test rows "
+          f"{tuple(dense_test.x.shape)}")
+    err["lsplm_fused_forward"] = phase_dense_kernel(torch, dev,
+                                                    dense_test.x)
+    with tempfile.TemporaryDirectory() as tmp:
+        dense_launches = phase_dense_training(torch, dev, dense, dense_test,
+                                              setup_s, Path(tmp))
+    err["owlqn_direction"] = max(err["owlqn_direction"],
+                                 dense_launches["b3_err"])
+    phase_dense_trajectory(torch, dev)
+    times["lsplm_fused_forward"] = phase_dense_times(
+        torch, dev, dense_test.x, dense[1])
 
     kernels = []
     for name in ("lsplm_sparse_fused_forward",
                  "lsplm_sparse_fused_int8_forward",
-                 "lsplm_sparse_scatter_compact", "owlqn_direction"):
+                 "lsplm_sparse_scatter_compact", "owlqn_direction",
+                 "lsplm_fused_forward"):
         main_shape, *others = times[name]
         by_path = {"serve": serve_launches.get(name, 0),
-                   "train": train_launches.get(name, 0)}
+                   "train": train_launches.get(name, 0),
+                   "dense_train": dense_launches["dense_train"].get(name, 0)}
+        if name == "lsplm_fused_forward":
+            by_path["dense_serve"] = dense_launches["dense_serve"]
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name],
-            "launches": by_path["train"] or by_path["serve"],
+            "launches": (by_path["train"] or by_path["serve"]
+                         or by_path["dense_train"]),
             "launches_by_path": by_path,
             "max_abs_err": err[name], "ms": main_shape["ms"],
             "plain_ms": main_shape["plain_ms"],
@@ -958,7 +1366,7 @@ def main() -> int:
             "library_ms": main_shape["library_ms"],
             "shape": {k: v for k, v in main_shape.items()
                       if k in ("n", "k", "side", "entries", "unique", "d",
-                               "m2")},
+                               "m2", "m", "dtype")},
             "other_shapes": others,
         })
     print(f"all phases passed in {time.perf_counter() - t_start:.1f} s")

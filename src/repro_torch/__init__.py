@@ -8,11 +8,14 @@ It imports ``torch`` and numpy only -- never ``jax`` and nothing from
 (``device="cpu"`` / ``--device cpu``); see :func:`repro_torch.device.resolve_device`.
 
 Ported so far: the serving path (pruned/int8 artifacts, the session-shared
-scorer, the bucketed engine, the micro-batching queue and the
-``python -m repro_torch.launch.serve`` driver) and sparse OWLQN+ training
-(padded-COO batches with transpose plans, the sparse objective, the Eq. 9
-direction, L-BFGS, OWLQN+ and the ``python -m repro_torch.launch.train
---sparse`` driver), on four hand-written CUDA kernels
+scorer, dense scoring, the bucketed engine, the micro-batching queue and
+the ``python -m repro_torch.launch.serve`` driver), sparse OWLQN+
+training (padded-COO batches with transpose plans, the sparse objective,
+the Eq. 9 direction, L-BFGS, OWLQN+ and ``python -m
+repro_torch.launch.train --sparse``) and dense OWLQN+ training (the
+common-feature data, the dense and Eq. 13 objectives, the LS-PLM model
+and the driver's default mode), on five hand-written CUDA kernels
 (``repro_torch/kernels/*/csrc``): the fused sparse forward in fp32 and
-int8, the run-length dTheta scatter and the Eq. 9 direction.
+int8, the run-length dTheta scatter, the Eq. 9 direction and the dense
+fused Eq. 2 forward.
 """

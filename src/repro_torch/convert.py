@@ -12,13 +12,16 @@ Both packages keep the same flat-npz layout, so the crossing is arrays:
     arrays ``repro.serve`` rebuilds its artifact from (and
     ``save_artifact`` writes a file ``repro.serve.load_artifact`` reads);
   * :func:`sparse_batch_from_numpy` — the arrays of a reference
-    ``SparseCTRBatch`` -> the port's batch with its transpose plans.
+    ``SparseCTRBatch`` -> the port's batch with its transpose plans;
+  * :func:`common_feature_batch_from_numpy` — a reference (numpy)
+    ``CommonFeatureBatch`` -> the port's batch of tensors.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.core.objective import CommonFeatureBatch
 from repro_torch.data.sparse import SparseCTRBatch, build_batch_plans
 from repro_torch.serve.compress import (  # noqa: F401
     QuantizedArtifact,
@@ -64,3 +67,19 @@ def sparse_batch_from_numpy(fields: dict, num_features: int,
             device=device, dtype=t) for k, t in dtypes.items()},
         num_features=int(num_features))
     return build_batch_plans(batch)
+
+
+def common_feature_batch_from_numpy(batch, device) -> CommonFeatureBatch:
+    """The port's ``CommonFeatureBatch`` on ``device`` from a reference
+    one (its fields numpy arrays, or anything ``np.asarray`` takes):
+    features, labels and weights as float32, session ids as int32."""
+    def t(a, dtype):
+        return None if a is None else torch.from_numpy(
+            np.ascontiguousarray(np.asarray(a))).to(device=device,
+                                                    dtype=dtype)
+
+    return CommonFeatureBatch(
+        x_common=t(batch.x_common, torch.float32),
+        x_noncommon=t(batch.x_noncommon, torch.float32),
+        session_id=t(batch.session_id, torch.int32),
+        y=t(batch.y, torch.float32), weight=t(batch.weight, torch.float32))

@@ -1,28 +1,45 @@
-"""Training driver: sparse LS-PLM with OWLQN+ (Algorithm 1), on the card
-by default.
+"""Training driver: LS-PLM with OWLQN+ (Algorithm 1), on the card by
+default.
 
 The port's counterpart of ``repro/launch/train.py`` (its single-device
-``--sparse`` path). Padded-COO ids/vals over ``--sparse-features``
-columns, the common-feature trick (Eq. 13), one transpose plan per id
-tensor built on the host once and moved to the device once, then
-``--iters`` OWLQN+ steps:
+paths). Two modes:
 
-  PYTHONPATH=src python -m repro_torch.launch.train --sparse \\
-      --sparse-features 1000000 --regions 12 --sessions 4000 \\
-      --lam 0.05 --beta 0.05 --iters 10 --ckpt /tmp/lsplm.npz
+* dense (the default, the reference's ``train_dense``): the synthetic
+  common-feature workload of ``data/synthetic_ctr`` (user columns once
+  per session, ad and noise columns per sample; §3.2 storage), OWLQN+ on
+  the Eq. 13 objective ``nll_common_feature``, test AUC on the dense
+  test rows through ``core.lsplm.predict_proba``::
 
-On a CUDA device every loss evaluation runs the fused sparse forward
-(B1), every gradient its run-length scatter backward (B2), and every step
-the Eq. 9 direction kernel (B3); ``--device cpu`` runs their plain
-versions. Each iteration prints one line rendered from its ``train_iter``
-record (objective, step, non-zero count, wall; test AUC every 5
-iterations and at the last). ``--ckpt`` saves ``{"theta": ...}`` in the
-reference's npz layout, which ``repro_torch.launch.serve --ckpt`` (and
-the reference's loaders) read.
+    PYTHONPATH=src python -m repro_torch.launch.train --sessions 4000 \
+        --user-features 64 --ad-features 48 --noise-features 16 \
+        --regions 12 --lam 1.0 --beta 1.0 --iters 60 --ckpt /tmp/lsplm.npz
 
-Not ported yet, and refused: the dense default (queue item A13),
-``--stream`` (A9), ``--mesh-data``/``--mesh-model`` (A12), the tuning
-flags (A10) and ``--drift-ref`` (A11).
+  On a CUDA device every step runs the Eq. 9 direction kernel (B3) and
+  every test-AUC evaluation the dense fused forward (B5); the fp32
+  products of the loss and its gradient are ``torch.matmul`` (cuBLAS),
+  as the reference leaves them to XLA.
+
+* ``--sparse``: padded-COO ids/vals over ``--sparse-features`` columns,
+  the common-feature trick (Eq. 13), one transpose plan per id tensor
+  built on the host once and moved to the device once::
+
+    PYTHONPATH=src python -m repro_torch.launch.train --sparse \
+        --sparse-features 1000000 --regions 12 --sessions 4000 \
+        --lam 0.05 --beta 0.05 --iters 10 --ckpt /tmp/lsplm.npz
+
+  On a CUDA device every loss evaluation runs the fused sparse forward
+  (B1), every gradient its run-length scatter backward (B2), and every
+  step the Eq. 9 direction kernel (B3).
+
+``--device cpu`` runs the plain versions. Each iteration prints one line
+rendered from its ``train_iter`` record (objective, step, non-zero
+count, wall; test AUC every 5 iterations and at the last). ``--ckpt``
+saves ``{"theta": ...}`` in the reference's npz layout, which
+``repro_torch.launch.serve --ckpt`` (and the reference's loaders) read.
+
+Not ported yet, and refused: ``--stream`` (queue item A9),
+``--mesh-data``/``--mesh-model`` (A12), the tuning flags (A10) and
+``--drift-ref`` (A11).
 """
 from __future__ import annotations
 
@@ -34,11 +51,24 @@ import numpy as np
 import torch
 
 from repro_torch import obs
-from repro_torch.core.objective import nll_sparse, smooth_loss_and_grad
+from repro_torch.core.lsplm import params_from_theta, predict_proba
+from repro_torch.core.objective import (
+    CommonFeatureBatch,
+    CTRBatch,
+    nll_common_feature,
+    nll_sparse,
+    smooth_loss_and_grad,
+)
+from repro_torch.data.common_feature import pad_to_multiple
 from repro_torch.data.sparse import (
     SparseCTRBatch,
     generate_sparse,
     sparse_predict,
+)
+from repro_torch.data.synthetic_ctr import (
+    CTRDataConfig,
+    generate,
+    to_dense_batch,
 )
 from repro_torch.device import resolve_device
 from repro_torch.eval.metrics import auc
@@ -65,10 +95,16 @@ _NOT_PORTED = {
 def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.train")
     ap.add_argument("--sparse", action="store_true",
-                    help="train on padded-COO sparse features (the only "
-                         "path ported so far)")
+                    help="train on padded-COO sparse features (default: "
+                         "the dense common-feature path)")
     ap.add_argument("--sparse-features", type=int, default=1_000_000,
-                    help="d, feature columns")
+                    help="d for --sparse, feature columns")
+    ap.add_argument("--user-features", type=int, default=64,
+                    help="dense: common (user) columns d_c")
+    ap.add_argument("--ad-features", type=int, default=48,
+                    help="dense: per-sample (ad) columns")
+    ap.add_argument("--noise-features", type=int, default=16,
+                    help="dense: per-sample columns without signal")
     ap.add_argument("--regions", type=int, default=12, help="m (Fig. 4)")
     ap.add_argument("--sessions", type=int, default=4000)
     ap.add_argument("--lam", type=float, default=1.0, help="L2,1 weight")
@@ -100,24 +136,28 @@ def main(argv: list[str] | None = None) -> int:
     return 0
 
 
-def run(argv: list[str] | None = None) -> dict:
+def run(argv: list[str] | None = None, *, prebuilt: tuple | None = None
+        ) -> dict:
     """Parse ``argv``, train, and return the run's report: one record per
     iteration (f, f_new, alpha, ls_iters, grad_norm, nnz, wall_s, and
     test_auc where evaluated), the final test AUC, the walls and the
-    checkpoint path."""
+    checkpoint path. ``prebuilt`` = ``(problem, test)``, as
+    ``sparse_problem``/``dense_problem`` and ``sparse_test_batch``/
+    ``dense_test_batch`` build them for the same flags, replaces the
+    set-up for a caller that already holds them."""
     argv = sys.argv[1:] if argv is None else list(argv)
     args = _parser().parse_args(argv)
     for flag, why in _NOT_PORTED.items():
         if getattr(args, flag):
             raise SystemExit(why)
-    if not args.sparse:
-        raise SystemExit("the dense path waits for its port (ROADMAP A13); "
-                         "pass --sparse")
     device = resolve_device(args.device)
+    mode = "sparse" if args.sparse else "dense"
     session = obs.configure_from_args(args, driver="repro_torch.launch.train",
-                                      device=device, argv=argv, mode="sparse")
+                                      device=device, argv=argv, mode=mode)
     try:
-        return _train_sparse(args, device)
+        if args.sparse:
+            return _train_sparse(args, device, prebuilt)
+        return _train_dense(args, device, prebuilt)
     finally:
         session.close()
 
@@ -148,9 +188,7 @@ def sparse_problem(d: int, m: int, sessions: int, *, lam: float, beta: float,
     if dtype != torch.float32:
         batch = batch._replace(user_vals=batch.user_vals.to(dtype),
                                ad_vals=batch.ad_vals.to(dtype))
-    theta0 = torch.from_numpy(
-        (0.01 * np.random.default_rng(seed).normal(size=(d, 2 * m)))
-        .astype(np.float32)).to(device=device, dtype=dtype)
+    theta0 = _theta0(d, m, seed, device, dtype)
     opt = OWLQNPlus(lambda t: smooth_loss_and_grad(t, batch), lam=lam,
                     beta=beta, loss=lambda t: nll_sparse(t, batch))
     return batch, theta0, opt
@@ -166,24 +204,103 @@ def sparse_test_batch(d: int, sessions: int, *, seed: int,
                            with_plans=False, device=device)
 
 
-def _train_sparse(args, device: torch.device) -> dict:
+def _theta0(d: int, m: int, seed: int, device,
+            dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Theta0 = 0.01 N(0, 1) of shape (d, 2m) from numpy's ``seed``, cast
+    to float32 first (the reference's draw)."""
+    return torch.from_numpy(
+        (0.01 * np.random.default_rng(seed).normal(size=(d, 2 * m)))
+        .astype(np.float32)).to(device=device, dtype=dtype)
+
+
+def dense_problem(cfg: CTRDataConfig, m: int, sessions: int, *, lam: float,
+                  beta: float, seed: int, device
+                  ) -> tuple[CommonFeatureBatch, torch.Tensor, OWLQNPlus]:
+    """The dense OWLQN+ problem the drivers train, as the reference's
+    ``train_dense`` sets it up: ``sessions`` generated sessions (data
+    seed 1, the compressed batch only, on ``device``) with weights of one
+    (``pad_to_multiple(batch, 1)``), Theta0 = 0.01 N(0, 1) of shape
+    (d, 2m) from ``seed``, and the optimizer over the Eq. 13 NLL with the
+    L2,1 and L1 weights ``lam`` and ``beta``."""
+    train, _ = generate(cfg, sessions, seed=1, device=device,
+                        with_dense=False)
+    batch = pad_to_multiple(train, 1)
+    theta0 = _theta0(cfg.num_features, m, seed, device)
+    opt = OWLQNPlus(
+        lambda t: smooth_loss_and_grad(t, batch, common_feature=True),
+        lam=lam, beta=beta, loss=lambda t: nll_common_feature(t, batch))
+    return batch, theta0, opt
+
+
+def dense_test_batch(cfg: CTRDataConfig, sessions: int, *,
+                     device) -> CTRBatch:
+    """The held-out dense rows the driver scores for its test AUC: a
+    fifth of the training sessions (at least 64, data seed 2), made dense
+    on ``device``."""
+    test, _ = generate(cfg, max(sessions // 5, 64), seed=2, device=device,
+                       with_dense=False)
+    return to_dense_batch(test)
+
+
+def _train_dense(args, device: torch.device, prebuilt=None) -> dict:
+    cfg = CTRDataConfig(num_user_features=args.user_features,
+                        num_ad_features=args.ad_features,
+                        noise_features=args.noise_features, seed=args.seed)
+    d, m = cfg.num_features, args.regions
+    t0 = time.perf_counter()
+    built = "handed in" if prebuilt else "in {:.2f}s"
+    if prebuilt is None:
+        prebuilt = (dense_problem(cfg, m, args.sessions, lam=args.lam,
+                                  beta=args.beta, seed=args.seed,
+                                  device=device),
+                    dense_test_batch(cfg, args.sessions, device=device))
+    (train, theta0, opt), test = prebuilt
+    _sync(device)
+    setup_s = time.perf_counter() - t0
+    kern = ("CUDA kernels: Eq. 9 direction B3, dense fused forward B5 for "
+            "the test AUC; fp32 products on torch.matmul"
+            if device.type == "cuda" else "plain versions")
+    samples, sessions = train.y.shape[0], train.x_common.shape[0]
+    obs.log(f"dense mode: d={d:,} columns ({cfg.num_user_features:,} "
+            f"common + {cfg.num_ad_features + cfg.noise_features:,} "
+            f"per sample), {samples:,} samples in {sessions:,} sessions, "
+            f"Theta {tuple(theta0.shape)} ({theta0.numel():,} params), "
+            f"device={device} ({kern}); batch + Theta0 + "
+            f"{test.x.shape[0]:,} test rows {built.format(setup_s)}")
+    report: dict = {"mode": "dense", "device": str(device),
+                    "num_features": d, "regions": m, "sessions": sessions,
+                    "samples": samples, "test_rows": test.x.shape[0],
+                    "setup_s": setup_s}
+
+    def predict(theta):
+        return predict_proba(params_from_theta(theta), test.x)
+
+    return _iterate(args, device, opt, theta0, predict, test.y, report,
+                    nnz_width=7)
+
+
+def _train_sparse(args, device: torch.device, prebuilt=None) -> dict:
     d, m = args.sparse_features, args.regions
     t0 = time.perf_counter()
-    train, theta0, opt = sparse_problem(
-        d, m, args.sessions, lam=args.lam, beta=args.beta, seed=args.seed,
-        batch_seed=args.seed + 1, device=device)
-    test = sparse_test_batch(d, args.sessions, seed=args.seed + 2,
-                             device=device)
+    built = "handed in" if prebuilt else "in {:.2f}s"
+    if prebuilt is None:
+        prebuilt = (sparse_problem(d, m, args.sessions, lam=args.lam,
+                                   beta=args.beta, seed=args.seed,
+                                   batch_seed=args.seed + 1, device=device),
+                    sparse_test_batch(d, args.sessions, seed=args.seed + 2,
+                                      device=device))
+    (train, theta0, opt), test = prebuilt
     _sync(device)
     setup_s = time.perf_counter() - t0
     kern = ("CUDA kernels: fused forward B1, run-length scatter B2, Eq. 9 "
             "direction B3" if device.type == "cuda" else "plain versions")
     obs.log(f"sparse mode: d={d:,} columns, Theta {tuple(theta0.shape)} "
             f"({theta0.numel():,} params), device={device} ({kern}); "
-            f"batch + plans + Theta0 in {setup_s:.2f}s")
-    report: dict = {"device": str(device), "num_features": d, "regions": m,
+            f"batch + plans + Theta0 {built.format(setup_s)}")
+    report: dict = {"mode": "sparse", "device": str(device),
+                    "num_features": d, "regions": m,
                     "sessions": args.sessions, "setup_s": setup_s,
-                    "plans": {}, "iters": []}
+                    "plans": {}}
     for side, plan in (("user", train.user_plan), ("ad", train.ad_plan)):
         report["plans"][side] = {"entries": plan.num_kept,
                                  "unique": plan.num_unique,
@@ -192,11 +309,22 @@ def _train_sparse(args, device: torch.device) -> dict:
                 f"{plan.num_unique:,} unique ids, "
                 f"{len(plan.class_width)} popularity classes, "
                 f"{plan.piece_run.numel():,} scatter pieces")
+    return _iterate(args, device, opt, theta0,
+                    lambda theta: sparse_predict(theta, test), test.y,
+                    report)
 
+
+def _iterate(args, device: torch.device, opt: OWLQNPlus,
+             theta0: torch.Tensor, predict, y_test: torch.Tensor,
+             report: dict, nnz_width: int = 8) -> dict:
+    """``--iters`` OWLQN+ steps from ``theta0``, one ``train_iter``
+    record each (test AUC of ``predict(theta)`` every 5 iterations and at
+    the last), then the walls and the checkpoint into ``report``."""
     state = opt.init(theta0)
     del theta0
     tracer = obs.get_tracer()
-    y_test = test.y.cpu().numpy()
+    y_test = y_test.cpu().numpy()
+    report["iters"] = []
     train_s = 0.0
     for k in range(args.iters):
         t0 = time.perf_counter()
@@ -207,10 +335,11 @@ def _train_sparse(args, device: torch.device) -> dict:
         train_s += dt
         rec = dict(step=k, **stats._asdict(), wall_s=dt)
         if k % 5 == 0 or k == args.iters - 1:
-            p = sparse_predict(state.theta, test).cpu().numpy()
+            p = predict(state.theta).cpu().numpy()
             rec["test_auc"] = float(auc(y_test, p))
         report["iters"].append(rec)
-        obs.log(obs.render_train_iter(rec), kind="train_iter", **rec)
+        obs.log(obs.render_train_iter(rec, nnz_width=nnz_width),
+                kind="train_iter", **rec)
     report["train_s"] = train_s
     report["s_per_iter"] = train_s / max(1, args.iters)
     report["test_auc"] = (report["iters"][-1]["test_auc"]

@@ -1,6 +1,6 @@
 """Serving subsystem of the port: pruned artifacts, the session-shared
-scorer, the bucketed engine and the micro-batching queue (the
-counterpart of ``repro.serve``, without dense scoring)."""
+scorer, dense scoring, the bucketed engine and the micro-batching queue
+(the counterpart of ``repro.serve``)."""
 from repro_torch.serve.compress import (  # noqa: F401
     QuantizedArtifact,
     ServingArtifact,
@@ -26,7 +26,9 @@ from repro_torch.serve.score import (  # noqa: F401
     predict,
     score_bundles,
     score_bundles_naive,
+    score_dense,
     score_sparse,
+    score_sparse_logps,
 )
 from repro_torch.serve.traffic import (  # noqa: F401
     Completion,

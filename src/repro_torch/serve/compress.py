@@ -23,7 +23,9 @@ moves by at most ``max|row| / 254``; the scorers serve it int8-NATIVE.
 
 Artifacts are computed on the host with numpy (the same arithmetic as the
 reference, so codes and scales come out equal) and returned on the device
-the input lives on (numpy input -> CPU tensors).
+the input lives on (numpy input -> CPU tensors). Artifacts rebuilt from
+arrays or loaded from a file land on the card unless the caller asks for
+the CPU (``device="cpu"``), as every entry point of the port does.
 """
 from __future__ import annotations
 
@@ -32,6 +34,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.device import resolve_device
 from repro_torch.io import checkpoint
 
 
@@ -158,12 +161,13 @@ def artifact_from_numpy(data: dict, device=None
     """Rebuild an artifact from its arrays (``theta`` or ``codes`` +
     ``scales``, ``remap``, ``alive_ids``, ``num_features``) — the form a
     JAX-saved artifact file loads as. Tensors land on ``device``
-    (default: the CPU)."""
+    (default: ``cuda``, raising without a card; see
+    :func:`repro_torch.device.resolve_device`)."""
     cls = QuantizedArtifact if "codes" in data else ServingArtifact
     missing = [f for f in cls._fields if f not in data]
     if missing:
         raise ValueError(f"not a serving artifact: missing fields {missing}")
-    dev = torch.device("cpu") if device is None else torch.device(device)
+    dev = resolve_device(device)
     tensors = {f: torch.from_numpy(np.ascontiguousarray(data[f])).to(dev)
                for f in cls._fields if f != "num_features"}
     return cls(num_features=int(np.asarray(data["num_features"]).item()),
@@ -173,7 +177,8 @@ def artifact_from_numpy(data: dict, device=None
 def load_artifact(path: str, device=None
                   ) -> ServingArtifact | QuantizedArtifact:
     """Load an artifact saved by either package's ``save_artifact``; the
-    npz field names pick the form. Tensors land on ``device``."""
+    npz field names pick the form. Tensors land on ``device`` (default:
+    ``cuda``, raising without a card)."""
     data = checkpoint.load_nested(path)
     try:
         return artifact_from_numpy(data, device)

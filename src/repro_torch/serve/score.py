@@ -1,18 +1,25 @@
 """The inference layer: every LS-PLM prediction of the port goes through here.
 
-The port's counterpart of ``repro/serve/score.py`` (its sparse forms;
-dense scoring arrives with the dense path). The model argument is
-polymorphic:
+The port's counterpart of ``repro/serve/score.py``. The model argument
+is polymorphic:
 
-  * a raw UNPADDED Theta ``(d, 2m)`` tensor or numpy array,
+  * a raw UNPADDED Theta ``(d, 2m)`` tensor or numpy array, or
+    ``repro_torch.core.lsplm.LSPLMParams``,
   * a pruned :class:`~repro_torch.serve.compress.ServingArtifact`,
   * an int8 :class:`~repro_torch.serve.compress.QuantizedArtifact` —
     served INT8-NATIVE: the codes/scales are kept as they are and the
     sparse paths run the int8 gather ops, so fp32 rows are never
     materialised and the scores equal the dequantise-then-score numbers.
+    The one exception is the DENSE path, which has no gather to fuse the
+    scale into: it dequantises the rows per call (the reference's
+    carve-out).
 
 Request formats:
 
+  * :func:`score_dense`    — dense ``x (..., d)`` rows, on the dense fused
+    forward (B5 on the card): x against Theta without its pad row, or,
+    for a pruned model, x restricted to the alive columns against the
+    packed rows (a shorter reduction, so <= 1e-6 from full, not bitwise);
   * :func:`score_sparse`   — flat padded-COO ``(ids, vals)`` rows;
   * :func:`score_bundles`  — SESSION-SHARED scoring (Eq. 13, §3.2): each
     page view is one user id list + N ad candidates; the user half of
@@ -31,8 +38,14 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.core.lsplm import (
+    LSPLMParams,
+    params_from_theta,
+    predict_proba,
+)
 from repro_torch.kernels.lsplm_sparse_fused.ops import (
     finalize_p,
+    logps_from_z,
     lsplm_sparse_forward,
     lsplm_sparse_forward_int8,
     pad_theta,
@@ -72,6 +85,13 @@ class ServingModel(NamedTuple):
     def device(self) -> torch.device:
         return (self.codes if self.is_int8 else self.theta).device
 
+    def dense_theta(self) -> torch.Tensor:
+        """The padded fp32 rows: int8 models dequantise here (the dense
+        path's carve-out; the sparse paths never call this)."""
+        if self.is_int8:
+            return self.codes.to(torch.float32) * self.scales[:, None]
+        return self.theta
+
 
 def _to(t, device):
     return None if t is None else t.to(device)
@@ -92,6 +112,8 @@ def as_model(model, device=None) -> ServingModel:
                            alive_ids=model.alive_ids,
                            num_features=model.num_features)
     else:
+        if isinstance(model, LSPLMParams):
+            model = model.theta
         theta = model if isinstance(model, torch.Tensor) else \
             torch.from_numpy(np.asarray(model))
         if theta.ndim != 2 or theta.shape[1] % 2:
@@ -131,6 +153,22 @@ def _z_sparse(model: ServingModel, ids, vals, *, dedup: bool):
     return sparse_gather_matmul(ids, vals, model.theta, dedup=dedup)
 
 
+def score_dense(model, x) -> torch.Tensor:
+    """p(y=1|x) for dense rows x (..., d) through ``core.lsplm.
+    predict_proba`` (the dense fused forward, B5 on the card), U and W
+    the two halves of the model's rows, as views. Pruned models contract
+    over the alive columns only (<= 1e-6 vs full); int8 models dequantise
+    per call."""
+    model = as_model(model)
+    x = torch.as_tensor(x, dtype=torch.float32, device=model.device)
+    if x.shape[-1] != model.num_features:
+        raise ValueError(f"x must have {model.num_features} columns, got "
+                         f"{tuple(x.shape)}")
+    if model.alive_ids is not None:
+        x = x.index_select(-1, model.alive_ids.long())
+    return predict_proba(params_from_theta(model.dense_theta()[:-1]), x)
+
+
 def score_sparse(model, ids, vals, *, dedup: bool = True) -> torch.Tensor:
     """p(y=1|x) for flat padded-COO rows (N, K) on the fused kernel."""
     model = as_model(model)
@@ -139,6 +177,16 @@ def score_sparse(model, ids, vals, *, dedup: bool = True) -> torch.Tensor:
         return lsplm_sparse_forward_int8(ids, vals, model.codes,
                                          model.scales, dedup=dedup)
     return lsplm_sparse_forward(ids, vals, model.theta, dedup=dedup)
+
+
+def score_sparse_logps(model, ids, vals, *, dedup: bool = True
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Stable (log_p1, log_p0) for flat padded-COO rows (the Eq. 5 head
+    on the serving layer's region logits)."""
+    model = as_model(model)
+    z = _z_sparse(model, _request_ids(model, ids), _vals(model, vals),
+                  dedup=dedup)
+    return logps_from_z(z)
 
 
 def bundle_logits(model, bundle: ScoreBundle, *,
@@ -180,8 +228,8 @@ def score_bundles_naive(model, bundle: ScoreBundle, *,
 def predict(model, request, *, dedup: bool = True) -> torch.Tensor:
     """Unified entry, dispatching on the request's structure: a
     session-grouped bundle (has ``user_ids``/``ad_ids``/``session_id``)
-    takes the shared path, an ``(ids, vals)`` pair the flat sparse one.
-    Dense rows are not served by the port yet."""
+    takes the shared path, an ``(ids, vals)`` pair the flat sparse one,
+    and dense rows ``(..., d)`` (a tensor or an array) the dense one."""
     if hasattr(request, "user_ids") and hasattr(request, "session_id"):
         return score_bundles(model, ScoreBundle(
             user_ids=request.user_ids, user_vals=request.user_vals,
@@ -190,5 +238,4 @@ def predict(model, request, *, dedup: bool = True) -> torch.Tensor:
     if isinstance(request, (tuple, list)) and len(request) == 2:
         ids, vals = request
         return score_sparse(model, ids, vals, dedup=dedup)
-    raise TypeError("predict takes a session bundle or an (ids, vals) pair; "
-                    "dense scoring arrives with the port's dense path")
+    return score_dense(model, request)

@@ -94,7 +94,7 @@ def test_jax_saved_artifact_scores_in_port(theta, tmp_path, form):
     if form == "int8":
         jart = jserve.quantize(jart)
     path = jserve.save_artifact(str(tmp_path / "jax_art"), jart)
-    tart = convert.load_artifact(path)
+    tart = convert.load_artifact(path, device="cpu")
     assert type(tart).__name__ == type(jart).__name__
     for req in _requests(2, seed=1):
         want = np.asarray(jserve.score_bundles(jart, _jax_bundle(req),
@@ -113,7 +113,7 @@ def test_port_saved_artifact_scores_in_reference(theta, tmp_path, form):
     assert type(jart).__name__ == type(tart).__name__
     # the in-memory crossing gives the same arrays as the file
     arrays = convert.to_numpy(tart)
-    rebuilt = convert.artifact_from_numpy(arrays)
+    rebuilt = convert.artifact_from_numpy(arrays, device="cpu")
     for f in tart._fields:
         if f != "num_features":
             assert torch.equal(getattr(rebuilt, f), getattr(tart, f))
@@ -183,8 +183,12 @@ def test_score_sparse_and_predict_match_reference(theta):
     np.testing.assert_array_equal(
         tscore.predict(theta, _torch_bundle(req)).numpy(),
         tscore.score_bundles(theta, _torch_bundle(req)).numpy())
-    with pytest.raises(TypeError):
-        tscore.predict(theta, np.zeros((2, D), np.float32))
+    x = (rng.normal(size=(2, D)) * (rng.random((2, D)) < 0.05)).astype(
+        np.float32)  # dense rows take the dense path, as in the reference
+    np.testing.assert_allclose(
+        tscore.predict(theta, x).numpy(),
+        np.asarray(jserve.predict(jnp.asarray(theta), jnp.asarray(x))),
+        rtol=0, atol=P_ATOL)
 
 
 def test_pruned_scoring_bitwise_equals_full(theta):

@@ -300,8 +300,6 @@ def test_launch_train_refuses_what_is_not_ported():
                        (["--drift-ref", "x.npz"], "A11")):
         with pytest.raises(SystemExit, match=why):
             ttrain.run(base + extra)
-    with pytest.raises(SystemExit, match="A13"):
-        ttrain.run(["--device", "cpu"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             ttrain.run(["--sparse", "--iters", "1"])

@@ -10,12 +10,14 @@ each against its plain PyTorch version on the card, drives the serving
 main path (``repro_torch.launch.serve``) at paper width (d = 1,000,000
 features, m = 12 regions) in int8 and fp32, the sparse training main path
 (``repro_torch.launch.train --sparse``, OWLQN+ at the same width, then
-serving the Theta it trained) and the dense one (``repro_torch.launch.
+serving the Theta it trained), the dense one (``repro_torch.launch.
 train``, common-feature OWLQN+ at d = 32,768, then scoring its test rows
-through ``serve.predict``), shows that each path launched its kernels,
-holds the card's OWLQN+ trajectories against the CPU's, times the
-kernels beside their plain versions, their bound and one library call,
-and ends with one JSON line::
+through ``serve.predict``) and the LM serving path (``repro_torch.models``:
+llama3.2-1b at full width, prefill of 4 x 4,096 tokens, 32 greedy tokens
+through ``models.generate``, prefill of 1 x 32,768), shows that each path
+launched its kernels, holds the card's OWLQN+ trajectories and a reduced
+LM against the CPU's, times the kernels beside their plain versions,
+their bound and one library call, and ends with one JSON line::
 
     {"ok": true, "device": {"platform": "gpu", "kind": "<name>", "count": 1}}
 
@@ -64,6 +66,17 @@ DENSE_ITERS = 10
 DENSE_STEPS = 6  # card vs CPU steps at the launch defaults
 LOSS_RTOL, GRAD_ATOL = 2e-5, 3e-5  # gradient after / max(1, max |g|)
 B5_TOL, B5_BF16_TOL = 1e-5, 2e-2  # tests/test_kernels.py:46,59
+# the LM path: llama3.2-1b at full width (16 layers, d 2048, 32 heads over
+# 8 KV heads, hd 64, vocab 128,256); the train_4k sequence length at 4
+# prompts, and the prefill_32k length with its batch cut from 32 to 1
+LM_ARCH = "llama3.2-1b"
+LM_PARAMS = 1_235_814_400
+LM_BATCH, LM_SEQ, LM_NEW = 4, 4096, 32
+LM_LONG = 32768
+LM_TOL = 5e-2  # bf16 logits, B6 vs plain attention (tests/test_archs_smoke.py:137)
+LM_CPU_TOL = 1e-4  # fp32 logits, card vs CPU
+B6_TOL = {"float32": 2e-5, "bfloat16": 3e-2}  # tests/test_kernels.py:133
+LONG_RUNS = 5  # timed runs of B6 at S = 32,768
 _FUSED = "src/repro_torch/kernels/lsplm_sparse_fused/csrc/lsplm_sparse_fused.cu"
 SOURCES = {
     "lsplm_sparse_fused_forward": _FUSED,
@@ -75,6 +88,8 @@ SOURCES = {
         "src/repro_torch/kernels/owlqn_direction/csrc/owlqn_direction.cu",
     "lsplm_fused_forward":
         "src/repro_torch/kernels/lsplm_fused/csrc/lsplm_fused.cu",
+    "flash_attention":
+        "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
 }
 REPLACES = {
     "lsplm_sparse_fused_forward":
@@ -86,6 +101,8 @@ REPLACES = {
     "owlqn_direction":
         "src/repro/kernels/owlqn_direction/owlqn_direction.py:23",
     "lsplm_fused_forward": "src/repro/kernels/lsplm_fused/lsplm_fused.py:27",
+    "flash_attention":
+        "src/repro/kernels/flash_attention/flash_attention.py:29",
 }
 
 
@@ -297,15 +314,15 @@ def _profile_dispatches(torch, art) -> None:
 
 
 # ------------------------------------------------------------ phase 4
-def _time_ms(torch, fn, flush) -> float:
-    """Median milliseconds of ``fn`` over TIMED_RUNS launches, each after
+def _time_ms(torch, fn, flush, runs=TIMED_RUNS, warm=WARM_RUNS) -> float:
+    """Median milliseconds of ``fn`` over ``runs`` launches, each after
     an L2 flush, timed by CUDA events. A spin kernel keeps the card busy
     while the host enqueues the events and ``fn``, so the events time
     the device work and not the host's launch path."""
-    for _ in range(WARM_RUNS):
+    for _ in range(warm):
         fn()
     times = []
-    for _ in range(TIMED_RUNS):
+    for _ in range(runs):
         flush.zero_()
         torch.cuda._sleep(SPIN_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
@@ -648,18 +665,16 @@ SPARSE_STEP_KERNELS = ("fused_forward_kernel", "piece_sums_kernel",
                        "run_sums_kernel", "owlqn_direction_kernel")
 
 
-def _profile_step(torch, opt, theta, labels=SPARSE_STEP_KERNELS) -> None:
-    """Where one OWLQN+ step's time goes (torch.profiler): host wall
-    against the device's kernel time, the hand-written kernels (device
-    events whose names hold one of ``labels``) and the top kernels."""
+def _device_profile(torch, fn):
+    """Run ``fn`` once under torch.profiler, synchronised. Returns (its
+    result, host wall in us, {device kernel name: [us, launches]})."""
     from torch.profiler import ProfilerActivity, profile
 
-    state, _ = opt.step(opt.init(theta))  # a history pair for the next
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        state, stats = opt.step(state)
+        out = fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels: dict[str, list] = {}
@@ -668,6 +683,16 @@ def _profile_step(torch, opt, theta, labels=SPARSE_STEP_KERNELS) -> None:
             k = kernels.setdefault(e.name, [0.0, 0])
             k[0] += e.time_range.elapsed_us()
             k[1] += 1
+    return out, wall_us, kernels
+
+
+def _profile_step(torch, opt, theta, labels=SPARSE_STEP_KERNELS) -> None:
+    """Where one OWLQN+ step's time goes (torch.profiler): host wall
+    against the device's kernel time, the hand-written kernels (device
+    events whose names hold one of ``labels``) and the top kernels."""
+    state, _ = opt.step(opt.init(theta))  # a history pair for the next
+    (state, stats), wall_us, kernels = _device_profile(
+        torch, lambda: opt.step(state))
     busy_us = sum(v[0] for v in kernels.values())
     if not kernels:
         print(f"  profile of one OWLQN+ step: {wall_us / 1e3:.2f} ms wall; "
@@ -1253,6 +1278,383 @@ def phase_dense_times(torch, dev, x_test, theta):
               f"cuBLAS, the contraction alone)")
     return out
 
+# ------------------------------------------------------------ phase 13
+def _b6_inputs(torch, dev, rng, B, S, H, kvh, hd, dtype):
+    """q (B, S, H, hd), k and v (B, S, kvh, hd) ~ N(0, 1) in ``dtype``."""
+    def draw(heads):
+        return torch.from_numpy(rng.normal(size=(B, S, heads, hd)).astype(
+            np.float32)).to(dev, dtype)
+
+    return draw(H), draw(kvh), draw(kvh)
+
+
+def _check_b6(torch, q, k, v, causal, tag):
+    """B6 against its plain version on the card at rtol = atol = the
+    dtype's bar, bitwise repeatable. Returns the max abs error."""
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention,
+    )
+    from repro_torch.kernels.flash_attention.ops import plain_attention
+
+    got = flash_attention(q, k, v, causal=causal)
+    again = flash_attention(q, k, v, causal=causal)
+    want = plain_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    tol = B6_TOL[str(q.dtype).removeprefix("torch.")]
+    check(got.dtype == q.dtype and got.shape == q.shape,
+          f"B6 output dtype/shape at {tag}")
+    err = (got.float() - want.float()).abs()
+    check(bool((err <= tol + tol * want.float().abs()).all()),
+          f"B6 vs plain beyond rtol = atol = {tol} at {tag}: max |err| "
+          f"{float(err.max()):.3e}")
+    check(torch.equal(got, again), f"B6 not bitwise repeatable at {tag}")
+    return float(err.max())
+
+
+def _b6_float64_witness(torch, q, k, v, rows):
+    """Causal attention of q's ``rows`` in float64 on the card, and how
+    far B6 and its plain version (both fp32) are from it there: max |err|
+    over the early rows (fewer than 4,096 keys) and over the rest."""
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention,
+    )
+    from repro_torch.kernels.flash_attention.ops import plain_attention
+    from repro_torch.models.layers import repeat_kv
+
+    rep = q.shape[2] // k.shape[2]
+    idx = torch.as_tensor(rows, device=q.device)
+    q64 = q[:, idx].double()
+    k64, v64 = (repeat_kv(t, rep).double() for t in (k, v))
+    s = torch.einsum("brhd,bshd->bhrs", q64, k64) * q.shape[-1] ** -0.5
+    s = s.masked_fill(torch.arange(k.shape[1], device=q.device)[None, :]
+                      > idx[:, None], float("-inf"))
+    exact = torch.einsum("bhrs,bshd->brhd", torch.softmax(s, -1), v64)
+    del s, k64, v64
+    early = idx < 4096
+    out = {}
+    for tag, fn in (("B6", flash_attention), ("plain", plain_attention)):
+        err = (fn(q, k, v)[:, idx].double() - exact).abs()
+        out[tag] = (float(err[:, early].max()), float(err[:, ~early].max()))
+    return out
+
+
+def phase_attention_kernel(torch, dev):
+    """B6 (flash attention) against its plain version on the card: the
+    reference tests' shapes (hd 16 and 8), causal and not, fp32 and bf16;
+    GQA with odd S; hd 128; llama's shape at S = 4,096."""
+    rng = np.random.default_rng(SEED + 13)
+    f32, bf16 = torch.float32, torch.bfloat16
+    err = {"float32": 0.0, "bfloat16": 0.0}
+    cases = [(2, S, 3, 3, 16) for S in (32, 64, 48)] + [
+        (1, 32, 2, 2, 8), (2, 37, 8, 2, 64), (1, 1, 4, 2, 64),
+        (1, 130, 4, 1, 128), (3, 577, 8, 8, 128),
+        (LM_BATCH, LM_SEQ, 32, 8, 64)]
+    for B, S, H, kvh, hd in cases:
+        for dtype in (f32, bf16):
+            q, k, v = _b6_inputs(torch, dev, rng, B, S, H, kvh, hd, dtype)
+            for causal in (True, False):
+                if S == LM_SEQ and not causal:
+                    continue  # the model's attention is causal
+                e = _check_b6(torch, q, k, v, causal,
+                              f"(B, S, H, KVH, hd) = {(B, S, H, kvh, hd)} "
+                              f"{dtype} causal={causal}")
+                name = str(dtype).removeprefix("torch.")
+                err[name] = max(err[name], e)
+            del q, k, v
+    print(f"phase 13: B6 (flash attention) vs plain on the card at (B, S, "
+          f"H, KVH, hd) in {cases}, fp32 and bf16, causal and not (llama's "
+          f"shape causal only); within rtol = atol = {B6_TOL['float32']} "
+          f"(fp32) and {B6_TOL['bfloat16']} (bf16), every case bitwise "
+          f"repeatable; max |err| fp32 {err['float32']:.3e}, bf16 "
+          f"{err['bfloat16']:.3e}")
+    return max(err.values())
+
+
+# ------------------------------------------------------------ phase 14
+LM_KERNELS = ("flash_attention_kernel",)
+
+
+def _print_profile(title, wall_us, kernels, labels=LM_KERNELS):
+    busy_us = sum(v[0] for v in kernels.values())
+    if not kernels:
+        print(f"  profile of {title}: {wall_us / 1e3:.2f} ms wall; device "
+              "time not measured (no device events)")
+        return
+    ours = [(n, us, c) for n, (us, c) in kernels.items()
+            if any(label in n for label in labels)]
+    ours_us = sum(us for _, us, _ in ours)
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:6]
+    print(f"  profile of {title} (under torch.profiler): "
+          f"{wall_us / 1e3:.2f} ms wall, {busy_us / 1e3:.2f} ms of device "
+          f"kernels in {sum(v[1] for v in kernels.values())} launches "
+          f"(device idle {1 - busy_us / wall_us:.1%}); B6 x"
+          f"{sum(c for _, _, c in ours)} {ours_us / 1e3:.3f} ms "
+          f"({ours_us / busy_us:.1%} of device time); top: "
+          + "; ".join(f"{name[:60]} x{n} {us / 1e3:.3f} ms"
+                      for name, (us, n) in top))
+
+
+def phase_lm(torch, dev):
+    """The LM serving path at full width: llama3.2-1b from a seeded
+    torch.Generator, prompts from the token stream; (a) prefill 4 x 4,096,
+    (b) greedy generate of 32 tokens after it, (c) prefill 1 x 32,768.
+    B6 launches once per layer per prefill."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        LAUNCHES as B6,
+    )
+    from repro_torch.kernels.flash_attention.ops import plain_attention
+    from repro_torch.models import (
+        decode_step,
+        init_caches,
+        init_model,
+        prefill,
+    )
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer
+    from repro_torch.models.generate import generate
+
+    cfg = get_config(LM_ARCH)
+    t0 = time.perf_counter()
+    model = init_model(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                       device=dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    check(n_params == LM_PARAMS, f"{LM_ARCH} has {n_params:,} parameters, "
+          f"not {LM_PARAMS:,}")
+    stream = TokenStream(cfg.vocab_size, seed=SEED)
+    prompts = torch.from_numpy(
+        stream.batch(LM_BATCH, LM_SEQ + 1)["tokens"]).to(dev)
+    long_prompt = torch.from_numpy(
+        stream.batch(1, LM_LONG + 1)["tokens"]).to(dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    prefill(model, tokens=prompts)  # first use: cuBLAS handles, modules
+
+    launches = {}
+    _reset((B6,))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    logits, caches = prefill(model, tokens=prompts)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    launches["prefill"] = B6["flash_attention"]
+    t0 = time.perf_counter()
+    out = generate(model, prompts, LM_NEW, temperature=0.0)
+    torch.cuda.synchronize()
+    generate_s = time.perf_counter() - t0
+    launches["generate"] = B6["flash_attention"] - launches["prefill"]
+    t0 = time.perf_counter()
+    long_logits, long_caches = prefill(model, tokens=long_prompt)
+    torch.cuda.synchronize()
+    long_s = time.perf_counter() - t0
+    launches["prefill_32k"] = (B6["flash_attention"] - launches["prefill"]
+                               - launches["generate"])
+    total = B6["flash_attention"]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    for step, count in launches.items():
+        check(count == cfg.num_layers, f"B6 launched {count} times in "
+              f"{step}, not once per layer ({cfg.num_layers})")
+    check(logits.shape == (LM_BATCH, cfg.vocab_size)
+          and bool(torch.isfinite(logits.float()).all()),
+          "prefill logits have the wrong shape or are not finite")
+    check(caches["k"].shape == (cfg.num_layers, LM_BATCH, LM_SEQ,
+                                cfg.num_kv_heads, cfg.resolved_head_dim),
+          f"prefill caches have shape {tuple(caches['k'].shape)}")
+    check(out.shape == (LM_BATCH, LM_NEW) and int(out.min()) >= 0
+          and int(out.max()) < cfg.vocab_size,
+          "generated tokens have the wrong shape or are out of range")
+    check(torch.equal(out[:, 0], logits.argmax(-1).to(out.dtype)),
+          "the first greedy token is not the prefill logits' argmax")
+    check(long_logits.shape == (1, cfg.vocab_size)
+          and bool(torch.isfinite(long_logits.float()).all()),
+          "32k prefill logits have the wrong shape or are not finite")
+    del long_caches
+
+    # the same model with B6's plain version in every layer: the model's
+    # attention hook is swapped for this one call
+    b6_attention = transformer.attention_ops.causal_attention
+    transformer.attention_ops.causal_attention = plain_attention
+    try:
+        plain_logits, _ = prefill(model, tokens=prompts)
+        torch.cuda.synchronize()
+    finally:
+        transformer.attention_ops.causal_attention = b6_attention
+    lerr = (logits.float() - plain_logits.float()).abs()
+    lbar = float((lerr / (LM_TOL + LM_TOL * plain_logits.float().abs()))
+                 .max())
+    check(lbar <= 1.0, f"prefill logits with B6 differ from plain "
+          f"attention's beyond rtol = atol = {LM_TOL}: max |err| "
+          f"{float(lerr.max()):.3e}, {lbar:.2f} of the bar")
+    agree = float((logits.argmax(-1) == plain_logits.argmax(-1)).float()
+                  .mean())
+    # witness: both bf16 runs against the same weights computed in fp32
+    model32 = transformer.Transformer(
+        dataclasses.replace(cfg, dtype="float32"), device=dev)
+    model32.load_state_dict(model.state_dict())
+    logits32, _ = prefill(model32, tokens=prompts)
+    del model32
+    w_b6 = float((logits.float() - logits32).abs().max())
+    w_plain = float((plain_logits.float() - logits32).abs().max())
+
+    # layer 0's q, k, v of the 32k prompt: B6 against plain there
+    blk = model.layers[0]
+    h = transformer.embed_tokens(model, long_prompt)
+    q, k, v = blk.attn.qkv(L.apply_norm(h, blk.norm1, cfg))
+    rope = transformer._rope(torch.arange(LM_LONG, device=dev), cfg)
+    q, k = L.apply_rope(q, *rope), L.apply_rope(k, *rope)
+    long_err = _check_b6(torch, q, k, v, True,
+                         f"layer 0 of the {LM_LONG:,}-token prompt")
+    # the same q, k, v widened to fp32, held at the fp32 bar: late rows
+    # average ~S/e keys, so their outputs are small against bf16's bar
+    q, k, v = q.float(), k.float(), v.float()
+    long_err32 = _check_b6(torch, q, k, v, True,
+                           f"layer 0 of the {LM_LONG:,}-token prompt in "
+                           "fp32")
+    rows = list(range(0, LM_LONG, 512)) + [LM_LONG - 1]
+    wit64 = _b6_float64_witness(torch, q, k, v, rows)
+    del h, q, k, v
+
+    # decode: greedy steps from (a)'s caches, timed and profiled
+    dec = init_caches(cfg, LM_BATCH, LM_SEQ + LM_NEW, device=dev)
+    for name in dec:
+        dec[name][:, :, :LM_SEQ] = caches[name]
+    del caches
+    tok = logits.argmax(-1).to(torch.int32)
+    decode_step(model, dec, token=tok, pos=LM_SEQ)  # first use
+    torch.cuda.synchronize()
+    steps = LM_NEW // 2
+    t0 = time.perf_counter()
+    for i in range(1, steps + 1):
+        lg, dec = decode_step(model, dec, token=tok, pos=LM_SEQ + i)
+        tok = lg.argmax(-1).to(torch.int32)
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t0) * 1e3 / steps
+    print(f"phase 14: LM main path ({LM_ARCH}, {n_params:,} parameters, "
+          f"bf16 weights from a seeded torch.Generator, set-up {setup_s:.2f}"
+          f" s): (a) prefill {LM_BATCH} x {LM_SEQ:,} in "
+          f"{prefill_s * 1e3:.1f} ms = {LM_BATCH * LM_SEQ / prefill_s:,.0f} "
+          f"tokens/s; (b) greedy generate of {LM_NEW} tokens after it in "
+          f"{generate_s:.2f} s (its prefill included), tokens in range; (c) "
+          f"prefill 1 x {LM_LONG:,} in {long_s:.2f} s = "
+          f"{LM_LONG / long_s:,.0f} tokens/s; peak memory {peak_gb:.2f} GB; "
+          f"B6 launches {launches} ({total} in all, one per layer per "
+          f"prefill)")
+    print(f"  prefill logits with B6 vs with plain attention in every layer: "
+          f"max |err| {float(lerr.max()):.3e} (rtol = atol = {LM_TOL}: the "
+          f"worst element at {lbar:.2f} of its bar), argmax agreement "
+          f"{agree:.0%}; against the same weights in fp32 (B6 in fp32): "
+          f"bf16 with B6 max |err| {w_b6:.3e}, bf16 with plain attention "
+          f"{w_plain:.3e}; B6 vs plain on layer 0's q, k, v "
+          f"at S = {LM_LONG:,}: max |err| {long_err:.3e} in bf16 (bar "
+          f"{B6_TOL['bfloat16']}), {long_err32:.3e} widened to fp32 (bar "
+          f"{B6_TOL['float32']}); against float64 on {len(rows)} of "
+          f"those rows (max |err| on rows < 4,096, then the rest): "
+          + ", ".join(f"{t} {a:.3e} / {b:.3e}" for t, (a, b) in
+                      wit64.items())
+          + "; decode "
+          f"{decode_ms:.2f} ms/token at batch {LM_BATCH} (mean of {steps} "
+          f"greedy steps, host wall, cache of {LM_SEQ + LM_NEW:,} slots)")
+    pos = LM_SEQ + steps + 1
+    _, wall_us, kernels = _device_profile(
+        torch, lambda: decode_step(model, dec, token=tok, pos=pos))
+    _print_profile("one decode step", wall_us, kernels)
+    del dec
+    _, wall_us, kernels = _device_profile(
+        torch, lambda: prefill(model, tokens=prompts))
+    _print_profile(f"one {LM_BATCH} x {LM_SEQ:,} prefill", wall_us, kernels)
+    del model
+    torch.cuda.empty_cache()
+    return total, launches, long_err, {
+        "prefill_tokens_per_s": LM_BATCH * LM_SEQ / prefill_s,
+        "prefill_32k_tokens_per_s": LM_LONG / long_s,
+        "decode_ms_per_token": decode_ms}
+
+
+# ------------------------------------------------------------ phase 15
+def phase_lm_card_vs_cpu(torch, dev):
+    """A reduced llama3.2-1b in fp32 on the card (B6) and on the CPU
+    (plain attention), on the same weights: prefill logits within
+    LM_CPU_TOL and greedy tokens equal."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.models import Transformer, init_model, prefill
+    from repro_torch.models.generate import generate
+
+    cfg = dataclasses.replace(get_config(LM_ARCH).reduced(), dtype="float32")
+    cpu = init_model(cfg, torch.Generator().manual_seed(SEED), device="cpu")
+    card = Transformer(cfg, device=dev)
+    card.load_state_dict(cpu.state_dict())
+    prompts = TokenStream(cfg.vocab_size, seed=SEED).batch(2, 97)["tokens"]
+    lc, _ = prefill(card, tokens=torch.from_numpy(prompts).to(dev))
+    lh, _ = prefill(cpu, tokens=torch.from_numpy(prompts))
+    err = (lc.cpu() - lh).abs()
+    check(bool((err <= LM_CPU_TOL + LM_CPU_TOL * lh.abs()).all()),
+          f"reduced LM prefill logits, card vs CPU, beyond {LM_CPU_TOL}: "
+          f"max |err| {float(err.max()):.3e}")
+    new = 16
+    tc = generate(card, torch.from_numpy(prompts).to(dev), new,
+                  temperature=0.0).cpu()
+    th = generate(cpu, torch.from_numpy(prompts), new, temperature=0.0)
+    check(torch.equal(tc, th), "greedy tokens differ between card and CPU")
+    print(f"phase 15: reduced {LM_ARCH} ({cfg.num_layers} layers, d "
+          f"{cfg.d_model}, {cfg.num_heads} heads over {cfg.num_kv_heads}, "
+          f"fp32) card (B6) vs CPU (plain): prefill logits of 2 x "
+          f"{prompts.shape[1]} max |err| {float(err.max()):.3e} (bar "
+          f"{LM_CPU_TOL}); {new} greedy tokens equal")
+
+
+# ------------------------------------------------------------ phase 16
+def phase_attention_times(torch, dev):
+    """B6 at the LM path's shapes (4 x 4,096 and 1 x 32,768, 32 heads
+    over 8, hd 64, bf16, causal) beside its plain version, its bound and
+    torch's scaled_dot_product_attention (the library column only)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention,
+    )
+    from repro_torch.kernels.flash_attention.ops import plain_attention
+
+    rng = np.random.default_rng(SEED + 16)
+    flush = torch.empty(128 * 2**20 // 4, dtype=torch.float32, device=dev)
+    out = []
+    for B, S, runs, warm in ((LM_BATCH, LM_SEQ, TIMED_RUNS, WARM_RUNS),
+                             (1, LM_LONG, LONG_RUNS, 1)):
+        H, kvh, hd = 32, 8, 64
+        q, k, v = _b6_inputs(torch, dev, rng, B, S, H, kvh, hd,
+                             torch.bfloat16)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        nbytes = B * S * (2 * H + 2 * kvh) * hd * q.element_size()
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        t_ops = 2 * B * H * S * S * hd / BF16_OPS_PER_S
+        row = {"b": B, "s": S, "h": H, "kvh": kvh, "hd": hd,
+               "dtype": "bfloat16", "causal": True,
+               "ms": _time_ms(torch, lambda: flash_attention(q, k, v), flush,
+                              runs, warm),
+               "plain_ms": _time_ms(torch, lambda: plain_attention(q, k, v),
+                                    flush, runs, warm),
+               "library_ms": _time_ms(
+                   torch, lambda: F.scaled_dot_product_attention(
+                       qt, kt, vt, is_causal=True, enable_gqa=True),
+                   flush, runs, warm),
+               "bound_ms": max(t_bytes, t_ops) * 1e3,
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+        out.append(row)
+        print(f"phase 16: flash_attention {B} x {S:,} x {H} heads (KV "
+              f"{kvh}) x {hd}, bf16, causal: kernel {row['ms']:.3f} ms, "
+              f"plain {row['plain_ms']:.3f} ms, bound {row['bound_ms']:.4f} "
+              f"ms ({row['bound_by']}, {row['bound_ms'] / row['ms']:.1%} of "
+              f"it reached; {2 * B * H * S * S * hd / row['ms'] / 1e9:.1f} "
+              f"TFLOP/s), library {row['library_ms']:.3f} ms "
+              f"(scaled_dot_product_attention); median of {runs}")
+        del q, k, v, qt, kt, vt
+    return out
+
 
 def main() -> int:
     import torch
@@ -1341,23 +1743,34 @@ def main() -> int:
     phase_dense_trajectory(torch, dev)
     times["lsplm_fused_forward"] = phase_dense_times(
         torch, dev, dense_test.x, dense[1])
+    del dense, dense_test
+
+    err["flash_attention"] = phase_attention_kernel(torch, dev)
+    lm_total, lm_launches, long_err, lm_metrics = phase_lm(torch, dev)
+    err["flash_attention"] = max(err["flash_attention"], long_err)
+    phase_lm_card_vs_cpu(torch, dev)
+    times["flash_attention"] = phase_attention_times(torch, dev)
 
     kernels = []
     for name in ("lsplm_sparse_fused_forward",
                  "lsplm_sparse_fused_int8_forward",
                  "lsplm_sparse_scatter_compact", "owlqn_direction",
-                 "lsplm_fused_forward"):
+                 "lsplm_fused_forward", "flash_attention"):
         main_shape, *others = times[name]
         by_path = {"serve": serve_launches.get(name, 0),
                    "train": train_launches.get(name, 0),
                    "dense_train": dense_launches["dense_train"].get(name, 0)}
         if name == "lsplm_fused_forward":
             by_path["dense_serve"] = dense_launches["dense_serve"]
+        if name == "flash_attention":
+            by_path = {"lm_serve": lm_total, **{
+                f"lm_serve/{step}": n for step, n in lm_launches.items()}}
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name],
-            "launches": (by_path["train"] or by_path["serve"]
-                         or by_path["dense_train"]),
+            "launches": next((by_path[path] for path in (
+                "lm_serve", "train", "serve", "dense_train")
+                if by_path.get(path)), 0),
             "launches_by_path": by_path,
             "max_abs_err": err[name], "ms": main_shape["ms"],
             "plain_ms": main_shape["plain_ms"],
@@ -1366,9 +1779,11 @@ def main() -> int:
             "library_ms": main_shape["library_ms"],
             "shape": {k: v for k, v in main_shape.items()
                       if k in ("n", "k", "side", "entries", "unique", "d",
-                               "m2", "m", "dtype")},
+                               "m2", "m", "dtype", "b", "s", "h", "kvh",
+                               "hd", "causal")},
             "other_shapes": others,
         })
+    print(f"LM serving ({LM_ARCH}): " + json.dumps(lm_metrics))
     print(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -12,10 +12,12 @@ scorer, dense scoring, the bucketed engine, the micro-batching queue and
 the ``python -m repro_torch.launch.serve`` driver), sparse OWLQN+
 training (padded-COO batches with transpose plans, the sparse objective,
 the Eq. 9 direction, L-BFGS, OWLQN+ and ``python -m
-repro_torch.launch.train --sparse``) and dense OWLQN+ training (the
+repro_torch.launch.train --sparse``), dense OWLQN+ training (the
 common-feature data, the dense and Eq. 13 objectives, the LS-PLM model
-and the driver's default mode), on five hand-written CUDA kernels
-(``repro_torch/kernels/*/csrc``): the fused sparse forward in fp32 and
-int8, the run-length dTheta scatter, the Eq. 9 direction and the dense
-fused Eq. 2 forward.
+and the driver's default mode) and LM serving for the attention families
+without experts (the architecture configs, the token stream, the
+transformer's prefill and decode, ``models.generate``), on six
+hand-written CUDA kernels (``repro_torch/kernels/*/csrc``): the fused
+sparse forward in fp32 and int8, the run-length dTheta scatter, the
+Eq. 9 direction, the dense fused Eq. 2 forward and flash attention.
 """

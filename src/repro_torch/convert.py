@@ -14,7 +14,10 @@ Both packages keep the same flat-npz layout, so the crossing is arrays:
   * :func:`sparse_batch_from_numpy` — the arrays of a reference
     ``SparseCTRBatch`` -> the port's batch with its transpose plans;
   * :func:`common_feature_batch_from_numpy` — a reference (numpy)
-    ``CommonFeatureBatch`` -> the port's batch of tensors.
+    ``CommonFeatureBatch`` -> the port's batch of tensors;
+  * :func:`model_from_reference` — the reference LM's parameter pytree
+    (``repro.models.init_model``'s, as numpy arrays) -> the port's
+    :class:`~repro_torch.models.transformer.Transformer`.
 """
 from __future__ import annotations
 
@@ -22,7 +25,10 @@ import numpy as np
 import torch
 
 from repro_torch.core.objective import CommonFeatureBatch
+from repro_torch.configs.base import ArchConfig
 from repro_torch.data.sparse import SparseCTRBatch, build_batch_plans
+from repro_torch.device import resolve_device
+from repro_torch.models.transformer import Transformer
 from repro_torch.serve.compress import (  # noqa: F401
     QuantizedArtifact,
     ServingArtifact,
@@ -83,3 +89,62 @@ def common_feature_batch_from_numpy(batch, device) -> CommonFeatureBatch:
         x_noncommon=t(batch.x_noncommon, torch.float32),
         session_id=t(batch.session_id, torch.int32),
         y=t(batch.y, torch.float32), weight=t(batch.weight, torch.float32))
+
+
+def model_from_reference(params: dict, cfg: ArchConfig,
+                         device=None) -> Transformer:
+    """The port's model on ``device`` (``cuda`` unless ``"cpu"``) from the
+    reference's parameters as numpy arrays: ``layers`` (each leaf stacked
+    on a leading L axis: ``attn`` wq/wk/wv/wo and, with ``qkv_bias``,
+    bq/bk/bv; ``ffn`` w1/(w3)/w2; ``norm1``/``norm2`` with rmsnorm),
+    ``embed``, ``final_norm`` (rmsnorm) and ``lm_head`` (untied). Every
+    leaf is copied into the parameter of the same name, in that
+    parameter's dtype (the matmul weights round to ``cfg.dtype`` once
+    here, as the reference rounds them at every use). Raises
+    ``ValueError`` on a missing, surplus or misshapen leaf."""
+    model = Transformer(cfg, device=resolve_device(device))
+    layers = params["layers"]
+    want = {"embed": model.embed}
+    if model.final_norm is not None:
+        want["final_norm"] = model.final_norm
+    if model.lm_head is not None:
+        want["lm_head"] = model.lm_head
+    stacked = {}
+    for blk in model.layers:
+        for group, mod in (("attn", blk.attn), ("ffn", blk.ffn)):
+            for name, p in mod.named_parameters(recurse=False):
+                stacked.setdefault((group, name), []).append(p)
+        for name in ("norm1", "norm2"):
+            if getattr(blk, name) is not None:
+                stacked.setdefault((name,), []).append(getattr(blk, name))
+    got = {k for k in params if k != "layers"}
+    if got != set(want):
+        raise ValueError(f"expected top-level leaves {sorted(want)} + "
+                         f"layers, got {sorted(params)}")
+    flat = {}
+    for key, value in layers.items():
+        if isinstance(value, dict):
+            flat.update({(key, k): v for k, v in value.items()})
+        else:
+            flat[(key,)] = value
+    if set(flat) != set(stacked):
+        raise ValueError(f"expected layer leaves {sorted(stacked)}, got "
+                         f"{sorted(flat)}")
+
+    def copy(param, array):
+        array = np.asarray(array)
+        if tuple(array.shape) != tuple(param.shape):
+            raise ValueError(f"shape {array.shape} for a parameter of "
+                             f"shape {tuple(param.shape)}")
+        param.copy_(torch.from_numpy(np.array(array, dtype=np.float32)))
+
+    for name, param in want.items():
+        copy(param, params[name])
+    for key, per_layer in stacked.items():
+        array = np.asarray(flat[key])
+        if array.shape[0] != cfg.num_layers:
+            raise ValueError(f"layers/{'/'.join(key)} has {array.shape[0]} "
+                             f"layers, the config {cfg.num_layers}")
+        for i, param in enumerate(per_layer):
+            copy(param, array[i])
+    return model

@@ -1,6 +1,5 @@
-"""Data of the port: dense common-feature batches and padded-COO sparse
-batches (the counterpart of ``repro.data``, without the token stream of
-the LM backbone)."""
+"""Data of the port: dense common-feature batches, padded-COO sparse
+batches and the LM token stream (the counterpart of ``repro.data``)."""
 from repro_torch.data.synthetic_ctr import (  # noqa: F401
     CTRDataConfig,
     auc,
@@ -23,5 +22,9 @@ from repro_torch.data.sparse import (  # noqa: F401
     sparse_loss_and_grad,
     sparse_nll,
     sparse_predict,
+)
+from repro_torch.data.tokens import (  # noqa: F401
+    TokenStream,
+    host_sharded_stream,
 )
 from repro_torch.kernels.lsplm_sparse_fused.ops import pad_theta  # noqa: F401

@@ -23,9 +23,10 @@ moves by at most ``max|row| / 254``; the scorers serve it int8-NATIVE.
 
 Artifacts are computed on the host with numpy (the same arithmetic as the
 reference, so codes and scales come out equal) and returned on the device
-the input lives on (numpy input -> CPU tensors). Artifacts rebuilt from
-arrays or loaded from a file land on the card unless the caller asks for
-the CPU (``device="cpu"``), as every entry point of the port does.
+the input tensor lives on. A numpy Theta has no device: its artifact, like
+artifacts rebuilt from arrays or loaded from a file, lands on the card,
+as every entry point of the port defaults to (pass a CPU tensor, or
+``device="cpu"`` to the loaders, for the CPU).
 """
 from __future__ import annotations
 
@@ -45,7 +46,9 @@ def _host(x) -> np.ndarray:
 
 
 def _device_of(x) -> torch.device:
-    return x.device if isinstance(x, torch.Tensor) else torch.device("cpu")
+    """A tensor's own device; for a numpy array (no device) the card,
+    through :func:`resolve_device`."""
+    return x.device if isinstance(x, torch.Tensor) else resolve_device(None)
 
 
 class ServingArtifact(NamedTuple):
@@ -101,7 +104,9 @@ class QuantizedArtifact(NamedTuple):
 
 
 def compress(theta, *, threshold: float = 0.0) -> ServingArtifact:
-    """Pack a trained UNPADDED Theta (d, 2m) into a pruned artifact.
+    """Pack a trained UNPADDED Theta (d, 2m) into a pruned artifact, on
+    the tensor's own device (the card for a numpy Theta, raising without
+    one).
 
     A row survives when ``max(|row|) > threshold``; the default 0.0 drops
     exactly the all-zero rows, which keeps pruned scoring bit-identical.
@@ -109,6 +114,7 @@ def compress(theta, *, threshold: float = 0.0) -> ServingArtifact:
     th = _host(theta)
     if th.ndim != 2 or th.shape[1] % 2:
         raise ValueError(f"expected an unpadded (d, 2m) Theta, got {th.shape}")
+    dev = _device_of(theta)
     d = th.shape[0]
     alive = np.abs(th).max(axis=1) > threshold
     alive_ids = np.flatnonzero(alive).astype(np.int32)
@@ -117,7 +123,6 @@ def compress(theta, *, threshold: float = 0.0) -> ServingArtifact:
     remap[alive_ids] = np.arange(r, dtype=np.int32)
     packed = np.concatenate([th[alive_ids],
                              np.zeros((1, th.shape[1]), th.dtype)])
-    dev = _device_of(theta)
     return ServingArtifact(theta=torch.from_numpy(packed).to(dev),
                            remap=torch.from_numpy(remap).to(dev),
                            alive_ids=torch.from_numpy(alive_ids).to(dev),

@@ -4,7 +4,9 @@ The port's counterpart of ``repro/serve/score.py``. The model argument
 is polymorphic:
 
   * a raw UNPADDED Theta ``(d, 2m)`` tensor or numpy array, or
-    ``repro_torch.core.lsplm.LSPLMParams``,
+    ``repro_torch.core.lsplm.LSPLMParams`` (a numpy array has no device:
+    it goes to the card, as every entry point of the port does, unless
+    the caller passes ``device="cpu"`` to :func:`as_model`),
   * a pruned :class:`~repro_torch.serve.compress.ServingArtifact`,
   * an int8 :class:`~repro_torch.serve.compress.QuantizedArtifact` —
     served INT8-NATIVE: the codes/scales are kept as they are and the
@@ -29,7 +31,8 @@ Request formats:
 Requests stay in the ORIGINAL id space: ids are remapped to compact rows
 by one gather through ``artifact.remap``, so pruned scoring is
 bit-identical to full-Theta scoring. Scoring runs on the device the model
-lies on; request tensors are moved there.
+lies on (a tensor's own, the card for a numpy Theta); request tensors
+are moved there.
 """
 from __future__ import annotations
 
@@ -43,6 +46,7 @@ from repro_torch.core.lsplm import (
     params_from_theta,
     predict_proba,
 )
+from repro_torch.device import resolve_device
 from repro_torch.kernels.lsplm_sparse_fused.ops import (
     finalize_p,
     logps_from_z,
@@ -99,7 +103,9 @@ def _to(t, device):
 
 def as_model(model, device=None) -> ServingModel:
     """Coerce any accepted model form (see module docstring), moved to
-    ``device`` when one is given; idempotent."""
+    ``device`` when one is given; idempotent. Without ``device``, tensors
+    stay where they are (the caller chose) and a numpy Theta goes to
+    ``resolve_device(None)``: the card, raising without one."""
     if isinstance(model, ServingModel):
         out = model
     elif isinstance(model, QuantizedArtifact):
@@ -114,8 +120,11 @@ def as_model(model, device=None) -> ServingModel:
     else:
         if isinstance(model, LSPLMParams):
             model = model.theta
-        theta = model if isinstance(model, torch.Tensor) else \
-            torch.from_numpy(np.asarray(model))
+        if isinstance(model, torch.Tensor):
+            theta = model
+        else:
+            theta = torch.from_numpy(np.asarray(model))
+            device = resolve_device(device)
         if theta.ndim != 2 or theta.shape[1] % 2:
             raise ValueError(f"expected an unpadded (d, 2m) Theta, got "
                              f"{tuple(theta.shape)}")

@@ -329,7 +329,8 @@ def test_score_dense_matches_reference(pruned_theta, form):
 
 def test_artifact_loaders_default_to_the_card(pruned_theta, tmp_path):
     path = tserve.save_artifact(str(tmp_path / "art"),
-                                tserve.compress(pruned_theta[0]))
+                                tserve.compress(torch.from_numpy(
+                                    pruned_theta[0])))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             tserve.load_artifact(path)

@@ -1,0 +1,190 @@
+"""Flash attention (B6) in the port against the JAX reference on the same
+numpy inputs.
+
+On the CPU the port's plain versions (``layers.chunked_causal_attention``
+for causal attention, ``ref.attention_ref`` otherwise, behind
+``ops.causal_attention``) are held against the reference's jnp oracles
+``repro.kernels.flash_attention.ref.attention_ref`` and
+``repro.models.layers.chunked_causal_attention``, at the bars of
+``tests/test_kernels.py``: fp32 within 2e-5, bf16 within 3e-2. The
+reference's Pallas kernel is not run here (its interpret mode needs a
+TPU compiler-params class this jax lacks). The ``cuda``-marked tests
+hold the CUDA kernel against the plain version on a card and skip
+without one.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention.ref import attention_ref
+from repro.models import layers as jlayers
+from repro_torch.kernels.flash_attention import flash_attention as tk
+from repro_torch.kernels.flash_attention import ops
+from repro_torch.kernels.flash_attention.ref import (
+    attention_ref as t_attention_ref,
+)
+from repro_torch.models import layers as tlayers
+
+# one compilation per shape instead of one per jnp op
+j_attention_ref = jax.jit(attention_ref, static_argnames="causal")
+j_chunked = jax.jit(jlayers.chunked_causal_attention,
+                    static_argnames="chunk")
+
+TOL = {"float32": 2e-5, "bfloat16": 3e-2}
+
+
+def _qkv(seed, B, S, H, hd, kvh=None):
+    rng = np.random.default_rng(seed)
+    kvh = kvh or H
+    return (rng.normal(size=(B, S, H, hd)).astype(np.float32),
+            rng.normal(size=(B, S, kvh, hd)).astype(np.float32),
+            rng.normal(size=(B, S, kvh, hd)).astype(np.float32))
+
+
+def _jax(arrays, dtype):
+    return [jnp.asarray(a).astype(getattr(jnp, dtype)) for a in arrays]
+
+
+def _torch(arrays, dtype):
+    return [torch.from_numpy(a).to(getattr(torch, dtype)) for a in arrays]
+
+
+def _close(got, want, tol):
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), rtol=tol,
+                               atol=tol)
+
+
+# ------------------------------------------------------ plain vs reference
+@pytest.mark.parametrize("S", [32, 64, 48])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_causal_matches_reference(S, dtype):
+    """ops.causal_attention on CPU tensors against the reference's
+    attention_ref, at tests/test_kernels.py's flash-attention shapes."""
+    arrays = _qkv(3, 2, S, 3, 16)
+    want = j_attention_ref(*_jax(arrays, dtype))
+    got = ops.causal_attention(*_torch(arrays, dtype))
+    assert got.dtype == getattr(torch, dtype) and got.shape == (2, S, 3, 16)
+    _close(got, want, TOL[dtype])
+
+
+@pytest.mark.parametrize("chunk", [8, 16, 512])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_chunked_causal_matches_reference_layer(chunk, dtype):
+    arrays = _qkv(5, 2, 64, 4, 16)
+    want = j_chunked(*_jax(arrays, dtype), chunk=chunk)
+    got = tlayers.chunked_causal_attention(*_torch(arrays, dtype),
+                                           chunk=chunk)
+    _close(got, want, TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_non_causal_matches_reference(dtype):
+    arrays = _qkv(4, 1, 32, 2, 8)
+    want = j_attention_ref(*_jax(arrays, dtype), causal=False)
+    got = ops.causal_attention(*_torch(arrays, dtype), causal=False)
+    _close(got, want, TOL[dtype])
+    torch.testing.assert_close(
+        t_attention_ref(*_torch(arrays, dtype), causal=False), got, rtol=0,
+        atol=0)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_gqa_reads_kv_head_h_over_rep(causal):
+    """KVH < H: query head h reads KV head h // rep, as the reference's
+    repeat_kv broadcasts; the h % KVH pairing gives other numbers."""
+    H, kvh = 8, 2
+    arrays = _qkv(6, 2, 40, H, 16, kvh)
+    jq, jk, jv = _jax(arrays, "float32")
+    want = j_attention_ref(jq, jlayers.repeat_kv(jk, H // kvh),
+                           jlayers.repeat_kv(jv, H // kvh), causal=causal)
+    q, k, v = _torch(arrays, "float32")
+    got = ops.causal_attention(q, k, v, causal=causal)
+    _close(got, want, TOL["float32"])
+    np.testing.assert_array_equal(
+        tlayers.repeat_kv(k, H // kvh).numpy(),
+        np.asarray(jlayers.repeat_kv(jk, H // kvh)))
+    modulo = torch.arange(H) % kvh
+    wrong = t_attention_ref(q, k[:, :, modulo], v[:, :, modulo], causal=causal)
+    assert float((wrong - got).abs().max()) > 0.1
+
+
+@pytest.mark.parametrize("S,chunk", [(37, 512), (37, 16), (600, 512)])
+def test_odd_sequence_lengths(S, chunk):
+    """Any S works in the port (the reference's chunked path asserts
+    S % chunk == 0): ragged last chunks against attention_ref."""
+    arrays = _qkv(7, 1, S, 2, 8)
+    want = j_attention_ref(*_jax(arrays, "float32"))
+    got = ops.causal_attention(*_torch(arrays, "float32"), chunk=chunk)
+    _close(got, want, TOL["float32"])
+
+
+def test_cpu_tensor_takes_the_plain_version():
+    q, k, v = _torch(_qkv(8, 2, 24, 4, 8, 2), "float32")
+    before = tk.LAUNCHES["flash_attention"]
+    got = ops.causal_attention(q, k, v)
+    assert tk.LAUNCHES["flash_attention"] == before
+    assert torch.equal(got, ops.plain_attention(q, k, v))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tk.flash_attention(q, k, v)  # the kernel takes no CPU tensor
+
+
+def test_input_rules():
+    q, k, v = _torch(_qkv(9, 1, 8, 4, 8, 2), "float32")
+    with pytest.raises(ValueError, match="multiple of"):
+        ops.causal_attention(q[:, :, :3], k, v)
+    with pytest.raises(ValueError, match="float32 or all"):
+        ops.causal_attention(q.double(), k.double(), v.double())
+    with pytest.raises(ValueError, match="float32 or all"):
+        ops.causal_attention(q, k.bfloat16(), v)
+    with pytest.raises(ValueError, match=r"\(B, S, KVH, hd\)"):
+        ops.causal_attention(q, k[:, :4], v[:, :4])
+
+
+# ------------------------------------------------------------ on the card
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,kvh,hd", [
+    (2, 32, 3, 3, 16), (2, 64, 3, 3, 16), (2, 48, 3, 3, 16),
+    (1, 32, 2, 2, 8), (2, 37, 8, 2, 64), (1, 130, 4, 1, 128),
+    (1, 1, 2, 1, 64), (2, 256, 32, 8, 64)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_kernel_matches_plain_on_card(cuda, B, S, H, kvh, hd, dtype, causal):
+    q, k, v = (t.to(cuda) for t in _torch(_qkv(10, B, S, H, hd, kvh), dtype))
+    before = tk.LAUNCHES["flash_attention"]
+    got = ops.causal_attention(q, k, v, causal=causal)
+    again = ops.causal_attention(q, k, v, causal=causal)
+    want = ops.plain_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["flash_attention"] == before + 2
+    assert got.dtype == q.dtype and got.shape == q.shape
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dtype],
+                               atol=TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_kernel_reads_strided_projections(cuda):
+    """q, k, v as (B, S, heads, hd) views of one fused projection (head
+    dim unit-stride, other strides not packed) give the same bits as
+    contiguous copies."""
+    B, S, H, kvh, hd = 2, 70, 8, 2, 64
+    rng = np.random.default_rng(11)
+    fused = torch.from_numpy(rng.normal(size=(B, S, (H + 2 * kvh) * hd))
+                             .astype(np.float32)).to(cuda)
+    q = fused[..., :H * hd].view(B, S, H, hd)
+    k = fused[..., H * hd:(H + kvh) * hd].view(B, S, kvh, hd)
+    v = fused[..., (H + kvh) * hd:].view(B, S, kvh, hd)
+    got = tk.flash_attention(q, k, v)
+    want = tk.flash_attention(q.contiguous(), k.contiguous(), v.contiguous())
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)

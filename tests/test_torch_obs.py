@@ -43,7 +43,9 @@ def test_port_imports_no_jax_and_no_reference():
                          text=True, env={**os.environ, "PYTHONPATH": str(SRC)},
                          timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
-    assert "repro_torch.launch.serve" in mods
+    assert {"repro_torch.launch.serve", "repro_torch.models.transformer",
+            "repro_torch.kernels.flash_attention.ops",
+            "repro_torch.configs.llama3_2_1b"} <= set(mods)
 
 
 def test_resolve_device():

@@ -65,7 +65,7 @@ def _torch_bundle(req):
 # ---------------------------------------------------------- artifacts
 def test_compress_and_quantize_leaves_equal_reference(theta):
     jart = jserve.compress(jnp.asarray(theta))
-    tart = tserve.compress(theta)
+    tart = tserve.compress(torch.from_numpy(theta))
     for f in ("theta", "remap", "alive_ids"):
         np.testing.assert_array_equal(getattr(tart, f).numpy(),
                                       np.asarray(getattr(jart, f)))
@@ -105,7 +105,7 @@ def test_jax_saved_artifact_scores_in_port(theta, tmp_path, form):
 
 @pytest.mark.parametrize("form", ["fp32", "int8"])
 def test_port_saved_artifact_scores_in_reference(theta, tmp_path, form):
-    tart = tserve.compress(theta)
+    tart = tserve.compress(torch.from_numpy(theta))
     if form == "int8":
         tart = tserve.quantize(tart)
     path = tserve.save_artifact(str(tmp_path / "port_art"), tart)
@@ -122,6 +122,28 @@ def test_port_saved_artifact_scores_in_reference(theta, tmp_path, form):
         got = np.asarray(jserve.score_bundles(jart, _jax_bundle(req),
                                               mode="jnp"))
         np.testing.assert_allclose(got, want, rtol=0, atol=P_ATOL)
+
+
+def test_numpy_theta_resolves_to_the_card(theta):
+    """A numpy Theta has no device: scoring and compress put it where
+    every entry point of the port defaults to, the card (raising without
+    one); a tensor stays on its device; device="cpu" is honoured."""
+    ids = np.zeros((2, 3), np.int32)
+    vals = np.ones((2, 3), np.float32)
+    assert tscore.as_model(theta, device="cpu").device.type == "cpu"
+    assert tscore.as_model(torch.from_numpy(theta)).device.type == "cpu"
+    calls = (lambda: tscore.as_model(theta),
+             lambda: tscore.score_sparse(theta, ids, vals),
+             lambda: tscore.predict(theta, (ids, vals)),
+             lambda: tscore.score_dense(theta, np.zeros((1, D), np.float32)),
+             lambda: tserve.compress(theta))
+    if torch.cuda.is_available():
+        assert tscore.as_model(theta).device.type == "cuda"
+        assert tserve.compress(theta).theta.device.type == "cuda"
+    else:
+        for call in calls:
+            with pytest.raises(RuntimeError, match="CUDA is not available"):
+                call()
 
 
 def test_theta_from_numpy_checks_its_input(theta):
@@ -161,9 +183,10 @@ def test_score_bundles_matches_reference(theta, mode):
     tb = tscore.ScoreBundle(*(torch.from_numpy(x) for x in (ui, uv, ai, av)),
                             torch.from_numpy(sid))
     jart = jserve.compress(jnp.asarray(theta))
-    for jm, tm in ((jart, tserve.compress(theta)),
+    for jm, tm in ((jart, tserve.compress(torch.from_numpy(theta))),
                    (jserve.quantize(jart),
-                    tserve.quantize(tserve.compress(theta)))):
+                    tserve.quantize(tserve.compress(
+                        torch.from_numpy(theta))))):
         want = np.asarray(jserve.score_bundles(jm, jb, mode=mode))
         got = tscore.score_bundles(tm, tb).numpy()
         np.testing.assert_allclose(got, want, rtol=0, atol=P_ATOL)
@@ -175,36 +198,38 @@ def test_score_sparse_and_predict_match_reference(theta):
     vals = rng.normal(size=(32, 9)).astype(np.float32)
     want = np.asarray(jserve.score_sparse(jnp.asarray(theta), jnp.asarray(ids),
                                           jnp.asarray(vals), mode="jnp"))
-    got = tscore.score_sparse(theta, ids, vals).numpy()
+    got = tscore.score_sparse(torch.from_numpy(theta), ids, vals).numpy()
     np.testing.assert_allclose(got, want, rtol=0, atol=P_ATOL)
     np.testing.assert_array_equal(
-        tscore.predict(theta, (ids, vals)).numpy(), got)
+        tscore.predict(torch.from_numpy(theta), (ids, vals)).numpy(), got)
     req = _requests(1, seed=5)[0]
     np.testing.assert_array_equal(
-        tscore.predict(theta, _torch_bundle(req)).numpy(),
-        tscore.score_bundles(theta, _torch_bundle(req)).numpy())
+        tscore.predict(torch.from_numpy(theta), _torch_bundle(req)).numpy(),
+        tscore.score_bundles(torch.from_numpy(theta),
+                             _torch_bundle(req)).numpy())
     x = (rng.normal(size=(2, D)) * (rng.random((2, D)) < 0.05)).astype(
         np.float32)  # dense rows take the dense path, as in the reference
     np.testing.assert_allclose(
-        tscore.predict(theta, x).numpy(),
+        tscore.predict(torch.from_numpy(theta), x).numpy(),
         np.asarray(jserve.predict(jnp.asarray(theta), jnp.asarray(x))),
         rtol=0, atol=P_ATOL)
 
 
 def test_pruned_scoring_bitwise_equals_full(theta):
-    art = tserve.compress(theta)
+    art = tserve.compress(torch.from_numpy(theta))
     rng = np.random.default_rng(6)
     ids = rng.integers(0, D, (64, 16)).astype(np.int32)
     vals = rng.normal(size=(64, 16)).astype(np.float32)
-    assert torch.equal(tscore.score_sparse(theta, ids, vals),
+    assert torch.equal(tscore.score_sparse(torch.from_numpy(theta), ids, vals),
                        tscore.score_sparse(art, ids, vals))
     for req in _requests(5, seed=7):
-        assert torch.equal(tscore.score_bundles(theta, _torch_bundle(req)),
+        assert torch.equal(tscore.score_bundles(torch.from_numpy(theta),
+                                                _torch_bundle(req)),
                            tscore.score_bundles(art, _torch_bundle(req)))
 
 
 def test_int8_native_bitwise_equals_dequantised(theta):
-    q = tserve.quantize(tserve.compress(theta))
+    q = tserve.quantize(tserve.compress(torch.from_numpy(theta)))
     deq = tserve.dequantize(q)
     model = tscore.as_model(q)
     assert model.is_int8 and model.theta is None
@@ -212,7 +237,8 @@ def test_int8_native_bitwise_equals_dequantised(theta):
         assert torch.equal(tscore.score_bundles(q, _torch_bundle(req)),
                            tscore.score_bundles(deq, _torch_bundle(req)))
         dp = (tscore.score_bundles(q, _torch_bundle(req))
-              - tscore.score_bundles(theta, _torch_bundle(req))).abs().max()
+              - tscore.score_bundles(torch.from_numpy(theta),
+                                     _torch_bundle(req))).abs().max()
         assert float(dp) <= 1e-2
 
 
@@ -220,15 +246,16 @@ def test_naive_bundles_match_shared(theta):
     for req in _requests(3, seed=9):
         b = _torch_bundle(req)
         np.testing.assert_allclose(
-            tscore.score_bundles_naive(theta, b).numpy(),
-            tscore.score_bundles(theta, b).numpy(), rtol=0, atol=P_ATOL)
+            tscore.score_bundles_naive(torch.from_numpy(theta), b).numpy(),
+            tscore.score_bundles(torch.from_numpy(theta), b).numpy(), rtol=0,
+            atol=P_ATOL)
 
 
 # ---------------------------------------------------------- engine
 @pytest.mark.parametrize("form", ["fp32", "int8"])
 def test_engine_matches_reference_engine(theta, form):
     jart = jserve.compress(jnp.asarray(theta))
-    tart = tserve.compress(theta)
+    tart = tserve.compress(torch.from_numpy(theta))
     if form == "int8":
         jart, tart = jserve.quantize(jart), tserve.quantize(tart)
     jeng = jserve.ScoringEngine(jart, mode="jnp")
@@ -245,7 +272,8 @@ def test_engine_matches_reference_engine(theta, form):
 def test_engine_single_equals_batched_and_pruned_equals_full(theta):
     reqs = _requests(20, seed=11)
     full = tengine.ScoringEngine(theta, device="cpu")
-    pruned = tengine.ScoringEngine(tserve.compress(theta), device="cpu")
+    pruned = tengine.ScoringEngine(tserve.compress(torch.from_numpy(theta)),
+                                   device="cpu")
     single = full.score_many(reqs)
     for a, b, c in zip(single, full.score_batch(reqs),
                        pruned.score_batch(reqs)):
@@ -256,7 +284,8 @@ def test_engine_single_equals_batched_and_pruned_equals_full(theta):
 
 def test_engine_builds_no_entry_after_warm(theta):
     rng = np.random.default_rng(12)
-    eng = tengine.ScoringEngine(tserve.quantize(tserve.compress(theta)),
+    eng = tengine.ScoringEngine(tserve.quantize(tserve.compress(
+        torch.from_numpy(theta))),
                                 device="cpu")
     reqs = _requests(30, seed=13)
     envs = tengine.envelope_closure({eng.envelope(r) for r in reqs})
@@ -295,7 +324,7 @@ def test_synthetic_requests_equal_reference():
 
 
 def test_coalesced_queue_bitwise_equals_per_envelope(theta):
-    art = tserve.compress(theta)
+    art = tserve.compress(torch.from_numpy(theta))
     reqs = _requests(24, seed=15)
     arrivals = poisson_arrivals(len(reqs), qps=500.0, seed=16)
 

@@ -14,10 +14,12 @@ serving the Theta it trained), the dense one (``repro_torch.launch.
 train``, common-feature OWLQN+ at d = 32,768, then scoring its test rows
 through ``serve.predict``) and the LM serving path (``repro_torch.models``:
 llama3.2-1b at full width, prefill of 4 x 4,096 tokens, 32 greedy tokens
-through ``models.generate``, prefill of 1 x 32,768), shows that each path
-launched its kernels, holds the card's OWLQN+ trajectories and a reduced
-LM against the CPU's, times the kernels beside their plain versions,
-their bound and one library call, and ends with one JSON line::
+through ``models.generate``, prefill of 1 x 32,768) and the SSM serving
+path (falcon-mamba-7b at full width and depth, the same three runs),
+shows that each path launched its kernels, holds the card's OWLQN+
+trajectories and a reduced LM of each family against the CPU's, times
+the kernels beside their plain versions, their bound and one library
+call where there is one, and ends with one JSON line::
 
     {"ok": true, "device": {"platform": "gpu", "kind": "<name>", "count": 1}}
 
@@ -77,6 +79,15 @@ LM_TOL = 5e-2  # bf16 logits, B6 vs plain attention (tests/test_archs_smoke.py:1
 LM_CPU_TOL = 1e-4  # fp32 logits, card vs CPU
 B6_TOL = {"float32": 2e-5, "bfloat16": 3e-2}  # tests/test_kernels.py:133
 LONG_RUNS = 5  # timed runs of B6 at S = 32,768
+# the SSM path: falcon-mamba-7b at full width and depth (64 Mamba1 layers,
+# d 4,096, d_inner 8,192, state 16, conv 4, dt rank 256, vocab 65,024,
+# untied head), at the LM path's prompt shapes and decode length
+SSM_ARCH = "falcon-mamba-7b"
+SSM_PARAMS = 7_272_665_088
+SSM_SHORT = 512  # prompt length of the B7-vs-plain-scan model comparison
+B7_TOL = 2e-5  # y and hT, tests/test_kernels.py:175
+SFU_EXP_PER_S = 16 * 132 * 1.98e9  # 16 a clock per SM (CC 9.0) x 132 SMs
+B7_PLAIN_RUNS = 2  # timed runs of the plain scan at S >= 4,096
 _FUSED = "src/repro_torch/kernels/lsplm_sparse_fused/csrc/lsplm_sparse_fused.cu"
 SOURCES = {
     "lsplm_sparse_fused_forward": _FUSED,
@@ -90,6 +101,7 @@ SOURCES = {
         "src/repro_torch/kernels/lsplm_fused/csrc/lsplm_fused.cu",
     "flash_attention":
         "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+    "mamba1_scan": "src/repro_torch/kernels/mamba_scan/csrc/mamba_scan.cu",
 }
 REPLACES = {
     "lsplm_sparse_fused_forward":
@@ -103,6 +115,7 @@ REPLACES = {
     "lsplm_fused_forward": "src/repro/kernels/lsplm_fused/lsplm_fused.py:27",
     "flash_attention":
         "src/repro/kernels/flash_attention/flash_attention.py:29",
+    "mamba1_scan": "src/repro/kernels/mamba_scan/mamba_scan.py:32",
 }
 
 
@@ -1374,7 +1387,7 @@ def phase_attention_kernel(torch, dev):
 LM_KERNELS = ("flash_attention_kernel",)
 
 
-def _print_profile(title, wall_us, kernels, labels=LM_KERNELS):
+def _print_profile(title, wall_us, kernels, labels=LM_KERNELS, tag="B6"):
     busy_us = sum(v[0] for v in kernels.values())
     if not kernels:
         print(f"  profile of {title}: {wall_us / 1e3:.2f} ms wall; device "
@@ -1383,13 +1396,17 @@ def _print_profile(title, wall_us, kernels, labels=LM_KERNELS):
     ours = [(n, us, c) for n, (us, c) in kernels.items()
             if any(label in n for label in labels)]
     ours_us = sum(us for _, us, _ in ours)
+    gemm_us = sum(us for n, (us, _) in kernels.items()
+                  if any(g in n.lower() for g in ("nvjet", "gemm", "xmma")))
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:6]
     print(f"  profile of {title} (under torch.profiler): "
           f"{wall_us / 1e3:.2f} ms wall, {busy_us / 1e3:.2f} ms of device "
           f"kernels in {sum(v[1] for v in kernels.values())} launches "
-          f"(device idle {1 - busy_us / wall_us:.1%}); B6 x"
+          f"(device idle {1 - busy_us / wall_us:.1%}); {tag} x"
           f"{sum(c for _, _, c in ours)} {ours_us / 1e3:.3f} ms "
-          f"({ours_us / busy_us:.1%} of device time); top: "
+          f"({ours_us / busy_us:.1%} of device time); cuBLAS GEMMs "
+          f"{gemm_us / 1e3:.3f} ms ({gemm_us / busy_us:.1%}); the rest "
+          f"{(busy_us - ours_us - gemm_us) / 1e3:.3f} ms; top: "
           + "; ".join(f"{name[:60]} x{n} {us / 1e3:.3f} ms"
                       for name, (us, n) in top))
 
@@ -1574,9 +1591,9 @@ def phase_lm(torch, dev):
 
 
 # ------------------------------------------------------------ phase 15
-def phase_lm_card_vs_cpu(torch, dev):
-    """A reduced llama3.2-1b in fp32 on the card (B6) and on the CPU
-    (plain attention), on the same weights: prefill logits within
+def phase_lm_card_vs_cpu(torch, dev, arch=LM_ARCH, phase=15, kernel="B6"):
+    """A reduced ``arch`` in fp32 on the card (its kernel) and on the CPU
+    (the plain version), on the same weights: prefill logits within
     LM_CPU_TOL and greedy tokens equal."""
     import dataclasses
 
@@ -1585,7 +1602,7 @@ def phase_lm_card_vs_cpu(torch, dev):
     from repro_torch.models import Transformer, init_model, prefill
     from repro_torch.models.generate import generate
 
-    cfg = dataclasses.replace(get_config(LM_ARCH).reduced(), dtype="float32")
+    cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
     cpu = init_model(cfg, torch.Generator().manual_seed(SEED), device="cpu")
     card = Transformer(cfg, device=dev)
     card.load_state_dict(cpu.state_dict())
@@ -1601,9 +1618,9 @@ def phase_lm_card_vs_cpu(torch, dev):
                   temperature=0.0).cpu()
     th = generate(cpu, torch.from_numpy(prompts), new, temperature=0.0)
     check(torch.equal(tc, th), "greedy tokens differ between card and CPU")
-    print(f"phase 15: reduced {LM_ARCH} ({cfg.num_layers} layers, d "
-          f"{cfg.d_model}, {cfg.num_heads} heads over {cfg.num_kv_heads}, "
-          f"fp32) card (B6) vs CPU (plain): prefill logits of 2 x "
+    print(f"phase {phase}: reduced {arch} ({cfg.num_layers} layers, d "
+          f"{cfg.d_model}, family {cfg.family}, fp32) card ({kernel}) vs "
+          f"CPU (plain): prefill logits of 2 x "
           f"{prompts.shape[1]} max |err| {float(err.max()):.3e} (bar "
           f"{LM_CPU_TOL}); {new} greedy tokens equal")
 
@@ -1653,6 +1670,386 @@ def phase_attention_times(torch, dev):
               f"TFLOP/s), library {row['library_ms']:.3f} ms "
               f"(scaled_dot_product_attention); median of {runs}")
         del q, k, v, qt, kt, vt
+    return out
+
+
+# ------------------------------------------------------------ phase 17
+def _b7_inputs(torch, dev, gen, B, S, di, N, dtype, h0, R=7):
+    """The scan's inputs as the model gives them: dt = softplus(N(0, 1))
+    fp32; x ~ N(0, 1) in ``dtype``; B and C the column slices [R, R+N) and
+    [R+N, R+2N) of one (B, S, R+2N) tensor in ``dtype``; A = -exp(N(0,
+    1)/2), D ~ N(0, 1) fp32; h0 ~ N(0, 1) fp32 or None."""
+    def randn(*shape, dt=torch.float32):
+        return torch.randn(shape, generator=gen, device=dev).to(dt)
+
+    dt = torch.nn.functional.softplus(randn(B, S, di))
+    xdb = randn(B, S, R + 2 * N, dt=dtype)
+    return (dt, randn(B, S, di, dt=dtype), xdb[..., R:R + N],
+            xdb[..., R + N:], -torch.exp(0.5 * randn(di, N)), randn(di),
+            randn(B, di, N) if h0 else None)
+
+
+def _check_b7(torch, args, tag, chained=True):
+    """B7 against its plain version on the card, y and hT within rtol =
+    atol = B7_TOL; two identical calls bitwise equal; and (``chained``)
+    the two halves of the sequence, chained through hT, bitwise equal to
+    one call. Returns the max abs error."""
+    from repro_torch.kernels.mamba_scan.mamba_scan import mamba1_scan
+    from repro_torch.kernels.mamba_scan.ops import plain_scan
+
+    y, h = mamba1_scan(*args)
+    y2, h2 = mamba1_scan(*args)
+    py, ph = plain_scan(*args)
+    torch.cuda.synchronize()
+    B, S, di = args[1].shape
+    check(y.dtype == h.dtype == torch.float32 and y.shape == (B, S, di)
+          and h.shape == ph.shape, f"B7 output dtype/shape at {tag}")
+    err = 0.0
+    for got, want, what in ((y, py, "y"), (h, ph, "hT")):
+        e = (got - want).abs()
+        check(bool((e <= B7_TOL + B7_TOL * want.abs()).all()),
+              f"B7 {what} vs plain beyond rtol = atol = {B7_TOL} at {tag}: "
+              f"max |err| {float(e.max()):.3e}")
+        err = max(err, float(e.max()))
+    check(torch.equal(y, y2) and torch.equal(h, h2),
+          f"B7 not bitwise repeatable at {tag}")
+    if chained and S > 1:
+        cut = S // 2 + 1
+        dt, x, Bi, Ci, A, D, h0 = args
+        ya, ha = mamba1_scan(dt[:, :cut], x[:, :cut], Bi[:, :cut],
+                             Ci[:, :cut], A, D, h0)
+        yb, hb = mamba1_scan(dt[:, cut:], x[:, cut:], Bi[:, cut:],
+                             Ci[:, cut:], A, D, ha)
+        torch.cuda.synchronize()
+        check(torch.equal(torch.cat([ya, yb], dim=1), y)
+              and torch.equal(hb, h),
+              f"B7 chained halves differ from one call at {tag}")
+    return err
+
+
+def phase_scan_kernel(torch, dev):
+    """B7 (the Mamba1 selective scan) against its plain version on the
+    card: the reference tests' shapes, ragged di, N in {4, 8, 16, 32},
+    S = 1 from a carried state, and falcon-mamba's (4, 4,096, 8,192, 16);
+    x, B and C in fp32 and bf16, B and C strided slices of one tensor."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 17)
+    cases = [(2, 16, 32, 8, False), (2, 32, 64, 16, True),
+             (2, 8, 16, 4, False), (3, 37, 100, 16, True),
+             (1, 70, 40, 32, True), (2, 300, 257, 4, False),
+             (LM_BATCH, 1, 8192, 16, True),
+             (LM_BATCH, LM_SEQ, 8192, 16, False)]
+    err = {"float32": 0.0, "bfloat16": 0.0}
+    for B, S, di, N, h0 in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            args = _b7_inputs(torch, dev, gen, B, S, di, N, dtype, h0,
+                              R=256 if di == 8192 else 7)
+            name = str(dtype).removeprefix("torch.")
+            err[name] = max(err[name], _check_b7(
+                torch, args, f"(B, S, di, N) = {(B, S, di, N)} {name} "
+                f"h0={h0}"))
+            del args
+    print(f"phase 17: B7 (Mamba1 selective scan) vs plain on the card at "
+          f"(B, S, di, N, h0) in {cases}, x/B/C in fp32 and bf16 (B, C "
+          f"strided slices of one projection); y and hT within rtol = atol "
+          f"= {B7_TOL}, every case bitwise repeatable and its chained "
+          f"halves bitwise equal to one call; max |err| fp32 "
+          f"{err['float32']:.3e}, bf16 {err['bfloat16']:.3e}")
+    return max(err.values())
+
+
+# ------------------------------------------------------------ phase 18
+SSM_KERNELS = ("mamba1_scan_kernel",)
+
+
+def _first_scan_inputs(torch, model, tokens):
+    """Layer 0's selective-scan inputs for ``tokens``, as the model builds
+    them: one prefill with ``ssm.ops.selective_scan`` wrapped to keep its
+    first call's arguments (every call still runs the kernel)."""
+    from repro_torch.models import prefill
+    from repro_torch.models import ssm
+
+    seen = []
+    scan = ssm.ops.selective_scan
+
+    def keep_first(*args):
+        if not seen:
+            seen.append(args)
+        return scan(*args)
+
+    ssm.ops.selective_scan = keep_first
+    try:
+        prefill(model, tokens=tokens)
+    finally:
+        ssm.ops.selective_scan = scan
+    return seen[0]
+
+
+def _within(torch, got, want, tol):
+    """(max |err|, the worst element's share of rtol = atol = tol)."""
+    err = (got.float() - want.float()).abs()
+    return float(err.max()), float((err / (tol + tol * want.float().abs()))
+                                   .max())
+
+
+def phase_ssm_lm(torch, dev):
+    """The SSM serving path at full width and depth: falcon-mamba-7b from
+    a seeded torch.Generator, prompts from the token stream; (a) prefill
+    4 x 4,096, (b) greedy generate of 32 tokens after it, (c) prefill 1 x
+    32,768. B7 launches once per layer per prefill and per decode step.
+    Gates: B7 against plain on layer 0's real inputs, the model with B7
+    against the model on the plain scan, and (in fp32, the bf16 run
+    printed beside it) decode after prefill against the forward."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.kernels.mamba_scan.mamba_scan import LAUNCHES as B7
+    from repro_torch.kernels.mamba_scan.ops import plain_scan
+    from repro_torch.models import (
+        decode_step,
+        forward,
+        init_caches,
+        init_model,
+        prefill,
+    )
+    from repro_torch.models import ssm, transformer
+    from repro_torch.models.generate import generate
+
+    cfg = get_config(SSM_ARCH)
+    nl = cfg.num_layers
+    t0 = time.perf_counter()
+    model = init_model(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                       device=dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    check(n_params == SSM_PARAMS, f"{SSM_ARCH} has {n_params:,} parameters, "
+          f"not {SSM_PARAMS:,}")
+    stream = TokenStream(cfg.vocab_size, seed=SEED)
+    batch = stream.batch(LM_BATCH, LM_SEQ + 1)
+    prompts = torch.from_numpy(batch["tokens"]).to(dev)
+    nxt = torch.from_numpy(batch["labels"][:, -1]).to(dev)  # token 4,097
+    long_prompt = torch.from_numpy(
+        stream.batch(1, LM_LONG + 1)["tokens"]).to(dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    prefill(model, tokens=prompts[:, :SSM_SHORT])  # first use
+
+    launches = {}
+    _reset((B7,))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    logits, caches = prefill(model, tokens=prompts)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    launches["prefill"] = B7["mamba1_scan"]
+    t0 = time.perf_counter()
+    out = generate(model, prompts, LM_NEW, temperature=0.0)
+    torch.cuda.synchronize()
+    generate_s = time.perf_counter() - t0
+    launches["generate"] = B7["mamba1_scan"] - launches["prefill"]
+    t0 = time.perf_counter()
+    long_logits, long_caches = prefill(model, tokens=long_prompt)
+    torch.cuda.synchronize()
+    long_s = time.perf_counter() - t0
+    launches["prefill_32k"] = B7["mamba1_scan"] - sum(launches.values())
+    total = B7["mamba1_scan"]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    for step, count in (("prefill", launches["prefill"]),
+                        ("prefill_32k", launches["prefill_32k"]),
+                        ("generate", launches["generate"] / LM_NEW)):
+        check(count == nl, f"B7 launched {count} times per {step} step, not "
+              f"once per layer ({nl})")
+    check(logits.shape == (LM_BATCH, cfg.vocab_size)
+          and bool(torch.isfinite(logits.float()).all()),
+          "prefill logits have the wrong shape or are not finite")
+    check(caches["conv"].shape == (nl, LM_BATCH, cfg.ssm_conv - 1,
+                                   cfg.d_inner)
+          and caches["ssm"].shape == (nl, LM_BATCH, cfg.d_inner,
+                                      cfg.ssm_state)
+          and caches["ssm"].dtype == torch.float32,
+          f"prefill states have shapes {tuple(caches['conv'].shape)} / "
+          f"{tuple(caches['ssm'].shape)}")
+    check(out.shape == (LM_BATCH, LM_NEW) and int(out.min()) >= 0
+          and int(out.max()) < cfg.vocab_size,
+          "generated tokens have the wrong shape or are out of range")
+    check(torch.equal(out[:, 0], logits.argmax(-1).to(out.dtype)),
+          "the first greedy token is not the prefill logits' argmax")
+    check(long_logits.shape == (1, cfg.vocab_size)
+          and bool(torch.isfinite(long_logits.float()).all())
+          and bool(torch.isfinite(long_caches["ssm"]).all()),
+          "32k prefill logits or states are not finite")
+    del long_caches
+
+    # B7 against plain on layer 0's real inputs of (a) and of (c)
+    layer0 = {}
+    for tag, toks in (("a", prompts), ("c", long_prompt)):
+        args = _first_scan_inputs(torch, model, toks)
+        layer0[tag] = _check_b7(torch, args, f"layer 0 of prompt ({tag})",
+                                chained=False)
+        del args
+
+    # the whole model with B7's plain version in every layer, on a shorter
+    # prompt: the model's scan hook is swapped for this one call
+    short = prompts[:, :SSM_SHORT]
+    b7_logits, _ = prefill(model, tokens=short)
+    b7_scan = ssm.ops.selective_scan
+    ssm.ops.selective_scan = plain_scan
+    try:
+        plain_logits, _ = prefill(model, tokens=short)
+        torch.cuda.synchronize()
+    finally:
+        ssm.ops.selective_scan = b7_scan
+    perr, pbar = _within(torch, b7_logits, plain_logits, LM_TOL)
+    check(pbar <= 1.0, f"prefill logits with B7 differ from the plain scan's "
+          f"beyond rtol = atol = {LM_TOL}: max |err| {perr:.3e}, {pbar:.2f} "
+          "of the bar")
+    check(torch.equal(b7_logits.argmax(-1), plain_logits.argmax(-1)),
+          "prefill argmax differs between B7 and the plain scan")
+
+    # prefill of 4,096 tokens, then one decode step, against the forward
+    # of the 4,097 tokens at the last position: in bf16 (the main path;
+    # printed, not gated) and, gated, the same weights in fp32. At 64
+    # random bf16 layers one-ulp differences (cuBLAS rounds some of a
+    # product's outputs differently at M = 4 than at M = 16,388: the
+    # share is printed) move the logits by more than the bar, and the
+    # bf16 forward is itself further than that from the fp32 one (the
+    # witness below); in fp32 a state handed over wrongly still shows at
+    # O(1).
+    def handoff(m, caches_after_prompt):
+        dec = init_caches(m.cfg, LM_BATCH, LM_SEQ + LM_NEW,
+                          dtype=caches_after_prompt["conv"].dtype, device=dev)
+        for name in dec:
+            dec[name].copy_(caches_after_prompt[name])
+        before = B7["mamba1_scan"]
+        step_logits, dec = decode_step(m, dec, token=nxt, pos=LM_SEQ)
+        torch.cuda.synchronize()
+        launched = B7["mamba1_scan"] - before
+        check(launched == nl, f"B7 launched {launched} times in a decode "
+              f"step, not {nl}")
+        hidden, _ = forward(m, tokens=torch.cat([prompts, nxt[:, None]], 1),
+                            return_hidden=True)
+        return (step_logits, transformer.lm_logits(m, hidden[:, -1]), dec,
+                launched)
+
+    step_logits, fwd_logits, dec, launches["decode_step"] = handoff(
+        model, caches)
+    del caches
+    derr16, dbar16 = _within(torch, step_logits, fwd_logits, LM_TOL)
+    model32 = transformer.Transformer(
+        dataclasses.replace(cfg, dtype="float32"), device=dev)
+    model32.load_state_dict(model.state_dict())
+    _, caches32 = prefill(model32, tokens=prompts)
+    step32, fwd32, dec32, _ = handoff(model32, caches32)
+    del model32, caches32, dec32
+    torch.cuda.empty_cache()
+    derr, dbar = _within(torch, step32, fwd32, LM_TOL)
+    check(dbar <= 1.0, f"fp32 decode after prefill differs from the forward "
+          f"of {LM_SEQ + 1:,} tokens beyond rtol = atol = {LM_TOL}: max "
+          f"|err| {derr:.3e}, {dbar:.2f} of the bar")
+    check(torch.equal(step32.argmax(-1), fwd32.argmax(-1)),
+          "fp32 decode after prefill: argmax differs from the forward's")
+    w_out = model.layers[0].mamba.out_proj
+    rows = torch.randn((LM_BATCH, LM_SEQ, cfg.d_inner), device=dev,
+                       generator=torch.Generator(device=dev).manual_seed(
+                           SEED + 18)).to(w_out.dtype)
+    gemm_flips = float(((rows @ w_out)[:, -1] != rows[:, -1] @ w_out).float()
+                       .mean())
+    del rows
+    w_fwd = float((fwd_logits.float() - fwd32).abs().max())
+    w_step = float((step_logits.float() - fwd32).abs().max())
+    dagree = float((step_logits.argmax(-1) == fwd_logits.argmax(-1)).float()
+                   .mean())
+
+    # decode: greedy steps from the states after token 4,097, timed
+    tok = step_logits.argmax(-1).to(torch.int32)
+    steps = LM_NEW // 2
+    t0 = time.perf_counter()
+    for i in range(1, steps + 1):
+        lg, dec = decode_step(model, dec, token=tok, pos=LM_SEQ + i)
+        tok = lg.argmax(-1).to(torch.int32)
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t0) * 1e3 / steps
+    print(f"phase 18: SSM main path ({SSM_ARCH}, {n_params:,} parameters, "
+          f"bf16 weights from a seeded torch.Generator, set-up {setup_s:.2f}"
+          f" s): (a) prefill {LM_BATCH} x {LM_SEQ:,} in "
+          f"{prefill_s * 1e3:.1f} ms = {LM_BATCH * LM_SEQ / prefill_s:,.0f} "
+          f"tokens/s; (b) greedy generate of {LM_NEW} tokens after it in "
+          f"{generate_s:.2f} s (its prefill included), tokens in range; (c) "
+          f"prefill 1 x {LM_LONG:,} in {long_s:.2f} s = "
+          f"{LM_LONG / long_s:,.0f} tokens/s; peak memory {peak_gb:.2f} GB; "
+          f"B7 launches {launches} ({total} in the three runs: one per "
+          "layer per prefill and per decode step)")
+    print(f"  B7 vs plain on layer 0's scan inputs: max |err| "
+          f"{layer0['a']:.3e} at {LM_BATCH} x {LM_SEQ:,}, {layer0['c']:.3e} "
+          f"at 1 x {LM_LONG:,} (bar {B7_TOL}); prefill logits of {LM_BATCH}"
+          f" x {SSM_SHORT} with B7 vs the plain scan in every layer: max "
+          f"|err| {perr:.3e} ({pbar:.2f} of the rtol = atol = {LM_TOL} bar),"
+          f" argmax equal; decode of token {LM_SEQ + 1:,} after prefill vs "
+          f"the forward of {LM_SEQ + 1:,} tokens: fp32 max |err| "
+          f"{derr:.3e} ({dbar:.2f} of the bar), argmax equal; bf16 (not "
+          f"gated) max |err| {derr16:.3e} ({dbar16:.2f} of the bar), argmax "
+          f"agreement {dagree:.0%}, and against the fp32 forward: bf16 "
+          f"forward {w_fwd:.3e}, bf16 decode {w_step:.3e} (layer 0's "
+          f"out_proj at M = {LM_BATCH} rounds {gemm_flips:.2%} of its bf16 "
+          f"outputs otherwise than the same rows at M = "
+          f"{LM_BATCH * LM_SEQ:,}); decode "
+          f"{decode_ms:.2f} ms/token at batch {LM_BATCH} (mean of {steps} "
+          "greedy steps, host wall)")
+    _, wall_us, kernels = _device_profile(
+        torch, lambda: decode_step(model, dec, token=tok, pos=LM_SEQ + steps))
+    _print_profile("one decode step", wall_us, kernels, SSM_KERNELS, "B7")
+    del dec
+    _, wall_us, kernels = _device_profile(
+        torch, lambda: prefill(model, tokens=prompts))
+    _print_profile(f"one {LM_BATCH} x {LM_SEQ:,} prefill", wall_us, kernels,
+                   SSM_KERNELS, "B7")
+    del model
+    torch.cuda.empty_cache()
+    return total, launches, max(layer0.values()), {
+        "prefill_tokens_per_s": LM_BATCH * LM_SEQ / prefill_s,
+        "prefill_32k_tokens_per_s": LM_LONG / long_s,
+        "decode_ms_per_token": decode_ms}
+
+
+# ------------------------------------------------------------ phase 20
+def phase_scan_times(torch, dev):
+    """B7 at the SSM path's shapes (prefill 4 x 4,096 and 1 x 32,768, a
+    decode step at batch 4; di 8,192, N 16, x/B/C bf16 as the model gives
+    them) beside its plain version and its bound. No single PyTorch call
+    computes the selective scan, so there is no library column."""
+    from repro_torch.kernels.mamba_scan.mamba_scan import mamba1_scan
+    from repro_torch.kernels.mamba_scan.ops import plain_scan
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 20)
+    flush = torch.empty(128 * 2**20 // 4, dtype=torch.float32, device=dev)
+    di, N = 8192, 16
+    out = []
+    for B, S, h0, runs, plain_runs in (
+            (LM_BATCH, LM_SEQ, False, TIMED_RUNS, B7_PLAIN_RUNS),
+            (1, LM_LONG, False, LONG_RUNS, B7_PLAIN_RUNS),
+            (LM_BATCH, 1, True, TIMED_RUNS, TIMED_RUNS)):
+        args = _b7_inputs(torch, dev, gen, B, S, di, N, torch.bfloat16, h0,
+                          R=256)
+        nbytes = sum(t.numel() * t.element_size() for t in args
+                     if t is not None) + (B * S * di + B * di * N) * 4
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        t_ops = B * S * di * N / SFU_EXP_PER_S
+        row = {"b": B, "s": S, "di": di, "n": N, "dtype": "bfloat16",
+               "ms": _time_ms(torch, lambda: mamba1_scan(*args), flush, runs),
+               "plain_ms": _time_ms(torch, lambda: plain_scan(*args), flush,
+                                    plain_runs, 1),
+               "library_ms": None,
+               "bound_ms": max(t_bytes, t_ops) * 1e3,
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+        out.append(row)
+        print(f"phase 20: mamba1_scan (B, S, di, N) = {(B, S, di, N)}, x/B/C "
+              f"bf16{', from h0' if h0 else ''}: kernel {row['ms']:.4f} ms "
+              f"(median of {runs}), plain {row['plain_ms']:.3f} ms (median "
+              f"of {plain_runs}), bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']}: {nbytes / 1e9:.3f} GB, "
+              f"{B * S * di * N:.3e} exponentials; "
+              f"{row['bound_ms'] / row['ms']:.1%} of it reached); library "
+              "n/a (no single PyTorch call)")
+        del args
     return out
 
 
@@ -1751,11 +2148,17 @@ def main() -> int:
     phase_lm_card_vs_cpu(torch, dev)
     times["flash_attention"] = phase_attention_times(torch, dev)
 
+    err["mamba1_scan"] = phase_scan_kernel(torch, dev)
+    ssm_total, ssm_launches, ssm_err, ssm_metrics = phase_ssm_lm(torch, dev)
+    err["mamba1_scan"] = max(err["mamba1_scan"], ssm_err)
+    phase_lm_card_vs_cpu(torch, dev, SSM_ARCH, 19, "B7")
+    times["mamba1_scan"] = phase_scan_times(torch, dev)
+
     kernels = []
     for name in ("lsplm_sparse_fused_forward",
                  "lsplm_sparse_fused_int8_forward",
                  "lsplm_sparse_scatter_compact", "owlqn_direction",
-                 "lsplm_fused_forward", "flash_attention"):
+                 "lsplm_fused_forward", "flash_attention", "mamba1_scan"):
         main_shape, *others = times[name]
         by_path = {"serve": serve_launches.get(name, 0),
                    "train": train_launches.get(name, 0),
@@ -1765,11 +2168,16 @@ def main() -> int:
         if name == "flash_attention":
             by_path = {"lm_serve": lm_total, **{
                 f"lm_serve/{step}": n for step, n in lm_launches.items()}}
+        if name == "mamba1_scan":
+            by_path = {"lm_serve_ssm": ssm_total, **{
+                f"lm_serve_ssm/{step}": n
+                for step, n in ssm_launches.items()}}
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name],
             "launches": next((by_path[path] for path in (
-                "lm_serve", "train", "serve", "dense_train")
+                "lm_serve_ssm", "lm_serve", "train", "serve",
+                "dense_train")
                 if by_path.get(path)), 0),
             "launches_by_path": by_path,
             "max_abs_err": err[name], "ms": main_shape["ms"],
@@ -1780,10 +2188,11 @@ def main() -> int:
             "shape": {k: v for k, v in main_shape.items()
                       if k in ("n", "k", "side", "entries", "unique", "d",
                                "m2", "m", "dtype", "b", "s", "h", "kvh",
-                               "hd", "causal")},
+                               "hd", "causal", "di", "n")},
             "other_shapes": others,
         })
     print(f"LM serving ({LM_ARCH}): " + json.dumps(lm_metrics))
+    print(f"SSM serving ({SSM_ARCH}): " + json.dumps(ssm_metrics))
     print(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -6,10 +6,12 @@ asked for):
 
     PYTHONPATH=src python examples/generate_text_torch.py --device cpu
     PYTHONPATH=src python examples/generate_text_torch.py --arch olmo-1b
+    PYTHONPATH=src python examples/generate_text_torch.py \
+        --arch falcon-mamba-7b --device cpu
 
 The port serves the attention families without experts (dense, vlm,
-audio); the other families raise ``NotImplementedError`` naming the
-ROADMAP item they wait for.
+audio) and the Mamba1 family (falcon-mamba); the hybrid and MoE families
+raise ``NotImplementedError`` naming the ROADMAP item they wait for.
 """
 import argparse
 import time

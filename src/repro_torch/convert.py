@@ -96,12 +96,15 @@ def model_from_reference(params: dict, cfg: ArchConfig,
     """The port's model on ``device`` (``cuda`` unless ``"cpu"``) from the
     reference's parameters as numpy arrays: ``layers`` (each leaf stacked
     on a leading L axis: ``attn`` wq/wk/wv/wo and, with ``qkv_bias``,
-    bq/bk/bv; ``ffn`` w1/(w3)/w2; ``norm1``/``norm2`` with rmsnorm),
-    ``embed``, ``final_norm`` (rmsnorm) and ``lm_head`` (untied). Every
-    leaf is copied into the parameter of the same name, in that
-    parameter's dtype (the matmul weights round to ``cfg.dtype`` once
-    here, as the reference rounds them at every use). Raises
-    ``ValueError`` on a missing, surplus or misshapen leaf."""
+    bq/bk/bv; ``ffn`` w1/(w3)/w2; ``norm1``/``norm2`` with rmsnorm; for
+    the ssm family ``mamba`` in_proj/conv_w/conv_b/x_proj/dt_proj/
+    dt_bias/A_log/D/out_proj and ``norm``), ``embed``, ``final_norm``
+    (rmsnorm) and ``lm_head`` (untied). Every leaf is copied into the
+    parameter of the same name, in that parameter's dtype (the matmul
+    weights round to ``cfg.dtype`` once here, as the reference rounds
+    them at every use; A_log, dt_bias, D and the norm scales stay in
+    ``cfg.param_dtype``). Raises ``ValueError`` on a missing, surplus or
+    misshapen leaf."""
     model = Transformer(cfg, device=resolve_device(device))
     layers = params["layers"]
     want = {"embed": model.embed}
@@ -111,12 +114,11 @@ def model_from_reference(params: dict, cfg: ArchConfig,
         want["lm_head"] = model.lm_head
     stacked = {}
     for blk in model.layers:
-        for group, mod in (("attn", blk.attn), ("ffn", blk.ffn)):
+        for group, mod in blk.named_children():
             for name, p in mod.named_parameters(recurse=False):
                 stacked.setdefault((group, name), []).append(p)
-        for name in ("norm1", "norm2"):
-            if getattr(blk, name) is not None:
-                stacked.setdefault((name,), []).append(getattr(blk, name))
+        for name, p in blk.named_parameters(recurse=False):
+            stacked.setdefault((name,), []).append(p)
     got = {k for k in params if k != "layers"}
     if got != set(want):
         raise ValueError(f"expected top-level leaves {sorted(want)} + "

@@ -4,7 +4,11 @@ The port's counterpart of ``repro/models/generate.py``: prefill the
 prompt, then sample tokens with temperature / top-k, one
 ``decode_step`` per token. Sampling draws from an explicit
 ``torch.Generator`` (the reference splits a ``jax.random`` key: the
-numbers differ; greedy decoding, temperature 0, is the same).
+numbers differ; greedy decoding, temperature 0, is the same). It serves
+every family the port runs: the attention families' KV caches (and the
+window ring buffer) and the ssm family's conv and ssm states, which
+prefill hands over at their decode shapes, so the copy below is a plain
+copy for them.
 """
 from __future__ import annotations
 

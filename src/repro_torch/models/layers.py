@@ -26,6 +26,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.device import resolve_device
 
 NEG_INF = -1e30
 
@@ -161,6 +162,15 @@ def gelu_mlp(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor) -> torch.Tenso
 
 
 # ------------------------------------------------------------------ modules
+def module_device(device=None) -> torch.device:
+    """Where a module allocates its parameters: ``cuda`` unless ``"cpu"``
+    is asked for (:func:`~repro_torch.device.resolve_device`), or
+    ``"meta"``, which allocates nothing (for counting)."""
+    if device is not None and torch.device(device).type == "meta":
+        return torch.device("meta")
+    return resolve_device(device)
+
+
 def new_weight(shape, dtype, device) -> nn.Parameter:
     """An uninitialised parameter (serving: no gradient)."""
     return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
@@ -169,10 +179,12 @@ def new_weight(shape, dtype, device) -> nn.Parameter:
 
 class Attention(nn.Module):
     """The attention projections: wq (d, H*hd), wk/wv (d, KVH*hd), wo
-    (H*hd, d), and with ``qkv_bias`` (qwen1.5) bq, bk, bv."""
+    (H*hd, d), and with ``qkv_bias`` (qwen1.5) bq, bk, bv; on ``device``
+    (:func:`module_device`)."""
 
     def __init__(self, cfg: ArchConfig, dtype, device=None):
         super().__init__()
+        device = module_device(device)
         d, H, KVH = cfg.d_model, cfg.num_heads, cfg.num_kv_heads
         hd = cfg.resolved_head_dim
         self.cfg = cfg
@@ -210,10 +222,12 @@ class Attention(nn.Module):
 
 
 class MLP(nn.Module):
-    """SwiGLU (w1, w3: (d, f); w2: (f, d)) or GELU (w1, w2)."""
+    """SwiGLU (w1, w3: (d, f); w2: (f, d)) or GELU (w1, w2); on
+    ``device`` (:func:`module_device`)."""
 
     def __init__(self, cfg: ArchConfig, dtype, device=None):
         super().__init__()
+        device = module_device(device)
         d, f = cfg.d_model, cfg.d_ff
         self.swiglu = cfg.mlp_type == "swiglu"
         self.w1 = new_weight((d, f), dtype, device)

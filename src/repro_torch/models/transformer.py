@@ -1,30 +1,37 @@
-"""Decoder-only LM for the attention families without experts.
+"""Decoder-only LM for the attention families without experts and for
+the Mamba1 family.
 
 The port's counterpart of ``repro/models/transformer.py`` for the dense,
 vlm (``prefix_embeds``) and audio (``embeds``) families:
 
   [norm -> attn -> residual, norm -> (swiglu | gelu) -> residual] x L
 
+and for the ssm family (falcon-mamba, ``models/ssm.py``):
+
+  [norm -> mamba1 -> residual] x L
+
 Entry points (serving):
   init_model                    parameters drawn from a torch.Generator
   forward                       full-sequence logits (or hidden states)
-  prefill                       last-token logits + filled KV caches
-  init_caches / decode_step     one token against the KV (or window) caches
+  prefill                       last-token logits + filled caches (KV,
+                                or the ssm family's conv and ssm states)
+  init_caches / decode_step     one token against the caches
   make_serve_step               the decode step as a closure
 
 The model is a :class:`Transformer` module that carries its config, so
 the functions take it in place of the reference's ``(params, cfg)``
 pair. There is no mesh: sharding is ``ROADMAP.md`` A12. The
-full-sequence attention goes through ``kernels/flash_attention/ops``:
-B6 on the card, its plain version on the CPU. ``decode_step`` updates
-the caches it is given in place (the reference returns new arrays) and
-returns them.
+full-sequence attention goes through ``kernels/flash_attention/ops``
+(B6 on the card, its plain version on the CPU), the selective scan of
+prefill and of every decode step through ``kernels/mamba_scan/ops``
+(B7, likewise). ``decode_step`` updates the caches it is given in place
+(the reference returns new arrays) and returns them.
 
-The MoE, SSM and hybrid families raise ``NotImplementedError`` naming
-the ``ROADMAP.md`` item they wait for. The training entry points
-(``cross_entropy``, ``loss_fn``, ``make_train_step``) wait for the LM
-training slice and ``param_specs`` for sharding (A12); none is defined
-here yet.
+The hybrid and MoE families raise ``NotImplementedError`` naming the
+``ROADMAP.md`` item they wait for (A15c, A15d). The training entry
+points (``cross_entropy``, ``loss_fn``, ``make_train_step``) wait for
+the LM training slice and ``param_specs`` for sharding (A12); none is
+defined here yet.
 """
 from __future__ import annotations
 
@@ -35,6 +42,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels.flash_attention import ops as attention_ops
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as SS
 
 
 def _dt(cfg: ArchConfig) -> torch.dtype:
@@ -48,28 +56,26 @@ def _pdt(cfg: ArchConfig) -> torch.dtype:
 def check_supported(cfg: ArchConfig) -> None:
     """Raise ``NotImplementedError`` for the families the port does not
     run yet, naming what each waits for."""
-    if cfg.family == "ssm":
-        raise NotImplementedError(
-            f"{cfg.name}: the Mamba1 family (models/ssm.py, the selective "
-            "scan B7) is the next slice of the port (ROADMAP.md A15, "
-            "falcon-mamba-7b)")
+    if cfg.family == "ssm" and cfg.ssm_version != 1:
+        raise NotImplementedError(f"{cfg.name}: {SS.MAMBA2_TODO}")
     if cfg.family == "hybrid":
         raise NotImplementedError(
             f"{cfg.name}: the hybrid family (Mamba2 blocks and the shared "
-            "attention block, models/ssm.py) waits for ROADMAP.md A15's "
-            "hybrid item")
+            "attention block, models/ssm.py) waits for ROADMAP.md A15c")
     if cfg.family == "moe" or cfg.num_experts:
         raise NotImplementedError(
             f"{cfg.name}: mixture-of-experts FFNs (models/moe.py) wait for "
-            "ROADMAP.md A15's MoE item")
+            "ROADMAP.md A15d")
 
 
 # ================================================================= modules
 class Block(nn.Module):
-    """One layer: attention projections, MLP, and (rmsnorm) two scales."""
+    """One layer: attention projections, MLP, and (rmsnorm) two scales;
+    on ``device`` (:func:`~repro_torch.models.layers.module_device`)."""
 
     def __init__(self, cfg: ArchConfig, device=None):
         super().__init__()
+        device = L.module_device(device)
         self.attn = L.Attention(cfg, _dt(cfg), device)
         self.ffn = L.MLP(cfg, _dt(cfg), device)
         if cfg.norm_type == "rmsnorm":
@@ -79,8 +85,22 @@ class Block(nn.Module):
             self.norm1 = self.norm2 = None
 
 
+class MambaBlock(nn.Module):
+    """One ssm layer: the (rmsnorm) scale ``norm`` in ``cfg.param_dtype``
+    and the Mamba1 mixer ``mamba``; on ``device`` (``cuda`` unless
+    ``"cpu"``; ``"meta"`` allocates nothing)."""
+
+    def __init__(self, cfg: ArchConfig, device=None):
+        super().__init__()
+        device = L.module_device(device)
+        self.mamba = SS.Mamba1(cfg, device)
+        self.norm = (L.new_weight((cfg.d_model,), _pdt(cfg), device)
+                     if cfg.norm_type == "rmsnorm" else None)
+
+
 class Transformer(nn.Module):
-    """The model: ``embed`` (V, d), ``layers``, ``final_norm`` (rmsnorm
+    """The model: ``embed`` (V, d), ``layers`` (:class:`Block` s, or
+    :class:`MambaBlock` s for the ssm family), ``final_norm`` (rmsnorm
     only) and, without tied embeddings, ``lm_head`` (d, V). Matmul
     weights in ``cfg.dtype``, norm scales in ``cfg.param_dtype``. The
     parameters are left unset, on ``device`` (``cuda`` unless ``"cpu"``
@@ -89,12 +109,12 @@ class Transformer(nn.Module):
     def __init__(self, cfg: ArchConfig, device=None):
         super().__init__()
         check_supported(cfg)
-        if device is None or torch.device(device).type != "meta":
-            device = resolve_device(device)
+        device = L.module_device(device)
         self.cfg = cfg
         dt = _dt(cfg)
+        block = MambaBlock if cfg.family == "ssm" else Block
         self.embed = L.new_weight((cfg.vocab_size, cfg.d_model), dt, device)
-        self.layers = nn.ModuleList(Block(cfg, device)
+        self.layers = nn.ModuleList(block(cfg, device)
                                     for _ in range(cfg.num_layers))
         self.final_norm = (L.new_weight((cfg.d_model,), _pdt(cfg), device)
                            if cfg.norm_type == "rmsnorm" else None)
@@ -114,9 +134,11 @@ def init_model(cfg: ArchConfig, generator: torch.Generator,
     fan_in^-0.5 (the embedding and the untied head by d^-0.5), zero
     biases, unit norm scales. The normals are drawn in fp32 from
     ``generator`` (which lives on ``device``), in the order embed, then
-    per layer wq, wk, wv, wo, w1, (w3,) w2, then lm_head, and rounded to
-    the weights' dtype. The reference draws from ``jax.random``: the
-    numbers differ, the distribution is the same."""
+    per layer wq, wk, wv, wo, w1, (w3,) w2 (the ssm family: per layer
+    the Mamba1 leaves in :func:`~repro_torch.models.ssm.init_mamba1`'s
+    order, with its distributions), then lm_head, and rounded to the
+    weights' dtype. The reference draws from ``jax.random``: the numbers
+    differ, the distribution is the same."""
     dev = resolve_device(device)
     if generator.device.type != dev.type:
         raise ValueError(f"the generator lives on {generator.device}, the "
@@ -130,6 +152,11 @@ def init_model(cfg: ArchConfig, generator: torch.Generator,
 
     fill(model.embed, cfg.d_model)
     for blk in model.layers:
+        if isinstance(blk, MambaBlock):
+            SS.init_mamba1(blk.mamba, cfg, generator)
+            if blk.norm is not None:
+                blk.norm.fill_(1.0)
+            continue
         a, f = blk.attn, blk.ffn
         for w in (a.wq, a.wk, a.wv):
             fill(w, cfg.d_model)
@@ -173,6 +200,14 @@ def _ffn_full(h, blk: Block, cfg: ArchConfig):
     return h + blk.ffn(L.apply_norm(h, blk.norm2, cfg))
 
 
+def _ssm_full(h, blk: MambaBlock, cfg: ArchConfig):
+    """Full-sequence Mamba1 sub-block (pre-norm, residual). Returns the
+    new h and this layer's decode state {"conv", "ssm"}."""
+    y, state = SS.mamba1_forward(L.apply_norm(h, blk.norm, cfg), blk.mamba,
+                                 cfg, return_state=True)
+    return h + y, state
+
+
 def embed_tokens(model: Transformer, tokens) -> torch.Tensor:
     tokens = torch.as_tensor(tokens, device=model.device)
     return model.embed[tokens.long()].to(_dt(model.cfg))
@@ -209,10 +244,14 @@ def forward(model: Transformer, tokens=None, embeds=None, prefix_embeds=None,
     ``return_hidden``; aux is the router loss, 0 without experts."""
     cfg = model.cfg
     h = _inputs(model, tokens, embeds, prefix_embeds)
-    rope = _rope(torch.arange(h.shape[1], device=h.device), cfg)
-    for blk in model.layers:
-        h, _ = _attn_full(h, blk, cfg, rope)
-        h = _ffn_full(h, blk, cfg)
+    if cfg.family == "ssm":
+        for blk in model.layers:
+            h, _ = _ssm_full(h, blk, cfg)
+    else:
+        rope = _rope(torch.arange(h.shape[1], device=h.device), cfg)
+        for blk in model.layers:
+            h, _ = _attn_full(h, blk, cfg, rope)
+            h = _ffn_full(h, blk, cfg)
     h = final_norm(model, h)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     if return_hidden:
@@ -231,9 +270,18 @@ def init_caches(cfg: ArchConfig, B: int, S_max: int,
     S_max = window size for sliding-window decode. ``dtype`` is the KV
     dtype (bf16, as the reference, whatever ``cfg.dtype``); with
     ``kv_cache_dtype="int8"`` the caches are int8 codes with bf16
-    per-(token, head) scales."""
+    per-(token, head) scales. The ssm family's caches are the conv
+    states (L, B, K-1, di) in ``dtype`` and the ssm states (L, B, di, N)
+    in fp32, whatever S_max."""
     check_supported(cfg)
     dev = resolve_device(device)
+    if cfg.family == "ssm":
+        di, N, K = cfg.d_inner, cfg.ssm_state, cfg.ssm_conv
+        L_ = cfg.num_layers
+        return {"conv": torch.zeros((L_, B, K - 1, di), dtype=dtype,
+                                    device=dev),
+                "ssm": torch.zeros((L_, B, di, N), dtype=torch.float32,
+                                   device=dev)}
     shp = (cfg.num_layers,) + attn_cache_shape(cfg, B, S_max)
     if cfg.kv_cache_dtype == "int8":
         return {"k": torch.zeros(shp, dtype=torch.int8, device=dev),
@@ -251,10 +299,14 @@ def init_caches(cfg: ArchConfig, B: int, S_max: int,
 def prefill(model: Transformer, tokens=None, embeds=None, prefix_embeds=None):
     """Run the full prompt; return (last-token logits (B, V), caches
     {"k", "v"} of shape (L, B, S, KVH, hd) in the activation dtype,
-    filled with the S positions)."""
+    filled with the S positions). The ssm family's caches are the states
+    after the prompt: {"conv": (L, B, K-1, di) in the activation dtype,
+    "ssm": (L, B, di, N) fp32}."""
     cfg = model.cfg
     h = _inputs(model, tokens, embeds, prefix_embeds)
     B, S, _ = h.shape
+    if cfg.family == "ssm":
+        return _prefill_ssm(model, h)
     rope = _rope(torch.arange(S, device=h.device), cfg)
     shp = (cfg.num_layers,) + attn_cache_shape(cfg, B, S)
     ks = torch.empty(shp, dtype=h.dtype, device=h.device)
@@ -264,6 +316,21 @@ def prefill(model: Transformer, tokens=None, embeds=None, prefix_embeds=None):
         h = _ffn_full(h, blk, cfg)
     h = final_norm(model, h[:, -1:])
     return lm_logits(model, h)[:, 0], {"k": ks, "v": vs}
+
+
+def _prefill_ssm(model: Transformer, h: torch.Tensor):
+    cfg = model.cfg
+    B = h.shape[0]
+    di, N, K = cfg.d_inner, cfg.ssm_state, cfg.ssm_conv
+    convs = torch.empty((cfg.num_layers, B, K - 1, di), dtype=h.dtype,
+                        device=h.device)
+    ssms = torch.empty((cfg.num_layers, B, di, N), dtype=torch.float32,
+                       device=h.device)
+    for i, blk in enumerate(model.layers):
+        h, state = _ssm_full(h, blk, cfg)
+        convs[i], ssms[i] = state["conv"], state["ssm"]
+    h = final_norm(model, h[:, -1:])
+    return lm_logits(model, h)[:, 0], {"conv": convs, "ssm": ssms}
 
 
 # ================================================================== decode
@@ -316,13 +383,16 @@ def decode_step(model: Transformer, caches: dict, token=None, embed=None,
                 pos=None, window: bool = False):
     """One serving step: next-token logits (B, V) given the caches at
     position ``pos`` (an int). token (B,) or embed (B, d). The caches are
-    updated in place and returned."""
+    updated in place and returned. The ssm family reads no position: its
+    caches are the states after the tokens so far."""
     cfg = model.cfg
     if embed is not None:
         h = torch.as_tensor(embed, device=model.device)[:, None, :].to(
             _dt(cfg))
     else:
         h = embed_tokens(model, torch.as_tensor(token)[:, None])
+    if cfg.family == "ssm":
+        return _decode_ssm(model, caches, h), caches
     pos = int(pos)
     rope = _rope(torch.tensor([pos], device=h.device), cfg)
     for i, blk in enumerate(model.layers):
@@ -330,6 +400,26 @@ def decode_step(model: Transformer, caches: dict, token=None, embed=None,
         h = _ffn_full(h, blk, cfg)
     h = final_norm(model, h)
     return lm_logits(model, h[:, 0]), caches
+
+
+def _decode_ssm(model: Transformer, caches: dict, h: torch.Tensor):
+    """h (B, 1, d) through every Mamba1 layer from its states, which are
+    overwritten with the new ones. The reference's decode returns the
+    conv states in the activation dtype, so a conv cache in another
+    dtype (bf16 caches under an fp32 model) takes the activation dtype
+    here, once; in bf16 serving the two agree and nothing is copied."""
+    cfg = model.cfg
+    if caches["conv"].dtype != h.dtype:
+        caches["conv"] = caches["conv"].to(h.dtype)
+    for i, blk in enumerate(model.layers):
+        x = L.apply_norm(h[:, 0], blk.norm, cfg)
+        y, state = SS.mamba1_decode(
+            x, {"conv": caches["conv"][i], "ssm": caches["ssm"][i]},
+            blk.mamba, cfg)
+        caches["conv"][i], caches["ssm"][i] = state["conv"], state["ssm"]
+        h = h + y[:, None]
+    h = final_norm(model, h)
+    return lm_logits(model, h[:, 0])
 
 
 def make_serve_step(model: Transformer, window: bool = False):

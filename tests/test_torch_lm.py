@@ -26,6 +26,7 @@ from repro.models.generate import generate as jgenerate
 import repro_torch.configs as tconfigs
 import repro_torch.data.tokens as ttokens
 import repro_torch.models as tmodels
+from repro_torch.models import layers as tlayers
 from repro_torch import convert
 from repro_torch.models.generate import generate, sample_logits
 
@@ -279,8 +280,8 @@ def test_sampled_generate_is_seeded():
     assert run(3).shape == (B, 4)
 
 
-@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "zamba2-2.7b",
-                                  "granite-moe-1b-a400m", "dbrx-132b"])
+@pytest.mark.parametrize("arch", ["zamba2-2.7b", "granite-moe-1b-a400m",
+                                  "dbrx-132b"])
 def test_unsupported_families_raise(arch):
     cfg = tconfigs.get_config(arch).reduced()
     with pytest.raises(NotImplementedError, match="ROADMAP.md A15"):
@@ -320,6 +321,22 @@ def test_transformer_defaults_to_the_card():
     else:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             tmodels.Transformer(cfg)
+
+
+def test_layer_modules_default_to_the_card():
+    """Attention, MLP and Block resolve their device as Transformer does:
+    cuda unless the CPU is asked for; meta allocates nothing."""
+    cfg = tconfigs.get_config("llama3.2-1b").reduced()
+    for make in (lambda d: tlayers.Attention(cfg, torch.bfloat16, d),
+                 lambda d: tlayers.MLP(cfg, torch.bfloat16, d),
+                 lambda d: tmodels.Block(cfg, d)):
+        assert next(make("cpu").parameters()).device.type == "cpu"
+        assert next(make("meta").parameters()).device.type == "meta"
+        if torch.cuda.is_available():
+            assert next(make(None).parameters()).device.type == "cuda"
+        else:
+            with pytest.raises(RuntimeError, match="CUDA is not available"):
+                make(None)
 
 
 def test_converter_rejects_mismatched_trees():

@@ -45,7 +45,8 @@ def test_port_imports_no_jax_and_no_reference():
     assert out.returncode == 0, out.stdout + out.stderr
     assert {"repro_torch.launch.serve", "repro_torch.models.transformer",
             "repro_torch.kernels.flash_attention.ops",
-            "repro_torch.configs.llama3_2_1b"} <= set(mods)
+            "repro_torch.configs.llama3_2_1b", "repro_torch.models.ssm",
+            "repro_torch.kernels.mamba_scan.ops"} <= set(mods)
 
 
 def test_resolve_device():

@@ -217,14 +217,67 @@ def phase_kernels(torch, dev, theta, codes, scales):
                     err["lsplm_sparse_fused_int8_forward"],
                     float((zi - zi_ref).abs().max()),
                     float((pi - pi_ref).abs().max()))
+    _check_planned_p(torch, theta, *(torch.from_numpy(a).to(dev)
+                                     for a in _batch(rng, 37, 24, d_rows)))
     print(f"phase 2: kernels agree with their plain versions at d={d_rows - 1:,}"
           f", 2m={theta.shape[1]}, N in (1, 37, 4096), K in (8, 24, 64), "
           f"dedup on/off (z rtol {Z_RTOL}/atol {Z_ATOL}, p atol {P_ATOL}); "
           f"max |err| fp32 {err['lsplm_sparse_fused_forward']:.3e}, "
           f"int8 {err['lsplm_sparse_fused_int8_forward']:.3e}; int8 kernel "
           f"vs fp32 kernel on the dequantised Theta: "
-          f"{'bitwise equal' if bitwise else 'within 1e-6, not bitwise'}")
+          f"{'bitwise equal' if bitwise else 'within 1e-6, not bitwise'}; "
+          f"planned score_sparse / predict_proba_sparse bitwise equal to "
+          f"unplanned and to B1's p, planned gradient within rtol 1e-5 / "
+          f"atol 1e-6 of unplanned and of the CPU's")
     return err, bitwise
+
+
+def _check_planned_p(torch, theta, ids, vals):
+    """A planned ``score_sparse`` / ``predict_proba_sparse`` returns B1's
+    own p, bit for bit the unplanned call's, and its gradient (through
+    the batch's transpose plan) agrees with the unplanned one and with
+    the CPU's plain one within rtol 1e-5 / atol 1e-6 (the reference's
+    bars for planned gradients). ``theta`` is the padded Theta."""
+    from repro_torch.core.lsplm import params_from_theta, predict_proba_sparse
+    from repro_torch.kernels.lsplm_sparse_fused import ops
+    from repro_torch.kernels.lsplm_sparse_fused.lsplm_sparse_fused import (
+        lsplm_sparse_fused_forward,
+    )
+    from repro_torch.kernels.lsplm_sparse_scatter.plan import (
+        build_transpose_plan,
+    )
+    from repro_torch.serve.score import score_sparse
+
+    pad = theta.shape[0] - 1
+    vals = torch.where(ids == pad, 0.0, vals)  # padded COO: pad values 0
+    plan = build_transpose_plan(ids, theta.shape[0], pad_id=pad).to(
+        theta.device)
+    full = theta[:-1]
+    bare = score_sparse(full, ids, vals)
+    p_b1 = lsplm_sparse_fused_forward(
+        *ops._kernel_inputs(ids, vals, pad, True), theta)[0]
+    check(torch.equal(bare, p_b1), "score_sparse is not B1's p")
+    check(torch.equal(score_sparse(full, ids, vals, plan=plan), bare),
+          "planned score_sparse differs from the unplanned call's bits")
+    check(torch.equal(predict_proba_sparse(params_from_theta(full), ids, vals,
+                                           plan=plan), bare),
+          "planned predict_proba_sparse differs from score_sparse's bits")
+    weights = torch.linspace(-1.0, 1.0, ids.shape[0], device=theta.device)
+    grads = []
+    for th, i, v, pl, w in ((theta, ids, vals, plan, weights),
+                            (theta, ids, vals, None, weights),
+                            (theta.cpu(), ids.cpu(), vals.cpu(), None,
+                             weights.cpu())):
+        th = th.clone().requires_grad_(True)
+        (w * ops.lsplm_sparse_forward(i, v, th, plan=pl)).sum().backward()
+        grads.append(th.grad.cpu())
+    for g, tag in ((grads[0], "planned"), (grads[1], "unplanned")):
+        check(bool(((g - grads[2]).abs()
+                    <= 1e-6 + 1e-5 * grads[2].abs()).all()),
+              f"the card's {tag} p-level gradient vs the CPU's")
+    check(bool(((grads[0] - grads[1]).abs()
+                <= 1e-6 + 1e-5 * grads[1].abs()).all()),
+          "the card's planned vs unplanned p-level gradient")
 
 
 # ------------------------------------------------------------ phase 3
@@ -1026,17 +1079,21 @@ def phase_dense_kernel(torch, dev, x_test):
     d = x_test.shape[1]
     theta = torch.from_numpy((0.1 * rng.normal(size=(d, 2 * REGIONS)))
                              .astype(np.float32)).to(dev)
-    for rows in (x_test.shape[0], 512):
+    for rows in (x_test.shape[0], 512, 33, 1):
         e = _check_b5(torch, x_test[:rows], theta, B5_TOL,
                       f"the dense test rows {rows} x {d:,}")
         err = max(err, e)
         lines.append(f"test rows {rows} x {d:,} (max |err| {e:.2e})")
-    e16 = _check_b5(torch, x_test.to(bf16), theta.to(bf16), B5_BF16_TOL,
-                    f"the dense test rows {x_test.shape[0]} x {d:,} bf16")
+    e16 = 0.0
+    for rows in (x_test.shape[0], 33, 1):
+        e16 = max(e16, _check_b5(torch, x_test[:rows].to(bf16),
+                                 theta.to(bf16), B5_BF16_TOL,
+                                 f"the dense test rows {rows} x {d:,} bf16"))
     print(f"phase 9: B5 (dense fused forward) vs plain on the card at "
           f"{', '.join(lines)}; fp32 within rtol = atol = {B5_TOL}, bf16 "
           f"within {B5_BF16_TOL} (the reference shapes and the "
-          f"{x_test.shape[0]}-row test batch, max |err| {e16:.2e}); every "
+          f"{x_test.shape[0]}, 33 and 1 test rows, max |err| {e16:.2e}); "
+          f"every "
           f"case bitwise repeatable, rows scored alone equal to the same "
           f"rows in their batch, separate U, W equal to Theta's halves; max"
           f" |err| fp32 {err:.3e}")
@@ -1252,9 +1309,11 @@ def phase_dense_trajectory(torch, dev):
 # ------------------------------------------------------------ phase 12
 def phase_dense_times(torch, dev, x_test, theta):
     """B5 at the dense main path's shapes (the 3,276 test rows, the first
-    512 of them, and the 3,276 rows in bf16) beside its plain version,
-    its bound and the contraction alone on cuBLAS (``x @ Theta``, the
-    nearest single PyTorch call; none fuses the head)."""
+    512 of them, and the 3,276 rows in bf16; then 33 rows and 1, a small
+    serving batch and a single request, in fp32 and bf16) beside its
+    plain version, its bound and the contraction alone on cuBLAS
+    (``x @ Theta``, the nearest single PyTorch call; none fuses the
+    head)."""
     from repro_torch.kernels.lsplm_fused.lsplm_fused import (
         lsplm_fused_forward,
     )
@@ -1264,7 +1323,9 @@ def phase_dense_times(torch, dev, x_test, theta):
     out = []
     for rows, dtype in ((x_test.shape[0], torch.float32),
                         (512, torch.float32),
-                        (x_test.shape[0], torch.bfloat16)):
+                        (x_test.shape[0], torch.bfloat16),
+                        (33, torch.float32), (1, torch.float32),
+                        (33, torch.bfloat16), (1, torch.bfloat16)):
         x = x_test[:rows].to(dtype)
         th = theta.to(dtype)
         u, w = th[:, :REGIONS], th[:, REGIONS:]
@@ -1354,13 +1415,16 @@ def _b6_float64_witness(torch, q, k, v, rows):
 def phase_attention_kernel(torch, dev):
     """B6 (flash attention) against its plain version on the card: the
     reference tests' shapes (hd 16 and 8), causal and not, fp32 and bf16;
-    GQA with odd S; hd 128; llama's shape at S = 4,096."""
+    GQA with odd S; hd 128; hd 80 (zamba2-2.7b's head dim) with S ragged
+    against the 128-row tile; llama's shape at S = 4,096. bf16 at hd 16,
+    64, 80 and 128 runs the tensor-core body, fp32 and hd 8 the CUDA-core
+    one."""
     rng = np.random.default_rng(SEED + 13)
     f32, bf16 = torch.float32, torch.bfloat16
     err = {"float32": 0.0, "bfloat16": 0.0}
     cases = [(2, S, 3, 3, 16) for S in (32, 64, 48)] + [
         (1, 32, 2, 2, 8), (2, 37, 8, 2, 64), (1, 1, 4, 2, 64),
-        (1, 130, 4, 1, 128), (3, 577, 8, 8, 128),
+        (1, 130, 4, 1, 128), (3, 577, 8, 8, 128), (2, 577, 32, 8, 80),
         (LM_BATCH, LM_SEQ, 32, 8, 64)]
     for B, S, H, kvh, hd in cases:
         for dtype in (f32, bf16):
@@ -1384,7 +1448,7 @@ def phase_attention_kernel(torch, dev):
 
 
 # ------------------------------------------------------------ phase 14
-LM_KERNELS = ("flash_attention_kernel",)
+LM_KERNELS = ("wgmma_attention_kernel", "fma_attention_kernel")
 
 
 def _print_profile(title, wall_us, kernels, labels=LM_KERNELS, tag="B6"):
@@ -1559,9 +1623,10 @@ def phase_lm(torch, dev):
           f"{LM_LONG / long_s:,.0f} tokens/s; peak memory {peak_gb:.2f} GB; "
           f"B6 launches {launches} ({total} in all, one per layer per "
           f"prefill)")
-    print(f"  prefill logits with B6 vs with plain attention in every layer: "
-          f"max |err| {float(lerr.max()):.3e} (rtol = atol = {LM_TOL}: the "
-          f"worst element at {lbar:.2f} of its bar), argmax agreement "
+    print(f"  prefill logits with B6 (P rounded once to bf16 for its P.V "
+          f"product) vs with plain attention (P.V in fp32) in every layer: "
+          f"{lbar:.3f} of the bar (rtol = atol = {LM_TOL}), max |err| "
+          f"{float(lerr.max()):.3e}, argmax agreement "
           f"{agree:.0%}; against the same weights in fp32 (B6 in fp32): "
           f"bf16 with B6 max |err| {w_b6:.3e}, bf16 with plain attention "
           f"{w_plain:.3e}; B6 vs plain on layer 0's q, k, v "
@@ -1628,8 +1693,9 @@ def phase_lm_card_vs_cpu(torch, dev, arch=LM_ARCH, phase=15, kernel="B6"):
 # ------------------------------------------------------------ phase 16
 def phase_attention_times(torch, dev):
     """B6 at the LM path's shapes (4 x 4,096 and 1 x 32,768, 32 heads
-    over 8, hd 64, bf16, causal) beside its plain version, its bound and
-    torch's scaled_dot_product_attention (the library column only)."""
+    over 8, hd 64, bf16, causal) and at zamba2-2.7b's (4 x 4,096, 32
+    heads, hd 80) beside its plain version, its bound and torch's
+    scaled_dot_product_attention (the library column only)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention.flash_attention import (
@@ -1640,9 +1706,10 @@ def phase_attention_times(torch, dev):
     rng = np.random.default_rng(SEED + 16)
     flush = torch.empty(128 * 2**20 // 4, dtype=torch.float32, device=dev)
     out = []
-    for B, S, runs, warm in ((LM_BATCH, LM_SEQ, TIMED_RUNS, WARM_RUNS),
-                             (1, LM_LONG, LONG_RUNS, 1)):
-        H, kvh, hd = 32, 8, 64
+    for B, S, H, kvh, hd, runs, warm in (
+            (LM_BATCH, LM_SEQ, 32, 8, 64, TIMED_RUNS, WARM_RUNS),
+            (1, LM_LONG, 32, 8, 64, LONG_RUNS, 1),
+            (LM_BATCH, LM_SEQ, 32, 32, 80, TIMED_RUNS, WARM_RUNS)):
         q, k, v = _b6_inputs(torch, dev, rng, B, S, H, kvh, hd,
                              torch.bfloat16)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))

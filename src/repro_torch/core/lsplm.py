@@ -127,21 +127,25 @@ def predict_logits_stable(params: LSPLMParams, x: torch.Tensor
     return log_p1, log_p0
 
 
-def predict_proba_sparse(params: LSPLMParams, ids, vals) -> torch.Tensor:
+def predict_proba_sparse(params: LSPLMParams, ids, vals, *,
+                         plan=None) -> torch.Tensor:
     """p(y=1|x) per Eq. 2 from padded-COO (ids, vals), pad id == d,
-    through the serving layer (the fused sparse kernel). Returns (N,)."""
+    through the serving layer (the fused sparse kernel). Pass ``plan``
+    (``data.sparse``'s transpose plan of ``ids``) when the call will be
+    differentiated, to keep the backward sort-free. Returns (N,)."""
     from repro_torch.serve.score import score_sparse
 
-    return score_sparse(params, ids, vals)
+    return score_sparse(params, ids, vals, plan=plan)
 
 
-def predict_logits_stable_sparse(params: LSPLMParams, ids, vals
+def predict_logits_stable_sparse(params: LSPLMParams, ids, vals, *,
+                                 plan=None
                                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """Sparse analogue of :func:`predict_logits_stable`: (log_p1, log_p0)
     from the serving layer's region logits."""
     from repro_torch.serve.score import score_sparse_logps
 
-    return score_sparse_logps(params, ids, vals)
+    return score_sparse_logps(params, ids, vals, plan=plan)
 
 
 def foe_mixture_proba(params: LSPLMParams, x: torch.Tensor) -> torch.Tensor:

@@ -12,8 +12,12 @@ q is (B, S, H, hd); k and v are the KV-head-sized (B, S, KVH, hd) tensors
 h // (H // KVH) for query head h. All three are read through their
 strides as long as the head dim is unit-stride (a strided view of the
 projections goes as it lies; anything else is made contiguous first).
-Any S works: the kernel masks the ragged last tile. CUDA tensors only;
-``ops.plain_attention`` serves CPU tensors.
+bf16 at hd != 8 runs on the tensor cores and reads its operands by TMA,
+which also wants 16-byte aligned bases and (batch, position, head)
+strides that are multiples of 16 bytes: :func:`kernel_strides` gives
+the strides the kernel is handed, and a tensor that fails those rules is
+copied (:func:`tma_ready`). Any S works: the kernel masks the ragged
+last tile. CUDA tensors only; ``ops.plain_attention`` serves CPU tensors.
 """
 from __future__ import annotations
 
@@ -29,7 +33,9 @@ from repro_torch.kernels import _build
 LAUNCHES = {"flash_attention": 0}
 
 _SOURCE = "flash_attention"
-HEAD_DIMS = (8, 16, 64, 128)  # the kernel's instantiations
+HEAD_DIMS = (8, 16, 64, 80, 128)  # the kernel's instantiations
+# bf16 at these head dims takes the tensor-core body (TMA + wgmma)
+TENSOR_CORE_HEAD_DIMS = (16, 64, 80, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -64,6 +70,32 @@ def check_inputs(name: str, q: torch.Tensor, k: torch.Tensor,
                          f"bfloat16, got {q.dtype}/{k.dtype}/{v.dtype}")
 
 
+def kernel_strides(t: torch.Tensor) -> tuple[int, int, int]:
+    """The (batch, position, head) element strides the kernel is handed
+    for a (B, S, heads, hd) tensor with a unit-stride head dim: its own,
+    except that a dimension of size 1 gets the stride of a packed layout
+    (PyTorch may give such a dimension any stride; TMA checks every
+    stride it is given)."""
+    B, S, heads, hd = t.shape
+    sb, ss, sh = t.stride()[:3]
+    if heads == 1:
+        sh = hd
+    if S == 1:
+        ss = heads * sh
+    if B == 1:
+        sb = S * ss
+    return sb, ss, sh
+
+
+def tma_ready(t: torch.Tensor) -> bool:
+    """Whether the tensor-core body can read ``t`` (bf16) in place: a
+    16-byte aligned base and strides (:func:`kernel_strides`) that are
+    positive multiples of 16 bytes."""
+    vec = 16 // t.element_size()
+    return (t.data_ptr() % 16 == 0 and t.stride(3) == 1
+            and all(s > 0 and s % vec == 0 for s in kernel_strides(t)))
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True) -> torch.Tensor:
     """Attention of q (B, S, H, hd) over k, v (B, S, KVH, hd) on the card,
@@ -83,15 +115,22 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          "kernel's instantiations)")
     if B > 65535 or H > 65535 or S >= 2**31:
         raise ValueError(f"{name}: B and H must be <= 65535 and S < 2^31")
-    q, k, v = (t if t.stride(3) == 1 else t.contiguous() for t in (q, k, v))
     o = torch.empty((B, S, H, hd), dtype=q.dtype, device=q.device)
     if B * S * H == 0:
         return o
+    if q.dtype == torch.bfloat16 and hd in TENSOR_CORE_HEAD_DIMS:
+        q, k, v = (t if tma_ready(t) else
+                   t.clone(memory_format=torch.contiguous_format)
+                   for t in (q, k, v))
+    else:
+        q, k, v = (t if t.stride(3) == 1 else t.contiguous()
+                   for t in (q, k, v))
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = _lib().flash_attention_forward(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, S, H,
-        k.shape[2], hd, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-        hd ** -0.5, int(causal), _DTYPES[q.dtype], stream)
+        k.shape[2], hd, *kernel_strides(q), *kernel_strides(k),
+        *kernel_strides(v), hd ** -0.5, int(causal), _DTYPES[q.dtype],
+        stream)
     if rc != 0:
         msg = _lib().flash_attention_error_string(rc).decode()
         raise RuntimeError(f"{name}: kernel launch failed: {msg} ({rc})")

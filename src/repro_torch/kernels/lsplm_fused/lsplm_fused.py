@@ -15,6 +15,10 @@ bytes, as at m = 12 -- are that already and go as they lie; any other
 U, W are packed into one such tensor first. x's rows are read with
 16-byte loads when they are 16-byte aligned and d is a multiple of 16
 bytes, element by element otherwise. Ragged B and d need no padding.
+The kernel splits d into :func:`num_chunks` chunks of :data:`CHUNK`
+columns (a count that depends on d alone, so a row's bits do not depend
+on its batch) and adds their fp32 partial sums in a second launch; the
+wrapper allocates that (chunks, B, 2m) scratch with ``torch.empty``.
 CUDA tensors only; ``ref.py`` serves CPU tensors.
 """
 from __future__ import annotations
@@ -33,14 +37,16 @@ LAUNCHES = {"lsplm_fused_forward": 0}
 _SOURCE = "lsplm_fused"
 MAX_REGIONS = 128  # the reference kernel's stated limit on m
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+CHUNK = 2048  # columns of d per chunk (a multiple of 128)
+MAX_CHUNKS = 65535  # the grid's second dimension
 
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load(_SOURCE)
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.lsplm_fused_forward.argtypes = ([ptr] * 3 + [i32] * 3 + [i64]
-                                        + [i32] * 3 + [ptr])
+    lib.lsplm_fused_forward.argtypes = ([ptr] * 4 + [i32] * 3 + [i64]
+                                        + [i32] * 4 + [ptr])
     lib.lsplm_fused_forward.restype = i32
     lib.lsplm_fused_error_string.argtypes = [i32]
     lib.lsplm_fused_error_string.restype = ctypes.c_char_p
@@ -63,6 +69,12 @@ def check_inputs(name: str, x: torch.Tensor, u: torch.Tensor,
     if x.dtype not in _DTYPES or u.dtype != x.dtype or w.dtype != x.dtype:
         raise ValueError(f"{name}: x, u and w must all be float32 or all "
                          f"bfloat16, got {x.dtype}/{u.dtype}/{w.dtype}")
+
+
+def num_chunks(d: int) -> int:
+    """How many chunks of :data:`CHUNK` columns the kernel cuts d into
+    (at least one): a function of d alone."""
+    return max(1, -(-d // CHUNK))
 
 
 def _as_rows(t: torch.Tensor) -> torch.Tensor:
@@ -111,8 +123,9 @@ def lsplm_fused_forward(x: torch.Tensor, u: torch.Tensor,
                          f"{x.device}/{u.device}/{w.device}")
     check_inputs(name, x, u, w)
     (b, d), m = x.shape, u.shape[1]
-    if b >= 2**31 or d >= 2**31:
-        raise ValueError(f"{name}: B and d must fit in int32")
+    if b >= 2**31 or num_chunks(d) > MAX_CHUNKS:
+        raise ValueError(f"{name}: B must fit in int32 and d in "
+                         f"{MAX_CHUNKS} chunks of {CHUNK} columns")
     p = torch.empty((b,), dtype=x.dtype, device=x.device)
     if b == 0:
         return p
@@ -121,10 +134,12 @@ def lsplm_fused_forward(x: torch.Tensor, u: torch.Tensor,
     ldx = x.stride(0) if b > 1 else d
     vec = 16 // x.element_size()
     vec_x = x.data_ptr() % 16 == 0 and ldx % vec == 0 and d % vec == 0
+    scratch = torch.empty((num_chunks(d), b, 2 * m), dtype=torch.float32,
+                          device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = _lib().lsplm_fused_forward(
-        x.data_ptr(), theta.data_ptr(), p.data_ptr(), b, d, m, ldx,
-        ldt, int(vec_x), _DTYPES[x.dtype], stream)
+        x.data_ptr(), theta.data_ptr(), p.data_ptr(), scratch.data_ptr(), b,
+        d, m, ldx, ldt, CHUNK, int(vec_x), _DTYPES[x.dtype], stream)
     if rc != 0:
         msg = _lib().lsplm_fused_error_string(rc).decode()
         raise RuntimeError(f"{name}: kernel launch failed: {msg} ({rc})")

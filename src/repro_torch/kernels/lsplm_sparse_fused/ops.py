@@ -7,8 +7,8 @@ The port's counterpart of ``repro/kernels/lsplm_sparse_fused/ops.py``
     region logits, differentiable;
   * ``lsplm_sparse_logps`` — stable (log_p1, log_p0) on top of it, the
     training path;
-  * ``lsplm_sparse_forward(ids, vals, theta) -> p (N,)`` — fully fused
-    probabilities;
+  * ``lsplm_sparse_forward(ids, vals, theta, plan=) -> p (N,)`` — fully
+    fused probabilities, differentiable;
   * ``sparse_gather_matmul_int8`` / ``lsplm_sparse_forward_int8`` — the
     same on an int8 model (``codes`` + per-row fp32 ``scales``) without
     materialising fp32 rows;
@@ -30,8 +30,11 @@ Training differentiates ``sparse_gather_matmul`` (and
 transposed scatter of ``repro_torch.kernels.lsplm_sparse_scatter``
 (B2 on the card; the plain class gathers, or the ``index_add_`` oracle
 without a plan, on the CPU), and dvals is computed only when asked for.
-The p-level forms (``lsplm_sparse_forward*``) serve scores and carry no
-gradient.
+``lsplm_sparse_forward`` is differentiable too, through
+:class:`_ForwardP`: its forward returns the fused kernel's own p (so a
+planned call is bitwise the unplanned one) and its backward forms dz from
+the Eq. 2 head's derivative and runs the same scatter. The int8 forms
+serve scores and carry no gradient.
 """
 from __future__ import annotations
 
@@ -231,19 +234,58 @@ class _GatherMatmul(torch.autograd.Function):
         ids, vals, theta = ctx.saved_tensors
         plan = ctx.plan
         dz = dz.contiguous()
-        dvals = dtheta = None
-        if ctx.needs_input_grad[2]:
-            if plan is not None:
-                dtheta = scatter_add_planned(plan, vals, dz)
-            else:
-                dtheta = scatter_add_unplanned(ids, vals, dz, theta.shape[0],
-                                               theta.shape[0] - 1)
-            dtheta = dtheta.to(theta.dtype)
-        if ctx.needs_input_grad[1]:
-            dvals = (dvals_planned(plan, theta, dz, tuple(ids.shape))
-                     if plan is not None else dvals_unplanned(ids, theta, dz))
-            dvals = dvals.to(vals.dtype)
-        return None, dvals, dtheta, None, None
+        return (None, *_scatter_backward(ctx, ids, vals, theta, plan, dz),
+                None, None)
+
+
+def _scatter_backward(ctx, ids, vals, theta, plan, dz):
+    """(dvals, dTheta) from dz (N, 2m), each only when its input asks:
+    dTheta by ``scatter_add_planned`` with the batch's plan, else by
+    ``scatter_add_unplanned`` (the card sorts the entries itself and runs
+    the same kernel)."""
+    dvals = dtheta = None
+    if ctx.needs_input_grad[2]:
+        if plan is not None:
+            dtheta = scatter_add_planned(plan, vals, dz)
+        else:
+            dtheta = scatter_add_unplanned(ids, vals, dz, theta.shape[0],
+                                           theta.shape[0] - 1)
+        dtheta = dtheta.to(theta.dtype)
+    if ctx.needs_input_grad[1]:
+        dvals = (dvals_planned(plan, theta, dz, tuple(ids.shape))
+                 if plan is not None else dvals_unplanned(ids, theta, dz))
+        dvals = dvals.to(vals.dtype)
+    return dvals, dtheta
+
+
+class _ForwardP(torch.autograd.Function):
+    """p = Eq. 2 head of x @ Theta, fused, with the reference's p-level
+    VJP (``_forward_p``). Forward: B1's own p on the card, the plain
+    ``finalize_p`` of ``_chunked_zmap`` on the CPU. Backward: dz from the
+    head's derivative at the saved z and p, then the scatter of
+    :class:`_GatherMatmul`."""
+
+    @staticmethod
+    def forward(ctx, ids, vals, theta, plan, dedup):
+        p, z = _forward(ids, vals, theta, dedup)
+        if p is None:
+            p = finalize_p(z)
+        ctx.save_for_backward(ids, vals, theta, z, p)
+        ctx.plan = plan
+        return p
+
+    @staticmethod
+    def backward(ctx, dp):
+        ids, vals, theta, z, p = ctx.saved_tensors
+        m = z.shape[-1] // 2
+        gate = torch.softmax(z[:, :m], dim=-1)
+        fit = torch.sigmoid(z[:, m:])
+        dp = dp.to(z.dtype)[:, None]
+        dzu = dp * gate * (fit - p.to(z.dtype)[:, None])
+        dzw = dp * gate * fit * (1.0 - fit)
+        dz = torch.cat([dzu, dzw], dim=-1).contiguous()
+        return (None, *_scatter_backward(ctx, ids, vals, theta, ctx.plan, dz),
+                None, None)
 
 
 def sparse_gather_matmul(ids, vals, theta, *, dedup: bool = True,
@@ -253,6 +295,11 @@ def sparse_gather_matmul(ids, vals, theta, *, dedup: bool = True,
     batch, on Theta's device) so the backward needs no sort.
     ``dedup=False`` skips the kernel path's duplicate-id collapse for
     batches known to be duplicate-free."""
+    _check_plan(ids, theta, plan)
+    return _GatherMatmul.apply(ids, vals, theta, plan, dedup)
+
+
+def _check_plan(ids, theta, plan) -> None:
     _check_theta(theta)
     if plan is not None:
         plan.validate(tuple(ids.shape), theta.shape[0])
@@ -260,14 +307,15 @@ def sparse_gather_matmul(ids, vals, theta, *, dedup: bool = True,
             raise ValueError(f"the plan lies on {plan.device}, Theta on "
                              f"{theta.device}: move it once with "
                              "plan.to(device)")
-    return _GatherMatmul.apply(ids, vals, theta, plan, dedup)
 
 
-def lsplm_sparse_forward(ids, vals, theta, *, dedup: bool = True
-                         ) -> torch.Tensor:
-    """p(y=1|x) per Eq. 2 from padded COO, fully fused. Returns (N,)."""
-    p, z = _forward(ids, vals, theta, dedup)
-    return finalize_p(z) if p is None else p
+def lsplm_sparse_forward(ids, vals, theta, *, dedup: bool = True,
+                         plan: TransposePlan | None = None) -> torch.Tensor:
+    """p(y=1|x) per Eq. 2 from padded COO, fully fused. Returns (N,),
+    differentiable in ``theta`` and ``vals``; ``plan`` keeps the backward
+    sort-free and leaves p's bits as they are."""
+    _check_plan(ids, theta, plan)
+    return _ForwardP.apply(ids, vals, theta, plan, dedup)
 
 
 def sparse_gather_matmul_int8(ids, vals, codes, scales, *,

@@ -154,12 +154,23 @@ def _vals(model: ServingModel, vals) -> torch.Tensor:
     return torch.as_tensor(vals, dtype=torch.float32, device=model.device)
 
 
-def _z_sparse(model: ServingModel, ids, vals, *, dedup: bool):
-    """Region logits for flat padded-COO rows, routed by model dtype."""
+def _check_plans(model: ServingModel, *plans) -> None:
+    """Transpose plans address the full padded Theta: refuse them on a
+    pruned (remapped) model, as the reference does."""
+    if model.remap is not None and any(p is not None for p in plans):
+        raise ValueError("transpose plans address the full Theta layout; "
+                         "they cannot be combined with a pruned artifact")
+
+
+def _z_sparse(model: ServingModel, ids, vals, *, dedup: bool, plan=None):
+    """Region logits for flat padded-COO rows, routed by model dtype.
+    int8 models are always remapped artifacts, so a plan never reaches
+    their gather (``_check_plans`` refuses it first)."""
     if model.is_int8:
         return sparse_gather_matmul_int8(ids, vals, model.codes,
                                          model.scales, dedup=dedup)
-    return sparse_gather_matmul(ids, vals, model.theta, dedup=dedup)
+    return sparse_gather_matmul(ids, vals, model.theta, dedup=dedup,
+                                plan=plan)
 
 
 def score_dense(model, x) -> torch.Tensor:
@@ -178,43 +189,59 @@ def score_dense(model, x) -> torch.Tensor:
     return predict_proba(params_from_theta(model.dense_theta()[:-1]), x)
 
 
-def score_sparse(model, ids, vals, *, dedup: bool = True) -> torch.Tensor:
-    """p(y=1|x) for flat padded-COO rows (N, K) on the fused kernel."""
+def score_sparse(model, ids, vals, *, dedup: bool = True,
+                 plan=None) -> torch.Tensor:
+    """p(y=1|x) for flat padded-COO rows (N, K) on the fused kernel.
+
+    ``plan`` (the full model's transpose plan of ``ids``) keeps a
+    differentiated call's backward sort-free; p is the fused kernel's
+    either way, so a planned call is bitwise the unplanned one. Plans
+    cannot be combined with a pruned model."""
     model = as_model(model)
+    _check_plans(model, plan)
     ids, vals = _request_ids(model, ids), _vals(model, vals)
     if model.is_int8:
         return lsplm_sparse_forward_int8(ids, vals, model.codes,
                                          model.scales, dedup=dedup)
-    return lsplm_sparse_forward(ids, vals, model.theta, dedup=dedup)
+    return lsplm_sparse_forward(ids, vals, model.theta, dedup=dedup,
+                                plan=plan)
 
 
-def score_sparse_logps(model, ids, vals, *, dedup: bool = True
-                       ) -> tuple[torch.Tensor, torch.Tensor]:
+def score_sparse_logps(model, ids, vals, *, dedup: bool = True,
+                       plan=None) -> tuple[torch.Tensor, torch.Tensor]:
     """Stable (log_p1, log_p0) for flat padded-COO rows (the Eq. 5 head
     on the serving layer's region logits)."""
     model = as_model(model)
+    _check_plans(model, plan)
     z = _z_sparse(model, _request_ids(model, ids), _vals(model, vals),
-                  dedup=dedup)
+                  dedup=dedup, plan=plan)
     return logps_from_z(z)
 
 
-def bundle_logits(model, bundle: ScoreBundle, *,
-                  dedup: bool = True) -> torch.Tensor:
+def bundle_logits(model, bundle: ScoreBundle, *, dedup: bool = True,
+                  user_plan=None, ad_plan=None) -> torch.Tensor:
     """Session-shared region logits z (B, 2m): the user contraction runs
-    once per bundle (G rows), then broadcasts over candidates (Eq. 13)."""
+    once per bundle (G rows), then broadcasts over candidates (Eq. 13).
+
+    ``user_plan``/``ad_plan`` (the full model's transpose plans of the
+    bundle's id tensors) keep a differentiated call's backward sort-free;
+    they cannot be combined with a pruned model."""
     model = as_model(model)
+    _check_plans(model, user_plan, ad_plan)
     z_user = _z_sparse(model, _request_ids(model, bundle.user_ids),
-                       _vals(model, bundle.user_vals), dedup=dedup)
+                       _vals(model, bundle.user_vals), dedup=dedup,
+                       plan=user_plan)
     z_ad = _z_sparse(model, _request_ids(model, bundle.ad_ids),
-                     _vals(model, bundle.ad_vals), dedup=dedup)
+                     _vals(model, bundle.ad_vals), dedup=dedup, plan=ad_plan)
     session = torch.as_tensor(bundle.session_id, device=model.device).long()
     return z_user.index_select(0, session) + z_ad
 
 
-def score_bundles(model, bundle: ScoreBundle, *,
-                  dedup: bool = True) -> torch.Tensor:
+def score_bundles(model, bundle: ScoreBundle, *, dedup: bool = True,
+                  user_plan=None, ad_plan=None) -> torch.Tensor:
     """p(y=1|x) (B,) for session-grouped bundles — the serving hot path."""
-    return finalize_p(bundle_logits(model, bundle, dedup=dedup))
+    return finalize_p(bundle_logits(model, bundle, dedup=dedup,
+                                    user_plan=user_plan, ad_plan=ad_plan))
 
 
 def score_bundles_naive(model, bundle: ScoreBundle, *,
@@ -238,12 +265,21 @@ def predict(model, request, *, dedup: bool = True) -> torch.Tensor:
     """Unified entry, dispatching on the request's structure: a
     session-grouped bundle (has ``user_ids``/``ad_ids``/``session_id``)
     takes the shared path, an ``(ids, vals)`` pair the flat sparse one,
-    and dense rows ``(..., d)`` (a tensor or an array) the dense one."""
+    and dense rows ``(..., d)`` (a tensor or an array) the dense one.
+    A ``SparseCTRBatch``'s transpose plans are threaded through on a full
+    model (a differentiated call keeps the sort-free backward) and
+    dropped on a pruned artifact (inference only there)."""
     if hasattr(request, "user_ids") and hasattr(request, "session_id"):
+        model = as_model(model)
+        user_plan = getattr(request, "user_plan", None)
+        ad_plan = getattr(request, "ad_plan", None)
+        if model.remap is not None:
+            user_plan = ad_plan = None
         return score_bundles(model, ScoreBundle(
             user_ids=request.user_ids, user_vals=request.user_vals,
             ad_ids=request.ad_ids, ad_vals=request.ad_vals,
-            session_id=request.session_id), dedup=dedup)
+            session_id=request.session_id), dedup=dedup,
+            user_plan=user_plan, ad_plan=ad_plan)
     if isinstance(request, (tuple, list)) and len(request) == 2:
         ids, vals = request
         return score_sparse(model, ids, vals, dedup=dedup)

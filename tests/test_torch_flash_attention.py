@@ -121,6 +121,50 @@ def test_odd_sequence_lengths(S, chunk):
     _close(got, want, TOL["float32"])
 
 
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_head_dim_80_matches_reference(causal, dtype):
+    """hd 80 (zamba2-2.7b: 2560 / 32) on the plain version against the
+    reference's jnp oracle and, causal, its model layer (GQA rep 4)."""
+    H, kvh = 8, 2
+    arrays = _qkv(12, 2, 40, H, 80, kvh)
+    jq, jk, jv = _jax(arrays, dtype)
+    jk, jv = (jlayers.repeat_kv(t, H // kvh) for t in (jk, jv))
+    got = ops.causal_attention(*_torch(arrays, dtype), causal=causal)
+    assert got.shape == (2, 40, H, 80)
+    _close(got, j_attention_ref(jq, jk, jv, causal=causal), TOL[dtype])
+    if causal:
+        _close(got, j_chunked(jq, jk, jv, chunk=8), TOL[dtype])
+
+
+def test_head_dims_include_80():
+    assert 80 in tk.HEAD_DIMS
+    assert set(tk.TENSOR_CORE_HEAD_DIMS) == {16, 64, 80, 128}
+    assert set(tk.TENSOR_CORE_HEAD_DIMS) < set(tk.HEAD_DIMS)
+
+
+def test_kernel_strides_and_tma_rules():
+    """The strides the kernel is handed: a tensor's own, with any size-1
+    dimension given a packed stride; TMA wants 16-byte multiples."""
+    B, S, H, kvh, hd = 2, 5, 4, 2, 80
+    fused = torch.zeros(B, S, (H + 2 * kvh) * hd, dtype=torch.bfloat16)
+    q = fused[..., :H * hd].view(B, S, H, hd)
+    k = fused[..., H * hd:(H + kvh) * hd].view(B, S, kvh, hd)
+    assert tk.kernel_strides(q) == q.stride()[:3]
+    assert tk.kernel_strides(k) == k.stride()[:3]
+    assert tk.tma_ready(q) and tk.tma_ready(k)
+    one = torch.zeros(1, 1, 1, 64, dtype=torch.bfloat16).as_strided(
+        (1, 1, 1, 64), (3, 5, 7, 1))
+    assert tk.kernel_strides(one) == (64, 64, 64)
+    assert tk.tma_ready(one)
+    odd = torch.zeros(B, S, H * 16 + 4, dtype=torch.bfloat16)[
+        ..., :H * 16].view(B, S, H, 16)  # position stride 68: not 16 bytes
+    assert not tk.tma_ready(odd)
+    shifted = torch.zeros(B * S * H * 16 + 1, dtype=torch.bfloat16)[1:].view(
+        B, S, H, 16)  # base 2 bytes past an aligned one
+    assert not tk.tma_ready(shifted)
+
+
 def test_cpu_tensor_takes_the_plain_version():
     q, k, v = _torch(_qkv(8, 2, 24, 4, 8, 2), "float32")
     before = tk.LAUNCHES["flash_attention"]
@@ -155,7 +199,10 @@ def cuda():
 @pytest.mark.parametrize("B,S,H,kvh,hd", [
     (2, 32, 3, 3, 16), (2, 64, 3, 3, 16), (2, 48, 3, 3, 16),
     (1, 32, 2, 2, 8), (2, 37, 8, 2, 64), (1, 130, 4, 1, 128),
-    (1, 1, 2, 1, 64), (2, 256, 32, 8, 64)])
+    (1, 1, 2, 1, 64), (2, 256, 32, 8, 64),
+    # hd 80, S ragged against the 128-row tile, GQA rep 4
+    (1, 1, 8, 2, 80), (1, 127, 8, 2, 80), (1, 129, 8, 2, 80),
+    (2, 577, 32, 8, 80)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("causal", [True, False])
 def test_kernel_matches_plain_on_card(cuda, B, S, H, kvh, hd, dtype, causal):
@@ -173,14 +220,17 @@ def test_kernel_matches_plain_on_card(cuda, B, S, H, kvh, hd, dtype, causal):
 
 
 @pytest.mark.cuda
-def test_kernel_reads_strided_projections(cuda):
+@pytest.mark.parametrize("dtype,hd", [("float32", 64), ("bfloat16", 64),
+                                      ("bfloat16", 80)])
+def test_kernel_reads_strided_projections(cuda, dtype, hd):
     """q, k, v as (B, S, heads, hd) views of one fused projection (head
     dim unit-stride, other strides not packed) give the same bits as
-    contiguous copies."""
-    B, S, H, kvh, hd = 2, 70, 8, 2, 64
+    contiguous copies (bf16: read in place by TMA)."""
+    B, S, H, kvh = 2, 70, 8, 2
     rng = np.random.default_rng(11)
     fused = torch.from_numpy(rng.normal(size=(B, S, (H + 2 * kvh) * hd))
-                             .astype(np.float32)).to(cuda)
+                             .astype(np.float32)).to(cuda,
+                                                     getattr(torch, dtype))
     q = fused[..., :H * hd].view(B, S, H, hd)
     k = fused[..., H * hd:(H + kvh) * hd].view(B, S, kvh, hd)
     v = fused[..., (H + kvh) * hd:].view(B, S, kvh, hd)
@@ -188,3 +238,20 @@ def test_kernel_reads_strided_projections(cuda):
     want = tk.flash_attention(q.contiguous(), k.contiguous(), v.contiguous())
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_kernel_copies_what_tma_cannot_read(cuda):
+    """A bf16 q whose position stride is not a multiple of 16 bytes is
+    copied before the tensor-core body reads it: same bits as the
+    contiguous tensor."""
+    B, S, H, hd = 1, 129, 4, 16
+    rng = np.random.default_rng(13)
+    wide = torch.from_numpy(rng.normal(size=(B, S, H * hd + 4)).astype(
+        np.float32)).to(cuda, torch.bfloat16)
+    q = wide[..., :H * hd].view(B, S, H, hd)
+    assert not tk.tma_ready(q)
+    k = v = q.contiguous()
+    got = tk.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert torch.equal(got, tk.flash_attention(q.contiguous(), k, v))

@@ -90,6 +90,15 @@ def test_bad_inputs_are_refused():
         tk.lsplm_fused_forward(x, u, w)  # the kernel takes no CPU tensor
 
 
+@pytest.mark.parametrize("d,chunks", [(0, 1), (1, 1), (2048, 1),
+                                      (2049, 2), (32768, 16), (32769, 17)])
+def test_chunk_count_depends_on_d_alone(d, chunks):
+    """The kernel splits d into chunks of CHUNK columns; how many is a
+    function of d alone (so a row's sum order never depends on B)."""
+    assert tk.CHUNK == 2048 and tk.CHUNK % 128 == 0
+    assert tk.num_chunks(d) == chunks
+
+
 # ------------------------------------------------------------ on the card
 @pytest.fixture
 def cuda():
@@ -120,3 +129,37 @@ def test_kernel_matches_plain_on_card(cuda, b, d, m, dtype):
     assert torch.equal(lsplm_forward(x, theta[:, :m], theta[:, m:]), got)
     rows = [0, b // 2, b - 1]
     assert torch.equal(lsplm_forward(x[rows], u, w), got[rows])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,d", [(1, 2048 + 37), (33, 3 * 2048 + 512),
+                                 (33, 2048 - 8), (1, 5000 + 3),
+                                 (1100, 2048 + 37), (1100, 2 * 2048 + 8)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kernel_split_over_d_on_card(cuda, b, d, dtype):
+    """d not a multiple of the chunk (and, for odd d, x's rows read
+    element by element), B = 1, 33 and 1,100: within the bar of the
+    plain version and bitwise repeatable."""
+    _, (x, u, w) = _both(_inputs(4, b, d, 12), dtype)
+    x, u, w = x.to(cuda), u.to(cuda), w.to(cuda)
+    tol = DTYPES[dtype][2]
+    got = lsplm_forward(x, u, w)
+    again = lsplm_forward(x, u, w)
+    want = lsplm_forward_ref(x, u, w)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kernel_row_alone_equals_row_in_batch_of_3276(cuda, dtype):
+    """A row scored alone gives the same bits as the same row inside the
+    dense test batch's 3,276 rows, at d = 32,768 (16 chunks)."""
+    b, d = 3276, 32768
+    _, (x, u, w) = _both(_inputs(5, b, d, 12), dtype)
+    x, u, w = x.to(cuda), u.to(cuda), w.to(cuda)
+    batch = lsplm_forward(x, u, w)
+    for row in (0, 1, 1637, b - 1):
+        alone = lsplm_forward(x[row:row + 1], u, w)
+        assert torch.equal(alone, batch[row:row + 1])

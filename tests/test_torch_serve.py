@@ -215,6 +215,109 @@ def test_score_sparse_and_predict_match_reference(theta):
         rtol=0, atol=P_ATOL)
 
 
+# ------------------------------------------- transpose plans (C1)
+def _planned_batches(seed):
+    """The same plan-carrying batch from both packages' generators (their
+    arrays are equal bit for bit), and the port's copy without plans."""
+    from repro.data.sparse import generate_sparse as jgenerate
+    from repro_torch.data.sparse import generate_sparse as tgenerate
+
+    kw = dict(num_features=D, num_user_features_range=(D // 2, D),
+              sessions=8, seed=seed)
+    jb = jgenerate(**kw)  # with_plans=True
+    tb = tgenerate(**kw, device="cpu")
+    assert tb.user_plan is not None and tb.ad_plan is not None
+    np.testing.assert_array_equal(tb.ad_ids.numpy(), np.asarray(jb.ad_ids))
+    return jb, tb, tb._replace(user_plan=None, ad_plan=None)
+
+
+def test_score_sparse_with_plan_bitwise_equals_unplanned(theta):
+    _, tb, _ = _planned_batches(7)
+    th = torch.from_numpy(theta)
+    bare = tscore.score_sparse(th, tb.ad_ids, tb.ad_vals)
+    assert torch.equal(tscore.score_sparse(th, tb.ad_ids, tb.ad_vals,
+                                           plan=tb.ad_plan), bare)
+    lp = tscore.score_sparse_logps(th, tb.ad_ids, tb.ad_vals,
+                                   plan=tb.ad_plan)
+    for a, b in zip(lp, tscore.score_sparse_logps(th, tb.ad_ids,
+                                                  tb.ad_vals)):
+        assert torch.equal(a, b)
+    from repro_torch.core import lsplm as tlsplm
+
+    params = tlsplm.params_from_theta(th)
+    assert torch.equal(tlsplm.predict_proba_sparse(
+        params, tb.ad_ids, tb.ad_vals, plan=tb.ad_plan), bare)
+    for a, b in zip(tlsplm.predict_logits_stable_sparse(
+            params, tb.ad_ids, tb.ad_vals, plan=tb.ad_plan), lp):
+        assert torch.equal(a, b)
+
+
+def test_predict_threads_plans_and_grads_match_reference(theta):
+    """predict() keeps a SparseCTRBatch's plans on a full model: the
+    forward is the bare batch's, and the planned autograd gradient equals
+    the reference's jax.grad of its own planned predict (the bars of
+    tests/test_serve_score.py::test_predict_threads_plans_and_grads)."""
+    import jax
+
+    jb, planned, bare = _planned_batches(9)
+    th = torch.from_numpy(theta)
+    assert torch.equal(tscore.predict(th, planned), tscore.predict(th, bare))
+    grads = []
+    for batch in (planned, bare):
+        t = th.clone().requires_grad_(True)
+        tscore.predict(t, batch).sum().backward()
+        grads.append(t.grad.numpy())
+    want = jax.grad(lambda t: jserve.predict(t, jb).sum())(jnp.asarray(theta))
+    for g in grads:
+        np.testing.assert_allclose(g, np.asarray(want), rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(grads[0], grads[1], rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_planned_scoring_bitwise_equals_unplanned_on_card(theta):
+    """On the card a planned score_sparse / predict_proba_sparse returns
+    the fused kernel's p, bit for bit the unplanned call's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    from repro_torch.core import lsplm as tlsplm
+
+    _, tb, _ = _planned_batches(7)
+    th = torch.from_numpy(theta).cuda()
+    ids, vals = tb.ad_ids.cuda(), tb.ad_vals.cuda()
+    plan = tb.ad_plan.to(th.device)
+    bare = tscore.score_sparse(th, ids, vals)
+    assert torch.equal(tscore.score_sparse(th, ids, vals, plan=plan), bare)
+    params = tlsplm.params_from_theta(th)
+    assert torch.equal(tlsplm.predict_proba_sparse(params, ids, vals,
+                                                   plan=plan), bare)
+    assert torch.equal(tlsplm.predict_proba_sparse(params, ids, vals), bare)
+
+
+@pytest.mark.parametrize("call", ["score_sparse", "score_sparse_logps",
+                                  "bundle_logits", "score_bundles"])
+def test_plans_on_a_pruned_artifact_raise(theta, call):
+    _, tb, _ = _planned_batches(7)
+    art = tserve.compress(torch.from_numpy(theta))
+    bundle = tscore.ScoreBundle(tb.user_ids, tb.user_vals, tb.ad_ids,
+                                tb.ad_vals, tb.session_id)
+    fn = getattr(tscore, call)
+    with pytest.raises(ValueError, match="full Theta layout"):
+        if call.startswith("score_sparse"):
+            fn(art, tb.ad_ids, tb.ad_vals, plan=tb.ad_plan)
+        else:
+            fn(art, bundle, user_plan=tb.user_plan, ad_plan=tb.ad_plan)
+    if call.startswith("score_sparse"):  # the full model takes the plan
+        fn(torch.from_numpy(theta), tb.ad_ids, tb.ad_vals, plan=tb.ad_plan)
+
+
+def test_predict_on_an_artifact_drops_plans(theta):
+    _, planned, bare = _planned_batches(9)
+    art = tserve.compress(torch.from_numpy(theta))
+    assert torch.equal(tscore.predict(art, planned), tscore.predict(art, bare))
+    assert torch.equal(tscore.predict(art, planned),
+                       tscore.predict(torch.from_numpy(theta), bare))
+
+
 def test_pruned_scoring_bitwise_equals_full(theta):
     art = tserve.compress(torch.from_numpy(theta))
     rng = np.random.default_rng(6)

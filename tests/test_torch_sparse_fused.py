@@ -70,6 +70,42 @@ def test_lsplm_sparse_forward_matches_reference(mode):
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=P_ATOL)
 
 
+@pytest.mark.parametrize("planned", [False, True])
+def test_lsplm_sparse_forward_grad_matches_reference(planned):
+    """The p-level backward (dp -> dz by the Eq. 2 head's derivative ->
+    scatter) against jax.grad of the reference's planned/unplanned
+    ``lsplm_sparse_forward``, and gradcheck'd in float64."""
+    import jax
+    from repro.kernels.lsplm_sparse_scatter.plan import (
+        build_transpose_plan as jbuild)
+    from repro_torch.kernels.lsplm_sparse_scatter.plan import (
+        build_transpose_plan as tbuild)
+
+    theta, _, _, ids, vals = _inputs(3)
+    w = np.random.default_rng(4).normal(size=ids.shape[0]).astype(np.float32)
+    jplan = jbuild(ids, D, pad_id=D - 1) if planned else None
+    tplan = tbuild(ids, D, pad_id=D - 1) if planned else None
+    want = jax.grad(lambda t, v: (jnp.asarray(w) * jops.lsplm_sparse_forward(
+        jnp.asarray(ids), v, t, mode="jnp", plan=jplan)).sum(),
+        argnums=(0, 1))(*_j(theta, vals))
+    t, v = (a.requires_grad_(True) for a in _t(theta, vals))
+    (torch.from_numpy(w) * tops.lsplm_sparse_forward(
+        torch.from_numpy(ids), v, t, plan=tplan)).sum().backward()
+    for got, ref in zip((t.grad, v.grad), want):
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5,
+                                   atol=1e-6)
+    small = torch.from_numpy(ids[:4, :6] % 40)
+    small[:, ::5] = 40  # pad slots, their values 0 as the layout asks
+    v64 = torch.from_numpy(vals[:4, :6]).double()
+    v64[:, ::5] = 0.0
+    t64 = torch.from_numpy(theta[:41]).double()
+    t64[-1] = 0.0
+    plan = tbuild(small, 41, pad_id=40) if planned else None
+    assert torch.autograd.gradcheck(
+        lambda t_, v_: tops.lsplm_sparse_forward(small, v_, t_, plan=plan),
+        (t64.requires_grad_(True), v64.requires_grad_(True)))
+
+
 @pytest.mark.parametrize("mode", ["jnp", "interpret"])
 def test_int8_ops_match_reference(mode):
     _, codes, scales, ids, vals = _inputs(2)
@@ -215,3 +251,29 @@ def test_kernels_match_plain_on_card(cuda, dedup):
     torch.testing.assert_close(zi, zi_ref, rtol=Z_RTOL, atol=Z_ATOL)
     torch.testing.assert_close(pi, tops.finalize_p(zi_ref), rtol=0,
                                atol=P_ATOL)
+
+
+@pytest.mark.cuda
+def test_forward_p_keeps_the_kernel_p_and_its_grad_on_card(cuda):
+    """The differentiable p-level op returns B1's own p, planned or not,
+    and its planned and unplanned gradients agree with the CPU's."""
+    from repro_torch.kernels.lsplm_sparse_scatter.plan import (
+        build_transpose_plan)
+
+    theta, _, _, ids, vals = _inputs(12, n=300, k=40)
+    vals[ids == D - 1] = 0.0  # padded COO: the plan drops the pad slots
+    t, i, v = (x.to(cuda) for x in _t(theta, ids, vals))
+    p_kernel = tk.lsplm_sparse_fused_forward(*tops._kernel_inputs(
+        i, v, D - 1, True), t)[0]
+    plan = build_transpose_plan(ids, D, pad_id=D - 1).to(cuda)
+    grads = []
+    for pl in (None, plan):
+        tt = t.clone().requires_grad_(True)
+        p = tops.lsplm_sparse_forward(i, v, tt, plan=pl)
+        assert torch.equal(p, p_kernel)
+        p.sum().backward()
+        grads.append(tt.grad)
+    tc = torch.from_numpy(theta).requires_grad_(True)
+    tops.lsplm_sparse_forward(*_t(ids, vals), tc).sum().backward()
+    for g in grads:
+        torch.testing.assert_close(g.cpu(), tc.grad, rtol=1e-5, atol=1e-6)

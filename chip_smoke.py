@@ -1475,6 +1475,44 @@ def _print_profile(title, wall_us, kernels, labels=LM_KERNELS, tag="B6"):
                       for name, (us, n) in top))
 
 
+def _op_label(name: str) -> str:
+    """A short label for a device kernel's name: the op inside a PyTorch
+    elementwise, reduction or copy kernel, else the kernel's own name."""
+    m = re.search(r"(\w+_kernel(?:_cuda)?)\(at::TensorIterator", name)
+    if m:
+        return m.group(1)
+    functors = re.findall(r"(\w*Functor\w*)", name)
+    if functors:
+        return functors[-1]
+    m = re.search(r"(\w+Ops)<", name)
+    if m:
+        return m.group(1)
+    m = re.search(r"native::(?:\(anonymous namespace\)::)?(\w+)", name)
+    return m.group(1) if m else name[:40]
+
+
+def _print_elementwise(kernels, labels) -> None:
+    """The profile's device time outside the GEMMs and our kernels, by
+    op (``_op_label``), largest first."""
+    busy_us = sum(v[0] for v in kernels.values())
+    ops: dict[str, list] = {}
+    for name, (us, n) in kernels.items():
+        if any(label in name for label in labels) or any(
+                g in name.lower() for g in ("nvjet", "gemm", "xmma")):
+            continue
+        k = ops.setdefault(_op_label(name), [0.0, 0])
+        k[0] += us
+        k[1] += n
+    if not busy_us:
+        return
+    rest_us = sum(us for us, _ in ops.values())
+    print(f"  the rest by op ({rest_us / 1e3:.3f} ms, "
+          f"{rest_us / busy_us:.1%} of device time): " + "; ".join(
+              f"{op} x{n} {us / 1e3:.3f} ms ({us / busy_us:.1%})"
+              for op, (us, n) in sorted(ops.items(), key=lambda kv:
+                                        -kv[1][0])))
+
+
 def phase_lm(torch, dev):
     """The LM serving path at full width: llama3.2-1b from a seeded
     torch.Generator, prompts from the token stream; (a) prefill 4 x 4,096,
@@ -1756,49 +1794,123 @@ def _b7_inputs(torch, dev, gen, B, S, di, N, dtype, h0, R=7):
             randn(B, di, N) if h0 else None)
 
 
+def _b7_gated_inputs(torch, dev, gen, B, S, di, N, dtype, h0, R=7):
+    """The gated scan's inputs as the model gives them, in ``dtype``:
+    dt_raw ~ 3 N(0, 1) with every 13th value above softplus's threshold
+    (20); x ~ N(0, 1); B and C the column slices [R, R+N) and [R+N, R+2N)
+    of one (B, S, R+2N) tensor; z the second half of one (B, S, 2 di)
+    tensor; dt_bias ~ N(0, 1) - 3, A_log ~ N(0, 1)/2, D ~ N(0, 1) fp32;
+    h0 ~ N(0, 1) fp32 or None."""
+    def randn(*shape, dt=torch.float32):
+        return torch.randn(shape, generator=gen, device=dev).to(dt)
+
+    dt_raw = 3 * randn(B, S, di)
+    dt_raw.view(-1)[::13] = 21 + dt_raw.view(-1)[::13].abs()
+    xdb = randn(B, S, R + 2 * N, dt=dtype)
+    xz = randn(B, S, 2 * di, dt=dtype)
+    return (dt_raw.to(dtype), randn(di) - 3, randn(B, S, di, dt=dtype),
+            xdb[..., R:R + N], xdb[..., R + N:], 0.5 * randn(di, N),
+            randn(di), xz[..., di:], randn(B, di, N) if h0 else None)
+
+
+def _chained(torch, scan, args, seq_args, state_at, group):
+    """``scan`` over the two halves of the sequence, the first half's hT
+    as the second's h0: (y of both halves, the last hT)."""
+    cut = args[seq_args[0]].shape[1] // 2 + 1
+    halves = []
+    h = args[state_at]
+    for sl in (slice(0, cut), slice(cut, None)):
+        part = list(args)
+        for i in seq_args:
+            part[i] = args[i][:, sl]
+        part[state_at] = h
+        y, h = scan(*part, group=group)
+        halves.append(y)
+    return torch.cat(halves, dim=1), h
+
+
 def _check_b7(torch, args, tag, chained=True):
-    """B7 against its plain version on the card, y and hT within rtol =
-    atol = B7_TOL; two identical calls bitwise equal; and (``chained``)
-    the two halves of the sequence, chained through hT, bitwise equal to
-    one call. Returns the max abs error."""
-    from repro_torch.kernels.mamba_scan.mamba_scan import mamba1_scan
+    """B7 in the reference's contract against its plain version on the
+    card at every G (threads per channel): y and hT within rtol = atol =
+    B7_TOL and bitwise equal, two identical calls bitwise equal, and
+    (``chained``) the two halves of the sequence, chained through hT,
+    bitwise equal to one call. Returns the max abs error."""
+    from repro_torch.kernels.mamba_scan.mamba_scan import GROUPS, mamba1_scan
     from repro_torch.kernels.mamba_scan.ops import plain_scan
 
-    y, h = mamba1_scan(*args)
-    y2, h2 = mamba1_scan(*args)
     py, ph = plain_scan(*args)
-    torch.cuda.synchronize()
     B, S, di = args[1].shape
-    check(y.dtype == h.dtype == torch.float32 and y.shape == (B, S, di)
-          and h.shape == ph.shape, f"B7 output dtype/shape at {tag}")
     err = 0.0
-    for got, want, what in ((y, py, "y"), (h, ph, "hT")):
-        e = (got - want).abs()
-        check(bool((e <= B7_TOL + B7_TOL * want.abs()).all()),
-              f"B7 {what} vs plain beyond rtol = atol = {B7_TOL} at {tag}: "
-              f"max |err| {float(e.max()):.3e}")
-        err = max(err, float(e.max()))
-    check(torch.equal(y, y2) and torch.equal(h, h2),
-          f"B7 not bitwise repeatable at {tag}")
-    if chained and S > 1:
-        cut = S // 2 + 1
-        dt, x, Bi, Ci, A, D, h0 = args
-        ya, ha = mamba1_scan(dt[:, :cut], x[:, :cut], Bi[:, :cut],
-                             Ci[:, :cut], A, D, h0)
-        yb, hb = mamba1_scan(dt[:, cut:], x[:, cut:], Bi[:, cut:],
-                             Ci[:, cut:], A, D, ha)
+    for g in (g for g in GROUPS if g <= args[2].shape[2]):
+        y, h = mamba1_scan(*args, group=g)
+        y2, h2 = mamba1_scan(*args, group=g)
         torch.cuda.synchronize()
-        check(torch.equal(torch.cat([ya, yb], dim=1), y)
-              and torch.equal(hb, h),
-              f"B7 chained halves differ from one call at {tag}")
+        check(y.dtype == h.dtype == torch.float32 and y.shape == (B, S, di)
+              and h.shape == ph.shape, f"B7 output dtype/shape at {tag}")
+        for got, want, what in ((y, py, "y"), (h, ph, "hT")):
+            e = (got - want).abs()
+            check(bool((e <= B7_TOL + B7_TOL * want.abs()).all()),
+                  f"B7 {what} vs plain beyond rtol = atol = {B7_TOL} at "
+                  f"{tag}, G={g}: max |err| {float(e.max()):.3e}")
+            check(torch.equal(got, want), f"B7 {what} not bitwise equal to "
+                  f"plain at {tag}, G={g}: {int((got != want).sum())} "
+                  f"elements differ, max |err| {float(e.max()):.3e}")
+            err = max(err, float(e.max()))
+        check(torch.equal(y, y2) and torch.equal(h, h2),
+              f"B7 not bitwise repeatable at {tag}, G={g}")
+        if chained and S > 1:
+            yc, hc = _chained(torch, mamba1_scan, args, (0, 1, 2, 3), 6, g)
+            torch.cuda.synchronize()
+            check(torch.equal(yc, y) and torch.equal(hc, h),
+                  f"B7 chained halves differ from one call at {tag}, G={g}")
     return err
+
+
+def _check_b7_gated(torch, args, tag, chained=True):
+    """B7's gated mode against its plain version (the model's unfused
+    composition: softplus, -exp(A_log), the plain scan, the silu(z)
+    gate) on the card at every G: y (in x's dtype) and hT bitwise equal,
+    bitwise repeatable, and (``chained``) chained halves bitwise equal to
+    one call."""
+    from repro_torch.kernels.mamba_scan.mamba_scan import (
+        GROUPS,
+        mamba1_scan_gated,
+    )
+    from repro_torch.kernels.mamba_scan.ops import plain_gated_scan
+
+    py, ph = plain_gated_scan(*args)
+    S = args[2].shape[1]
+    for g in (g for g in GROUPS if g <= args[3].shape[2]):
+        y, h = mamba1_scan_gated(*args, group=g)
+        y2, h2 = mamba1_scan_gated(*args, group=g)
+        torch.cuda.synchronize()
+        check(y.dtype == args[2].dtype and y.shape == py.shape
+              and h.dtype == torch.float32 and h.shape == ph.shape,
+              f"gated B7 output dtype/shape at {tag}")
+        for got, want, what in ((y, py, "y"), (h, ph, "hT")):
+            if not torch.equal(got, want):
+                e = (got.float() - want.float()).abs()
+                raise SmokeFailure(
+                    f"gated B7 {what} not bitwise equal to the composition "
+                    f"at {tag}, G={g}: {int((got != want).sum())} elements "
+                    f"differ, max |err| {float(e.max()):.3e}")
+        check(torch.equal(y, y2) and torch.equal(h, h2),
+              f"gated B7 not bitwise repeatable at {tag}, G={g}")
+        if chained and S > 1:
+            yc, hc = _chained(torch, mamba1_scan_gated, args,
+                              (0, 2, 3, 4, 7), 8, g)
+            torch.cuda.synchronize()
+            check(torch.equal(yc, y) and torch.equal(hc, h),
+                  f"gated B7 chained halves differ from one call at {tag}, "
+                  f"G={g}")
 
 
 def phase_scan_kernel(torch, dev):
     """B7 (the Mamba1 selective scan) against its plain version on the
-    card: the reference tests' shapes, ragged di, N in {4, 8, 16, 32},
-    S = 1 from a carried state, and falcon-mamba's (4, 4,096, 8,192, 16);
-    x, B and C in fp32 and bf16, B and C strided slices of one tensor."""
+    card, in both modes and at every G <= N: the reference tests' shapes,
+    ragged di, N in {4, 8, 16, 32}, S = 1 from a carried state, and
+    falcon-mamba's (4, 4,096, 8,192, 16); x, B and C in fp32 and bf16, B
+    and C strided slices of one tensor (and z of another)."""
     gen = torch.Generator(device=dev).manual_seed(SEED + 17)
     cases = [(2, 16, 32, 8, False), (2, 32, 64, 16, True),
              (2, 8, 16, 4, False), (3, 37, 100, 16, True),
@@ -1808,19 +1920,25 @@ def phase_scan_kernel(torch, dev):
     err = {"float32": 0.0, "bfloat16": 0.0}
     for B, S, di, N, h0 in cases:
         for dtype in (torch.float32, torch.bfloat16):
-            args = _b7_inputs(torch, dev, gen, B, S, di, N, dtype, h0,
-                              R=256 if di == 8192 else 7)
+            R = 256 if di == 8192 else 7
             name = str(dtype).removeprefix("torch.")
-            err[name] = max(err[name], _check_b7(
-                torch, args, f"(B, S, di, N) = {(B, S, di, N)} {name} "
-                f"h0={h0}"))
+            tag = f"(B, S, di, N) = {(B, S, di, N)} {name} h0={h0}"
+            args = _b7_inputs(torch, dev, gen, B, S, di, N, dtype, h0, R=R)
+            err[name] = max(err[name], _check_b7(torch, args, tag))
+            del args
+            args = _b7_gated_inputs(torch, dev, gen, B, S, di, N, dtype, h0,
+                                    R=R)
+            _check_b7_gated(torch, args, tag)
             del args
     print(f"phase 17: B7 (Mamba1 selective scan) vs plain on the card at "
           f"(B, S, di, N, h0) in {cases}, x/B/C in fp32 and bf16 (B, C "
-          f"strided slices of one projection); y and hT within rtol = atol "
-          f"= {B7_TOL}, every case bitwise repeatable and its chained "
-          f"halves bitwise equal to one call; max |err| fp32 "
-          f"{err['float32']:.3e}, bf16 {err['bfloat16']:.3e}")
+          f"strided slices of one projection), at G = 1, 2 and 4 "
+          f"threads per channel (G <= N): the reference's contract within "
+          f"rtol = atol = {B7_TOL} and bitwise equal to plain (max |err| fp32 "
+          f"{err['float32']:.3e}, bf16 {err['bfloat16']:.3e}); the gated "
+          f"mode (softplus, -exp(A_log), silu(z) gate fused) bitwise equal "
+          f"to the unfused composition; every case bitwise repeatable and "
+          f"its chained halves bitwise equal to one call, in both modes")
     return max(err.values())
 
 
@@ -1829,26 +1947,37 @@ SSM_KERNELS = ("mamba1_scan_kernel",)
 
 
 def _first_scan_inputs(torch, model, tokens):
-    """Layer 0's selective-scan inputs for ``tokens``, as the model builds
-    them: one prefill with ``ssm.ops.selective_scan`` wrapped to keep its
-    first call's arguments (every call still runs the kernel)."""
+    """Layer 0's gated-scan inputs for ``tokens``, as the model builds
+    them: one prefill with ``ssm.ops.gated_selective_scan`` wrapped to
+    keep its first call's arguments (every call still runs the kernel)."""
     from repro_torch.models import prefill
     from repro_torch.models import ssm
 
     seen = []
-    scan = ssm.ops.selective_scan
+    scan = ssm.ops.gated_selective_scan
 
     def keep_first(*args):
         if not seen:
             seen.append(args)
         return scan(*args)
 
-    ssm.ops.selective_scan = keep_first
+    ssm.ops.gated_selective_scan = keep_first
     try:
         prefill(model, tokens=tokens)
     finally:
-        ssm.ops.selective_scan = scan
+        ssm.ops.gated_selective_scan = scan
     return seen[0]
+
+
+def _contract_args(torch, gated_args):
+    """The reference contract's scan inputs (dt after softplus, A) that
+    the gated mode's inputs stand for, as the plain composition makes
+    them."""
+    import torch.nn.functional as F
+
+    dt_raw, dt_bias, x, B_in, C_in, A_log, D, _, h0 = gated_args
+    dt = F.softplus(dt_raw.float() + dt_bias)
+    return dt, x, B_in, C_in, -torch.exp(A_log), D, h0
 
 
 def _within(torch, got, want, tol):
@@ -1871,7 +2000,7 @@ def phase_ssm_lm(torch, dev):
     from repro_torch.configs import get_config
     from repro_torch.data.tokens import TokenStream
     from repro_torch.kernels.mamba_scan.mamba_scan import LAUNCHES as B7
-    from repro_torch.kernels.mamba_scan.ops import plain_scan
+    from repro_torch.kernels.mamba_scan.ops import plain_gated_scan
     from repro_torch.models import (
         decode_step,
         forward,
@@ -1907,24 +2036,27 @@ def phase_ssm_lm(torch, dev):
     logits, caches = prefill(model, tokens=prompts)
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
-    launches["prefill"] = B7["mamba1_scan"]
+    launches["prefill"] = B7["mamba1_scan_gated"]
     t0 = time.perf_counter()
     out = generate(model, prompts, LM_NEW, temperature=0.0)
     torch.cuda.synchronize()
     generate_s = time.perf_counter() - t0
-    launches["generate"] = B7["mamba1_scan"] - launches["prefill"]
+    launches["generate"] = B7["mamba1_scan_gated"] - launches["prefill"]
     t0 = time.perf_counter()
     long_logits, long_caches = prefill(model, tokens=long_prompt)
     torch.cuda.synchronize()
     long_s = time.perf_counter() - t0
-    launches["prefill_32k"] = B7["mamba1_scan"] - sum(launches.values())
-    total = B7["mamba1_scan"]
+    launches["prefill_32k"] = (B7["mamba1_scan_gated"]
+                               - sum(launches.values()))
+    total = B7["mamba1_scan_gated"]
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     for step, count in (("prefill", launches["prefill"]),
                         ("prefill_32k", launches["prefill_32k"]),
                         ("generate", launches["generate"] / LM_NEW)):
-        check(count == nl, f"B7 launched {count} times per {step} step, not "
-              f"once per layer ({nl})")
+        check(count == nl, f"gated B7 launched {count} times per {step} "
+              f"step, not once per layer ({nl})")
+    check(B7["mamba1_scan"] == 0, f"the model path launched B7's contract "
+          f"mode {B7['mamba1_scan']} times (the gated mode serves it)")
     check(logits.shape == (LM_BATCH, cfg.vocab_size)
           and bool(torch.isfinite(logits.float()).all()),
           "prefill logits have the wrong shape or are not finite")
@@ -1946,25 +2078,28 @@ def phase_ssm_lm(torch, dev):
           "32k prefill logits or states are not finite")
     del long_caches
 
-    # B7 against plain on layer 0's real inputs of (a) and of (c)
+    # B7 against plain on layer 0's real inputs of (a) and of (c): the
+    # gated mode against the unfused composition, and the contract mode
+    # on the dt and A that composition makes
     layer0 = {}
     for tag, toks in (("a", prompts), ("c", long_prompt)):
         args = _first_scan_inputs(torch, model, toks)
-        layer0[tag] = _check_b7(torch, args, f"layer 0 of prompt ({tag})",
-                                chained=False)
+        _check_b7_gated(torch, args, f"layer 0 of prompt ({tag})")
+        layer0[tag] = _check_b7(torch, _contract_args(torch, args),
+                                f"layer 0 of prompt ({tag})")
         del args
 
     # the whole model with B7's plain version in every layer, on a shorter
     # prompt: the model's scan hook is swapped for this one call
     short = prompts[:, :SSM_SHORT]
     b7_logits, _ = prefill(model, tokens=short)
-    b7_scan = ssm.ops.selective_scan
-    ssm.ops.selective_scan = plain_scan
+    b7_scan = ssm.ops.gated_selective_scan
+    ssm.ops.gated_selective_scan = plain_gated_scan
     try:
         plain_logits, _ = prefill(model, tokens=short)
         torch.cuda.synchronize()
     finally:
-        ssm.ops.selective_scan = b7_scan
+        ssm.ops.gated_selective_scan = b7_scan
     perr, pbar = _within(torch, b7_logits, plain_logits, LM_TOL)
     check(pbar <= 1.0, f"prefill logits with B7 differ from the plain scan's "
           f"beyond rtol = atol = {LM_TOL}: max |err| {perr:.3e}, {pbar:.2f} "
@@ -1986,12 +2121,12 @@ def phase_ssm_lm(torch, dev):
                           dtype=caches_after_prompt["conv"].dtype, device=dev)
         for name in dec:
             dec[name].copy_(caches_after_prompt[name])
-        before = B7["mamba1_scan"]
+        before = B7["mamba1_scan_gated"]
         step_logits, dec = decode_step(m, dec, token=nxt, pos=LM_SEQ)
         torch.cuda.synchronize()
-        launched = B7["mamba1_scan"] - before
-        check(launched == nl, f"B7 launched {launched} times in a decode "
-              f"step, not {nl}")
+        launched = B7["mamba1_scan_gated"] - before
+        check(launched == nl, f"gated B7 launched {launched} times in a "
+              f"decode step, not {nl}")
         hidden, _ = forward(m, tokens=torch.cat([prompts, nxt[:, None]], 1),
                             return_hidden=True)
         return (step_logits, transformer.lm_logits(m, hidden[:, -1]), dec,
@@ -2045,9 +2180,12 @@ def phase_ssm_lm(torch, dev):
           f"{LM_LONG / long_s:,.0f} tokens/s; peak memory {peak_gb:.2f} GB; "
           f"B7 launches {launches} ({total} in the three runs: one per "
           "layer per prefill and per decode step)")
-    print(f"  B7 vs plain on layer 0's scan inputs: max |err| "
-          f"{layer0['a']:.3e} at {LM_BATCH} x {LM_SEQ:,}, {layer0['c']:.3e} "
-          f"at 1 x {LM_LONG:,} (bar {B7_TOL}); prefill logits of {LM_BATCH}"
+    print(f"  B7 vs plain on layer 0's scan inputs at G = 1, 2 and 4: gated "
+          f"mode bitwise equal to the unfused composition; contract mode "
+          f"bitwise equal to plain (max |err| {layer0['a']:.3e} at "
+          f"{LM_BATCH} x {LM_SEQ:,}, {layer0['c']:.3e} at 1 x {LM_LONG:,}, "
+          f"bar {B7_TOL}); both modes repeatable and chained halves equal "
+          f"to one call; prefill logits of {LM_BATCH}"
           f" x {SSM_SHORT} with B7 vs the plain scan in every layer: max "
           f"|err| {perr:.3e} ({pbar:.2f} of the rtol = atol = {LM_TOL} bar),"
           f" argmax equal; decode of token {LM_SEQ + 1:,} after prefill vs "
@@ -2069,6 +2207,7 @@ def phase_ssm_lm(torch, dev):
         torch, lambda: prefill(model, tokens=prompts))
     _print_profile(f"one {LM_BATCH} x {LM_SEQ:,} prefill", wall_us, kernels,
                    SSM_KERNELS, "B7")
+    _print_elementwise(kernels, SSM_KERNELS)
     del model
     torch.cuda.empty_cache()
     return total, launches, max(layer0.values()), {
@@ -2078,50 +2217,181 @@ def phase_ssm_lm(torch, dev):
 
 
 # ------------------------------------------------------------ phase 20
+def _sass_step_block(lib_path: Path, kernel_re: str):
+    """The straight-line SASS block of B7 that holds the most MUFU.EX2
+    (the scan of one group of steps), from ``cuobjdump -sass`` of the
+    built library, for the kernel whose mangled name matches
+    ``kernel_re``: (its instruction count, {mnemonic: count}), or None
+    when cuobjdump is missing or nothing matches."""
+    import shutil
+
+    from repro_torch.kernels import _build
+
+    tool = shutil.which("cuobjdump") or str(Path(_build.nvcc()).with_name(
+        "cuobjdump"))
+    try:
+        sass = subprocess.run([tool, "-sass", str(lib_path)],
+                              capture_output=True, text=True,
+                              timeout=120).stdout
+    except (OSError, subprocess.SubprocessError):
+        return None
+    for body in re.split(r"Function : ", sass)[1:]:
+        if not re.match(kernel_re, body):
+            continue
+        code = [(int(m.group(1), 16), m.group(2)) for m in re.finditer(
+            r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", body)]
+        targets = {int(t, 16) for t in re.findall(r"BRA\s+(0x[0-9a-f]+)",
+                                                  body)}
+        blocks, cur = [], []
+        for addr, text in code:
+            if addr in targets and cur:
+                blocks.append(cur)
+                cur = []
+            op = re.sub(r"^@!?U?P\w+\s+", "", text).split()[0]
+            cur.append(op if op.startswith("MUFU") else op.split(".")[0])
+            if op in ("BRA", "EXIT", "RET"):
+                blocks.append(cur)
+                cur = []
+        best = max(blocks + [cur], key=lambda b: b.count("MUFU.EX2"))
+        if "MUFU.EX2" not in best:
+            return None
+        mix: dict[str, int] = {}
+        for op in best:
+            mix[op] = mix.get(op, 0) + 1
+        return len(best), mix
+    return None
+
+
+def _scan_bound(torch, args, gated):
+    """Least time of one scan: each input read once and each output
+    written once at the memory rate, against its SFU operations (N
+    exponentials per (b, s, channel); the gated mode 4 more: softplus's
+    exp and log, silu's exp and reciprocal) at the SFU rate."""
+    x = args[2] if gated else args[1]
+    B, S, di = x.shape
+    N = args[3].shape[2] if gated else args[2].shape[2]
+    y_bytes = x.element_size() if gated else 4
+    nbytes = sum(t.numel() * t.element_size() for t in args
+                 if t is not None) + B * S * di * y_bytes + B * di * N * 4
+    ops = B * S * di * (N + (4 if gated else 0))
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / SFU_EXP_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", nbytes, ops)
+
+
 def phase_scan_times(torch, dev):
     """B7 at the SSM path's shapes (prefill 4 x 4,096 and 1 x 32,768, a
-    decode step at batch 4; di 8,192, N 16, x/B/C bf16 as the model gives
-    them) beside its plain version and its bound. No single PyTorch call
-    computes the selective scan, so there is no library column."""
-    from repro_torch.kernels.mamba_scan.mamba_scan import mamba1_scan
-    from repro_torch.kernels.mamba_scan.ops import plain_scan
+    decode step at batch 4; di 8,192, N 16, bf16 as the model gives
+    them), in the gated mode the model runs and in the reference's
+    contract, beside the plain version and the bound, at the G the
+    wrapper picks and at each G. No single PyTorch call computes the
+    selective scan, so there is no library column. Returns the rows, the
+    gated 4 x 4,096 one first."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.mamba_scan.mamba_scan import (
+        GROUPS,
+        _sm_count,
+        mamba1_scan,
+        mamba1_scan_gated,
+        threads_per_channel,
+    )
+    from repro_torch.kernels.mamba_scan.ops import plain_gated_scan, plain_scan
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 20)
     flush = torch.empty(128 * 2**20 // 4, dtype=torch.float32, device=dev)
     di, N = 8192, 16
-    out = []
-    for B, S, h0, runs, plain_runs in (
-            (LM_BATCH, LM_SEQ, False, TIMED_RUNS, B7_PLAIN_RUNS),
-            (1, LM_LONG, False, LONG_RUNS, B7_PLAIN_RUNS),
-            (LM_BATCH, 1, True, TIMED_RUNS, TIMED_RUNS)):
-        args = _b7_inputs(torch, dev, gen, B, S, di, N, torch.bfloat16, h0,
+    rows = {True: [], False: []}
+    for gated, kernel, plain, inputs in (
+            (True, mamba1_scan_gated, plain_gated_scan, _b7_gated_inputs),
+            (False, mamba1_scan, plain_scan, _b7_inputs)):
+        mode = "gated" if gated else "contract"
+        for B, S, h0, runs, plain_runs in (
+                (LM_BATCH, LM_SEQ, False, TIMED_RUNS, B7_PLAIN_RUNS),
+                (1, LM_LONG, False, LONG_RUNS, B7_PLAIN_RUNS),
+                (LM_BATCH, 1, True, TIMED_RUNS, TIMED_RUNS)):
+            args = inputs(torch, dev, gen, B, S, di, N, torch.bfloat16, h0,
                           R=256)
-        nbytes = sum(t.numel() * t.element_size() for t in args
-                     if t is not None) + (B * S * di + B * di * N) * 4
-        t_bytes = nbytes / HBM_BYTES_PER_S
-        t_ops = B * S * di * N / SFU_EXP_PER_S
-        row = {"b": B, "s": S, "di": di, "n": N, "dtype": "bfloat16",
-               "ms": _time_ms(torch, lambda: mamba1_scan(*args), flush, runs),
-               "plain_ms": _time_ms(torch, lambda: plain_scan(*args), flush,
-                                    plain_runs, 1),
-               "library_ms": None,
-               "bound_ms": max(t_bytes, t_ops) * 1e3,
-               "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
-        out.append(row)
-        print(f"phase 20: mamba1_scan (B, S, di, N) = {(B, S, di, N)}, x/B/C "
-              f"bf16{', from h0' if h0 else ''}: kernel {row['ms']:.4f} ms "
-              f"(median of {runs}), plain {row['plain_ms']:.3f} ms (median "
-              f"of {plain_runs}), bound {row['bound_ms']:.4f} ms "
-              f"({row['bound_by']}: {nbytes / 1e9:.3f} GB, "
-              f"{B * S * di * N:.3e} exponentials; "
-              f"{row['bound_ms'] / row['ms']:.1%} of it reached); library "
-              "n/a (no single PyTorch call)")
-        del args
-    return out
+            bound_ms, bound_by, nbytes, ops = _scan_bound(torch, args, gated)
+            by_group = {g: _time_ms(torch, lambda: kernel(*args, group=g),
+                                    flush, runs) for g in GROUPS}
+            picked = threads_per_channel(B * di, S, _sm_count(dev), N)
+            row = {"mode": mode, "b": B, "s": S, "di": di, "n": N,
+                   "dtype": "bfloat16", "group": picked,
+                   "ms": _time_ms(torch, lambda: kernel(*args), flush, runs),
+                   "ms_by_group": by_group,
+                   "plain_ms": _time_ms(torch, lambda: plain(*args), flush,
+                                        plain_runs, 1),
+                   "library_ms": None, "bound_ms": bound_ms,
+                   "bound_by": bound_by}
+            rows[gated].append(row)
+            print(f"phase 20: B7 {mode} (B, S, di, N) = {(B, S, di, N)}, "
+                  f"bf16{', from h0' if h0 else ''}: kernel "
+                  f"{row['ms']:.4f} ms at G={picked} (median of {runs}; by "
+                  f"G: " + ", ".join(f"{g}: {ms:.4f}" for g, ms in
+                                     by_group.items())
+                  + f"), plain {row['plain_ms']:.3f} ms (median of "
+                  f"{plain_runs}), bound {bound_ms:.4f} ms ({bound_by}: "
+                  f"{nbytes / 1e9:.3f} GB, {ops:.3e} SFU operations; "
+                  f"{bound_ms / row['ms']:.1%} of it reached); library n/a "
+                  "(no single PyTorch call)")
+            del args
+    lib = _build.build_all(["mamba_scan"])["mamba_scan"]
+    for gated in (True, False):
+        for g in GROUPS:
+            found = _sass_step_block(
+                lib, rf"\S*mamba1_scan_kernelILi{N}ELi{g}ELb{int(gated)}E"
+                r"13__nv_bfloat16")
+            mode = "gated" if gated else "contract"
+            if found is None:
+                print(f"  SASS of B7 {mode} N={N} G={g}: not measured "
+                      "(cuobjdump missing or no block found)")
+                continue
+            count, mix = found
+            m = N // g
+            k = 4 if m >= 8 else 8  # the kernel's group_steps<M>()
+            print(f"  SASS of B7 {mode} N={N} G={g} bf16: the straight-line "
+                  f"block of one group of steps holds {count} instructions "
+                  f"and {mix.get('MUFU.EX2', 0)} MUFU.EX2; per (channel, "
+                  f"state, step) on one thread, for {k} steps x {m} "
+                  f"states: {count / (k * m):.1f}; mix " + ", ".join(
+                      f"{op} {n}" for op, n in sorted(
+                          mix.items(), key=lambda kv: -kv[1])[:10]))
+    return rows[True] + rows[False]
 
 
-def main() -> int:
+SCAN_PHASES = (17, 18, 19, 20)  # the SSM path's phases, runnable alone
+
+
+def _run_only(torch, dev, only, t_start) -> int:
+    """Phase 1 and the given SSM phases alone (``--only``): a partial
+    run, so it prints no kernels line and no result line."""
+    for phase in sorted(only):
+        if phase == 17:
+            phase_scan_kernel(torch, dev)
+        elif phase == 18:
+            phase_ssm_lm(torch, dev)
+        elif phase == 19:
+            phase_lm_card_vs_cpu(torch, dev, SSM_ARCH, 19, "B7")
+        else:
+            phase_scan_times(torch, dev)
+    print(f"phases 1 and {sorted(only)} passed in "
+          f"{time.perf_counter() - t_start:.1f} s (partial run: no result)")
+    return 0
+
+
+def main(argv: list[str]) -> int:
+    """``chip_smoke.py`` runs every phase; ``chip_smoke.py --only 17,20``
+    runs phase 1 and the named phases of the SSM path (17-20) alone."""
     import torch
+
+    only = set()
+    if argv:
+        if len(argv) != 2 or argv[0] != "--only":
+            raise SmokeFailure(f"usage: chip_smoke.py [--only "
+                               f"{','.join(map(str, SCAN_PHASES))}]")
+        only = {int(p) for p in argv[1].split(",")}
+        if not only <= set(SCAN_PHASES):
+            raise SmokeFailure(f"--only takes phases of {SCAN_PHASES}")
 
     if not torch.cuda.is_available():
         raise SmokeFailure("torch.cuda.is_available() is false: this smoke "
@@ -2135,6 +2405,8 @@ def main() -> int:
     dev = resolve_device("cuda")
     t_start = time.perf_counter()
     phase_device(torch)
+    if only:
+        return _run_only(torch, dev, only, t_start)
 
     rng = np.random.default_rng(SEED + 3)
     theta_np = (rng.normal(size=(D_FEATURES, 2 * REGIONS)) * 0.3).astype(
@@ -2255,7 +2527,8 @@ def main() -> int:
             "shape": {k: v for k, v in main_shape.items()
                       if k in ("n", "k", "side", "entries", "unique", "d",
                                "m2", "m", "dtype", "b", "s", "h", "kvh",
-                               "hd", "causal", "di", "n")},
+                               "hd", "causal", "di", "n", "mode",
+                               "group")},
             "other_shapes": others,
         })
     print(f"LM serving ({LM_ARCH}): " + json.dumps(lm_metrics))
@@ -2270,7 +2543,7 @@ def main() -> int:
 
 if __name__ == "__main__":
     try:
-        sys.exit(main())
+        sys.exit(main(sys.argv[1:]))
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         sys.exit(1)

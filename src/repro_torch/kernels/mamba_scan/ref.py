@@ -6,9 +6,10 @@ da = exp(dt A), h = da h + (dt x) B, y = h . C; then y + D x, returned
 in x's dtype, with the final state hT in fp32.
 
 The sum y = h . C over the N states is taken by folding halves
-(n + N/2 onto n, then N/4, ...), the order of B7's shuffle butterfly,
-where N is a power of two; so on the card the kernel and this version
-do the same fp32 operations in the same order. (The reference's einsum
+(n + N/2 onto n, then N/4, ...) where N is a power of two: B7 folds in
+that order too (each thread its own states first, then shuffles across
+the lanes of a channel), so on the card the kernel and this version do
+the same fp32 operations in the same order. (The reference's einsum
 leaves the order to XLA; any order is within its 2e-5 bar, but one-ulp
 differences in y, rounded to bf16 and carried through 64 layers, move
 the logits by more than the model's 5e-2 bar.)

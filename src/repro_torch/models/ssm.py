@@ -4,16 +4,18 @@ The port's counterpart of the Mamba1 half of ``repro/models/ssm.py``.
 Shapes: d_inner di = expand * d, state N, conv K, dt rank R. The decode
 state is ``{"conv": (B, K-1, di), "ssm": (B, di, N) fp32}``.
 
-The selective scan goes through ``kernels/mamba_scan/ops.selective_scan``:
-B7 on the card, its plain version on the CPU. The reference's layer runs
-its own ``lax.scan`` for the full sequence and repeats the recurrence in
-jnp for decode; here both are the same scan, decode at S = 1 from the
-carried state. Around it the reference's op order and dtypes are kept:
-the causal conv as K shifted multiply-adds in the activation dtype
-(rounded at each step, as the reference's; ``F.conv1d`` would sum in
-fp32 and round once), the dt product rounded to the activation dtype,
-then widened, then ``dt_bias`` added and softplus taken, and the
-``silu(z)`` gate in fp32.
+The selective scan goes through
+``kernels/mamba_scan/ops.gated_selective_scan``: B7's gated mode on the
+card, its plain version on the CPU. The reference's layer runs its own
+``lax.scan`` for the full sequence and repeats the recurrence in jnp for
+decode; here both are the same scan, decode at S = 1 from the carried
+state. Around it the reference's op order and dtypes are kept: the
+causal conv as K shifted multiply-adds in the activation dtype (rounded
+at each step, as the reference's; ``F.conv1d`` would sum in fp32 and
+round once), the dt product rounded to the activation dtype, then
+widened, then ``dt_bias`` added and softplus taken, A = -exp(A_log), and
+the ``silu(z)`` gate in fp32; the gated scan does those last steps
+itself, on the card inside B7, with torch's own formulas.
 
 One departure: the reference's decode conv (``conv_step``) is an einsum
 that sums the K products in fp32 and rounds once, unlike its forward.
@@ -154,12 +156,10 @@ def _mamba1_inner(mod: Mamba1, cfg: ArchConfig, x_conv: torch.Tensor,
     f32 = torch.float32
     xdb = x_conv @ mod.x_proj.to(x_conv.dtype)  # (B, S, R + 2N)
     dt_in, B_ssm, C_ssm = xdb[..., :R], xdb[..., R:R + N], xdb[..., R + N:]
-    dt = F.softplus((dt_in @ mod.dt_proj.to(dt_in.dtype)).to(f32)
-                    + mod.dt_bias.to(f32))  # (B, S, di) fp32
-    A = -torch.exp(mod.A_log.to(f32))  # (di, N)
-    y, h = ops.selective_scan(dt, x_conv, B_ssm, C_ssm, A, mod.D.to(f32), h0)
-    y = (y * F.silu(z.to(f32))).to(x_conv.dtype)
-    return y, h
+    dt_raw = dt_in @ mod.dt_proj.to(dt_in.dtype)  # (B, S, di)
+    return ops.gated_selective_scan(
+        dt_raw, mod.dt_bias.to(f32), x_conv, B_ssm, C_ssm,
+        mod.A_log.to(f32), mod.D.to(f32), z, h0)
 
 
 def mamba1_forward(x: torch.Tensor, mod: Mamba1, cfg: ArchConfig,

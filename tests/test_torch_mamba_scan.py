@@ -7,15 +7,19 @@ reference's Pallas kernel in interpret mode and its jnp oracle
 ``repro.kernels.mamba_scan.ref.mamba1_scan_ref``, at
 ``tests/test_kernels.py``'s bar: y and hT within rtol = atol = 2e-5.
 bf16 outputs (the reference contract returns y in x's dtype) are held
-within 8e-3, two bf16 ulps at |y| ~ 1. The ``cuda``-marked tests hold
-the CUDA kernel against the plain version on a card and skip without
-one.
+within 8e-3, two bf16 ulps at |y| ~ 1. The gated mode's plain version
+(``ops.plain_gated_scan``: softplus of dt, -exp(A_log), the scan, the
+silu(z) gate) is held against the reference model's composition
+(``repro/models/ssm.py::_mamba1_inner``) at the same bars. The
+``cuda``-marked tests hold the CUDA kernel against the plain versions on
+a card, bit for bit, and skip without one.
 """
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from repro.kernels.mamba_scan.mamba_scan import mamba1_scan as j_kernel
 from repro.kernels.mamba_scan.ref import mamba1_scan_ref as j_ref
@@ -50,6 +54,35 @@ def _torch(arrays, xbc_dtype=torch.float32, device="cpu"):
 
 def _jax(arrays):
     return [None if a is None else jnp.asarray(a) for a in arrays]
+
+
+def _gated_inputs(seed, B, S, di, N, h0=False):
+    """The gated scan's inputs as numpy float32: dt_raw 3 normal with
+    every 7th value above softplus's threshold (20), dt_bias normal - 3,
+    x, B, C normal, A_log 0.5 normal, D, z normal, h0 normal (or None)."""
+    rng = np.random.default_rng(seed)
+    f = lambda *shape: rng.normal(size=shape).astype(np.float32)
+    dt_raw = 3 * f(B, S, di)
+    dt_raw.reshape(-1)[::7] = 21 + np.abs(dt_raw.reshape(-1)[::7])
+    return [dt_raw, f(di) - 3, f(B, S, di), f(B, S, N), f(B, S, N),
+            0.5 * f(di, N), f(di), f(B, S, di), f(B, di, N) if h0 else None]
+
+
+def _gated_torch(arrays, dtype=torch.float32, device="cpu"):
+    """dt_raw, x, B, C and z in ``dtype``; the rest float32."""
+    out = [None if a is None else torch.from_numpy(a).to(device)
+           for a in arrays]
+    for i in (0, 2, 3, 4, 7):
+        out[i] = out[i].to(dtype)
+    return out
+
+
+def _composition(t):
+    """The model's unfused composition around the plain scan."""
+    dt_raw, dt_bias, x, B_in, C_in, A_log, D, z, h0 = t
+    dt = F.softplus(dt_raw.float() + dt_bias)
+    y, h = ops.plain_scan(dt, x, B_in, C_in, -torch.exp(A_log), D, h0)
+    return (y * F.silu(z.float())).to(x.dtype), h
 
 
 def _close(got, want, tol=TOL):
@@ -176,6 +209,115 @@ def test_input_rules():
         scan(dt, x, Bi, Ci, A, D, h0.double())
 
 
+# ------------------------------------------------------------ gated mode
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,di,N,h0", [(2, 24, 48, 8, True),
+                                         (1, 17, 20, 16, False)])
+def test_plain_gated_scan_is_the_unfused_composition(B, S, di, N, h0, dtype):
+    """plain_gated_scan is softplus, plain_scan and the silu(z) gate,
+    literally: bit for bit on the CPU, y in x's dtype."""
+    t = _gated_torch(_gated_inputs(10, B, S, di, N, h0), getattr(torch, dtype))
+    y, h = ops.plain_gated_scan(*t)
+    wy, wh = _composition(t)
+    assert y.dtype == t[2].dtype and h.dtype == torch.float32
+    assert y.shape == (B, S, di) and h.shape == (B, di, N)
+    assert torch.equal(y, wy) and torch.equal(h, wh)
+    gy, gh = ops.gated_selective_scan(*t)
+    assert torch.equal(gy, y) and torch.equal(gh, h)
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", TOL), ("bfloat16", BF16_TOL)])
+def test_plain_gated_scan_matches_reference_composition(dtype, tol):
+    """Against the reference model's composition on the same numpy
+    inputs: jax.nn.softplus, the reference oracle, jax.nn.silu gating
+    (repro/models/ssm.py::_mamba1_inner); y within the dtype's bar, hT
+    within 2e-5."""
+    arrays = _gated_inputs(11, 2, 20, 32, 8, h0=True)
+    t = _gated_torch(arrays, getattr(torch, dtype))
+    j = _jax(arrays)
+    jdt = getattr(jnp, dtype)
+    for i in (0, 2, 3, 4, 7):
+        j[i] = j[i].astype(jdt)
+    dt_raw, dt_bias, x, B_in, C_in, A_log, D, z, h0 = j
+    f32 = jnp.float32
+    dt = jax.nn.softplus(dt_raw.astype(f32) + dt_bias)
+    ry, rh = j_ref_jit(dt, x.astype(f32), B_in, C_in, -jnp.exp(A_log), D, h0)
+    ry = (ry * jax.nn.silu(z.astype(f32))).astype(jdt)
+    y, h = ops.plain_gated_scan(*t)
+    assert y.dtype == getattr(torch, dtype)
+    _close(y, ry.astype(f32), tol)
+    _close(h, rh)
+
+
+def test_plain_gated_chained_halves_equal_one_call():
+    t = _gated_torch(_gated_inputs(12, 2, 30, 16, 8), torch.bfloat16)
+    y, h = ops.plain_gated_scan(*t)
+    seq = (0, 2, 3, 4, 7)
+    first, second = list(t), list(t)
+    for i in seq:
+        first[i], second[i] = t[i][:, :13], t[i][:, 13:]
+    ya, ha = ops.plain_gated_scan(*first)
+    second[8] = ha
+    yb, hb = ops.plain_gated_scan(*second)
+    assert torch.equal(torch.cat([ya, yb], dim=1), y) and torch.equal(hb, h)
+
+
+def test_cpu_gated_takes_the_plain_version():
+    t = _gated_torch(_gated_inputs(13, 2, 6, 8, 4, h0=True))
+    before = dict(tk.LAUNCHES)
+    y, h = ops.gated_selective_scan(*t)
+    assert tk.LAUNCHES == before
+    py, ph = ops.plain_gated_scan(*t)
+    assert torch.equal(y, py) and torch.equal(h, ph)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tk.mamba1_scan_gated(*t)  # the kernel takes no CPU tensor
+    with pytest.raises(ValueError, match="unsupported device"):
+        ops.gated_selective_scan(*[None if a is None else a.to("meta")
+                                   for a in t])
+
+
+def test_gated_input_rules():
+    t = _gated_torch(_gated_inputs(14, 2, 5, 8, 4, h0=True))
+    scan = ops.gated_selective_scan
+
+    def swap(i, v):
+        u = list(t)
+        u[i] = v
+        return u
+
+    with pytest.raises(ValueError, match=r"dt_raw, x and z must be one"):
+        scan(*swap(7, t[7][:, :4]))  # z of the wrong shape
+    with pytest.raises(ValueError, match=r"dt_raw, x and z must be one"):
+        scan(*swap(0, t[0][..., :7]))
+    with pytest.raises(ValueError, match="share one dtype"):
+        scan(*swap(0, t[0].double()))  # dt_raw of the wrong dtype
+    with pytest.raises(ValueError, match="share one dtype"):
+        scan(*swap(0, t[0].bfloat16()))  # dt_raw not in x's dtype
+    with pytest.raises(ValueError, match="share one dtype"):
+        scan(*swap(7, t[7].half()))
+    with pytest.raises(ValueError, match=r"A_log must be \(di, N\)"):
+        scan(*swap(5, t[5][:, :2]))  # A_log not (di, N)
+    with pytest.raises(ValueError, match=r"A_log must be \(di, N\)"):
+        scan(*swap(5, t[5].T))
+    with pytest.raises(ValueError, match=r"dt_bias \(di,\)"):
+        scan(*swap(1, t[1][:3]))
+    with pytest.raises(ValueError, match=r"\(B, S, N\)"):
+        scan(*swap(3, t[3][:, :4]))
+    with pytest.raises(ValueError, match=r"h0 must be"):
+        scan(*swap(8, t[8][:1]))
+    with pytest.raises(ValueError, match="must be float32"):
+        scan(*swap(5, t[5].double()))
+
+
+@pytest.mark.parametrize("rows,steps,N,G", [
+    (4 * 8192, 4096, 16, 1), (8192, 32768, 16, 4), (4 * 8192, 1, 16, 2),
+    (8192, 1, 16, 4), (2 * 64, 16, 2, 2), (2 * 64, 16, 8, 4)])
+def test_threads_per_channel(rows, steps, N, G):
+    """G for falcon-mamba's prefill shapes (1 and 4), its decode step (2),
+    and small grids (the most lanes, at most N)."""
+    assert tk.threads_per_channel(rows, steps, 132, N) == G
+
+
 # ------------------------------------------------------------ on the card
 @pytest.fixture
 def cuda():
@@ -193,11 +335,14 @@ def _strided_bc(arrays, dtype, device):
     return fused[..., 5:5 + N], fused[..., 5 + N:]
 
 
+CARD_SHAPES = [(2, 16, 32, 8, False), (2, 32, 64, 16, True),
+               (2, 8, 16, 4, False), (3, 37, 100, 16, True),
+               (1, 70, 40, 32, True), (4, 1, 520, 16, True),
+               (2, 300, 257, 4, False)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,S,di,N,h0", [
-    (2, 16, 32, 8, False), (2, 32, 64, 16, True), (2, 8, 16, 4, False),
-    (3, 37, 100, 16, True), (1, 70, 40, 32, True), (4, 1, 520, 16, True),
-    (2, 300, 257, 4, False)])
+@pytest.mark.parametrize("B,S,di,N,h0", CARD_SHAPES)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_kernel_matches_plain_on_card(cuda, B, S, di, N, h0, dtype):
     arrays = _inputs(7, B, S, di, N, h0)
@@ -230,3 +375,71 @@ def test_kernel_refuses_other_state_sizes(cuda):
     t = _torch(_inputs(9, 1, 4, 8, 6), torch.float32, cuda)
     with pytest.raises(ValueError, match="state size"):
         tk.mamba1_scan(*t)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,di,N,h0", CARD_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kernel_equals_plain_bitwise_on_card(cuda, B, S, di, N, h0, dtype):
+    """The contract mode at every G equals plain_scan bit for bit (the
+    same fp32 operations in the same order)."""
+    arrays = _inputs(7, B, S, di, N, h0)
+    t = _torch(arrays, getattr(torch, dtype), cuda)
+    t[2], t[3] = _strided_bc(arrays, getattr(torch, dtype), cuda)
+    py, ph = ops.plain_scan(*t)
+    for g in (g for g in tk.GROUPS if g <= N):
+        y, h = tk.mamba1_scan(*t, group=g)
+        torch.cuda.synchronize()
+        assert torch.equal(y, py) and torch.equal(h, ph), g
+
+
+def _gated_on_card(arrays, dtype, device, R=5):
+    """The gated inputs on the card, with B and C column slices of one
+    (B, S, R + 2N) tensor and z the second half of one (B, S, 2 di)."""
+    t = _gated_torch(arrays, dtype, device)
+    Bsz, S, N = arrays[3].shape
+    di = arrays[2].shape[2]
+    fused = torch.zeros((Bsz, S, R + 2 * N), dtype=dtype, device=device)
+    fused[..., R:R + N], fused[..., R + N:] = t[3], t[4]
+    xz = torch.zeros((Bsz, S, 2 * di), dtype=dtype, device=device)
+    xz[..., di:] = t[7]
+    t[3], t[4], t[7] = fused[..., R:R + N], fused[..., R + N:], xz[..., di:]
+    return t
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,di,N,h0", CARD_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gated_kernel_equals_composition_on_card(cuda, B, S, di, N, h0,
+                                                 dtype):
+    """The gated mode at every G equals the unfused composition (torch's
+    softplus, the plain scan, torch's silu gate) on the card bit for bit,
+    repeatably, through the entry the model calls."""
+    t = _gated_on_card(_gated_inputs(15, B, S, di, N, h0),
+                       getattr(torch, dtype), cuda)
+    wy, wh = _composition(t)
+    before = tk.LAUNCHES["mamba1_scan_gated"]
+    y, h = ops.gated_selective_scan(*t)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["mamba1_scan_gated"] == before + 1
+    assert y.dtype == getattr(torch, dtype) and h.dtype == torch.float32
+    assert torch.equal(y, wy) and torch.equal(h, wh)
+    for g in (g for g in tk.GROUPS if g <= N):
+        gy, gh = tk.mamba1_scan_gated(*t, group=g)
+        torch.cuda.synchronize()
+        assert torch.equal(gy, wy) and torch.equal(gh, wh), g
+
+
+@pytest.mark.cuda
+def test_gated_kernel_chained_halves_bitwise(cuda):
+    t = _gated_on_card(_gated_inputs(16, 2, 96, 64, 16), torch.bfloat16,
+                       cuda)
+    y, h = tk.mamba1_scan_gated(*t)
+    first, second = list(t), list(t)
+    for i in (0, 2, 3, 4, 7):
+        first[i], second[i] = t[i][:, :41], t[i][:, 41:]
+    ya, ha = tk.mamba1_scan_gated(*first)
+    second[8] = ha
+    yb, hb = tk.mamba1_scan_gated(*second)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.cat([ya, yb], dim=1), y) and torch.equal(hb, h)

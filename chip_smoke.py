@@ -155,19 +155,91 @@ def phase_device(torch):
 
 
 # ------------------------------------------------------------ phase 2
+PHASE2_N, PHASE2_K = (1, 37, 4096), (8, 24, 40, 64, 65, 200)
+DEDUP_RUNS = (2, 3, 5, 17)  # runs of equal ids per row, where K allows
+# the serving dispatch shapes: (G, user K, candidates a page view, ad K)
+DISPATCHES = ((1, 24, 32, 16), (8, 24, 32, 16))
+
+
 def _batch(rng, n, k, d_rows, pad_every=8):
-    """ids/vals with pad slots, a duplicate pair and a triple per row."""
+    """ids/vals with pad slots, runs of 2, 3, 5 and 17 equal ids (those
+    that fit), a slot holding the pad id and, for n > 1, one all-pad row."""
     ids = rng.integers(0, d_rows - 1, (n, k)).astype(np.int32)
-    if k >= 4:
-        ids[:, 1] = ids[:, 0]
-        ids[:, 3] = ids[:, 0]
+    start = 0
+    for run in DEDUP_RUNS:
+        if start + run > k:
+            break
+        ids[:, start:start + run] = rng.integers(0, d_rows - 1, (n, 1))
+        start += run
     ids[:, ::pad_every] = d_rows - 1
     vals = (rng.normal(size=(n, k)) / np.sqrt(k)).astype(np.float32)
+    if n > 1:
+        ids[-1] = d_rows - 1
+        vals[-1] = 0.0
     return ids, vals
+
+
+def _dispatch_batch(torch, dev, rng, g, ku, n, ka, d_rows):
+    """One dispatch as the engine builds it: G page views of Ku 12-24 user
+    ids and N candidates of Ka 6-12 ids (synthetic_requests' ranges),
+    padded to the (ku, ka) envelope with the pad id, and the session ids.
+    Returns device tensors (ui, uv, ai, av, session)."""
+    ui = np.full((g, ku), d_rows - 1, np.int32)
+    uv = np.zeros((g, ku), np.float32)
+    ai = np.full((g * n, ka), d_rows - 1, np.int32)
+    av = np.zeros((g * n, ka), np.float32)
+    for r in range(g):
+        k = int(rng.integers(12, min(24, ku) + 1))
+        ui[r, :k] = rng.integers(0, d_rows - 1, k)
+        uv[r, :k] = rng.normal(size=k) / np.sqrt(k)
+    for r in range(g * n):
+        k = int(rng.integers(6, min(12, ka) + 1))
+        ai[r, :k] = rng.integers(0, d_rows - 1, k)
+        av[r, :k] = rng.normal(size=k) / np.sqrt(k)
+    session = torch.arange(g, device=dev).repeat_interleave(n)
+    return (*(torch.from_numpy(a).to(dev) for a in (ui, uv, ai, av)),
+            session)
 
 
 def _z_ok(z, z_ref):
     return bool(((z - z_ref).abs() <= Z_ATOL + Z_RTOL * z_ref.abs()).all())
+
+
+def _check_bundles(torch, dev, rng, theta, codes, scales):
+    """The bundle addend at the dispatch shapes: ``ops.bundle_forward`` is
+    two launches whose z is bitwise ``z_user.index_select(0, session) +
+    z_ad`` and whose p is within P_ATOL of ``finalize_p``, for B1 and B4."""
+    from repro_torch.kernels.lsplm_sparse_fused import ops
+    from repro_torch.kernels.lsplm_sparse_fused.lsplm_sparse_fused import (
+        LAUNCHES,
+        lsplm_sparse_fused_forward,
+        lsplm_sparse_fused_int8_forward,
+    )
+
+    err = 0.0
+    for g, ku, n, ka in DISPATCHES:
+        ui, uv, ai, av, session = _dispatch_batch(torch, dev, rng, g, ku, n,
+                                                  ka, theta.shape[0])
+        for rows, kernel, kw in (
+                ((theta,), lsplm_sparse_fused_forward, dict(theta=theta)),
+                ((codes, scales), lsplm_sparse_fused_int8_forward,
+                 dict(codes=codes, scales=scales))):
+            before = sum(LAUNCHES.values())
+            p, z = ops.bundle_forward(ui, uv, ai, av, session, **kw)
+            check(sum(LAUNCHES.values()) - before == 2,
+                  "bundle_forward is not two launches")
+            want = (kernel(ui, uv, *rows, dedup=True)[1].index_select(
+                0, session) + kernel(ai, av, *rows, dedup=True)[1])
+            torch.cuda.synchronize()
+            tag = f"G={g} user {tuple(ui.shape)} ad {tuple(ai.shape)}"
+            check(torch.equal(z, want),
+                  f"{kernel.__name__} addend z is not index_select + add "
+                  f"bitwise at {tag}")
+            e = float((p - ops.finalize_p(want)).abs().max())
+            check(e <= P_ATOL, f"{kernel.__name__} bundle p vs finalize_p "
+                  f"at {tag}: {e:.2e}")
+            err = max(err, e)
+    return err
 
 
 def phase_kernels(torch, dev, theta, codes, scales):
@@ -183,8 +255,8 @@ def phase_kernels(torch, dev, theta, codes, scales):
     err = {"lsplm_sparse_fused_forward": 0.0,
            "lsplm_sparse_fused_int8_forward": 0.0}
     bitwise = True
-    for n in (1, 37, 4096):
-        for k in (8, 24, 64):
+    for n in PHASE2_N:
+        for k in PHASE2_K:
             ids_np, vals_np = _batch(rng, n, k, d_rows)
             ids = torch.from_numpy(ids_np).to(dev)
             vals = torch.from_numpy(vals_np).to(dev)
@@ -192,12 +264,14 @@ def phase_kernels(torch, dev, theta, codes, scales):
             p_ref = ops.finalize_p(z_ref)
             zi_ref = ops._chunked_zmap_int8(ids, vals, codes, scales)
             pi_ref = ops.finalize_p(zi_ref)
+            pre_ids, pre_vals = ops.dedup_tile_ids(ids, vals, d_rows - 1)
             for dedup in (True, False):
-                ki, kv = ((ops.dedup_tile_ids(ids, vals, d_rows - 1))
-                          if dedup else (ids, vals))
-                p, z = lsplm_sparse_fused_forward(ki, kv, theta)
-                pi, zi = lsplm_sparse_fused_int8_forward(ki, kv, codes, scales)
-                pd, zd = lsplm_sparse_fused_forward(ki, kv, deq)
+                p, z = lsplm_sparse_fused_forward(ids, vals, theta,
+                                                  dedup=dedup)
+                pi, zi = lsplm_sparse_fused_int8_forward(
+                    ids, vals, codes, scales, dedup=dedup)
+                pd, zd = lsplm_sparse_fused_forward(ids, vals, deq,
+                                                    dedup=dedup)
                 torch.cuda.synchronize()
                 tag = f"N={n} K={k} dedup={dedup}"
                 check(_z_ok(z, z_ref), f"B1 z vs plain at {tag}")
@@ -209,6 +283,18 @@ def phase_kernels(torch, dev, theta, codes, scales):
                 check(_z_ok(zi, zd) and float((pi - pd).abs().max()) <= P_ATOL,
                       f"B4 vs B1 on the dequantised Theta at {tag}")
                 bitwise &= bool(torch.equal(zi, zd) and torch.equal(pi, pd))
+                if dedup:  # the fused dedup is the pre-pass, bit for bit
+                    pp, zp = lsplm_sparse_fused_forward(pre_ids, pre_vals,
+                                                        theta)
+                    ppi, zpi = lsplm_sparse_fused_int8_forward(
+                        pre_ids, pre_vals, codes, scales)
+                    torch.cuda.synchronize()
+                    check(torch.equal(z, zp) and torch.equal(p, pp),
+                          f"B1's fused dedup differs from dedup_tile_ids + "
+                          f"B1 at {tag}")
+                    check(torch.equal(zi, zpi) and torch.equal(pi, ppi),
+                          f"B4's fused dedup differs from dedup_tile_ids + "
+                          f"B4 at {tag}")
                 err["lsplm_sparse_fused_forward"] = max(
                     err["lsplm_sparse_fused_forward"],
                     float((z - z_ref).abs().max()),
@@ -217,18 +303,25 @@ def phase_kernels(torch, dev, theta, codes, scales):
                     err["lsplm_sparse_fused_int8_forward"],
                     float((zi - zi_ref).abs().max()),
                     float((pi - pi_ref).abs().max()))
+    bundle_err = _check_bundles(torch, dev, rng, theta, codes, scales)
     _check_planned_p(torch, theta, *(torch.from_numpy(a).to(dev)
                                      for a in _batch(rng, 37, 24, d_rows)))
     print(f"phase 2: kernels agree with their plain versions at d={d_rows - 1:,}"
-          f", 2m={theta.shape[1]}, N in (1, 37, 4096), K in (8, 24, 64), "
-          f"dedup on/off (z rtol {Z_RTOL}/atol {Z_ATOL}, p atol {P_ATOL}); "
-          f"max |err| fp32 {err['lsplm_sparse_fused_forward']:.3e}, "
+          f", 2m={theta.shape[1]}, N in {PHASE2_N}, K in {PHASE2_K} (runs of "
+          f"{DEDUP_RUNS} equal ids, pad ids, an all-pad row), dedup on/off "
+          f"(z rtol {Z_RTOL}/atol {Z_ATOL}, p atol {P_ATOL}); max |err| fp32 "
+          f"{err['lsplm_sparse_fused_forward']:.3e}, "
           f"int8 {err['lsplm_sparse_fused_int8_forward']:.3e}; int8 kernel "
           f"vs fp32 kernel on the dequantised Theta: "
           f"{'bitwise equal' if bitwise else 'within 1e-6, not bitwise'}; "
-          f"planned score_sparse / predict_proba_sparse bitwise equal to "
-          f"unplanned and to B1's p, planned gradient within rtol 1e-5 / "
-          f"atol 1e-6 of unplanned and of the CPU's")
+          f"the fused dedup bitwise equal to dedup_tile_ids + the kernel "
+          f"(z and p, B1 and B4, every case); the bundle addend at the "
+          f"dispatch shapes {DISPATCHES} (G, Ku, N, Ka): z bitwise "
+          f"index_select + add, p vs finalize_p max |err| "
+          f"{bundle_err:.2e}, two launches a bundle; planned score_sparse / "
+          f"predict_proba_sparse bitwise equal to unplanned and to B1's p, "
+          f"planned gradient within rtol 1e-5 / atol 1e-6 of unplanned and "
+          f"of the CPU's")
     return err, bitwise
 
 
@@ -254,8 +347,7 @@ def _check_planned_p(torch, theta, ids, vals):
         theta.device)
     full = theta[:-1]
     bare = score_sparse(full, ids, vals)
-    p_b1 = lsplm_sparse_fused_forward(
-        *ops._kernel_inputs(ids, vals, pad, True), theta)[0]
+    p_b1 = lsplm_sparse_fused_forward(ids, vals, theta, dedup=True)[0]
     check(torch.equal(bare, p_b1), "score_sparse is not B1's p")
     check(torch.equal(score_sparse(full, ids, vals, plan=plan), bare),
           "planned score_sparse differs from the unplanned call's bits")
@@ -340,9 +432,15 @@ def phase_main_path(torch, tmp: Path):
     return launches, rep_i8, rep_fp
 
 
+DEDUP_OPS = ("sort", "catarray")  # kernels only the torch pre-pass ran
+
+
 def _profile_dispatches(torch, art) -> None:
     """Where a dispatch's time goes: host wall per dispatch against the
-    device's kernel time (torch.profiler), for G=1 and batched replays."""
+    device's kernel time (torch.profiler), for G=1 and batched replays,
+    with the device launches per dispatch (kernels and copies apart). A
+    G=1 dispatch must launch exactly two B1/B4 kernels and no op of the
+    torch dedup pre-pass."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.serve.engine import ScoringEngine, synthetic_requests
@@ -360,23 +458,40 @@ def _profile_dispatches(torch, art) -> None:
             fn()
             wall_us = (time.perf_counter() - t0) * 1e6
         dispatches = engine.stats.dispatches - before
-        kernels: dict[str, float] = {}
+        kernels: dict[str, list] = {}
         for e in prof.events():
             if e.device_type == torch.autograd.DeviceType.CUDA:
-                kernels[e.name] = (kernels.get(e.name, 0.0)
-                                   + e.time_range.elapsed_us())
-        busy_us = sum(kernels.values())
+                k = kernels.setdefault(e.name, [0.0, 0])
+                k[0] += e.time_range.elapsed_us()
+                k[1] += 1
+        busy_us = sum(v[0] for v in kernels.values())
         if not kernels:
             print(f"  profile {tag}: {wall_us / dispatches:,.0f} us wall per "
                   "dispatch; device time not measured (no device events)")
             continue
-        top = sorted(kernels.items(), key=lambda kv: -kv[1])[:5]
+        copies = sum(v[1] for name, v in kernels.items()
+                     if name.startswith(("Memcpy", "Memset")))
+        launches = sum(v[1] for v in kernels.values()) - copies
+        ours = sum(v[1] for name, v in kernels.items()
+                   if "fused_forward_kernel" in name)
+        dedup_ops = sorted(name[:60] for name in kernels
+                           if any(op in name.lower() for op in DEDUP_OPS))
+        top = sorted(kernels.items(), key=lambda kv: -kv[1][0])
         print(f"  profile {tag}: {dispatches} dispatches, "
               f"{wall_us / dispatches:,.1f} us wall and "
-              f"{busy_us / dispatches:,.1f} us of device kernels per "
-              f"dispatch (device idle {1 - busy_us / wall_us:.1%}); top: "
-              + "; ".join(f"{name[:60]} {us / dispatches:.1f} us"
-                          for name, us in top))
+              f"{busy_us / dispatches:,.1f} us of device work per "
+              f"dispatch (device idle {1 - busy_us / wall_us:.1%}); "
+              f"{launches / dispatches:g} kernel launches (B1/B4 "
+              f"{ours / dispatches:g}) and {copies / dispatches:g} copies per "
+              f"dispatch; per dispatch: "
+              + "; ".join(f"{name[:60]} x{v[1] / dispatches:g} "
+                          f"{v[0] / dispatches:.1f} us" for name, v in top))
+        if tag == "G=1":
+            check(ours == 2 * dispatches,
+                  f"a G=1 dispatch launched {ours / dispatches:g} B1/B4 "
+                  "kernels, not 2")
+            check(not dedup_ops, f"a G=1 dispatch ran the torch dedup "
+                  f"pre-pass: {dedup_ops}")
 
 
 # ------------------------------------------------------------ phase 4
@@ -414,6 +529,83 @@ def _bound(torch, ids, pad_id, row_bytes, m2, ops_per_elem):
                                        else "operations")
 
 
+def _bundle_bound(torch, ui, ai, pad_id, row_bytes, m2, ops_per_elem):
+    """The bound of a whole bundle: both sides' ids and vals, the distinct
+    live rows of the two sides together, the user rows' z written and
+    read back once, the session ids, z and p written; ops at fp32 peak."""
+    live = torch.cat([ui[ui != pad_id], ai[ai != pad_id]])
+    rows = int(torch.unique(live).numel())
+    g, b = ui.shape[0], ai.shape[0]
+    nbytes = ((ui.numel() + ai.numel()) * 8 + rows * row_bytes
+              + 2 * g * m2 * 4 + b * 8 + b * (m2 + 1) * 4)
+    ops = int(live.numel()) * m2 * ops_per_elem + b * m2
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def _dispatch_times(torch, dev, rng, theta, codes, scales, flush):
+    """B1 and B4 at the serving dispatch shapes, dedup on: the bundle as
+    the card path runs it now (``ops.bundle_forward``, two launches)
+    against PR 17's composition of the same function in the same call
+    (``dedup_tile_ids`` and the kernel on each side, index_select, add,
+    ``finalize_p``), the plain versions and the bound."""
+    from repro_torch.kernels.lsplm_sparse_fused import ops
+    from repro_torch.kernels.lsplm_sparse_fused.lsplm_sparse_fused import (
+        lsplm_sparse_fused_forward,
+        lsplm_sparse_fused_int8_forward,
+    )
+
+    d_rows, m2 = theta.shape
+    pad = d_rows - 1
+    out = {}
+    one = torch.zeros(1, device=dev)
+    floor_ms = _time_ms(torch, lambda: one.add_(1.0), flush)
+    print(f"phase 4: launch floor: one 1-element add_ timed the same way "
+          f"takes {floor_ms:.4f} ms")
+    for g, ku, n, ka in DISPATCHES:
+        ui, uv, ai, av, session = _dispatch_batch(torch, dev, rng, g, ku, n,
+                                                  ka, d_rows)
+        for name, kernel, rows, kw, plain_z, row_bytes, per in (
+                ("lsplm_sparse_fused_forward", lsplm_sparse_fused_forward,
+                 (theta,), dict(theta=theta),
+                 lambda i, v: ops._chunked_zmap(i, v, theta), m2 * 4, 2),
+                ("lsplm_sparse_fused_int8_forward",
+                 lsplm_sparse_fused_int8_forward, (codes, scales),
+                 dict(codes=codes, scales=scales),
+                 lambda i, v: ops._chunked_zmap_int8(i, v, codes, scales),
+                 m2 + 4, 3)):
+
+            def composition(kernel=kernel, rows=rows):
+                z_user = kernel(*ops.dedup_tile_ids(ui, uv, pad), *rows)[1]
+                z_ad = kernel(*ops.dedup_tile_ids(ai, av, pad), *rows)[1]
+                return ops.finalize_p(z_user.index_select(0, session) + z_ad)
+
+            bound_ms, bound_by = _bundle_bound(torch, ui, ai, pad, row_bytes,
+                                               m2, per)
+            row = {"dispatch": f"G={g}", "n": ai.shape[0], "k": ka,
+                   "user": list(ui.shape), "ad": list(ai.shape),
+                   "ms": _time_ms(torch, lambda kw=kw: ops.bundle_forward(
+                       ui, uv, ai, av, session, **kw), flush),
+                   "composition_ms": _time_ms(torch, composition, flush),
+                   "plain_ms": _time_ms(torch, lambda plain_z=plain_z: (
+                       ops.finalize_p(plain_z(ui, uv).index_select(0, session)
+                                      + plain_z(ai, av))), flush),
+                   "bound_ms": bound_ms, "bound_by": bound_by,
+                   "library_ms": None, "launch_floor_ms": floor_ms}
+            out.setdefault(name, []).append(row)
+            print(f"phase 4: {name} bundle G={g}, user {tuple(ui.shape)}, ad "
+                  f"{tuple(ai.shape)}, dedup on: fused (2 launches) "
+                  f"{row['ms']:.4f} ms, PR 17's composition (torch dedup + "
+                  f"kernel, index_select, add, head) "
+                  f"{row['composition_ms']:.4f} ms in the same call, plain "
+                  f"{row['plain_ms']:.4f} ms, bound {bound_ms:.5f} ms "
+                  f"({bound_by}, {bound_ms / row['ms']:.1%} of it reached; "
+                  f"the composition {bound_ms / row['composition_ms']:.1%})"
+                  f", library n/a (no single PyTorch call)")
+    return out
+
+
 def phase_times(torch, dev, theta, codes, scales):
     import torch.nn.functional as F
 
@@ -440,6 +632,8 @@ def phase_times(torch, dev, theta, codes, scales):
         cases = {
             "lsplm_sparse_fused_forward": dict(
                 kernel=lambda: lsplm_sparse_fused_forward(ids, vals, theta),
+                dedup=lambda: lsplm_sparse_fused_forward(ids, vals, theta,
+                                                         dedup=True),
                 plain=lambda: ops.finalize_p(
                     ops._chunked_zmap(ids, vals, theta)),
                 library=lambda: F.embedding_bag(
@@ -449,6 +643,8 @@ def phase_times(torch, dev, theta, codes, scales):
             "lsplm_sparse_fused_int8_forward": dict(
                 kernel=lambda: lsplm_sparse_fused_int8_forward(
                     ids, vals, codes, scales),
+                dedup=lambda: lsplm_sparse_fused_int8_forward(
+                    ids, vals, codes, scales, dedup=True),
                 plain=lambda: ops.finalize_p(
                     ops._chunked_zmap_int8(ids, vals, codes, scales)),
                 library=None,
@@ -459,6 +655,7 @@ def phase_times(torch, dev, theta, codes, scales):
             row = {
                 "n": n, "k": k,
                 "ms": _time_ms(torch, c["kernel"], flush),
+                "dedup_ms": _time_ms(torch, c["dedup"], flush),
                 "plain_ms": _time_ms(torch, c["plain"], flush),
                 "bound_ms": bound_ms, "bound_by": bound_by,
                 "library_ms": (None if c["library"] is None
@@ -468,10 +665,14 @@ def phase_times(torch, dev, theta, codes, scales):
             lib = ("n/a" if row["library_ms"] is None
                    else f"{row['library_ms']:.4f} ms (embedding_bag, "
                         f"max |dz| vs plain {lib_err:.1e})")
-            print(f"phase 4: {name} N={n} K={k}: kernel {row['ms']:.4f} ms, "
+            print(f"phase 4: {name} N={n} K={k}: kernel {row['ms']:.4f} ms "
+                  f"(with the in-kernel dedup {row['dedup_ms']:.4f} ms), "
                   f"plain {row['plain_ms']:.4f} ms, bound {bound_ms:.4f} ms "
                   f"({bound_by}, {row['bound_ms'] / row['ms']:.1%} of it "
                   f"reached), library {lib}")
+    for name, rows in _dispatch_times(torch, dev, rng, theta, codes, scales,
+                                      flush).items():
+        out[name] += rows
     return out
 
 
@@ -550,8 +751,10 @@ def _check_b3(torch, theta, grad, lam, beta, tag) -> float:
 
 def _b1_at_training_shapes(torch, batches, theta):
     """B1 against its plain version at the shapes the training path gives
-    it: both id tensors of each batch, after the dedup pre-pass, on the
-    padded Theta. Returns (max abs error, the shapes checked)."""
+    it: both id tensors of each batch, with the in-kernel dedup as the
+    main path runs it (and bitwise the ``dedup_tile_ids`` pre-pass
+    followed by B1), on the padded Theta. Returns (max abs error, the
+    shapes checked)."""
     from repro_torch.kernels.lsplm_sparse_fused import ops
     from repro_torch.kernels.lsplm_sparse_fused.lsplm_sparse_fused import (
         lsplm_sparse_fused_forward,
@@ -563,12 +766,15 @@ def _b1_at_training_shapes(torch, batches, theta):
     for tag, batch in batches:
         for side, ids, vals in (("user", batch.user_ids, batch.user_vals),
                                 ("ad", batch.ad_ids, batch.ad_vals)):
-            ki, kv = ops.dedup_tile_ids(ids, vals, pad)
-            p, z = lsplm_sparse_fused_forward(ki, kv, tp)
+            p, z = lsplm_sparse_fused_forward(ids, vals, tp, dedup=True)
+            pp, zp = lsplm_sparse_fused_forward(
+                *ops.dedup_tile_ids(ids, vals, pad), tp)
             z_ref = ops._chunked_zmap(ids, vals, tp)
             p_ref = ops.finalize_p(z_ref)
             torch.cuda.synchronize()
             where = f"{tag} {side} ids {tuple(ids.shape)}"
+            check(torch.equal(z, zp) and torch.equal(p, pp),
+                  f"B1's fused dedup differs from the pre-pass at the {where}")
             check(_z_ok(z, z_ref), f"B1 z vs plain at the {where}")
             check(float((p - p_ref).abs().max()) <= P_ATOL,
                   f"B1 p vs plain at the {where}")
@@ -587,8 +793,9 @@ def phase_training_kernels(torch, dev, train, test, theta0):
     e, shapes = _b1_at_training_shapes(
         torch, (("training", train), ("test", test)), theta0)
     print(f"phase 5: B1 vs plain at the training path's shapes "
-          f"({', '.join(shapes)}; u**10 Zipf ids, dedup on, the driver's "
-          f"dense Theta0): z rtol {Z_RTOL}/atol {Z_ATOL}, p atol {P_ATOL}; "
+          f"({', '.join(shapes)}; u**10 Zipf ids, the in-kernel dedup, "
+          f"bitwise the pre-pass + B1; the driver's dense Theta0): z rtol "
+          f"{Z_RTOL}/atol {Z_ATOL}, p atol {P_ATOL}; "
           f"max |err| {e:.3e}")
     rng = np.random.default_rng(SEED + 7)
     err = {"lsplm_sparse_fused_forward": e,
@@ -932,12 +1139,17 @@ def phase_training_times(torch, dev, train, theta0):
     pad = tp.shape[0] - 1
     for side, ids, vals in (("ad", train.ad_ids, train.ad_vals),
                             ("user", train.user_ids, train.user_vals)):
-        ki, kv = ops.dedup_tile_ids(ids, vals, pad)  # as the main path does
+        ki, kv = ops.dedup_tile_ids(ids, vals, pad)  # PR 17's main path
         bound_ms, bound_by = _bound(torch, ki, pad, m2 * 4, m2, 2)
         row = {"side": side, "n": ids.shape[0], "k": ids.shape[1],
-               "ms": _time_ms(
+               "ms": _time_ms(torch, lambda: lsplm_sparse_fused_forward(
+                   ids, vals, tp, dedup=True), flush),
+               "prededup_ms": _time_ms(
                    torch, lambda: lsplm_sparse_fused_forward(ki, kv, tp),
                    flush),
+               "composition_ms": _time_ms(
+                   torch, lambda: lsplm_sparse_fused_forward(
+                       *ops.dedup_tile_ids(ids, vals, pad), tp), flush),
                "plain_ms": _time_ms(torch, lambda: ops.finalize_p(
                    ops._chunked_zmap(ki, kv, tp)), flush),
                "library_ms": _time_ms(torch, lambda: F.embedding_bag(
@@ -946,8 +1158,12 @@ def phase_training_times(torch, dev, train, theta0):
                "bound_ms": bound_ms, "bound_by": bound_by}
         out.setdefault("lsplm_sparse_fused_forward", []).append(row)
         print(f"phase 8: lsplm_sparse_fused_forward training {side} side "
-              f"(N={row['n']:,} K={row['k']}, after dedup, Theta0): kernel "
-              f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, bound "
+              f"(N={row['n']:,} K={row['k']}, Theta0): kernel with the "
+              f"in-kernel dedup {row['ms']:.4f} ms (PR 17's main path, "
+              f"dedup_tile_ids + kernel: {row['composition_ms']:.4f} ms; "
+              f"the kernel alone on pre-deduplicated ids "
+              f"{row['prededup_ms']:.4f} ms), plain {row['plain_ms']:.4f} ms"
+              f", bound "
               f"{bound_ms:.4f} ms ({bound_by}, "
               f"{bound_ms / row['ms']:.1%} of it reached), library "
               f"{row['library_ms']:.4f} ms (embedding_bag)")
@@ -2359,14 +2575,38 @@ def phase_scan_times(torch, dev):
     return rows[True] + rows[False]
 
 
+SERVE_PHASES = (2, 3, 4)  # the serving path's phases, runnable alone
 SCAN_PHASES = (17, 18, 19, 20)  # the SSM path's phases, runnable alone
 
 
+def _serving_model(torch, dev):
+    """Phases 2 and 4's model: a random d = 1,000,000 Theta with every row
+    alive, padded (d+1, 2m) on the card, and its int8 codes and scales."""
+    from repro_torch.serve.compress import compress, quantize
+
+    rng = np.random.default_rng(SEED + 3)
+    theta_np = (rng.normal(size=(D_FEATURES, 2 * REGIONS)) * 0.3).astype(
+        np.float32)
+    art = compress(theta_np)  # every row alive: (d+1, 2m) with the pad row
+    q = quantize(art)
+    return art.theta.to(dev), q.codes.to(dev), q.scales.to(dev)
+
+
 def _run_only(torch, dev, only, t_start) -> int:
-    """Phase 1 and the given SSM phases alone (``--only``): a partial
-    run, so it prints no kernels line and no result line."""
+    """Phase 1 and the given serving (2-4) or SSM (17-20) phases alone
+    (``--only``): a partial run, so it prints no kernels line and no
+    result line."""
+    if only & {2, 4}:
+        model = _serving_model(torch, dev)
     for phase in sorted(only):
-        if phase == 17:
+        if phase == 2:
+            phase_kernels(torch, dev, *model)
+        elif phase == 3:
+            with tempfile.TemporaryDirectory() as tmp:
+                phase_main_path(torch, Path(tmp))
+        elif phase == 4:
+            phase_times(torch, dev, *model)
+        elif phase == 17:
             phase_scan_kernel(torch, dev)
         elif phase == 18:
             phase_ssm_lm(torch, dev)
@@ -2380,18 +2620,20 @@ def _run_only(torch, dev, only, t_start) -> int:
 
 
 def main(argv: list[str]) -> int:
-    """``chip_smoke.py`` runs every phase; ``chip_smoke.py --only 17,20``
-    runs phase 1 and the named phases of the SSM path (17-20) alone."""
+    """``chip_smoke.py`` runs every phase; ``chip_smoke.py --only 2,3,4``
+    (or ``17,20``) runs phase 1 and the named phases of the serving path
+    (2-4) or the SSM path (17-20) alone."""
     import torch
 
     only = set()
+    alone = SERVE_PHASES + SCAN_PHASES
     if argv:
         if len(argv) != 2 or argv[0] != "--only":
             raise SmokeFailure(f"usage: chip_smoke.py [--only "
-                               f"{','.join(map(str, SCAN_PHASES))}]")
+                               f"{','.join(map(str, alone))}]")
         only = {int(p) for p in argv[1].split(",")}
-        if not only <= set(SCAN_PHASES):
-            raise SmokeFailure(f"--only takes phases of {SCAN_PHASES}")
+        if not only <= set(alone):
+            raise SmokeFailure(f"--only takes phases of {alone}")
 
     if not torch.cuda.is_available():
         raise SmokeFailure("torch.cuda.is_available() is false: this smoke "
@@ -2399,7 +2641,6 @@ def main(argv: list[str]) -> int:
     sys.path.insert(0, str(ROOT / "src"))
     try:
         from repro_torch.device import resolve_device
-        from repro_torch.serve.compress import compress, quantize
     except ImportError as e:
         raise SmokeFailure(f"the port is not beside this script: {e}") from e
     dev = resolve_device("cuda")
@@ -2408,15 +2649,7 @@ def main(argv: list[str]) -> int:
     if only:
         return _run_only(torch, dev, only, t_start)
 
-    rng = np.random.default_rng(SEED + 3)
-    theta_np = (rng.normal(size=(D_FEATURES, 2 * REGIONS)) * 0.3).astype(
-        np.float32)
-    art = compress(theta_np)  # every row alive: (d+1, 2m) with the pad row
-    q = quantize(art)
-    theta = art.theta.to(dev)
-    codes, scales = q.codes.to(dev), q.scales.to(dev)
-    del theta_np, art, q
-
+    theta, codes, scales = _serving_model(torch, dev)
     err, _ = phase_kernels(torch, dev, theta, codes, scales)
     with tempfile.TemporaryDirectory() as tmp:
         serve_launches, _, _ = phase_main_path(torch, Path(tmp))

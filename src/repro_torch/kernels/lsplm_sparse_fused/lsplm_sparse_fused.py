@@ -1,12 +1,26 @@
 """Launch wrappers of the fused sparse LS-PLM forward kernels (CUDA).
 
 The kernels live in ``csrc/lsplm_sparse_fused.cu`` (see its header for
-the design and what bounds it) and replace the two Pallas kernels of
-``repro/kernels/lsplm_sparse_fused/lsplm_sparse_fused.py``. Each wrapper
-checks its tensors (CUDA, dtypes, contiguity, shapes), allocates the
-outputs with ``torch.empty``, launches on PyTorch's current stream without
+the design, what bounds it and its bitwise contract) and replace the two
+Pallas kernels of ``repro/kernels/lsplm_sparse_fused/lsplm_sparse_fused.py``.
+Each wrapper checks its arguments (shapes first, so the checks run on any
+device, then CUDA, dtypes, contiguity), allocates the outputs with
+``torch.empty``, launches on PyTorch's current stream without
 synchronising, raises if the launch was refused, and adds one to its
 entry in :data:`LAUNCHES`.
+
+Options of both wrappers:
+
+  * ``dedup=True`` collapses duplicate ids within each row inside the
+    kernel, bitwise what ``ops.dedup_tile_ids`` followed by the kernel
+    with ``dedup=False`` gives; rows may then carry at most
+    :data:`MAX_DEDUP_K` slots (more raises ``ValueError``);
+  * ``z_add`` (G, 2m) float32 with ``session`` (N,) int32 or int64:
+    z[n] = z_add[session[n]] + the row's own sum, bitwise
+    ``z_add.index_select(0, session) + z``. A session outside [0, G)
+    adds a zero row, like the pad (no range check: that would cost a
+    device sync per call);
+  * ``head=False`` skips the Eq. 2 head; p is then None.
 
 Unlike the TPU kernels, ragged N and K need no padding: each warp owns one
 row and reads exactly its K slots. Theta (or the int8 codes) must carry
@@ -30,6 +44,7 @@ LAUNCHES = {"lsplm_sparse_fused_forward": 0,
 
 _SOURCE = "lsplm_sparse_fused"
 _MAX_COLUMNS = 128  # the kernel keeps at most 4 x 32 columns per lane
+MAX_DEDUP_K = 1024  # slots per row with dedup=True (kMaxDedupK in the .cu)
 
 
 @functools.cache
@@ -38,9 +53,10 @@ def _lib() -> ctypes.CDLL:
     builds the source if needed)."""
     lib = _build.load(_SOURCE)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.lsplm_sparse_fused_forward.argtypes = [ptr] * 5 + [i32] * 4 + [ptr]
+    tail = [ptr, ptr, i32, i32, ptr, ptr] + [i32] * 5 + [ptr]
+    lib.lsplm_sparse_fused_forward.argtypes = [ptr] * 3 + tail
     lib.lsplm_sparse_fused_forward.restype = i32
-    lib.lsplm_sparse_fused_int8_forward.argtypes = [ptr] * 6 + [i32] * 4 + [ptr]
+    lib.lsplm_sparse_fused_int8_forward.argtypes = [ptr] * 4 + tail
     lib.lsplm_sparse_fused_int8_forward.restype = i32
     lib.lsplm_cuda_error_string.argtypes = [i32]
     lib.lsplm_cuda_error_string.restype = ctypes.c_char_p
@@ -48,18 +64,8 @@ def _lib() -> ctypes.CDLL:
 
 
 def _check(name: str, ids: torch.Tensor, vals: torch.Tensor,
-           rows: torch.Tensor, rows_dtype: torch.dtype) -> None:
-    if ids.device.type != "cuda":
-        raise ValueError(f"{name} runs on CUDA tensors, got {ids.device} "
-                         "(the plain version in ops.py serves CPU tensors)")
-    if vals.device != ids.device or rows.device != ids.device:
-        raise ValueError(f"{name}: ids, vals and rows must share one device, "
-                         f"got {ids.device}/{vals.device}/{rows.device}")
-    if ids.dtype != torch.int32 or vals.dtype != torch.float32:
-        raise ValueError(f"{name}: ids must be int32 and vals float32, got "
-                         f"{ids.dtype}/{vals.dtype}")
-    if rows.dtype != rows_dtype:
-        raise ValueError(f"{name}: rows must be {rows_dtype}, got {rows.dtype}")
+           rows: torch.Tensor, rows_dtype: torch.dtype, dedup: bool,
+           z_add: torch.Tensor | None, session: torch.Tensor | None) -> None:
     if ids.ndim != 2 or ids.shape != vals.shape:
         raise ValueError(f"{name}: ids/vals must be (N, K), got "
                          f"{tuple(ids.shape)}/{tuple(vals.shape)}")
@@ -67,9 +73,39 @@ def _check(name: str, ids: torch.Tensor, vals: torch.Tensor,
             or not 2 <= rows.shape[1] <= _MAX_COLUMNS):
         raise ValueError(f"{name}: rows must be (D, 2m) with D >= 1 and "
                          f"2 <= 2m <= {_MAX_COLUMNS}, got {tuple(rows.shape)}")
-    if not (ids.is_contiguous() and vals.is_contiguous()
-            and rows.is_contiguous()):
-        raise ValueError(f"{name}: ids, vals and rows must be contiguous")
+    if dedup and ids.shape[1] > MAX_DEDUP_K:
+        raise ValueError(f"{name}: dedup=True takes at most {MAX_DEDUP_K} "
+                         f"slots per row, got K = {ids.shape[1]}")
+    if (z_add is None) != (session is None):
+        raise ValueError(f"{name}: z_add and session go together")
+    if z_add is not None:
+        if z_add.ndim != 2 or z_add.shape[0] < 1 \
+                or z_add.shape[1] != rows.shape[1]:
+            raise ValueError(f"{name}: z_add must be (G, {rows.shape[1]}) "
+                             f"with G >= 1, got {tuple(z_add.shape)}")
+        if tuple(session.shape) != (ids.shape[0],):
+            raise ValueError(f"{name}: session must be ({ids.shape[0]},), "
+                             f"got {tuple(session.shape)}")
+        if z_add.dtype != torch.float32 or session.dtype not in (
+                torch.int32, torch.int64):
+            raise ValueError(f"{name}: z_add must be float32 and session "
+                             f"int32 or int64, got {z_add.dtype}/"
+                             f"{session.dtype}")
+    if ids.device.type != "cuda":
+        raise ValueError(f"{name} runs on CUDA tensors, got {ids.device} "
+                         "(the plain version in ops.py serves CPU tensors)")
+    extra = () if z_add is None else (z_add, session)
+    if any(t.device != ids.device for t in (vals, rows, *extra)):
+        raise ValueError(f"{name}: ids, vals, rows, z_add and session must "
+                         f"share one device")
+    if ids.dtype != torch.int32 or vals.dtype != torch.float32:
+        raise ValueError(f"{name}: ids must be int32 and vals float32, got "
+                         f"{ids.dtype}/{vals.dtype}")
+    if rows.dtype != rows_dtype:
+        raise ValueError(f"{name}: rows must be {rows_dtype}, got {rows.dtype}")
+    if not all(t.is_contiguous() for t in (ids, vals, rows, *extra)):
+        raise ValueError(f"{name}: ids, vals, rows, z_add and session must "
+                         "be contiguous")
     if ids.numel() >= 2**31 or rows.shape[0] >= 2**31:
         raise ValueError(f"{name}: sizes must fit in int32")
 
@@ -80,38 +116,59 @@ def _raise_on(rc: int, name: str) -> None:
         raise RuntimeError(f"{name}: kernel launch failed: {msg} ({rc})")
 
 
-def lsplm_sparse_fused_forward(ids: torch.Tensor, vals: torch.Tensor,
-                               theta: torch.Tensor
-                               ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Fused fp32 forward on the card. ids (N, K) int32 with pad id
-    D-1, vals (N, K) float32, theta (D, 2m) float32 with its zero pad
-    row. Returns (p (N,), z (N, 2m)) float32."""
-    name = "lsplm_sparse_fused_forward"
-    _check(name, ids, vals, theta, torch.float32)
+def _launch(name, fn, ids, vals, row_ptrs, rows, dedup, z_add, session,
+            head):
+    """Allocate (p, z), launch ``fn`` on the current stream, count it."""
     n, k = ids.shape
-    d, m2 = theta.shape
-    p = torch.empty((n,), dtype=torch.float32, device=ids.device)
+    d, m2 = rows.shape
+    p = (torch.empty((n,), dtype=torch.float32, device=ids.device)
+         if head else None)
     z = torch.empty((n, m2), dtype=torch.float32, device=ids.device)
     if n == 0:
         return p, z
-    stream = torch.cuda.current_stream(ids.device).cuda_stream
-    rc = _lib().lsplm_sparse_fused_forward(
-        ids.data_ptr(), vals.data_ptr(), theta.data_ptr(), p.data_ptr(),
-        z.data_ptr(), n, k, d, m2 // 2, stream)
+    addend = (None, None, 0, 0) if z_add is None else (
+        z_add.data_ptr(), session.data_ptr(),
+        int(session.dtype == torch.int64), z_add.shape[0])
+    rc = fn(ids.data_ptr(), vals.data_ptr(), *row_ptrs, *addend,
+            None if p is None else p.data_ptr(), z.data_ptr(), n, k, d,
+            m2 // 2, int(dedup),
+            torch.cuda.current_stream(ids.device).cuda_stream)
     _raise_on(rc, name)
     LAUNCHES[name] += 1
     return p, z
 
 
+def lsplm_sparse_fused_forward(ids: torch.Tensor, vals: torch.Tensor,
+                               theta: torch.Tensor, *, dedup: bool = False,
+                               z_add: torch.Tensor | None = None,
+                               session: torch.Tensor | None = None,
+                               head: bool = True
+                               ) -> tuple[torch.Tensor | None, torch.Tensor]:
+    """Fused fp32 forward on the card. ids (N, K) int32 with pad id
+    D-1, vals (N, K) float32, theta (D, 2m) float32 with its zero pad
+    row; options as in the module docstring. Returns (p (N,) or None,
+    z (N, 2m)) float32."""
+    name = "lsplm_sparse_fused_forward"
+    _check(name, ids, vals, theta, torch.float32, dedup, z_add, session)
+    return _launch(name, _lib().lsplm_sparse_fused_forward, ids, vals,
+                   (theta.data_ptr(),), theta, dedup, z_add, session, head)
+
+
 def lsplm_sparse_fused_int8_forward(ids: torch.Tensor, vals: torch.Tensor,
-                                    codes: torch.Tensor, scales: torch.Tensor
-                                    ) -> tuple[torch.Tensor, torch.Tensor]:
+                                    codes: torch.Tensor, scales: torch.Tensor,
+                                    *, dedup: bool = False,
+                                    z_add: torch.Tensor | None = None,
+                                    session: torch.Tensor | None = None,
+                                    head: bool = True
+                                    ) -> tuple[torch.Tensor | None,
+                                               torch.Tensor]:
     """Fused int8-native forward on the card: rows are ``codes[i] *
     scales[i]`` formed in registers (fp32 rows never exist). codes (D, 2m)
-    int8 with its zero pad row, scales (D,) float32 (pad scale 0).
-    Returns (p (N,), z (N, 2m)) float32."""
+    int8 with its zero pad row, scales (D,) float32 (pad scale 0);
+    options as in the module docstring. Returns (p (N,) or None, z (N,
+    2m)) float32."""
     name = "lsplm_sparse_fused_int8_forward"
-    _check(name, ids, vals, codes, torch.int8)
+    _check(name, ids, vals, codes, torch.int8, dedup, z_add, session)
     if (scales.dtype != torch.float32 or scales.device != ids.device
             or tuple(scales.shape) != (codes.shape[0],)
             or not scales.is_contiguous()):
@@ -119,16 +176,6 @@ def lsplm_sparse_fused_int8_forward(ids: torch.Tensor, vals: torch.Tensor,
                          f"({codes.shape[0]},) tensor on {ids.device}, got "
                          f"{scales.dtype} {tuple(scales.shape)} on "
                          f"{scales.device}")
-    n, k = ids.shape
-    d, m2 = codes.shape
-    p = torch.empty((n,), dtype=torch.float32, device=ids.device)
-    z = torch.empty((n, m2), dtype=torch.float32, device=ids.device)
-    if n == 0:
-        return p, z
-    stream = torch.cuda.current_stream(ids.device).cuda_stream
-    rc = _lib().lsplm_sparse_fused_int8_forward(
-        ids.data_ptr(), vals.data_ptr(), codes.data_ptr(), scales.data_ptr(),
-        p.data_ptr(), z.data_ptr(), n, k, d, m2 // 2, stream)
-    _raise_on(rc, name)
-    LAUNCHES[name] += 1
-    return p, z
+    return _launch(name, _lib().lsplm_sparse_fused_int8_forward, ids, vals,
+                   (codes.data_ptr(), scales.data_ptr()), codes, dedup, z_add,
+                   session, head)

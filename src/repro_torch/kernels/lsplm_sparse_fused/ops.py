@@ -13,15 +13,20 @@ The port's counterpart of ``repro/kernels/lsplm_sparse_fused/ops.py``
     same on an int8 model (``codes`` + per-row fp32 ``scales``) without
     materialising fp32 rows;
   * ``finalize_p`` / ``logps_from_z`` — the Eq. 2 head and the stable
-    log-space Eq. 5 head on region logits.
+    log-space Eq. 5 head on region logits;
+  * ``bundle_forward`` — the session-shared (Eq. 13) forward of a bundle
+    on the card without a gradient: two launches, the user rows' z feeding
+    the ad-side launch as its addend.
 
 Which implementation runs is decided by where the model lies and by
 nothing else: a CUDA model launches the hand-written kernels
-(``lsplm_sparse_fused.py``), after the ``dedup_tile_ids`` pre-pass when
-``dedup=True``; a CPU model takes the plain versions below
+(``lsplm_sparse_fused.py``), which collapse duplicate ids within a row
+themselves when ``dedup=True`` (bitwise ``dedup_tile_ids`` followed by
+the kernel without it; ``dedup_tile_ids`` stays as the plain witness the
+tests hold them against); a CPU model takes the plain versions below
 (``_chunked_zmap`` / ``_chunked_zmap_int8``), which gather ``chunk`` slots
 at a time with ``index_select`` and add them into z in slot order (the
-pre-pass does not apply there, as on the reference's jnp path). There is
+dedup does not apply there, as on the reference's jnp path). There is
 no fallback: a CUDA call launches its kernel or raises.
 
 Training differentiates ``sparse_gather_matmul`` (and
@@ -87,7 +92,9 @@ def dedup_tile_ids(ids: torch.Tensor, vals: torch.Tensor,
     Each row is sorted by id (stably, like ``jnp.argsort``), so a
     repeated id's values sit side by side; its first slot carries the SUM
     of its values and the freed slots become (pad_id, 0). z is unchanged,
-    and the kernel then loads each hot row once per sample.
+    and a gather then loads each hot row once per sample. The card's
+    kernels do this themselves (``dedup=True``) with the same sums, bit
+    for bit; this function is the plain witness they are held against.
 
     The sums are a segmented scan over the sorted row (log2 K shifted
     adds), and every output slot has exactly one writer: no atomics, so
@@ -171,12 +178,9 @@ def _on_card(model_tensor: torch.Tensor) -> bool:
     raise ValueError(f"unsupported device {model_tensor.device}")
 
 
-def _kernel_inputs(ids, vals, pad_id: int, dedup: bool):
-    ids = ids.to(torch.int32).contiguous()
-    vals = vals.to(torch.float32).contiguous()
-    if dedup:
-        ids, vals = dedup_tile_ids(ids, vals, pad_id)
-    return ids, vals
+def _kernel_inputs(ids, vals):
+    return (ids.to(torch.int32).contiguous(),
+            vals.to(torch.float32).contiguous())
 
 
 def _check_theta(theta: torch.Tensor) -> None:
@@ -198,25 +202,25 @@ def _forward(ids, vals, theta, dedup):
     """(p or None, z): the kernel's pair on the card, z alone on the CPU."""
     _check_theta(theta)
     if _on_card(theta):
-        ids, vals = _kernel_inputs(ids, vals, theta.shape[0] - 1, dedup)
-        return lsplm_sparse_fused_forward(ids, vals, theta.contiguous())
+        return lsplm_sparse_fused_forward(*_kernel_inputs(ids, vals),
+                                          theta.contiguous(), dedup=dedup)
     return None, _chunked_zmap(ids, vals, theta)
 
 
 def _forward_int8(ids, vals, codes, scales, dedup):
     _check_int8_model(codes, scales)
     if _on_card(codes):
-        ids, vals = _kernel_inputs(ids, vals, codes.shape[0] - 1, dedup)
         return lsplm_sparse_fused_int8_forward(
-            ids, vals, codes.contiguous(), scales.contiguous())
+            *_kernel_inputs(ids, vals), codes.contiguous(),
+            scales.contiguous(), dedup=dedup)
     return None, _chunked_zmap_int8(ids, vals, codes, scales)
 
 
 class _GatherMatmul(torch.autograd.Function):
     """z = x @ Theta with the transposed scatter as its backward.
 
-    Forward: B1 on the card (after ``dedup_tile_ids`` when asked), the
-    plain ``_chunked_zmap`` on the CPU. Backward: dTheta by
+    Forward: B1 on the card (its in-kernel dedup when asked), the plain
+    ``_chunked_zmap`` on the CPU. Backward: dTheta by
     ``scatter_add_planned`` when the batch's plan is given, else by
     ``scatter_add_unplanned`` (the card sorts the entries itself and runs
     the same kernel); dvals only when ``vals`` requires grad. ids and the
@@ -340,3 +344,31 @@ def lsplm_sparse_logps(ids, vals, theta, *, dedup: bool = True,
     path, differentiable through :func:`sparse_gather_matmul`."""
     return logps_from_z(sparse_gather_matmul(ids, vals, theta, dedup=dedup,
                                              plan=plan))
+
+
+def bundle_forward(user_ids, user_vals, ad_ids, ad_vals, session, *,
+                   theta=None, codes=None, scales=None, dedup: bool = True
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Session-shared (Eq. 13) forward of a bundle on the card, without a
+    gradient: (p (B,), z (B, 2m)) with z = z_user[session] + z_ad, in two
+    launches of B1 (``theta``) or B4 (``codes``/``scales``). The user
+    rows' launch skips the head; the ad rows' launch adds their user row
+    and applies it. Bitwise ``z_user.index_select(0, session) + z_ad``
+    for z, and the kernel's own head for p. ``session`` (B,) is int32 or
+    int64; a value outside [0, G) adds a zero row."""
+    if theta is not None:
+        _check_theta(theta)
+
+        def run(ids, vals, **kw):
+            return lsplm_sparse_fused_forward(
+                *_kernel_inputs(ids, vals), theta.contiguous(), dedup=dedup,
+                **kw)
+    else:
+        _check_int8_model(codes, scales)
+
+        def run(ids, vals, **kw):
+            return lsplm_sparse_fused_int8_forward(
+                *_kernel_inputs(ids, vals), codes.contiguous(),
+                scales.contiguous(), dedup=dedup, **kw)
+    z_user = run(user_ids, user_vals, head=False)[1]
+    return run(ad_ids, ad_vals, z_add=z_user, session=session.contiguous())

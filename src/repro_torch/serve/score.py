@@ -48,6 +48,7 @@ from repro_torch.core.lsplm import (
 )
 from repro_torch.device import resolve_device
 from repro_torch.kernels.lsplm_sparse_fused.ops import (
+    bundle_forward,
     finalize_p,
     logps_from_z,
     lsplm_sparse_forward,
@@ -147,7 +148,7 @@ def _request_ids(model: ServingModel, ids) -> torch.Tensor:
     ids = torch.as_tensor(ids, device=model.device)
     if model.remap is None:
         return ids.to(torch.int32)
-    return model.remap.index_select(0, ids.reshape(-1).long()).view(ids.shape)
+    return model.remap.index_select(0, ids.reshape(-1)).view(ids.shape)
 
 
 def _vals(model: ServingModel, vals) -> torch.Tensor:
@@ -218,6 +219,31 @@ def score_sparse_logps(model, ids, vals, *, dedup: bool = True,
     return logps_from_z(z)
 
 
+def _bundle(model, bundle: ScoreBundle, dedup: bool, user_plan, ad_plan
+            ) -> tuple[torch.Tensor | None, torch.Tensor]:
+    """(p or None, z) of a bundle. A card model that nothing differentiates
+    takes ``bundle_forward``: two kernel launches, the user rows' z added
+    to each candidate's inside the ad-side launch and p from its head.
+    With a gradient, or on the CPU, it is the composition: both sides'
+    z, then ``z_user.index_select(0, session) + z_ad`` (p is None)."""
+    model = as_model(model)
+    _check_plans(model, user_plan, ad_plan)
+    ui, uv = _request_ids(model, bundle.user_ids), _vals(model,
+                                                         bundle.user_vals)
+    ai, av = _request_ids(model, bundle.ad_ids), _vals(model, bundle.ad_vals)
+    session = torch.as_tensor(bundle.session_id, device=model.device)
+    grad = torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad
+        for t in (model.theta, model.scales, uv, av))
+    if model.device.type == "cuda" and not grad:
+        return bundle_forward(ui, uv, ai, av, session, theta=model.theta,
+                              codes=model.codes, scales=model.scales,
+                              dedup=dedup)
+    z_user = _z_sparse(model, ui, uv, dedup=dedup, plan=user_plan)
+    z_ad = _z_sparse(model, ai, av, dedup=dedup, plan=ad_plan)
+    return None, z_user.index_select(0, session.long()) + z_ad
+
+
 def bundle_logits(model, bundle: ScoreBundle, *, dedup: bool = True,
                   user_plan=None, ad_plan=None) -> torch.Tensor:
     """Session-shared region logits z (B, 2m): the user contraction runs
@@ -226,22 +252,15 @@ def bundle_logits(model, bundle: ScoreBundle, *, dedup: bool = True,
     ``user_plan``/``ad_plan`` (the full model's transpose plans of the
     bundle's id tensors) keep a differentiated call's backward sort-free;
     they cannot be combined with a pruned model."""
-    model = as_model(model)
-    _check_plans(model, user_plan, ad_plan)
-    z_user = _z_sparse(model, _request_ids(model, bundle.user_ids),
-                       _vals(model, bundle.user_vals), dedup=dedup,
-                       plan=user_plan)
-    z_ad = _z_sparse(model, _request_ids(model, bundle.ad_ids),
-                     _vals(model, bundle.ad_vals), dedup=dedup, plan=ad_plan)
-    session = torch.as_tensor(bundle.session_id, device=model.device).long()
-    return z_user.index_select(0, session) + z_ad
+    return _bundle(model, bundle, dedup, user_plan, ad_plan)[1]
 
 
 def score_bundles(model, bundle: ScoreBundle, *, dedup: bool = True,
                   user_plan=None, ad_plan=None) -> torch.Tensor:
-    """p(y=1|x) (B,) for session-grouped bundles — the serving hot path."""
-    return finalize_p(bundle_logits(model, bundle, dedup=dedup,
-                                    user_plan=user_plan, ad_plan=ad_plan))
+    """p(y=1|x) (B,) for session-grouped bundles — the serving hot path
+    (two kernel launches a call on a card model without a gradient)."""
+    p, z = _bundle(model, bundle, dedup, user_plan, ad_plan)
+    return finalize_p(z) if p is None else p
 
 
 def score_bundles_naive(model, bundle: ScoreBundle, *,

@@ -133,6 +133,71 @@ def test_dedup_tile_ids_matches_reference(k):
                                rtol=Z_RTOL, atol=Z_ATOL)
 
 
+def _dup_inputs(seed, n, k, d=D, m=M):
+    """_inputs with longer runs of equal ids (2, 3, 5 and 17 slots where K
+    allows), ids equal to the pad id, and one all-pad row."""
+    theta, codes, scales, ids, vals = _inputs(seed, n=n, k=k, d=d, m=m)
+    rng = np.random.default_rng(seed + 100)
+    start = 0
+    for run in (2, 3, 5, 17):
+        if start + run > k:
+            break
+        ids[:, start:start + run] = rng.integers(0, d - 1, (n, 1))
+        start += run
+    ids[:, -1] = d - 1
+    ids[-1] = d - 1
+    vals[-1] = 0.0
+    return theta, codes, scales, ids, vals
+
+
+@pytest.mark.parametrize("k", [12, 40, 64])
+def test_plain_dedup_composition_matches_reference(k):
+    """The witness the card's fused dedup is held to bitwise -- the plain
+    forward on ``dedup_tile_ids``' output, fp32 and int8 -- against the
+    reference's interpret-mode kernel with its dedup on."""
+    theta, codes, scales, ids, vals = _dup_inputs(20 + k, n=24, k=k)
+    t, c, s, i, v = _t(theta, codes, scales, ids, vals)
+    di, dv = tops.dedup_tile_ids(i, v, D - 1)
+    want = np.asarray(jops.sparse_gather_matmul(
+        *_j(ids, vals, theta), mode="interpret", dedup=True))
+    np.testing.assert_allclose(tops._chunked_zmap(di, dv, t).numpy(), want,
+                               rtol=Z_RTOL, atol=Z_ATOL)
+    want8 = np.asarray(jops.sparse_gather_matmul_int8(
+        *_j(ids, vals, codes, scales), mode="interpret", dedup=True))
+    np.testing.assert_allclose(
+        tops._chunked_zmap_int8(di, dv, c, s).numpy(), want8, rtol=Z_RTOL,
+        atol=Z_ATOL)
+
+
+def _run_sum(vals):
+    """A run's sum as the kernel forms it: the Hillis-Steele steps of
+    ``dedup_tile_ids`` applied to the run alone (element r adds element
+    r - s when r >= s), read at its last element."""
+    acc = [np.float32(v) for v in vals]
+    s = 1
+    while s < len(acc):
+        acc = [acc[r] if r < s else np.float32(acc[r - s] + acc[r])
+               for r in range(len(acc))]
+        s *= 2
+    return acc[-1]
+
+
+@pytest.mark.parametrize("k", [8, 24, 40, 65])
+def test_dedup_sums_depend_only_on_the_run(k):
+    """The in-kernel dedup's premise: ``dedup_tile_ids`` gives each distinct
+    id, ascending, the scan of its own run's values in slot order, whatever
+    the rest of the row holds -- so a warp can sum each run alone."""
+    _, _, _, ids, vals = _dup_inputs(30 + k, n=37, k=k)
+    got_ids, got_vals = tops.dedup_tile_ids(*_t(ids, vals), D - 1)
+    for r in range(ids.shape[0]):
+        uniq = np.unique(ids[r])
+        want = [_run_sum(vals[r][ids[r] == u]) for u in uniq]
+        np.testing.assert_array_equal(got_ids[r, :len(uniq)].numpy(), uniq)
+        assert (got_ids[r, len(uniq):] == D - 1).all()
+        np.testing.assert_array_equal(got_vals[r, :len(uniq)].numpy(),
+                                      np.array(want, np.float32))
+
+
 def test_heads_match_reference():
     rng = np.random.default_rng(4)
     z = rng.normal(size=(17, 2 * M)).astype(np.float32) * 3
@@ -218,6 +283,41 @@ def test_kernel_wrappers_refuse_cpu_tensors(wrapper):
     assert tk.LAUNCHES == before
 
 
+@pytest.mark.parametrize("case", ["k_limit", "z_add_width", "z_add_alone",
+                                  "session_shape", "session_dtype"])
+def test_kernel_wrappers_check_arguments_before_the_device(case):
+    """The K limit of the in-kernel dedup and the addend's shapes are
+    refused on any device, before the CUDA check, and launch nothing."""
+    _, codes, scales, ids, vals = _inputs(13, n=6, k=8)
+    i, v, c, s = _t(ids, vals, codes, scales)
+    kw = dict(dedup=True, z_add=torch.zeros((2, 2 * M)),
+              session=torch.zeros((6,), dtype=torch.int64))
+    match = "session"
+    if case == "k_limit":
+        wide = tk.MAX_DEDUP_K + 1
+        i = torch.full((6, wide), D - 1, dtype=torch.int32)
+        v = torch.zeros((6, wide))
+        match = str(tk.MAX_DEDUP_K)
+    elif case == "z_add_width":
+        kw["z_add"] = torch.zeros((2, 2 * M + 2))
+        match = "z_add"
+    elif case == "z_add_alone":
+        kw.pop("session")
+        match = "together"
+    elif case == "session_shape":
+        kw["session"] = torch.zeros((5,), dtype=torch.int64)
+    else:
+        kw["session"] = torch.zeros((6,), dtype=torch.float32)
+    before = dict(tk.LAUNCHES)
+    for call in (lambda: tk.lsplm_sparse_fused_forward(
+            i, v, c.to(torch.float32), **kw),
+                 lambda: tk.lsplm_sparse_fused_int8_forward(i, v, c, s, **kw)):
+        with pytest.raises(ValueError, match=match):
+            call()
+    assert tk.LAUNCHES == before
+    assert tk.MAX_DEDUP_K >= 1024  # the engine rounds K above 64 up by 64
+
+
 def test_build_finds_the_cuda_source():
     srcs = _build.sources()
     assert "lsplm_sparse_fused" in srcs
@@ -263,8 +363,7 @@ def test_forward_p_keeps_the_kernel_p_and_its_grad_on_card(cuda):
     theta, _, _, ids, vals = _inputs(12, n=300, k=40)
     vals[ids == D - 1] = 0.0  # padded COO: the plan drops the pad slots
     t, i, v = (x.to(cuda) for x in _t(theta, ids, vals))
-    p_kernel = tk.lsplm_sparse_fused_forward(*tops._kernel_inputs(
-        i, v, D - 1, True), t)[0]
+    p_kernel = tk.lsplm_sparse_fused_forward(i, v, t, dedup=True)[0]
     plan = build_transpose_plan(ids, D, pad_id=D - 1).to(cuda)
     grads = []
     for pl in (None, plan):
@@ -277,3 +376,72 @@ def test_forward_p_keeps_the_kernel_p_and_its_grad_on_card(cuda):
     tops.lsplm_sparse_forward(*_t(ids, vals), tc).sum().backward()
     for g in grads:
         torch.testing.assert_close(g.cpu(), tc.grad, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 37, 4096])
+@pytest.mark.parametrize("k", [8, 24, 40, 64, 65, 200])
+def test_fused_dedup_is_bitwise_the_pre_pass_on_card(cuda, n, k):
+    """dedup=True in the kernel gives (z, p) bit for bit what
+    ``dedup_tile_ids`` followed by the kernel with dedup=False gives, for
+    B1 and B4; B4 with dedup on is bitwise B1 on the dequantised Theta;
+    both stay within the plain version's tolerances."""
+    theta, codes, scales, ids, vals = _dup_inputs(40 + k, n=n, k=k)
+    t, c, s, i, v = (x.to(cuda) for x in _t(theta, codes, scales, ids, vals))
+    deq = c.to(torch.float32) * s[:, None]
+    di, dv = tops.dedup_tile_ids(i, v, D - 1)
+    fused = tk.lsplm_sparse_fused_forward(i, v, t, dedup=True)
+    pre = tk.lsplm_sparse_fused_forward(di, dv, t)
+    fused8 = tk.lsplm_sparse_fused_int8_forward(i, v, c, s, dedup=True)
+    pre8 = tk.lsplm_sparse_fused_int8_forward(di, dv, c, s)
+    on_deq = tk.lsplm_sparse_fused_forward(i, v, deq, dedup=True)
+    torch.cuda.synchronize()
+    for a, b in ((fused, pre), (fused8, pre8), (fused8, on_deq)):
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    z_ref = tops._chunked_zmap(i, v, t)
+    torch.testing.assert_close(fused[1], z_ref, rtol=Z_RTOL, atol=Z_ATOL)
+    torch.testing.assert_close(fused[0], tops.finalize_p(z_ref), rtol=0,
+                               atol=P_ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("session_dtype", [torch.int32, torch.int64])
+def test_bundle_addend_matches_index_select_add_on_card(cuda, session_dtype):
+    """The ad-side launch with the user rows' z as its addend: z bitwise
+    ``z_user.index_select(0, session) + z_ad``, p within 1e-6 of
+    ``finalize_p``; ``ops.bundle_forward`` is those two launches."""
+    theta, codes, scales, uids, uvals = _dup_inputs(50, n=8, k=24)
+    _, _, _, aids, avals = _dup_inputs(51, n=256, k=16)
+    t, c, s, ui, uv, ai, av = (x.to(cuda) for x in _t(
+        theta, codes, scales, uids, uvals, aids, avals))
+    session = torch.arange(8, device=cuda).repeat_interleave(32).to(
+        session_dtype)
+    for rows, fn in (((t,), tk.lsplm_sparse_fused_forward),
+                     ((c, s), tk.lsplm_sparse_fused_int8_forward)):
+        z_user = fn(ui, uv, *rows, dedup=True, head=False)[1]
+        z_ad = fn(ai, av, *rows, dedup=True)[1]
+        p, z = fn(ai, av, *rows, dedup=True, z_add=z_user, session=session)
+        torch.cuda.synchronize()
+        want = z_user.index_select(0, session.long()) + z_ad
+        assert torch.equal(z, want)
+        torch.testing.assert_close(p, tops.finalize_p(want), rtol=0,
+                                   atol=P_ATOL)
+        kw = dict(theta=t) if len(rows) == 1 else dict(codes=c, scales=s)
+        before = dict(tk.LAUNCHES)
+        pb, zb = tops.bundle_forward(ui, uv, ai, av, session, **kw)
+        assert sum(tk.LAUNCHES.values()) - sum(before.values()) == 2
+        assert torch.equal(pb, p) and torch.equal(zb, z)
+
+
+@pytest.mark.cuda
+def test_k_limit_on_card(cuda):
+    """Past MAX_DEDUP_K slots the card path refuses dedup=True (no quiet
+    route back to the torch pre-pass) and still serves dedup=False."""
+    k = tk.MAX_DEDUP_K + 1
+    theta = torch.zeros((D, 2 * M), device=cuda)
+    ids = torch.full((2, k), D - 1, dtype=torch.int32, device=cuda)
+    vals = torch.zeros((2, k), device=cuda)
+    with pytest.raises(ValueError, match=str(tk.MAX_DEDUP_K)):
+        tops.sparse_gather_matmul(ids, vals, theta)
+    z = tops.sparse_gather_matmul(ids, vals, theta, dedup=False)
+    assert torch.equal(z, torch.zeros_like(z))

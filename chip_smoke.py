@@ -92,7 +92,7 @@ _FUSED = "src/repro_torch/kernels/lsplm_sparse_fused/csrc/lsplm_sparse_fused.cu"
 SOURCES = {
     "lsplm_sparse_fused_forward": _FUSED,
     "lsplm_sparse_fused_int8_forward": _FUSED,
-    "lsplm_sparse_scatter_compact":
+    "lsplm_sparse_scatter":
         "src/repro_torch/kernels/lsplm_sparse_scatter/csrc/"
         "lsplm_sparse_scatter.cu",
     "owlqn_direction":
@@ -108,7 +108,7 @@ REPLACES = {
         "src/repro/kernels/lsplm_sparse_fused/lsplm_sparse_fused.py:73",
     "lsplm_sparse_fused_int8_forward":
         "src/repro/kernels/lsplm_sparse_fused/lsplm_sparse_fused.py:151",
-    "lsplm_sparse_scatter_compact":
+    "lsplm_sparse_scatter":
         "src/repro/kernels/lsplm_sparse_scatter/lsplm_sparse_scatter.py:50",
     "owlqn_direction":
         "src/repro/kernels/owlqn_direction/owlqn_direction.py:23",
@@ -699,17 +699,29 @@ def _scatter_cases(torch, dev, rng):
 
 
 def _check_scatter(torch, sops, plan, vals, dz, tag):
-    """B2 against its plain version (the class gathers) on the card:
-    within B2_REL of the summed |terms|, bitwise repeatable, untouched and
-    pad rows exactly 0. Returns the max abs error."""
+    """B2 against its plain versions on the card: bitwise
+    ``scatter_runs_ref`` (B2's association), within B2_REL of the summed
+    |terms| of the class gathers, bitwise repeatable, untouched and pad
+    rows exactly 0, its run tickets back at 0. Returns the max abs error
+    against the class gathers."""
+    from repro_torch.kernels.lsplm_sparse_scatter import lsplm_sparse_scatter
+    from repro_torch.kernels.lsplm_sparse_scatter.ref import scatter_runs_ref
+
     got = sops.scatter_add_planned(plan, vals, dz)
     again = sops.scatter_add_planned(plan, vals, dz)
+    runs = scatter_runs_ref(plan, vals, dz, plan.num_rows)
     plain = sops._compact_classes(plan, vals, dz).index_select(
         0, plan.inv_compact)
     scale = sops._compact_classes(plan, vals.abs(), dz.abs()).index_select(
         0, plan.inv_compact)
     torch.cuda.synchronize()
     check(torch.equal(got, again), f"B2 not bitwise repeatable ({tag})")
+    check(torch.equal(got, runs),
+          f"B2 differs from scatter_runs_ref ({tag}): max |diff| "
+          f"{float((got - runs).abs().max()):.3e}")
+    check(not any(bool(t.any())
+                  for t in lsplm_sparse_scatter._TICKETS.values()),
+          f"B2 left a run ticket set ({tag})")
     err = (got - plain).abs()
     check(bool((err <= B2_REL * scale + B2_ABS).all()),
           f"B2 vs plain beyond {B2_REL} x sum|terms| + {B2_ABS} ({tag}): "
@@ -730,9 +742,10 @@ def _direction_inputs(rng, d_rows, m2):
     return theta, grad
 
 
-def _check_b3(torch, theta, grad, lam, beta, tag) -> float:
+def _check_b3(torch, theta, grad, lam, beta, tag, exact=False) -> float:
     """B3 against its plain version on the same inputs: within rtol
-    B3_RTOL/atol B3_ATOL, zero pattern equal. Returns the max abs error."""
+    B3_RTOL/atol B3_ATOL (``exact``: bit for bit), zero pattern equal.
+    Returns the max abs error."""
     from repro_torch.kernels.owlqn_direction.owlqn_direction import (
         owlqn_direction,
     )
@@ -746,7 +759,10 @@ def _check_b3(torch, theta, grad, lam, beta, tag) -> float:
           f"B3 vs plain beyond rtol {B3_RTOL}/atol {B3_ATOL} at {tag}")
     check(torch.equal(got == 0, want == 0),
           f"B3 zero pattern differs from the plain version at {tag}")
-    return float((got - want).abs().max())
+    err = float((got - want).abs().max())
+    check(not exact or err == 0.0,
+          f"B3 not bitwise its plain version at {tag}: max |err| {err:.3e}")
+    return err
 
 
 def _b1_at_training_shapes(torch, batches, theta):
@@ -799,15 +815,20 @@ def phase_training_kernels(torch, dev, train, test, theta0):
           f"max |err| {e:.3e}")
     rng = np.random.default_rng(SEED + 7)
     err = {"lsplm_sparse_fused_forward": e,
-           "lsplm_sparse_scatter_compact": 0.0, "owlqn_direction": 0.0}
+           "lsplm_sparse_scatter": 0.0, "owlqn_direction": 0.0}
     lines = []
-    for side, vals, plan in (("user", train.user_vals, train.user_plan),
-                             ("ad", train.ad_vals, train.ad_plan)):
+    for side, ids, vals, plan in (
+            ("user", train.user_ids, train.user_vals, train.user_plan),
+            ("ad", train.ad_ids, train.ad_vals, train.ad_plan)):
         dz = torch.from_numpy(rng.normal(size=(vals.shape[0], 2 * REGIONS))
                               .astype(np.float32)).to(dev)
         e = _check_scatter(torch, sops, plan, vals, dz, f"{side} side")
-        err["lsplm_sparse_scatter_compact"] = max(
-            err["lsplm_sparse_scatter_compact"], e)
+        unplanned = sops.scatter_add_unplanned(ids, vals, dz, plan.num_rows,
+                                               plan.num_rows - 1)
+        check(torch.equal(unplanned, sops.scatter_add_planned(plan, vals, dz)),
+              f"B2 on the card-sorted entries differs from the plan's "
+              f"({side} side)")
+        err["lsplm_sparse_scatter"] = max(err["lsplm_sparse_scatter"], e)
         lines.append(f"{side} side E'={plan.num_kept:,} U={plan.num_unique:,}"
                      f" pieces={plan.piece_run.numel():,} max|err| {e:.2e}")
     for tag, ids, vals, d_rows in _scatter_cases(torch, dev, rng):
@@ -819,33 +840,33 @@ def phase_training_kernels(torch, dev, train, test, theta0):
                                                d_rows - 1)
         check(torch.equal(unplanned, sops.scatter_add_planned(plan, vals, dz)),
               f"B2 on the card-sorted entries differs from the plan's ({tag})")
-        err["lsplm_sparse_scatter_compact"] = max(
-            err["lsplm_sparse_scatter_compact"], e)
+        err["lsplm_sparse_scatter"] = max(err["lsplm_sparse_scatter"], e)
         lines.append(f"{tag} max|err| {e:.2e}")
-    print("phase 5: B2 (run-length dTheta scatter) vs the plain class "
-          f"gathers on the card, |err| <= {B2_REL} x sum|terms| + {B2_ABS}, "
-          "bitwise repeatable, pad and untouched rows exactly 0, the "
-          "card-sorted (unplanned) layout bitwise equal: " + "; ".join(lines))
+    print("phase 5: B2 (run-length dTheta scatter, the dense dTheta) bitwise "
+          "scatter_runs_ref and vs the plain class gathers on the card, "
+          f"|err| <= {B2_REL} x sum|terms| + {B2_ABS}, bitwise repeatable, "
+          "pad and untouched rows exactly 0, the card-sorted (unplanned) "
+          "layout bitwise equal: " + "; ".join(lines))
 
     lines = []
     # the sparse and the dense training paths' shapes and weights
     pairs = ((0.5, 0.3), (0.0, 0.3), (0.2, 0.0), (LAM, BETA),
              (DENSE_LAM, DENSE_BETA))
-    for d_rows, m2 in ((1000, 2 * REGIONS), (1000, 70),
-                       (D_FEATURES, 2 * REGIONS), (DENSE_D, 2 * REGIONS)):
-        theta_np, grad_np = _direction_inputs(rng, d_rows, m2)
-        theta = torch.from_numpy(theta_np).to(dev)
-        grad = torch.from_numpy(grad_np).to(dev)
-        for lam, beta in pairs:
-            err["owlqn_direction"] = max(
-                err["owlqn_direction"],
-                _check_b3(torch, theta, grad, lam, beta,
-                          f"D={d_rows:,} 2m={m2}"))
-        lines.append(f"D={d_rows:,} 2m={m2}")
-    print(f"phase 5: B3 (Eq. 9 direction) vs plain on the card at "
-          f"{', '.join(lines)}, {len(pairs)} (lam, beta) pairs, with exact "
-          f"zeros, -0.0 and zero rows: within rtol {B3_RTOL}/atol {B3_ATOL}, "
-          f"zero pattern equal; max |err| {err['owlqn_direction']:.2e}")
+    for d_rows in (1000, D_FEATURES, DENSE_D):
+        for m2 in (2 * REGIONS, 70):
+            theta_np, grad_np = _direction_inputs(rng, d_rows, m2)
+            theta = torch.from_numpy(theta_np).to(dev)
+            grad = torch.from_numpy(grad_np).to(dev)
+            for lam, beta in pairs:
+                err["owlqn_direction"] = max(
+                    err["owlqn_direction"],
+                    _check_b3(torch, theta, grad, lam, beta,
+                              f"D={d_rows:,} 2m={m2}", exact=True))
+            lines.append(f"D={d_rows:,} 2m={m2}")
+    print(f"phase 5: B3 (Eq. 9 direction) bitwise its plain version on the "
+          f"card at {', '.join(lines)}, {len(pairs)} (lam, beta) pairs, with "
+          f"exact zeros, -0.0 and zero rows, zero pattern equal; max |err| "
+          f"{err['owlqn_direction']:.2e}")
     return err
 
 
@@ -916,7 +937,25 @@ def phase_training(torch, dev, problem, test, setup_s, tmp: Path):
     print(f"phase 6: B1 vs plain on the trained Theta "
           f"({int((theta != 0).sum()):,} non-zeros) at the same four shapes: "
           f"max |err| {b1_err:.3e}")
-    _profile_step(torch, opt, theta)
+    prof = _profile_step(torch, opt, theta)
+    # a kernel that writes the dense dTheta takes at least its write bound
+    # (the gather that densified the compact design's result took ~0.6 ms)
+    dense_write_us = D_FEATURES * 2 * REGIONS * 4 / HBM_BYTES_PER_S * 1e6
+    check(prof is not None, "the profiled step showed no device time")
+    gathers = {name: us for name, us in prof["gather_us"].items()
+               if us >= dense_write_us}
+    check(not gathers, f"a gather as long as a dTheta write "
+                       f"({dense_write_us:.1f} us) in the profiled step: "
+                       f"{gathers}")
+    check(prof["launches"] <= STEP_LAUNCHES,
+          f"the profiled step made {prof['launches']} launches (at most "
+          f"{STEP_LAUNCHES}: the compact design's 215 less each side's vals "
+          f"and densify gathers)")
+    print(f"  the profiled step: {prof['device_us'] / 1e3:.3f} ms of device "
+          f"in {prof['launches']} launches, {prof['wall_us'] / 1e3:.2f} ms "
+          f"of wall; no gather writes dTheta (longest gather "
+          f"{max(prof['gather_us'].values(), default=0.0):.1f} us against "
+          f"the {dense_write_us:.1f} us a dTheta write takes at least)")
 
     _reset((B1,))
     t0 = time.perf_counter()
@@ -934,13 +973,15 @@ def phase_training(torch, dev, problem, test, setup_s, tmp: Path):
     return launches, b1_err
 
 
-SPARSE_STEP_KERNELS = ("fused_forward_kernel", "piece_sums_kernel",
-                       "run_sums_kernel", "owlqn_direction_kernel")
+SPARSE_STEP_KERNELS = ("fused_forward_kernel", "scatter_runs_kernel",
+                       "owlqn_direction")
+STEP_LAUNCHES = 211  # most launches of the profiled sparse OWLQN+ step
 
 
-def _device_profile(torch, fn):
+def _device_profile(torch, fn, longest=None):
     """Run ``fn`` once under torch.profiler, synchronised. Returns (its
-    result, host wall in us, {device kernel name: [us, launches]})."""
+    result, host wall in us, {device kernel name: [us, launches]}); fills
+    ``longest`` (when given) with {name: the longest single launch, us}."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -956,21 +997,28 @@ def _device_profile(torch, fn):
             k = kernels.setdefault(e.name, [0.0, 0])
             k[0] += e.time_range.elapsed_us()
             k[1] += 1
+            if longest is not None:
+                longest[e.name] = max(longest.get(e.name, 0.0),
+                                      e.time_range.elapsed_us())
     return out, wall_us, kernels
 
 
-def _profile_step(torch, opt, theta, labels=SPARSE_STEP_KERNELS) -> None:
+def _profile_step(torch, opt, theta, labels=SPARSE_STEP_KERNELS):
     """Where one OWLQN+ step's time goes (torch.profiler): host wall
     against the device's kernel time, the hand-written kernels (device
-    events whose names hold one of ``labels``) and the top kernels."""
+    events whose names hold one of ``labels``) and the top kernels.
+    Returns {wall_us, device_us, launches, longest_us (per kernel name, its
+    longest launch), gather_us (the same for gathers)}, or None when the
+    profiler saw no device event."""
     state, _ = opt.step(opt.init(theta))  # a history pair for the next
+    longest = {}
     (state, stats), wall_us, kernels = _device_profile(
-        torch, lambda: opt.step(state))
+        torch, lambda: opt.step(state), longest)
     busy_us = sum(v[0] for v in kernels.values())
     if not kernels:
         print(f"  profile of one OWLQN+ step: {wall_us / 1e3:.2f} ms wall; "
               "device time not measured (no device events)")
-        return
+        return None
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:8]
     ours: dict[str, list] = {}
     for label in labels:
@@ -991,6 +1039,11 @@ def _profile_step(torch, opt, theta, labels=SPARSE_STEP_KERNELS) -> None:
           + "); top: "
           + "; ".join(f"{name[:70]} x{n} {us / 1e3:.3f} ms"
                       for name, (us, n) in top))
+    return {"wall_us": wall_us, "device_us": busy_us,
+            "launches": sum(v[1] for v in kernels.values()),
+            "longest_us": longest,
+            "gather_us": {n: us for n, us in longest.items()
+                          if "gather" in n or "indexSelect" in n}}
 
 
 # ------------------------------------------------------------ phase 7
@@ -1115,7 +1168,8 @@ def phase_training_times(torch, dev, train, theta0):
     """B1 and B2 at both sides of the launch-default batch and B3 at
     D = 1,000,000, each beside its plain version, its bound and the
     library call computing the same function (B1 ``embedding_bag``, B2
-    ``index_add_``)."""
+    a dense ``index_add_``); the densify gather of B2's former compact
+    design and B3's warp-per-row design timed in the same call."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.lsplm_sparse_fused import ops
@@ -1124,7 +1178,7 @@ def phase_training_times(torch, dev, train, theta0):
     )
     from repro_torch.kernels.lsplm_sparse_scatter import ops as sops
     from repro_torch.kernels.lsplm_sparse_scatter.lsplm_sparse_scatter import (
-        lsplm_sparse_scatter_compact,
+        lsplm_sparse_scatter,
     )
     from repro_torch.kernels.owlqn_direction.owlqn_direction import (
         owlqn_direction,
@@ -1170,52 +1224,83 @@ def phase_training_times(torch, dev, train, theta0):
     for side, vals, plan in (("ad", train.ad_vals, train.ad_plan),
                              ("user", train.user_vals, train.user_plan)):
         n, e, u = vals.shape[0], plan.num_kept, plan.num_unique
+        p, rows = plan.piece_run.numel(), plan.num_rows
         dz = torch.from_numpy(rng.normal(size=(n, m2)).astype(np.float32)
                               ).to(dev)
-        vals_sorted = vals.reshape(-1).index_select(0, plan.order)
-        counts = torch.unique_consecutive(plan.row_ids, return_counts=True)[1]
-        run_of_entry = torch.repeat_interleave(
-            torch.arange(u, device=dev), counts)
+        flat = vals.reshape(-1)
+        vals_sorted = flat.index_select(0, plan.order)
+        row_ids = plan.row_ids.long()
+        # the former compact design's densify: its (U+1, 2m) result,
+        # gathered through inv_sorted into the dense dTheta (its last row is
+        # the zero row)
+        compact = torch.zeros((u + 1, m2), device=dev)
+        compact[:u] = torch.from_numpy(
+            rng.normal(size=(u, m2)).astype(np.float32)).to(dev)
 
         def kernel():
-            return lsplm_sparse_scatter_compact(
-                plan.piece_start, plan.piece_run, plan.run_piece_start,
-                plan.sample_sorted, vals_sorted, dz)
+            return lsplm_sparse_scatter(plan, flat, dz)
 
         def library():
-            return torch.zeros((u + 1, m2), device=dev).index_add_(
-                0, run_of_entry,
+            return torch.zeros((rows, m2), device=dev).index_add_(
+                0, row_ids,
                 vals_sorted[:, None] * dz.index_select(0, plan.sample_sorted))
 
         lib_err = float((library() - kernel()).abs().max())
-        nbytes = e * 12 + n * m2 * 4 + (u + 1) * m2 * 4
+        # each input read once, the dense output written once: the entries
+        # (order, sample, vals), dz, inv_sorted, the piece and task tables
+        # and a row id per piece
+        nbytes = (rows * m2 * 4 + e * 12 + n * m2 * 4 + rows * 4
+                  + (2 * p + u + plan.task_piece_start.numel() + 2) * 4
+                  + p * 4)
         t_bytes = nbytes / HBM_BYTES_PER_S
         t_ops = e * m2 * 2 / FP32_OPS_PER_S
-        row = {"side": side, "entries": e, "unique": u, "n": n,
+        zeros = torch.empty((rows, m2), device=dev)
+        row = {"side": side, "entries": e, "unique": u, "n": n, "rows": rows,
                "ms": _time_ms(torch, kernel, flush),
+               "write_floor_ms": _time_ms(torch, zeros.zero_, flush),
+               "densify_ms": _time_ms(
+                   torch, lambda: compact.index_select(0, plan.inv_sorted),
+                   flush),
                "plain_ms": _time_ms(
-                   torch, lambda: sops._compact_classes(plan, vals, dz),
+                   torch, lambda: sops._compact_classes(
+                       plan, vals, dz).index_select(0, plan.inv_compact),
                    flush),
                "library_ms": _time_ms(torch, library, flush),
                "bound_ms": max(t_bytes, t_ops) * 1e3,
                "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
-        out.setdefault("lsplm_sparse_scatter_compact", []).append(row)
-        print(f"phase 8: lsplm_sparse_scatter_compact {side} side (E'={e:,},"
-              f" U={u:,}, N={n:,}): kernel {row['ms']:.4f} ms, plain "
-              f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
-              f"({row['bound_by']}, {row['bound_ms'] / row['ms']:.1%} of it "
-              f"reached), library {row['library_ms']:.4f} ms (index_add_, "
-              f"max |diff| vs kernel {lib_err:.1e})")
+        out.setdefault("lsplm_sparse_scatter", []).append(row)
+        print(f"phase 8: lsplm_sparse_scatter {side} side (E'={e:,}, "
+              f"U={u:,}, N={n:,}, dense dTheta {rows:,} x {m2}): kernel "
+              f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, bound "
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']}, "
+              f"{row['bound_ms'] / row['ms']:.1%} of it reached), library "
+              f"{row['library_ms']:.4f} ms (dense index_add_, max |diff| vs "
+              f"kernel {lib_err:.1e}); the compact design's densify gather "
+              f"alone "
+              f"(compact.index_select(0, inv_sorted)) {row['densify_ms']:.4f}"
+              f" ms in the same call; the dense write alone (zero_ of the "
+              f"same shape) {row['write_floor_ms']:.4f} ms")
 
     theta_np, grad_np = _direction_inputs(rng, D_FEATURES, m2)
     theta = torch.from_numpy(theta_np).to(dev)
     grad = torch.from_numpy(grad_np).to(dev)
+    # the same values one float off 16-byte alignment: B3 then runs its
+    # warp-per-row design, the one the tiles replaced at 2m = 24
+    buf = torch.empty(2 * theta.numel() + 2, device=dev)
+    theta_u = buf[1:theta.numel() + 1].view(theta.shape)
+    grad_u = buf[theta.numel() + 2:].view(grad.shape)
+    theta_u.copy_(theta)
+    grad_u.copy_(grad)
     nbytes = 3 * D_FEATURES * m2 * 4
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = 16 * D_FEATURES * m2 / FP32_OPS_PER_S  # ~16 flops per element
     row = {"d": D_FEATURES, "m2": m2,
            "ms": _time_ms(torch, lambda: owlqn_direction(theta, grad, LAM,
                                                          BETA), flush),
+           "warp_design_ms": _time_ms(torch, lambda: owlqn_direction(
+               theta_u, grad_u, LAM, BETA), flush),
+           "copy_floor_ms": _time_ms(torch, lambda: torch.add(
+               theta, grad, out=theta_u), flush),
            "plain_ms": _time_ms(torch, lambda: owlqn_direction_ref(
                theta, grad, LAM, BETA), flush),
            "library_ms": None, "bound_ms": max(t_bytes, t_ops) * 1e3,
@@ -1225,7 +1310,12 @@ def phase_training_times(torch, dev, train, theta0):
           f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, bound "
           f"{row['bound_ms']:.4f} ms ({row['bound_by']}, "
           f"{row['bound_ms'] / row['ms']:.1%} of it reached), library n/a "
-          f"(no single PyTorch call)")
+          f"(no single PyTorch call); the warp-per-row design it replaced "
+          f"(on views one float off alignment) "
+          f"{row['warp_design_ms']:.4f} ms in the same call "
+          f"({row['bound_ms'] / row['warp_design_ms']:.1%}); the same bytes "
+          f"through one torch.add (two reads, one write) "
+          f"{row['copy_floor_ms']:.4f} ms")
     return out
 
 
@@ -1438,7 +1528,7 @@ def phase_dense_training(torch, dev, problem, test, setup_s, tmp: Path):
           f"/ max(1, max |g|) {grad_err:.2e} (bar {GRAD_ATOL}); B3 on each "
           f"Theta and its gradient, lam=beta={DENSE_LAM}, vs plain: max |err|"
           f" {b3_err:.2e}, zero pattern equal; {check_s:.1f} s for both")
-    _profile_step(torch, opt, theta, labels=("owlqn_direction_kernel",))
+    _profile_step(torch, opt, theta, labels=("owlqn_direction",))
 
     art = serve.compress(theta)
     quant = serve.quantize(art)
@@ -2576,6 +2666,7 @@ def phase_scan_times(torch, dev):
 
 
 SERVE_PHASES = (2, 3, 4)  # the serving path's phases, runnable alone
+TRAIN_PHASES = (5, 6, 7, 8)  # the sparse training path's, runnable alone
 SCAN_PHASES = (17, 18, 19, 20)  # the SSM path's phases, runnable alone
 
 
@@ -2592,12 +2683,30 @@ def _serving_model(torch, dev):
     return art.theta.to(dev), q.codes.to(dev), q.scales.to(dev)
 
 
+def _sparse_problem(torch, dev):
+    """The training driver's batch, Theta0 and optimizer at its launch
+    defaults (batch seed --seed + 1, test batch --seed + 2), the test
+    batch, and the seconds they took."""
+    from repro_torch.launch.train import sparse_problem, sparse_test_batch
+
+    t0 = time.perf_counter()
+    problem = sparse_problem(D_FEATURES, REGIONS, SESSIONS, lam=LAM,
+                             beta=BETA, seed=SEED, batch_seed=SEED + 1,
+                             device=dev)
+    test = sparse_test_batch(D_FEATURES, SESSIONS, seed=SEED + 2, device=dev)
+    torch.cuda.synchronize()
+    return problem, test, time.perf_counter() - t0
+
+
 def _run_only(torch, dev, only, t_start) -> int:
-    """Phase 1 and the given serving (2-4) or SSM (17-20) phases alone
-    (``--only``): a partial run, so it prints no kernels line and no
-    result line."""
+    """Phase 1 and the given serving (2-4), sparse training (5-8) or SSM
+    (17-20) phases alone (``--only``): a partial run, so it prints no
+    kernels line and no result line."""
     if only & {2, 4}:
         model = _serving_model(torch, dev)
+    if only & set(TRAIN_PHASES):
+        problem, test, setup_s = _sparse_problem(torch, dev)
+        train, theta0, _ = problem
     for phase in sorted(only):
         if phase == 2:
             phase_kernels(torch, dev, *model)
@@ -2606,6 +2715,15 @@ def _run_only(torch, dev, only, t_start) -> int:
                 phase_main_path(torch, Path(tmp))
         elif phase == 4:
             phase_times(torch, dev, *model)
+        elif phase == 5:
+            phase_training_kernels(torch, dev, train, test, theta0)
+        elif phase == 6:
+            with tempfile.TemporaryDirectory() as tmp:
+                phase_training(torch, dev, problem, test, setup_s, Path(tmp))
+        elif phase == 7:
+            phase_trajectory(torch, dev, problem)
+        elif phase == 8:
+            phase_training_times(torch, dev, train, theta0)
         elif phase == 17:
             phase_scan_kernel(torch, dev)
         elif phase == 18:
@@ -2621,12 +2739,13 @@ def _run_only(torch, dev, only, t_start) -> int:
 
 def main(argv: list[str]) -> int:
     """``chip_smoke.py`` runs every phase; ``chip_smoke.py --only 2,3,4``
-    (or ``17,20``) runs phase 1 and the named phases of the serving path
-    (2-4) or the SSM path (17-20) alone."""
+    (or ``5,6,8``, or ``17,20``) runs phase 1 and the named phases of the
+    serving path (2-4), the sparse training path (5-8) or the SSM path
+    (17-20) alone."""
     import torch
 
     only = set()
-    alone = SERVE_PHASES + SCAN_PHASES
+    alone = SERVE_PHASES + TRAIN_PHASES + SCAN_PHASES
     if argv:
         if len(argv) != 2 or argv[0] != "--only":
             raise SmokeFailure(f"usage: chip_smoke.py [--only "
@@ -2656,18 +2775,8 @@ def main(argv: list[str]) -> int:
     times = phase_times(torch, dev, theta, codes, scales)
     del theta, codes, scales
 
-    from repro_torch.launch.train import sparse_problem, sparse_test_batch
-
-    # the training driver's batch, Theta0 and optimizer at its launch
-    # defaults (batch seed --seed + 1, test batch --seed + 2)
-    t0 = time.perf_counter()
-    problem = sparse_problem(D_FEATURES, REGIONS, SESSIONS, lam=LAM,
-                             beta=BETA, seed=SEED, batch_seed=SEED + 1,
-                             device=dev)
+    problem, test, setup_s = _sparse_problem(torch, dev)
     train, theta0, _ = problem
-    test = sparse_test_batch(D_FEATURES, SESSIONS, seed=SEED + 2, device=dev)
-    torch.cuda.synchronize()
-    setup_s = time.perf_counter() - t0
     for name, e in phase_training_kernels(torch, dev, train, test,
                                           theta0).items():
         err[name] = max(err.get(name, 0.0), e)
@@ -2729,7 +2838,7 @@ def main(argv: list[str]) -> int:
     kernels = []
     for name in ("lsplm_sparse_fused_forward",
                  "lsplm_sparse_fused_int8_forward",
-                 "lsplm_sparse_scatter_compact", "owlqn_direction",
+                 "lsplm_sparse_scatter", "owlqn_direction",
                  "lsplm_fused_forward", "flash_attention", "mamba1_scan"):
         main_shape, *others = times[name]
         by_path = {"serve": serve_launches.get(name, 0),

@@ -2,16 +2,20 @@
 
 The kernel lives in ``csrc/lsplm_sparse_scatter.cu`` (see its header for
 the design and what bounds it) and replaces the Pallas kernel of
-``repro/kernels/lsplm_sparse_scatter/lsplm_sparse_scatter.py``. The
-wrapper checks its tensors, allocates the output and the partial-sum
-scratch with ``torch.empty``, launches on PyTorch's current stream
+``repro/kernels/lsplm_sparse_scatter/lsplm_sparse_scatter.py``. It writes
+the whole dense (D, 2m) dTheta: no gather densifies it afterwards, and it
+reads ``vals`` through the layout's ``order`` itself. The wrapper checks
+its tensors, allocates the output and the partial-sum scratch with
+``torch.empty``, launches the kernel on PyTorch's current stream
 without synchronising, raises if a launch was refused, and adds one to
-:data:`LAUNCHES`. It takes CUDA tensors only: the plain versions in
-``ops.py`` serve CPU tensors.
+:data:`LAUNCHES`. The run tickets live in one int32 buffer per CUDA
+stream, zeroed once when it is made or grown: the kernel leaves every
+ticket at 0 again. It takes CUDA tensors only: the plain versions in
+``ops.py`` and ``ref.py`` serve CPU tensors.
 
 Unlike the TPU kernel, the sorted entries need no sentinel padding: the
-plan's piece table (``plan.run_pieces``) says where each run starts and
-ends.
+plan's piece and task tables (``plan.run_pieces``) say where each run
+starts and ends and which warp takes it.
 """
 from __future__ import annotations
 
@@ -24,87 +28,106 @@ from repro_torch.kernels import _build
 
 # launches of the wrapper, for runs that must show they went through the
 # kernel (reset by the caller, read after the run)
-LAUNCHES = {"lsplm_sparse_scatter_compact": 0}
+LAUNCHES = {"lsplm_sparse_scatter": 0}
 
 _SOURCE = "lsplm_sparse_scatter"
 _MAX_COLUMNS = 128  # the kernel keeps at most 4 x 32 columns per lane
+# the run tickets of each (device, stream): all 0 between calls
+_TICKETS: dict[tuple[int, int], torch.Tensor] = {}
+# the layout's int32 tables, in the C function's argument order
+_TABLES = ("task_piece_start", "piece_start", "piece_run", "run_piece_start",
+           "row_ids", "order", "sample_sorted", "inv_sorted")
 
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load(_SOURCE)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.lsplm_sparse_scatter_compact.argtypes = [ptr] * 8 + [i32] * 3 + [ptr]
-    lib.lsplm_sparse_scatter_compact.restype = i32
+    lib.lsplm_sparse_scatter.argtypes = [ptr] * 13 + [i32] * 4 + [ptr]
+    lib.lsplm_sparse_scatter.restype = i32
     lib.lsplm_scatter_error_string.argtypes = [i32]
     lib.lsplm_scatter_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _check(piece_start, piece_run, run_piece_start, sample_sorted,
-           vals_sorted, dz) -> None:
-    name = "lsplm_sparse_scatter_compact"
+def _check(layout, vals, dz) -> None:
+    name = "lsplm_sparse_scatter"
     if dz.device.type != "cuda":
         raise ValueError(f"{name} runs on CUDA tensors, got {dz.device} "
                          "(the plain versions in ops.py serve CPU tensors)")
-    ints = (piece_start, piece_run, run_piece_start, sample_sorted)
-    if any(t.device != dz.device for t in (*ints, vals_sorted)):
+    tables = [getattr(layout, f) for f in _TABLES]
+    if any(t.device != dz.device for t in (*tables, vals)):
         raise ValueError(f"{name}: every tensor must lie on {dz.device}")
-    if any(t.dtype != torch.int32 for t in ints):
-        raise ValueError(f"{name}: the piece tables and sample_sorted must "
-                         "be int32")
-    if vals_sorted.dtype != torch.float32 or dz.dtype != torch.float32:
-        raise ValueError(f"{name}: vals_sorted and dz must be float32, got "
-                         f"{vals_sorted.dtype}/{dz.dtype}")
-    if any(t.ndim != 1 for t in (*ints, vals_sorted)):
-        raise ValueError(f"{name}: the piece tables and sorted entries must "
-                         "be 1-D")
+    if any(t.dtype != torch.int32 for t in tables):
+        raise ValueError(f"{name}: the layout's tables must be int32")
+    if vals.dtype != torch.float32 or dz.dtype != torch.float32:
+        raise ValueError(f"{name}: vals and dz must be float32, got "
+                         f"{vals.dtype}/{dz.dtype}")
+    if any(t.ndim != 1 for t in (*tables, vals)):
+        raise ValueError(f"{name}: the layout's tables and vals must be 1-D")
+    (task_piece_start, piece_start, piece_run, run_piece_start, row_ids,
+     order, sample_sorted, inv_sorted) = tables
+    kept = order.numel()
     if (piece_start.numel() != piece_run.numel() + 1
-            or run_piece_start.numel() < 1
-            or sample_sorted.numel() != vals_sorted.numel()):
+            or run_piece_start.numel() < 1 or inv_sorted.numel() < 1
+            or task_piece_start.numel() < 1
+            or not row_ids.numel() == sample_sorted.numel() == kept
+            or vals.numel() != layout.num_entries):
         raise ValueError(
             f"{name}: inconsistent sizes: piece_start {piece_start.numel()}, "
             f"piece_run {piece_run.numel()}, run_piece_start "
-            f"{run_piece_start.numel()}, entries {sample_sorted.numel()}/"
-            f"{vals_sorted.numel()}")
+            f"{run_piece_start.numel()}, task_piece_start "
+            f"{task_piece_start.numel()}, inv_sorted {inv_sorted.numel()}, "
+            f"sorted entries {row_ids.numel()}/{kept}/"
+            f"{sample_sorted.numel()}, vals {vals.numel()} of "
+            f"{layout.num_entries} entries")
     if dz.ndim != 2 or not 1 <= dz.shape[1] <= _MAX_COLUMNS:
         raise ValueError(f"{name}: dz must be (N, 2m) with 2m <= "
                          f"{_MAX_COLUMNS}, got {tuple(dz.shape)}")
-    if not all(t.is_contiguous() for t in (*ints, vals_sorted, dz)):
+    if not all(t.is_contiguous() for t in (*tables, vals, dz)):
         raise ValueError(f"{name}: every tensor must be contiguous")
-    if max(sample_sorted.numel(), dz.numel(), piece_run.numel()) >= 2**31:
+    if max(kept, vals.numel(), dz.numel(), piece_run.numel(),
+           inv_sorted.numel() * dz.shape[1]) >= 2**31:
         raise ValueError(f"{name}: sizes must fit in int32")
 
 
-def lsplm_sparse_scatter_compact(piece_start: torch.Tensor,
-                                 piece_run: torch.Tensor,
-                                 run_piece_start: torch.Tensor,
-                                 sample_sorted: torch.Tensor,
-                                 vals_sorted: torch.Tensor,
-                                 dz: torch.Tensor) -> torch.Tensor:
-    """Segment-sum the id-sorted entries into the compact (U+1, 2m) fp32
-    result on the card: row u is the sum of ``vals_sorted[e] *
-    dz[sample_sorted[e]]`` over run u, row U is exactly zero. The piece
-    tables come from ``plan.run_pieces``; U = ``run_piece_start.numel() -
-    1``."""
-    _check(piece_start, piece_run, run_piece_start, sample_sorted,
-           vals_sorted, dz)
-    num_unique = run_piece_start.numel() - 1
-    num_pieces = piece_run.numel()
-    m2 = dz.shape[1]
-    compact = torch.empty((num_unique + 1, m2), dtype=torch.float32,
-                          device=dz.device)
+def _tickets(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    """The zeroed ticket buffer of ``stream``, at least ``n`` long."""
+    key = (device.index, stream)
+    t = _TICKETS.get(key)
+    if t is None or t.numel() < n:
+        t = _TICKETS[key] = torch.zeros(max(n, 1), dtype=torch.int32,
+                                        device=device)
+    return t
+
+
+def lsplm_sparse_scatter(layout, vals: torch.Tensor,
+                         dz: torch.Tensor) -> torch.Tensor:
+    """The dense dTheta (D, 2m) fp32 on the card: row r is the sum of
+    ``vals[order[e]] * dz[sample_sorted[e]]`` over the sorted entries e of
+    id r, every untouched row (the pad row included) exactly 0.
+
+    ``layout`` is a :class:`~.plan.TransposePlan` or an
+    ``ops.RunLayout`` on ``dz``'s device: its int32 tables (``_TABLES``)
+    and ``num_entries``; D = ``inv_sorted.numel()``. ``vals`` is the
+    batch's (N*K,) flat float32 values, ``dz`` the (N, 2m) float32
+    upstream gradient, both contiguous."""
+    _check(layout, vals, dz)
+    num_rows, m2 = layout.inv_sorted.numel(), dz.shape[1]
+    num_unique = layout.run_piece_start.numel() - 1
+    num_pieces = layout.piece_run.numel()
+    out = torch.empty((num_rows, m2), dtype=torch.float32, device=dz.device)
     partial = torch.empty((max(num_pieces, 1), m2), dtype=torch.float32,
                           device=dz.device)
     stream = torch.cuda.current_stream(dz.device).cuda_stream
-    rc = _lib().lsplm_sparse_scatter_compact(
-        piece_start.data_ptr(), piece_run.data_ptr(),
-        run_piece_start.data_ptr(), sample_sorted.data_ptr(),
-        vals_sorted.data_ptr(), dz.data_ptr(), partial.data_ptr(),
-        compact.data_ptr(), num_pieces, num_unique, m2, stream)
+    ticket = _tickets(dz.device, stream, num_unique)
+    rc = _lib().lsplm_sparse_scatter(
+        *(getattr(layout, f).data_ptr() for f in _TABLES), vals.data_ptr(),
+        dz.data_ptr(), partial.data_ptr(), ticket.data_ptr(), out.data_ptr(),
+        layout.task_piece_start.numel() - 1, num_rows, num_unique, m2, stream)
     if rc != 0:
         msg = _lib().lsplm_scatter_error_string(rc).decode()
-        raise RuntimeError(f"lsplm_sparse_scatter_compact: kernel launch "
-                           f"failed: {msg} ({rc})")
-    LAUNCHES["lsplm_sparse_scatter_compact"] += 1
-    return compact
+        raise RuntimeError(f"lsplm_sparse_scatter: kernel launch failed: "
+                           f"{msg} ({rc})")
+    LAUNCHES["lsplm_sparse_scatter"] += 1
+    return out

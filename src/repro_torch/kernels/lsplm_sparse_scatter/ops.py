@@ -5,9 +5,9 @@ The port's counterpart of ``repro/kernels/lsplm_sparse_scatter/ops.py``:
   * ``scatter_add_planned(plan, vals, dz) -> dTheta (D, 2m)``: with a
     per-batch :class:`~.plan.TransposePlan`. On the card: the run-length
     kernel (B2, ``lsplm_sparse_scatter.py``) on the plan's id-sorted
-    entries, then one gather through ``plan.inv_sorted``. On the CPU: the
-    plain class-gather segment sums (:func:`_compact_classes`) and one
-    gather through ``plan.inv_compact``.
+    entries, which writes the dense dTheta itself. On the CPU: the plain
+    class-gather segment sums (:func:`_compact_classes`) and one gather
+    through ``plan.inv_compact``.
   * ``scatter_add_unplanned(ids, vals, dz, num_rows, pad_id)``: the same
     without a plan. On the card the entries are sorted on the device
     (stable ``torch.sort``) and B2 runs on them; on the CPU it is the
@@ -27,7 +27,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels.lsplm_sparse_scatter.lsplm_sparse_scatter import (
-    lsplm_sparse_scatter_compact,
+    lsplm_sparse_scatter,
 )
 from repro_torch.kernels.lsplm_sparse_scatter.plan import (  # noqa: F401
     TransposePlan,
@@ -42,12 +42,15 @@ class RunLayout(NamedTuple):
     a :class:`TransposePlan` the kernel path needs), built on the device
     when no plan was given."""
 
-    order: torch.Tensor  # (E',) sorted pos -> flat entry
+    order: torch.Tensor  # (E',) int32 sorted pos -> flat entry
+    row_ids: torch.Tensor  # (E',) int32 sorted column ids
     sample_sorted: torch.Tensor  # (E',) int32
     piece_start: torch.Tensor  # (P+1,) int32
     piece_run: torch.Tensor  # (P,) int32
     run_piece_start: torch.Tensor  # (U+1,) int32
+    task_piece_start: torch.Tensor  # (T+1,) int32
     inv_sorted: torch.Tensor  # (D,) int32, U for untouched ids
+    num_entries: int  # N*K
 
 
 def _on_card(t: torch.Tensor) -> bool:
@@ -60,7 +63,8 @@ def _on_card(t: torch.Tensor) -> bool:
 
 def sorted_runs(ids: torch.Tensor, num_rows: int, pad_id: int) -> RunLayout:
     """Sort the batch's non-pad entries by id on ``ids``' device (stable:
-    equal ids keep flat entry order) and cut the runs into B2's pieces."""
+    equal ids keep flat entry order) and cut the runs into B2's pieces and
+    tasks."""
     k = ids.shape[1]
     flat = ids.reshape(-1)
     keep = torch.nonzero(flat != pad_id).squeeze(1)
@@ -68,27 +72,28 @@ def sorted_runs(ids: torch.Tensor, num_rows: int, pad_id: int) -> RunLayout:
     order = keep.index_select(0, perm)
     uniq, counts = torch.unique_consecutive(srt, return_counts=True)
     run_start = torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)])
-    piece_start, piece_run, run_piece_start = run_pieces(run_start)
+    piece_start, piece_run, run_piece_start, task_piece_start = run_pieces(
+        run_start)
     u = uniq.numel()
     inv_sorted = torch.full((num_rows,), u, dtype=torch.int32,
                             device=ids.device)
     inv_sorted[uniq.long()] = torch.arange(u, dtype=torch.int32,
                                            device=ids.device)
-    return RunLayout(order=order, sample_sorted=(order // k).to(torch.int32),
+    return RunLayout(order=order.to(torch.int32),
+                     row_ids=srt.to(torch.int32),
+                     sample_sorted=(order // k).to(torch.int32),
                      piece_start=piece_start, piece_run=piece_run,
-                     run_piece_start=run_piece_start, inv_sorted=inv_sorted)
+                     run_piece_start=run_piece_start,
+                     task_piece_start=task_piece_start,
+                     inv_sorted=inv_sorted, num_entries=flat.numel())
 
 
 def _scatter_card(layout, vals: torch.Tensor, dz: torch.Tensor
                   ) -> torch.Tensor:
-    """B2 on a plan or a :class:`RunLayout`, densified by one gather."""
-    vals_sorted = vals.reshape(-1).to(torch.float32).index_select(
-        0, layout.order)
-    compact = lsplm_sparse_scatter_compact(
-        layout.piece_start, layout.piece_run, layout.run_piece_start,
-        layout.sample_sorted, vals_sorted,
+    """B2 on a plan or a :class:`RunLayout`: the dense dTheta."""
+    return lsplm_sparse_scatter(
+        layout, vals.reshape(-1).to(torch.float32).contiguous(),
         dz.to(torch.float32).contiguous())
-    return compact.index_select(0, layout.inv_sorted)
 
 
 def _compact_classes(plan: TransposePlan, vals: torch.Tensor,

@@ -17,14 +17,17 @@ Leaves (all int32 tensors; the sizes that shape outputs are plain ints):
   * ``class_src``/``class_samp``/``class_mask`` (+ ``class_width``) — the
     popularity classes of the plain segment sums: ids whose entry count is
     in (c/2, c] padded to c slots, one dense (uc, c) gather table each;
-  * ``inv_compact`` / ``inv_sorted`` — (D,) column id -> row of the
-    class-major / id-sorted compact result (U for untouched ids, which
-    points at the trailing zero row);
+  * ``inv_compact`` — (D,) column id -> row of the class-major compact
+    result of the plain segment sums (U for untouched ids: the trailing
+    zero row that densifies them);
+  * ``inv_sorted`` — (D,) column id -> its run among the sorted unique
+    ids, U for untouched ids (B2 writes zeros to those rows);
   * ``rank`` — flat entry -> sorted position (E' for dropped pad entries);
-  * ``piece_start``/``piece_run``/``run_piece_start`` — port only: the
-    schedule of the CUDA run-length kernel (B2). Each run of one id is cut
-    into pieces of at most :data:`PIECE` sorted entries; a piece never
-    crosses a run. See :func:`run_pieces`.
+  * ``piece_start``/``piece_run``/``run_piece_start``/``task_piece_start``
+    — port only: the schedule of the CUDA run-length kernel (B2). Each run
+    of one id is cut into pieces of at most :data:`PIECE` sorted entries;
+    a piece never crosses a run; a warp of B2 takes the pieces that start
+    in one window of :data:`TASK` sorted entries. See :func:`run_pieces`.
 
 Every leaf the reference has equals the reference's exactly.
 """
@@ -35,22 +38,31 @@ import dataclasses
 import numpy as np
 import torch
 
-# most sorted entries one warp of B2's first pass sums; a hot id's run is
-# cut into ceil(count / PIECE) pieces whose partials the second pass adds
+# most sorted entries B2 sums in one chain; a hot id's run is cut into
+# ceil(count / PIECE) pieces whose partials are then added in piece order
 PIECE = 256
+# sorted entries of one B2 task window: a warp takes the pieces that start
+# in one window [TASK * w, TASK * (w + 1)), so at most TASK pieces and
+# fewer than TASK + PIECE entries
+TASK = 32
 
 
 def run_pieces(run_start: torch.Tensor, piece: int = PIECE
-               ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+               ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                          torch.Tensor]:
     """B2's schedule from the run offsets of id-sorted entries.
 
     ``run_start`` (U+1,) holds where each run of one id starts in the
     sorted entries, and E' last. Returns int32 ``(piece_start (P+1,),
-    piece_run (P,), run_piece_start (U+1,))``: piece p covers sorted
-    entries ``[piece_start[p], piece_start[p+1])`` of run ``piece_run[p]``,
-    and run u owns pieces ``[run_piece_start[u], run_piece_start[u+1])``.
-    Pieces tile the entries in order. Runs on the tensor's device (the
-    plan builds it on the host, the unplanned backward on the card)."""
+    piece_run (P,), run_piece_start (U+1,), task_piece_start (T+1,))``:
+    piece p covers sorted entries ``[piece_start[p], piece_start[p+1])`` of
+    run ``piece_run[p]``, run u owns pieces ``[run_piece_start[u],
+    run_piece_start[u+1])``, and task t the pieces ``[task_piece_start[t],
+    task_piece_start[t+1])``: those that start in the t-th window of
+    :data:`TASK` sorted entries holding a piece start (windows inside a
+    long piece hold none and get no task). Pieces tile the entries in order.
+    Runs on the tensor's device (the plan builds it on the host, the
+    unplanned backward on the card)."""
     run_start = run_start.to(torch.int64)
     dev = run_start.device
     counts = run_start[1:] - run_start[:-1]
@@ -65,8 +77,12 @@ def run_pieces(run_start: torch.Tensor, piece: int = PIECE
     within = torch.arange(num_pieces, device=dev) - run_piece_start[piece_run]
     piece_start = torch.cat([run_start[piece_run] + within * piece,
                              run_start[-1:]])
+    window = piece_start[:-1] // TASK
+    task_piece_start = torch.cat([
+        torch.nonzero(torch.diff(window, prepend=window.new_full((1,), -1))
+                      ).squeeze(1), run_piece_start[-1:]])
     return (piece_start.to(torch.int32), piece_run.to(torch.int32),
-            run_piece_start.to(torch.int32))
+            run_piece_start.to(torch.int32), task_piece_start.to(torch.int32))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,6 +103,7 @@ class TransposePlan:
     piece_start: torch.Tensor    # (P+1,) B2 piece -> first sorted entry
     piece_run: torch.Tensor      # (P,) B2 piece -> run (sorted-unique row)
     run_piece_start: torch.Tensor  # (U+1,) run -> its first piece
+    task_piece_start: torch.Tensor  # (T+1,) B2 warp task -> first piece
     num_rows: int      # D (padded Theta rows)
     num_entries: int   # N*K
     num_kept: int      # E' after the pad-id drop
@@ -171,7 +188,7 @@ def assemble_plan_from_sorted(srt, order, *, num_rows: int, num_entries: int,
     inv_sorted[uniq] = np.arange(u)
     rank = np.full(e, e_kept, np.int64)
     rank[order] = np.arange(e_kept)
-    piece_start, piece_run, run_piece_start = run_pieces(
+    piece_start, piece_run, run_piece_start, task_piece_start = run_pieces(
         torch.from_numpy(ptr.astype(np.int64)))
 
     return TransposePlan(
@@ -181,7 +198,8 @@ def assemble_plan_from_sorted(srt, order, *, num_rows: int, num_entries: int,
         slot_sorted=_i32(order % k), order=_i32(order), rank=_i32(rank),
         inv_compact=_i32(inv_compact), inv_sorted=_i32(inv_sorted),
         piece_start=piece_start, piece_run=piece_run,
-        run_piece_start=run_piece_start, num_rows=int(num_rows),
+        run_piece_start=run_piece_start, task_piece_start=task_piece_start,
+        num_rows=int(num_rows),
         num_entries=e, num_kept=e_kept, num_unique=u)
 
 

@@ -6,8 +6,11 @@ design and what bounds it) and replaces the Pallas kernel of
 its tensors, allocates d with ``torch.empty``, launches on PyTorch's
 current stream without synchronising, raises if the launch was refused,
 and adds one to :data:`LAUNCHES`. Unlike the TPU kernel it needs no row
-count divisible by a block: each warp owns one row. CUDA tensors only;
-``ref.py`` serves CPU tensors.
+count divisible by a block: the kernel masks the last tile. The kernel
+picks its design from 2m and the tensors' alignment (64-row tiles, four
+threads a row, for 2m = 4, 8, ..., 32 on 16-byte aligned tensors, else
+a warp per row); both give the same bits. CUDA tensors only; ``ref.py``
+serves CPU tensors.
 """
 from __future__ import annotations
 

@@ -6,8 +6,12 @@ reference has must be EQUAL. dTheta is held against the reference's jnp
 class-gather path and, on one tiny input, its Pallas kernel in interpret
 mode, at rtol 1e-5 / atol 1e-6 (fp32 sums reassociate across the
 frameworks); the pad row's and untouched rows' cotangents must be exactly
-0. The ``cuda``-marked tests hold the run-length kernel (B2) against the
-plain class gathers on a card, bitwise repeatable, and skip without one.
+0. ``ref.scatter_runs_ref`` (B2's association in plain PyTorch) is held
+against the reference at the cross-package bar |err| <= 1e-5 * sum|terms|
++ 1e-6, and bitwise against a per-piece loop in numpy float32. The
+``cuda``-marked tests hold the run-length kernel (B2) bitwise against
+``scatter_runs_ref`` and against the plain class gathers at that bar on a
+card, bitwise repeatable, and skip without one.
 """
 import numpy as np
 import jax.numpy as jnp
@@ -24,6 +28,7 @@ from repro_torch.kernels.lsplm_sparse_scatter import plan as tplan
 from repro_torch.kernels.lsplm_sparse_scatter import ref as tref
 
 RTOL, ATOL = 1e-5, 1e-6
+B2_REL, B2_ABS = 1e-5, 1e-6  # |err| <= B2_REL * sum |terms| + B2_ABS
 LEAVES = ("row_ids", "sample_sorted", "slot_sorted", "order", "rank",
           "inv_compact", "inv_sorted")
 
@@ -95,7 +100,7 @@ def test_run_pieces_tile_the_runs(piece):
     p = tplan.build_transpose_plan(ids, 301, pad_id=300)
     uniq, counts = np.unique(p.row_ids.numpy(), return_counts=True)
     run_start = np.concatenate([[0], np.cumsum(counts)])
-    ps, pr, rps = (t.numpy() for t in tplan.run_pieces(
+    ps, pr, rps, tps = (t.numpy() for t in tplan.run_pieces(
         torch.from_numpy(run_start), piece))
     assert ps[0] == 0 and ps[-1] == p.num_kept and (np.diff(ps) > 0).all()
     assert (np.diff(ps) <= piece).all()
@@ -104,9 +109,17 @@ def test_run_pieces_tile_the_runs(piece):
         own = np.arange(rps[u], rps[u + 1])
         assert (pr[own] == u).all()
         assert ps[own[0]] == run_start[u] and ps[own[-1] + 1] == run_start[u + 1]
+    # a task owns exactly the pieces that start in one TASK-entry window,
+    # each window holding a piece start has a task, in window order
+    window = ps[:-1] // tplan.TASK
+    assert tps[0] == 0 and tps[-1] == pr.size and (np.diff(tps) > 0).all()
+    assert tps.size - 1 == np.unique(window).size
+    for t in range(tps.size - 1):
+        assert (window[tps[t]:tps[t + 1]] == window[tps[t]]).all()
     if piece == 256:  # the plan's own tables
         np.testing.assert_array_equal(p.piece_start.numpy(), ps)
         np.testing.assert_array_equal(p.run_piece_start.numpy(), rps)
+        np.testing.assert_array_equal(p.task_piece_start.numpy(), tps)
 
 
 # ------------------------------------------------------ dTheta, dvals
@@ -180,10 +193,14 @@ def test_sorted_runs_match_the_plan():
     ids, _, _ = _batch(9, n=50, zipf=True)
     tp = tplan.build_transpose_plan(ids, 301, pad_id=300)
     lay = tops.sorted_runs(torch.from_numpy(ids), 301, 300)
-    for f in ("order", "sample_sorted", "piece_start", "piece_run",
-              "run_piece_start", "inv_sorted"):
-        np.testing.assert_array_equal(getattr(lay, f).numpy().astype(np.int64),
-                                      getattr(tp, f).numpy(), err_msg=f)
+    for f in ("order", "row_ids", "sample_sorted", "piece_start",
+              "piece_run", "run_piece_start", "task_piece_start",
+              "inv_sorted"):
+        got = getattr(lay, f)
+        assert got.dtype == torch.int32, f  # as B2 reads them
+        np.testing.assert_array_equal(got.numpy(), getattr(tp, f).numpy(),
+                                      err_msg=f)
+    assert lay.num_entries == tp.num_entries
 
 
 def test_kernel_wrapper_refuses_cpu_tensors():
@@ -191,9 +208,8 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     tp = tplan.build_transpose_plan(ids, 301, pad_id=300)
     before = dict(tk.LAUNCHES)
     with pytest.raises(ValueError, match="CUDA"):
-        tk.lsplm_sparse_scatter_compact(
-            tp.piece_start, tp.piece_run, tp.run_piece_start,
-            tp.sample_sorted, torch.zeros(tp.num_kept), torch.from_numpy(dz))
+        tk.lsplm_sparse_scatter(tp, torch.from_numpy(vals).reshape(-1),
+                                torch.from_numpy(dz))
     assert tk.LAUNCHES == before
 
 
@@ -202,6 +218,86 @@ def test_build_finds_the_scatter_source():
     assert "lsplm_sparse_scatter" in srcs and "owlqn_direction" in srcs
     path = _build.library_path(srcs["lsplm_sparse_scatter"])
     assert path.parent == _build.BUILD_DIR
+
+
+# ------------------------------------- B2's association (scatter_runs_ref)
+def _runs_cases():
+    """(tag, ids, vals, dz, rows, pad_id): uniform ids, Zipf ids, a hot run
+    cut into three pieces, pad slots, and all-unique ids."""
+    rng = np.random.default_rng(12)
+    cases = []
+    for tag, kw in (("uniform", dict(n=60)), ("zipf", dict(n=60, zipf=True)),
+                    ("pad ids", dict(n=60, pad_every=2))):
+        ids, vals, dz = _batch(int(rng.integers(1 << 16)), **kw)
+        cases.append((tag, ids, vals, dz, 301, 300))
+    ids, vals, dz = _batch(13, n=300, k=4, d=300, pad_every=0)
+    ids[:, :2] = 17  # one run of 600 entries: pieces of 256, 256, 88
+    cases.append(("hot run", ids, vals, dz, 301, 300))
+    ids = rng.permutation(300)[:240].astype(np.int32).reshape(40, 6)
+    vals = rng.normal(size=ids.shape).astype(np.float32)
+    dz = rng.normal(size=(40, 8)).astype(np.float32)
+    cases.append(("all-unique", ids, vals, dz, 301, 300))
+    return cases
+
+
+RUNS_CASES = _runs_cases()
+
+
+@pytest.mark.parametrize("case", RUNS_CASES, ids=[c[0] for c in RUNS_CASES])
+def test_scatter_runs_ref_matches_reference(case):
+    """B2's association against the reference's jnp class-gather path and
+    its index_add oracle; pad and untouched rows exactly 0; the card-sorted
+    layout gives the plan's bits."""
+    tag, ids, vals, dz, rows, pad = case
+    jp, tp = _plans(ids, rows, pad)
+    v, z = torch.from_numpy(vals), torch.from_numpy(dz)
+    got = tref.scatter_runs_ref(tp, v, z, rows)
+    assert got.shape == (rows, dz.shape[1]) and got.dtype == torch.float32
+    scale = tref.scatter_add_ref(torch.from_numpy(ids), v.abs(), z.abs(),
+                                 rows).numpy()
+    for want in (jops.scatter_add_planned(jp, jnp.asarray(vals),
+                                          jnp.asarray(dz), mode="jnp"),
+                 jops.scatter_add_ref(jnp.asarray(ids), jnp.asarray(vals),
+                                      jnp.asarray(dz), rows)):
+        err = np.abs(got.numpy() - np.asarray(want))
+        assert (err <= B2_REL * scale + B2_ABS).all(), (tag, err.max())
+    touched = np.zeros(rows, bool)
+    touched[ids[ids != pad]] = True
+    assert not touched[pad]
+    assert (got.numpy()[~touched] == 0.0).all()
+    lay = tops.sorted_runs(torch.from_numpy(ids), rows, pad)
+    assert torch.equal(tref.scatter_runs_ref(lay, v, z, rows), got)
+    if tag == "hot run":
+        assert tp.piece_run.numel() == tp.num_unique + 2
+
+
+@pytest.mark.parametrize("case", RUNS_CASES[1:4],
+                         ids=[c[0] for c in RUNS_CASES[1:4]])
+def test_scatter_runs_ref_is_b2s_association(case):
+    """Bit for bit a loop in numpy float32: each piece from 0 in entry
+    order (rounded product, rounded add), each run's partials from 0 in
+    piece order."""
+    _, ids, vals, dz, rows, pad = case
+    tp = tplan.build_transpose_plan(ids, rows, pad_id=pad)
+    flat = vals.reshape(-1)
+    order, samp = tp.order.numpy(), tp.sample_sorted.numpy()
+    ps, rps = tp.piece_start.numpy(), tp.run_piece_start.numpy()
+    partial = []
+    for p in range(ps.size - 1):
+        acc = np.zeros(dz.shape[1], np.float32)
+        for e in range(ps[p], ps[p + 1]):
+            acc = acc + np.float32(flat[order[e]]) * dz[samp[e]]
+        partial.append(acc)
+    want = np.zeros((rows, dz.shape[1]), np.float32)
+    row_ids = tp.row_ids.numpy()
+    for u in range(rps.size - 1):
+        acc = np.zeros(dz.shape[1], np.float32)
+        for q in range(rps[u], rps[u + 1]):
+            acc = acc + partial[q]
+        want[row_ids[ps[rps[u]]]] = acc
+    got = tref.scatter_runs_ref(tp, torch.from_numpy(vals),
+                                torch.from_numpy(dz), rows).numpy()
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
 
 
 # ------------------------------------------------------------ on the card
@@ -225,11 +321,39 @@ def test_scatter_kernel_matches_plain_on_card(cuda, zipf, piece_split):
     plain = tops._compact_classes(tp, v, z).index_select(0, tp.inv_compact)
     scale = tops._compact_classes(tp, v.abs(), z.abs()).index_select(
         0, tp.inv_compact)
+    runs = tref.scatter_runs_ref(tp, v, z, 301)
     torch.cuda.synchronize()
-    assert torch.equal(got, again)  # no atomics: bitwise repeatable
-    assert bool(((got - plain).abs() <= 1e-5 * scale + 1e-6).all())
+    assert torch.equal(got, again)  # no float atomics: bitwise repeatable
+    assert torch.equal(got, runs)  # B2's association
+    assert bool(((got - plain).abs() <= B2_REL * scale + B2_ABS).all())
     untouched = tp.inv_sorted == tp.num_unique
     assert bool((got[untouched] == 0).all())
     unplanned = tops.scatter_add_unplanned(torch.from_numpy(ids).to(cuda), v,
                                            z, 301, 300)
     assert torch.equal(unplanned, got)  # same sorted layout, same kernel
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m2,offset", [(8, 0), (24, 0), (24, 1), (6, 0),
+                                       (70, 0), (128, 0)])
+def test_scatter_kernel_bitwise_runs_ref_on_card(cuda, m2, offset):
+    """Every copy width and column count: 16-byte copies (2m % 4 == 0 and
+    an aligned dz), 4-byte ones (2m = 6, or dz one float off alignment),
+    2m up to 128; a hot run of several pieces, pad slots."""
+    rng = np.random.default_rng(14)
+    ids, vals, _ = _batch(15, n=3000, zipf=True)
+    tp = tplan.build_transpose_plan(ids, 301, pad_id=300).to(cuda)
+    flat = torch.from_numpy(rng.normal(size=3000 * m2 + offset).astype(
+        np.float32)).to(cuda)
+    z = flat[offset:].view(3000, m2)
+    v = torch.from_numpy(vals).to(cuda)
+    got = tops.scatter_add_planned(tp, v, z)
+    want = tref.scatter_runs_ref(tp, v, z, 301)
+    unplanned = tops.scatter_add_unplanned(torch.from_numpy(ids).to(cuda), v,
+                                           z, 301, 300)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(unplanned, got)
+    assert bool((got[tp.inv_sorted == tp.num_unique] == 0).all())
+    # every run ticket is back at 0 for the next call
+    assert not any(bool(t.any()) for t in tk._TICKETS.values())

@@ -14,8 +14,10 @@ serving the Theta it trained), the dense one (``repro_torch.launch.
 train``, common-feature OWLQN+ at d = 32,768, then scoring its test rows
 through ``serve.predict``) and the LM serving path (``repro_torch.models``:
 llama3.2-1b at full width, prefill of 4 x 4,096 tokens, 32 greedy tokens
-through ``models.generate``, prefill of 1 x 32,768) and the SSM serving
-path (falcon-mamba-7b at full width and depth, the same three runs),
+through ``models.generate``, prefill of 1 x 32,768), the SSM serving
+path (falcon-mamba-7b at full width and depth, the same three runs) and
+the hybrid and MoE ones (zamba2-2.7b and granite-moe-1b-a400m at full
+width and depth, the same three runs each),
 shows that each path launched its kernels, holds the card's OWLQN+
 trajectories and a reduced LM of each family against the CPU's, times
 the kernels beside their plain versions, their bound and one library
@@ -88,6 +90,21 @@ SSM_SHORT = 512  # prompt length of the B7-vs-plain-scan model comparison
 B7_TOL = 2e-5  # y and hT, tests/test_kernels.py:175
 SFU_EXP_PER_S = 16 * 132 * 1.98e9  # 16 a clock per SM (CC 9.0) x 132 SMs
 B7_PLAIN_RUNS = 2  # timed runs of the plain scan at S >= 4,096
+# the hybrid path: zamba2-2.7b at full width and depth (54 Mamba2 layers,
+# d 2,560, d_inner 5,120 in 80 heads of 64, state 64, conv 4, in 9 groups
+# of 6, each followed by the one shared attention + MLP block: 32 heads
+# of hd 80, d_ff 10,240; vocab 32,000), at the LM path's prompt shapes
+HYBRID_ARCH = "zamba2-2.7b"
+HYBRID_PARAMS = 2_422_670_240
+# the MoE path: granite-moe-1b-a400m at full width and depth (24 layers,
+# d 1,024, 16 heads over 8 KV heads, hd 64, 32 experts of d_ff 512, top
+# 8, vocab 49,155), likewise
+MOE_ARCH = "granite-moe-1b-a400m"
+MOE_PARAMS = 1_384_963_072
+# phase 22's reduced hybrid: two groups, so the shared caches' group index
+# is exercised, and a prompt the SSD chunk (64) divides
+HYBRID_CPU = {"over": {"num_layers": 4, "shared_attn_every": 2},
+              "prompt_len": 128}
 _FUSED = "src/repro_torch/kernels/lsplm_sparse_fused/csrc/lsplm_sparse_fused.cu"
 SOURCES = {
     "lsplm_sparse_fused_forward": _FUSED,
@@ -2000,10 +2017,13 @@ def phase_lm(torch, dev):
 
 
 # ------------------------------------------------------------ phase 15
-def phase_lm_card_vs_cpu(torch, dev, arch=LM_ARCH, phase=15, kernel="B6"):
-    """A reduced ``arch`` in fp32 on the card (its kernel) and on the CPU
-    (the plain version), on the same weights: prefill logits within
-    LM_CPU_TOL and greedy tokens equal."""
+def phase_lm_card_vs_cpu(torch, dev, arch=LM_ARCH, phase=15, kernel="B6",
+                         over=None, prompt_len=96):
+    """A reduced ``arch`` (with the fields ``over`` replaced) in fp32 on
+    the card (its kernel) and on the CPU (the plain version), on the same
+    weights: prefill logits of 2 prompts of ``prompt_len`` tokens within
+    LM_CPU_TOL and greedy tokens equal. Returns the CPU model, the card's
+    and the prompts."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -2011,11 +2031,13 @@ def phase_lm_card_vs_cpu(torch, dev, arch=LM_ARCH, phase=15, kernel="B6"):
     from repro_torch.models import Transformer, init_model, prefill
     from repro_torch.models.generate import generate
 
-    cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
+    cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32",
+                              **(over or {}))
     cpu = init_model(cfg, torch.Generator().manual_seed(SEED), device="cpu")
     card = Transformer(cfg, device=dev)
     card.load_state_dict(cpu.state_dict())
-    prompts = TokenStream(cfg.vocab_size, seed=SEED).batch(2, 97)["tokens"]
+    prompts = TokenStream(cfg.vocab_size, seed=SEED).batch(
+        2, prompt_len + 1)["tokens"]
     lc, _ = prefill(card, tokens=torch.from_numpy(prompts).to(dev))
     lh, _ = prefill(cpu, tokens=torch.from_numpy(prompts))
     err = (lc.cpu() - lh).abs()
@@ -2032,6 +2054,7 @@ def phase_lm_card_vs_cpu(torch, dev, arch=LM_ARCH, phase=15, kernel="B6"):
           f"CPU (plain): prefill logits of 2 x "
           f"{prompts.shape[1]} max |err| {float(err.max()):.3e} (bar "
           f"{LM_CPU_TOL}); {new} greedy tokens equal")
+    return cpu, card, prompts
 
 
 # ------------------------------------------------------------ phase 16
@@ -2665,9 +2688,519 @@ def phase_scan_times(torch, dev):
     return rows[True] + rows[False]
 
 
+# ------------------------------------------------------------ phase 21
+def _first_attention_inputs(torch, model, tokens):
+    """The first full-sequence attention call's q, k, v for ``tokens``,
+    as the model makes them (layer 0's, or the hybrid's shared block in
+    group 0): one prefill with ``attention_ops.causal_attention``
+    wrapped to keep its first call's arguments (every call still runs
+    the kernel)."""
+    from repro_torch.models import prefill, transformer
+
+    seen = []
+    attention = transformer.attention_ops.causal_attention
+
+    def keep_first(q, k, v, **kw):
+        if not seen:
+            seen.append((q, k, v))
+        return attention(q, k, v, **kw)
+
+    transformer.attention_ops.causal_attention = keep_first
+    try:
+        prefill(model, tokens=tokens)
+    finally:
+        transformer.attention_ops.causal_attention = attention
+    return seen[0]
+
+
+def _with_plain_attention(fn):
+    """``fn()`` with B6's plain version in place of the model's attention
+    hook (``transformer.attention_ops.causal_attention``) for this one
+    call."""
+    from repro_torch.kernels.flash_attention.ops import plain_attention
+    from repro_torch.models import transformer
+
+    b6_attention = transformer.attention_ops.causal_attention
+    transformer.attention_ops.causal_attention = plain_attention
+    try:
+        return fn()
+    finally:
+        transformer.attention_ops.causal_attention = b6_attention
+
+
+def _serving_runs(torch, model, prompts, long_prompt, warm):
+    """The LM main path's three runs on ``model``, B6's count set to 0
+    just before and read after each: (a) prefill of ``prompts``, (b)
+    greedy generate of LM_NEW tokens after it (its own prefill
+    included), (c) prefill of ``long_prompt``; after one first-use
+    prefill of ``warm``. Returns {run: launches}, the outputs and the
+    host seconds of each run, and the peak memory in GB."""
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        LAUNCHES as B6,
+    )
+    from repro_torch.models import prefill
+    from repro_torch.models.generate import generate
+
+    prefill(model, tokens=warm)  # first use: cuBLAS handles, modules
+    torch.cuda.synchronize()
+    runs = {"prefill": lambda: prefill(model, tokens=prompts),
+            "generate": lambda: generate(model, prompts, LM_NEW,
+                                         temperature=0.0),
+            "prefill_32k": lambda: prefill(model, tokens=long_prompt)}
+    launches, outs, secs = {}, {}, {}
+    torch.cuda.reset_peak_memory_stats()
+    for run, fn in runs.items():
+        _reset((B6,))
+        t0 = time.perf_counter()
+        outs[run] = fn()
+        torch.cuda.synchronize()
+        secs[run] = time.perf_counter() - t0
+        launches[run] = B6["flash_attention"]
+    return launches, outs, secs, torch.cuda.max_memory_allocated() / 1e9
+
+
+def _check_serving_outputs(torch, cfg, outs, launches, per_prefill):
+    """Gates every serving phase shares: B6 ``per_prefill`` times in each
+    run (decode attention is plain PyTorch, as in the reference),
+    finite logits of the right shapes, tokens in range, and the first
+    greedy token the prefill logits' argmax."""
+    logits, _ = outs["prefill"]
+    out = outs["generate"]
+    long_logits, _ = outs["prefill_32k"]
+    for run, count in launches.items():
+        check(count == per_prefill, f"B6 launched {count} times in {run}, "
+              f"not {per_prefill}")
+    check(logits.shape == (LM_BATCH, cfg.vocab_size)
+          and bool(torch.isfinite(logits.float()).all()),
+          "prefill logits have the wrong shape or are not finite")
+    check(out.shape == (LM_BATCH, LM_NEW) and int(out.min()) >= 0
+          and int(out.max()) < cfg.vocab_size,
+          "generated tokens have the wrong shape or are out of range")
+    check(torch.equal(out[:, 0], logits.argmax(-1).to(out.dtype)),
+          "the first greedy token is not the prefill logits' argmax")
+    check(long_logits.shape == (1, cfg.vocab_size)
+          and bool(torch.isfinite(long_logits.float()).all()),
+          "32k prefill logits have the wrong shape or are not finite")
+
+
+def _timed_decode(torch, model, dec, tok, pos):
+    """LM_NEW // 2 greedy decode steps from ``dec`` at positions pos + 1,
+    ...: (ms per token, host wall, the last token, the caches)."""
+    from repro_torch.models import decode_step
+
+    steps = LM_NEW // 2
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(1, steps + 1):
+        lg, dec = decode_step(model, dec, token=tok, pos=pos + i)
+        tok = lg.argmax(-1).to(torch.int32)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / steps, tok, dec
+
+
+def _main_path_line(phase, what, arch, n_params, setup_s, secs, peak_gb,
+                    launches, per):
+    print(f"phase {phase}: {what} main path ({arch}, {n_params:,} "
+          f"parameters, bf16 weights from a seeded torch.Generator, set-up "
+          f"{setup_s:.2f} s): (a) prefill {LM_BATCH} x {LM_SEQ:,} in "
+          f"{secs['prefill'] * 1e3:.1f} ms = "
+          f"{LM_BATCH * LM_SEQ / secs['prefill']:,.0f} tokens/s; (b) greedy "
+          f"generate of {LM_NEW} tokens after it in "
+          f"{secs['generate']:.2f} s (its prefill included), tokens in "
+          f"range; (c) prefill 1 x {LM_LONG:,} in "
+          f"{secs['prefill_32k']:.2f} s = "
+          f"{LM_LONG / secs['prefill_32k']:,.0f} tokens/s; peak memory "
+          f"{peak_gb:.2f} GB; B6 launches {launches} "
+          f"({sum(launches.values())} in all, {per})")
+
+
+def phase_hybrid_lm(torch, dev):
+    """The hybrid serving path at full width and depth: zamba2-2.7b from
+    a seeded torch.Generator, prompts from the token stream; (a) prefill
+    4 x 4,096, (b) greedy generate of 32 tokens after it, (c) prefill 1
+    x 32,768. B6 launches once per group (the shared block) per prefill.
+    Gates: the caches' shapes, B6 against plain on the shared block's
+    real q, k, v, and (in fp32, the bf16 runs printed beside them) the
+    model with B6 against the model on plain attention and decode after
+    prefill against the forward of the same tokens."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.models import (
+        decode_step,
+        forward,
+        init_caches,
+        init_model,
+        prefill,
+    )
+    from repro_torch.models import transformer
+
+    cfg = get_config(HYBRID_ARCH)
+    nl, J = cfg.num_layers, transformer.num_groups(cfg)
+    t0 = time.perf_counter()
+    model = init_model(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                       device=dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    check(n_params == HYBRID_PARAMS, f"{HYBRID_ARCH} has {n_params:,} "
+          f"parameters, not {HYBRID_PARAMS:,}")
+    stream = TokenStream(cfg.vocab_size, seed=SEED)
+    # the handoff gate's forward runs LM_SEQ + one chunk: the SSD needs a
+    # length the chunk divides, so decode of token LM_SEQ is held against
+    # the forward of LM_SEQ + ssd_chunk tokens at that position
+    ext = torch.from_numpy(stream.batch(
+        LM_BATCH, LM_SEQ + cfg.ssd_chunk + 1)["tokens"]).to(dev)
+    prompts = ext[:, :LM_SEQ]
+    long_prompt = torch.from_numpy(
+        stream.batch(1, LM_LONG + 1)["tokens"]).to(dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    launches, outs, secs, peak_gb = _serving_runs(
+        torch, model, prompts, long_prompt, prompts[:, :SSM_SHORT])
+    _check_serving_outputs(torch, cfg, outs, launches, J)
+    logits, caches = outs["prefill"]
+    K, N, p = cfg.ssm_conv, cfg.ssm_state, cfg.ssm_headdim
+    want = {"conv": ((nl, LM_BATCH, K - 1, cfg.d_inner + 2 * N),
+                     torch.bfloat16),
+            "ssm": ((nl, LM_BATCH, cfg.d_inner // p, p, N), torch.float32),
+            "k": ((J, LM_BATCH, LM_SEQ, cfg.num_kv_heads,
+                   cfg.resolved_head_dim), torch.bfloat16)}
+    want["v"] = want["k"]
+    for name, (shape, dtype) in want.items():
+        check(tuple(caches[name].shape) == shape
+              and caches[name].dtype == dtype,
+              f"prefill cache {name} is {tuple(caches[name].shape)} "
+              f"{caches[name].dtype}, not {shape} {dtype}")
+    check(not torch.equal(caches["k"][0], caches["k"][J - 1]),
+          "the shared block's k of the first and last group are equal")
+    check(bool(torch.isfinite(outs["prefill_32k"][1]["ssm"]).all()),
+          "32k prefill states are not finite")
+    del outs
+
+    # B6 against plain on the shared block's q, k, v of group 0 at (a)
+    q, k, v = _first_attention_inputs(torch, model, prompts)
+    b6_err = _check_b6(torch, q, k, v, True, "the shared block's q, k, v "
+                       f"(group 0, {LM_BATCH} x {LM_SEQ:,})")
+    del q, k, v
+    # the whole model with B6's plain version in every group, and both
+    # against the same weights in fp32: gated in fp32, printed in bf16
+    # (B6 rounds P to bf16 for its P.V product, plain attention does not;
+    # 54 bf16 Mamba2 layers carry that past the bar on their own
+    # rounding, as phase 18's 64 carry a decode step's)
+    plain_logits, _ = _with_plain_attention(
+        lambda: prefill(model, tokens=prompts))
+    perr16, pbar16 = _within(torch, logits, plain_logits, LM_TOL)
+    agree16 = float((logits.argmax(-1) == plain_logits.argmax(-1)).float()
+                    .mean())
+    model32 = transformer.Transformer(
+        dataclasses.replace(cfg, dtype="float32"), device=dev)
+    model32.load_state_dict(model.state_dict())
+    logits32, caches32 = prefill(model32, tokens=prompts)
+    plain32, _ = _with_plain_attention(
+        lambda: prefill(model32, tokens=prompts))
+    perr, pbar = _within(torch, logits32, plain32, LM_TOL)
+    check(pbar <= 1.0, f"fp32 prefill logits with B6 differ from plain "
+          f"attention's beyond rtol = atol = {LM_TOL}: max |err| "
+          f"{perr:.3e}, {pbar:.2f} of the bar")
+    check(torch.equal(logits32.argmax(-1), plain32.argmax(-1)),
+          "fp32 prefill argmax differs between B6 and plain attention")
+    w_b6 = float((logits.float() - logits32).abs().max())
+    w_plain = float((plain_logits.float() - logits32).abs().max())
+    del plain32
+
+    # decode of token LM_SEQ after prefill of LM_SEQ tokens against the
+    # forward of LM_SEQ + ssd_chunk tokens at position LM_SEQ: gated in
+    # fp32, printed in bf16, likewise
+    def handoff(m, caches_after_prompt):
+        dec = init_caches(m.cfg, LM_BATCH, LM_SEQ + LM_NEW,
+                          dtype=caches_after_prompt["conv"].dtype,
+                          device=dev)
+        for name in dec:
+            dec[name][:, :, :caches_after_prompt[name].shape[2]] = \
+                caches_after_prompt[name]
+        step_logits, dec = decode_step(m, dec, token=ext[:, LM_SEQ],
+                                       pos=LM_SEQ)
+        hidden, _ = forward(m, tokens=ext, return_hidden=True)
+        return (step_logits, transformer.lm_logits(m, hidden[:, LM_SEQ]),
+                dec)
+
+    step_logits, fwd_logits, dec = handoff(model, caches)
+    del caches
+    derr16, dbar16 = _within(torch, step_logits, fwd_logits, LM_TOL)
+    step32, fwd32, _ = handoff(model32, caches32)
+    del model32, caches32
+    torch.cuda.empty_cache()
+    derr, dbar = _within(torch, step32, fwd32, LM_TOL)
+    check(dbar <= 1.0, f"fp32 decode after prefill differs from the forward "
+          f"at position {LM_SEQ:,} beyond rtol = atol = {LM_TOL}: max "
+          f"|err| {derr:.3e}, {dbar:.2f} of the bar")
+    check(torch.equal(step32.argmax(-1), fwd32.argmax(-1)),
+          "fp32 decode after prefill: argmax differs from the forward's")
+    dagree = float((step_logits.argmax(-1) == fwd_logits.argmax(-1)).float()
+                   .mean())
+    w_fwd = float((fwd_logits.float() - fwd32).abs().max())
+
+    decode_ms, tok, dec = _timed_decode(
+        torch, model, dec, step_logits.argmax(-1).to(torch.int32), LM_SEQ)
+    _main_path_line(21, "hybrid", HYBRID_ARCH, n_params, setup_s, secs,
+                    peak_gb, launches, "once per group of "
+                    f"{cfg.shared_attn_every} Mamba2 layers per prefill, "
+                    f"J = {J}")
+    print(f"  caches conv {want['conv'][0]}, ssm {want['ssm'][0]} fp32, "
+          f"k/v {want['k'][0]} (slot j the shared block's run in group j);"
+          f" B6 vs plain on the shared block's q, k, v (hd "
+          f"{cfg.resolved_head_dim}, {cfg.num_heads} heads): max |err| "
+          f"{b6_err:.3e} (bar {B6_TOL['bfloat16']}), repeatable; prefill "
+          f"logits with B6 vs plain attention in every group: fp32 max "
+          f"|err| {perr:.3e} ({pbar:.2f} of the rtol = atol = {LM_TOL} "
+          f"bar), argmax equal; bf16 (not gated) max |err| {perr16:.3e} "
+          f"({pbar16:.2f} of the bar), argmax agreement {agree16:.0%}, and "
+          f"against the fp32 logits: bf16 with B6 {w_b6:.3e}, bf16 with "
+          f"plain attention {w_plain:.3e}; decode of token {LM_SEQ + 1:,} "
+          "after prefill vs "
+          f"the forward of {LM_SEQ + cfg.ssd_chunk:,} tokens at that "
+          f"position: fp32 max |err| {derr:.3e} ({dbar:.2f} of the bar), "
+          f"argmax equal; bf16 (not gated) max |err| {derr16:.3e} "
+          f"({dbar16:.2f} of the bar), argmax agreement {dagree:.0%}, bf16 "
+          f"forward vs fp32 forward {w_fwd:.3e}; decode {decode_ms:.2f} "
+          f"ms/token at batch {LM_BATCH} (mean of {LM_NEW // 2} greedy "
+          "steps, host wall)")
+    pos = LM_SEQ + LM_NEW // 2
+    _, wall_us, kernels = _device_profile(
+        torch, lambda: decode_step(model, dec, token=tok, pos=pos + 1))
+    _print_profile("one decode step", wall_us, kernels)
+    del dec
+    _, wall_us, kernels = _device_profile(
+        torch, lambda: prefill(model, tokens=prompts))
+    _print_profile(f"one {LM_BATCH} x {LM_SEQ:,} prefill", wall_us, kernels)
+    _print_elementwise(kernels, LM_KERNELS)
+    del model
+    torch.cuda.empty_cache()
+    return launches, b6_err, {
+        "prefill_tokens_per_s": LM_BATCH * LM_SEQ / secs["prefill"],
+        "prefill_32k_tokens_per_s": LM_LONG / secs["prefill_32k"],
+        "decode_ms_per_token": decode_ms}
+
+
+# ------------------------------------------------------------ phase 23
+def _recording(module, name, keep):
+    """Wrap ``module.name`` so each call's result is also handed to
+    ``keep``; returns the original, which the caller puts back."""
+    fn = getattr(module, name)
+
+    def wrapped(*args, **kw):
+        out = fn(*args, **kw)
+        keep(out)
+        return out
+
+    setattr(module, name, wrapped)
+    return fn
+
+
+def phase_moe_lm(torch, dev):
+    """The MoE serving path at full width and depth: granite-moe-1b-a400m
+    from a seeded torch.Generator, prompts from the token stream; (a)
+    prefill 4 x 4,096, (b) greedy generate of 32 tokens after it, (c)
+    prefill 1 x 32,768. B6 launches once per layer per prefill. Gates:
+    two prefills of (a) bitwise equal, B6 against plain on layer 0's real
+    q, k, v, and the model with B6 against the model on plain attention
+    (in bf16 when no token's routing changes between the two, else in
+    fp32 with the changes counted)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.models import (
+        decode_step,
+        init_caches,
+        init_model,
+        moe,
+        prefill,
+    )
+    from repro_torch.models import transformer
+
+    cfg = get_config(MOE_ARCH)
+    nl = cfg.num_layers
+    t0 = time.perf_counter()
+    model = init_model(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                       device=dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    check(n_params == MOE_PARAMS, f"{MOE_ARCH} has {n_params:,} parameters,"
+          f" not {MOE_PARAMS:,}")
+    stream = TokenStream(cfg.vocab_size, seed=SEED)
+    prompts = torch.from_numpy(
+        stream.batch(LM_BATCH, LM_SEQ + 1)["tokens"]).to(dev)
+    long_prompt = torch.from_numpy(
+        stream.batch(1, LM_LONG + 1)["tokens"]).to(dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    launches, outs, secs, peak_gb = _serving_runs(
+        torch, model, prompts, long_prompt, prompts[:, :SSM_SHORT])
+    _check_serving_outputs(torch, cfg, outs, launches, nl)
+    logits, caches = outs["prefill"]
+    check(tuple(caches["k"].shape) == (nl, LM_BATCH, LM_SEQ,
+                                       cfg.num_kv_heads,
+                                       cfg.resolved_head_dim),
+          f"prefill caches have shape {tuple(caches['k'].shape)}")
+    del outs
+
+    # (a) again, recording each layer's routing and kept assignments:
+    # bitwise the first run's logits
+    routes, plans = [], []
+    route = _recording(moe, "route", lambda out: routes.append(out[1]))
+    plan = _recording(moe, "dispatch_plan", lambda out: plans.append(
+        int((~out.keep).sum())))
+    try:
+        again, _ = prefill(model, tokens=prompts)
+        torch.cuda.synchronize()
+    finally:
+        moe.route, moe.dispatch_plan = route, plan
+    check(torch.equal(again, logits), "two prefills of the same prompts "
+          "give different logits")
+    check(len(plans) == nl, f"{len(plans)} MoE dispatches in a prefill, "
+          f"not {nl}")
+    cap = moe.capacity_for(LM_BATCH * LM_SEQ, cfg.num_experts, cfg.top_k)
+
+    # B6 against plain on layer 0's q, k, v at (a)
+    q, k, v = _first_attention_inputs(torch, model, prompts)
+    b6_err = _check_b6(torch, q, k, v, True, f"layer 0's q, k, v ("
+                       f"{LM_BATCH} x {LM_SEQ:,})")
+    del q, k, v
+
+    # the whole model on plain attention: routing changes counted as
+    # tokens whose top-k set differs in a layer
+    def plain_run(m):
+        seen = []
+        fn = _recording(moe, "route", lambda out: seen.append(out[1]))
+        try:
+            out, _ = _with_plain_attention(lambda: prefill(m, tokens=prompts))
+        finally:
+            moe.route = fn
+        return out, seen
+
+    def changed(a, b):
+        return sum(int((x.sort(-1).values != y.sort(-1).values).any(-1)
+                       .sum()) for x, y in zip(a, b))
+
+    plain_logits, plain_routes = plain_run(model)
+    flips16 = changed(routes, plain_routes)
+    perr16, pbar16 = _within(torch, logits, plain_logits, LM_TOL)
+    agree16 = float((logits.argmax(-1) == plain_logits.argmax(-1)).float()
+                    .mean())
+    del routes, plain_routes
+    if flips16:
+        model32 = transformer.Transformer(
+            dataclasses.replace(cfg, dtype="float32"), device=dev)
+        model32.load_state_dict(model.state_dict())
+        r32 = []
+        fn = _recording(moe, "route", lambda out: r32.append(out[1]))
+        try:
+            b6_32, _ = prefill(model32, tokens=prompts)
+        finally:
+            moe.route = fn
+        plain32, p32 = plain_run(model32)
+        flips = changed(r32, p32)
+        del model32, r32, p32
+        torch.cuda.empty_cache()
+        perr, pbar = _within(torch, b6_32, plain32, LM_TOL)
+        argmax_equal = torch.equal(b6_32.argmax(-1), plain32.argmax(-1))
+        gated = "fp32"
+    else:
+        flips, perr, pbar, gated = 0, perr16, pbar16, "bf16"
+        argmax_equal = torch.equal(logits.argmax(-1),
+                                   plain_logits.argmax(-1))
+    check(pbar <= 1.0, f"{gated} prefill logits with B6 differ from plain "
+          f"attention's beyond rtol = atol = {LM_TOL}: max |err| "
+          f"{perr:.3e}, {pbar:.2f} of the bar")
+    check(argmax_equal, f"{gated} prefill argmax differs between B6 and "
+          "plain attention")
+
+    dec = init_caches(cfg, LM_BATCH, LM_SEQ + LM_NEW, device=dev)
+    for name in dec:
+        dec[name][:, :, :LM_SEQ] = caches[name]
+    del caches
+    decode_ms, tok, dec = _timed_decode(
+        torch, model, dec, logits.argmax(-1).to(torch.int32), LM_SEQ - 1)
+    _main_path_line(23, "MoE", MOE_ARCH, n_params, setup_s, secs, peak_gb,
+                    launches, "one per layer per prefill")
+    print(f"  {cfg.num_experts} experts, top {cfg.top_k}, capacity {cap:,} "
+          f"at {LM_BATCH} x {LM_SEQ:,} tokens; dropped assignments per "
+          f"layer in (a): {plans} ({sum(plans):,} of "
+          f"{nl * LM_BATCH * LM_SEQ * cfg.top_k:,}); a second prefill of "
+          f"(a) bitwise equal; B6 vs plain on layer 0's q, k, v: max |err| "
+          f"{b6_err:.3e} (bar {B6_TOL['bfloat16']}), repeatable; prefill "
+          f"logits with B6 vs plain attention in every layer: bf16 max "
+          f"|err| {perr16:.3e} ({pbar16:.2f} of the rtol = atol = {LM_TOL} "
+          f"bar), argmax agreement {agree16:.0%}, with {flips16:,} "
+          f"(token, layer) routings changed of {nl * LM_BATCH * LM_SEQ:,}; "
+          + (f"so gated in fp32: max |err| {perr:.3e} ({pbar:.2f} of the "
+             f"bar), argmax equal, {flips:,} routings changed; "
+             if gated == "fp32" else "gated there, argmax equal; ")
+          + f"decode {decode_ms:.2f} ms/token at batch {LM_BATCH} (mean of "
+          f"{LM_NEW // 2} greedy steps, host wall)")
+    pos = LM_SEQ - 1 + LM_NEW // 2
+    _, wall_us, kernels = _device_profile(
+        torch, lambda: decode_step(model, dec, token=tok, pos=pos + 1))
+    _print_profile("one decode step", wall_us, kernels)
+    del dec
+    _, wall_us, kernels = _device_profile(
+        torch, lambda: prefill(model, tokens=prompts))
+    _print_profile(f"one {LM_BATCH} x {LM_SEQ:,} prefill", wall_us, kernels)
+    _print_elementwise(kernels, LM_KERNELS)
+    del model
+    torch.cuda.empty_cache()
+    return launches, b6_err, {
+        "prefill_tokens_per_s": LM_BATCH * LM_SEQ / secs["prefill"],
+        "prefill_32k_tokens_per_s": LM_LONG / secs["prefill_32k"],
+        "decode_ms_per_token": decode_ms,
+        "dropped_per_layer": plans}
+
+
+# ------------------------------------------------------------ phase 24
+def phase_moe_card_vs_cpu(torch, dev):
+    """Phase 15's check on a reduced granite-moe-1b-a400m, with each MoE
+    dispatch's kept assignments recorded on both sides and held equal;
+    then layer 0's experts on the prompts' embeddings at a tight capacity
+    (factor 0.25, where assignments are dropped) on both sides: the same
+    drops, outputs within LM_CPU_TOL."""
+    from repro_torch.models import moe, transformer
+
+    kept = {"cuda": [], "cpu": []}
+    plan = _recording(moe, "dispatch_plan", lambda out: kept[
+        out.keep.device.type].append(out.keep.cpu()))
+    try:
+        cpu, card, prompts = phase_lm_card_vs_cpu(torch, dev, MOE_ARCH, 24)
+        tight = {}
+        for name, m in (("cpu", cpu), ("cuda", card)):
+            x = transformer.embed_tokens(m, torch.from_numpy(prompts))
+            tight[name] = moe.moe_ffn(x, m.layers[0].ffn, m.cfg,
+                                      capacity_factor=0.25)[0].cpu()
+    finally:
+        moe.dispatch_plan = plan
+    check(len(kept["cuda"]) == len(kept["cpu"]) > 0
+          and all(torch.equal(a, b) for a, b in zip(kept["cuda"],
+                                                    kept["cpu"])),
+          "the card and the CPU keep different MoE assignments")
+    drops = int((~kept["cpu"][-1]).sum())
+    check(drops > 0, "the tight-capacity dispatch dropped nothing")
+    err = (tight["cuda"] - tight["cpu"]).abs()
+    check(bool((err <= LM_CPU_TOL + LM_CPU_TOL * tight["cpu"].abs()).all()),
+          f"tight-capacity MoE outputs, card vs CPU, beyond {LM_CPU_TOL}: "
+          f"max |err| {float(err.max()):.3e}")
+    print(f"  the same kept assignments on both sides in all "
+          f"{len(kept['cpu'])} dispatches ("
+          f"{sum(int((~k).sum()) for k in kept['cpu'][:-1])} dropped by the "
+          f"model's); layer 0's experts at capacity factor 0.25: the same "
+          f"{drops} of {kept['cpu'][-1].numel()} assignments dropped, "
+          f"outputs max |err| {float(err.max()):.3e} (bar {LM_CPU_TOL})")
+
+
 SERVE_PHASES = (2, 3, 4)  # the serving path's phases, runnable alone
 TRAIN_PHASES = (5, 6, 7, 8)  # the sparse training path's, runnable alone
 SCAN_PHASES = (17, 18, 19, 20)  # the SSM path's phases, runnable alone
+FAMILY_PHASES = (21, 22, 23, 24)  # the hybrid and MoE paths', likewise
 
 
 def _serving_model(torch, dev):
@@ -2699,9 +3232,9 @@ def _sparse_problem(torch, dev):
 
 
 def _run_only(torch, dev, only, t_start) -> int:
-    """Phase 1 and the given serving (2-4), sparse training (5-8) or SSM
-    (17-20) phases alone (``--only``): a partial run, so it prints no
-    kernels line and no result line."""
+    """Phase 1 and the given serving (2-4), sparse training (5-8), SSM
+    (17-20), hybrid or MoE (21-24) phases alone (``--only``): a partial
+    run, so it prints no kernels line and no result line."""
     if only & {2, 4}:
         model = _serving_model(torch, dev)
     if only & set(TRAIN_PHASES):
@@ -2730,8 +3263,16 @@ def _run_only(torch, dev, only, t_start) -> int:
             phase_ssm_lm(torch, dev)
         elif phase == 19:
             phase_lm_card_vs_cpu(torch, dev, SSM_ARCH, 19, "B7")
-        else:
+        elif phase == 20:
             phase_scan_times(torch, dev)
+        elif phase == 21:
+            phase_hybrid_lm(torch, dev)
+        elif phase == 22:
+            phase_lm_card_vs_cpu(torch, dev, HYBRID_ARCH, 22, **HYBRID_CPU)
+        elif phase == 23:
+            phase_moe_lm(torch, dev)
+        else:
+            phase_moe_card_vs_cpu(torch, dev)
     print(f"phases 1 and {sorted(only)} passed in "
           f"{time.perf_counter() - t_start:.1f} s (partial run: no result)")
     return 0
@@ -2739,13 +3280,14 @@ def _run_only(torch, dev, only, t_start) -> int:
 
 def main(argv: list[str]) -> int:
     """``chip_smoke.py`` runs every phase; ``chip_smoke.py --only 2,3,4``
-    (or ``5,6,8``, or ``17,20``) runs phase 1 and the named phases of the
-    serving path (2-4), the sparse training path (5-8) or the SSM path
-    (17-20) alone."""
+    (or ``5,6,8``, or ``17,20``, or ``21,22,23,24``) runs phase 1 and the
+    named phases of the serving path (2-4), the sparse training path
+    (5-8), the SSM path (17-20) or the hybrid and MoE paths (21-24)
+    alone."""
     import torch
 
     only = set()
-    alone = SERVE_PHASES + TRAIN_PHASES + SCAN_PHASES
+    alone = SERVE_PHASES + TRAIN_PHASES + SCAN_PHASES + FAMILY_PHASES
     if argv:
         if len(argv) != 2 or argv[0] != "--only":
             raise SmokeFailure(f"usage: chip_smoke.py [--only "
@@ -2835,6 +3377,13 @@ def main(argv: list[str]) -> int:
     phase_lm_card_vs_cpu(torch, dev, SSM_ARCH, 19, "B7")
     times["mamba1_scan"] = phase_scan_times(torch, dev)
 
+    hybrid_launches, hybrid_err, hybrid_metrics = phase_hybrid_lm(torch, dev)
+    phase_lm_card_vs_cpu(torch, dev, HYBRID_ARCH, 22, **HYBRID_CPU)
+    moe_launches, moe_err, moe_metrics = phase_moe_lm(torch, dev)
+    phase_moe_card_vs_cpu(torch, dev)
+    err["flash_attention"] = max(err["flash_attention"], hybrid_err,
+                                 moe_err)
+
     kernels = []
     for name in ("lsplm_sparse_fused_forward",
                  "lsplm_sparse_fused_int8_forward",
@@ -2849,6 +3398,11 @@ def main(argv: list[str]) -> int:
         if name == "flash_attention":
             by_path = {"lm_serve": lm_total, **{
                 f"lm_serve/{step}": n for step, n in lm_launches.items()}}
+            for path, runs in (("lm_serve_hybrid", hybrid_launches),
+                               ("lm_serve_moe", moe_launches)):
+                by_path[path] = sum(runs.values())
+                by_path.update({f"{path}/{step}": n
+                                for step, n in runs.items()})
         if name == "mamba1_scan":
             by_path = {"lm_serve_ssm": ssm_total, **{
                 f"lm_serve_ssm/{step}": n
@@ -2875,6 +3429,8 @@ def main(argv: list[str]) -> int:
         })
     print(f"LM serving ({LM_ARCH}): " + json.dumps(lm_metrics))
     print(f"SSM serving ({SSM_ARCH}): " + json.dumps(ssm_metrics))
+    print(f"hybrid serving ({HYBRID_ARCH}): " + json.dumps(hybrid_metrics))
+    print(f"MoE serving ({MOE_ARCH}): " + json.dumps(moe_metrics))
     print(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -8,10 +8,15 @@ asked for):
     PYTHONPATH=src python examples/generate_text_torch.py --arch olmo-1b
     PYTHONPATH=src python examples/generate_text_torch.py \
         --arch falcon-mamba-7b --device cpu
+    PYTHONPATH=src python examples/generate_text_torch.py \
+        --arch zamba2-2.7b --device cpu
+    PYTHONPATH=src python examples/generate_text_torch.py \
+        --arch granite-moe-1b-a400m --device cpu
 
-The port serves the attention families without experts (dense, vlm,
-audio) and the Mamba1 family (falcon-mamba); the hybrid and MoE families
-raise ``NotImplementedError`` naming the ROADMAP item they wait for.
+The port serves every family: the attention families (dense, vlm,
+audio), MoE (granite-moe, dbrx), the Mamba1 family (falcon-mamba) and
+the Mamba2 + shared-attention hybrid (zamba2). The audio config takes
+codec embeddings, not token ids, so it is refused here.
 """
 import argparse
 import time

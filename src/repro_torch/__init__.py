@@ -14,10 +14,11 @@ training (padded-COO batches with transpose plans, the sparse objective,
 the Eq. 9 direction, L-BFGS, OWLQN+ and ``python -m
 repro_torch.launch.train --sparse``), dense OWLQN+ training (the
 common-feature data, the dense and Eq. 13 objectives, the LS-PLM model
-and the driver's default mode) and LM serving for the attention families
-without experts (the architecture configs, the token stream, the
-transformer's prefill and decode, ``models.generate``), on six
-hand-written CUDA kernels (``repro_torch/kernels/*/csrc``): the fused
-sparse forward in fp32 and int8, the run-length dTheta scatter, the
-Eq. 9 direction, the dense fused Eq. 2 forward and flash attention.
+and the driver's default mode) and LM serving for every family of the
+zoo (the architecture configs, the token stream, the attention, MoE,
+Mamba1 and Mamba2-hybrid models' prefill and decode,
+``models.generate``), on six hand-written CUDA sources
+(``repro_torch/kernels/*/csrc``): the fused sparse forward in fp32 and
+int8, the run-length dTheta scatter, the Eq. 9 direction, the dense
+fused Eq. 2 forward, flash attention and the Mamba1 selective scan.
 """

@@ -4,8 +4,7 @@
 Every architecture is expressed as an ``ArchConfig``; the model builder
 (`repro_torch.models.transformer`) consumes it. `reduced()` yields the
 smoke-test variant (2 layers, d_model<=256, <=4 experts) the CPU tests
-run. The port serves the attention families without experts (dense, vlm,
-audio); the other families' fields are kept so every config loads.
+run. The port serves every family.
 """
 from __future__ import annotations
 

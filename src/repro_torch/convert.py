@@ -96,42 +96,47 @@ def model_from_reference(params: dict, cfg: ArchConfig,
     """The port's model on ``device`` (``cuda`` unless ``"cpu"``) from the
     reference's parameters as numpy arrays: ``layers`` (each leaf stacked
     on a leading L axis: ``attn`` wq/wk/wv/wo and, with ``qkv_bias``,
-    bq/bk/bv; ``ffn`` w1/(w3)/w2; ``norm1``/``norm2`` with rmsnorm; for
-    the ssm family ``mamba`` in_proj/conv_w/conv_b/x_proj/dt_proj/
-    dt_bias/A_log/D/out_proj and ``norm``), ``embed``, ``final_norm``
-    (rmsnorm) and ``lm_head`` (untied). Every leaf is copied into the
-    parameter of the same name, in that parameter's dtype (the matmul
-    weights round to ``cfg.dtype`` once here, as the reference rounds
-    them at every use; A_log, dt_bias, D and the norm scales stay in
-    ``cfg.param_dtype``). Raises ``ValueError`` on a missing, surplus or
-    misshapen leaf."""
+    bq/bk/bv; ``ffn`` w1/(w3)/w2, or the MoE's router/w1/w3/w2;
+    ``norm1``/``norm2`` with rmsnorm; for the ssm family ``mamba``
+    in_proj/conv_w/conv_b/x_proj/dt_proj/dt_bias/A_log/D/out_proj and
+    ``norm``, for the hybrid ``mamba`` in_proj/conv_w/conv_b/dt_bias/
+    A_log/D/norm_scale/out_proj and ``norm``), ``embed``, ``final_norm``
+    (rmsnorm), ``lm_head`` (untied) and the hybrid's ``shared`` block
+    (``attn``, ``ffn``, ``norm1``/``norm2``, not stacked). Every leaf is
+    copied into the parameter of the same name, in that parameter's dtype
+    (the matmul weights round to ``cfg.dtype`` once here, as the
+    reference rounds them at every use; A_log, dt_bias, D, norm_scale and
+    the norm scales stay in ``cfg.param_dtype``). Raises ``ValueError``
+    on a missing, surplus or misshapen leaf."""
     model = Transformer(cfg, device=resolve_device(device))
-    layers = params["layers"]
     want = {"embed": model.embed}
     if model.final_norm is not None:
         want["final_norm"] = model.final_norm
     if model.lm_head is not None:
         want["lm_head"] = model.lm_head
-    stacked = {}
-    for blk in model.layers:
-        for group, mod in blk.named_children():
-            for name, p in mod.named_parameters(recurse=False):
-                stacked.setdefault((group, name), []).append(p)
-        for name, p in blk.named_parameters(recurse=False):
-            stacked.setdefault((name,), []).append(p)
     got = {k for k in params if k != "layers"}
-    if got != set(want):
+    if got != set(want) | ({"shared"} if model.shared is not None else set()):
         raise ValueError(f"expected top-level leaves {sorted(want)} + "
-                         f"layers, got {sorted(params)}")
-    flat = {}
-    for key, value in layers.items():
-        if isinstance(value, dict):
-            flat.update({(key, k): v for k, v in value.items()})
-        else:
-            flat[(key,)] = value
-    if set(flat) != set(stacked):
-        raise ValueError(f"expected layer leaves {sorted(stacked)}, got "
-                         f"{sorted(flat)}")
+                         f"layers{' + shared' if model.shared is not None else ''}, got "
+                         f"{sorted(params)}")
+
+    def leaves(block):
+        """{(group, name) or (name,): parameter} of one block."""
+        out = {(name,): p for name, p in block.named_parameters(
+            recurse=False)}
+        for group, mod in block.named_children():
+            out.update({(group, name): p for name, p in
+                        mod.named_parameters(recurse=False)})
+        return out
+
+    def flat(tree):
+        out = {}
+        for key, value in tree.items():
+            if isinstance(value, dict):
+                out.update({(key, k): v for k, v in value.items()})
+            else:
+                out[(key,)] = value
+        return out
 
     def copy(param, array):
         array = np.asarray(array)
@@ -140,13 +145,29 @@ def model_from_reference(params: dict, cfg: ArchConfig,
                              f"shape {tuple(param.shape)}")
         param.copy_(torch.from_numpy(np.array(array, dtype=np.float32)))
 
+    def match(where, expected, arrays):
+        if set(arrays) != set(expected):
+            raise ValueError(f"expected {where} leaves {sorted(expected)}, "
+                             f"got {sorted(arrays)}")
+
+    stacked = {}
+    for blk in model.layers:
+        for key, p in leaves(blk).items():
+            stacked.setdefault(key, []).append(p)
+    layers = flat(params["layers"])
+    match("layer", stacked, layers)
     for name, param in want.items():
         copy(param, params[name])
     for key, per_layer in stacked.items():
-        array = np.asarray(flat[key])
+        array = np.asarray(layers[key])
         if array.shape[0] != cfg.num_layers:
             raise ValueError(f"layers/{'/'.join(key)} has {array.shape[0]} "
                              f"layers, the config {cfg.num_layers}")
         for i, param in enumerate(per_layer):
             copy(param, array[i])
+    if model.shared is not None:
+        shared, arrays = leaves(model.shared), flat(params["shared"])
+        match("shared", shared, arrays)
+        for key, param in shared.items():
+            copy(param, arrays[key])
     return model

@@ -1,5 +1,6 @@
-"""The LM backbone of the port (the counterpart of ``repro.models``): the
-attention families without experts and the Mamba1 family, for serving.
+"""The LM backbone of the port (the counterpart of ``repro.models``): every
+family of the zoo (dense, vlm, audio, MoE, the Mamba1 ssm family and the
+Mamba2 + shared-attention hybrid), for serving.
 The training names of the reference (``cross_entropy``, ``loss_fn``,
 ``make_train_step``, ``param_specs``) wait for the LM training slice and
 for sharding."""

@@ -5,10 +5,12 @@ prompt, then sample tokens with temperature / top-k, one
 ``decode_step`` per token. Sampling draws from an explicit
 ``torch.Generator`` (the reference splits a ``jax.random`` key: the
 numbers differ; greedy decoding, temperature 0, is the same). It serves
-every family the port runs: the attention families' KV caches (and the
-window ring buffer) and the ssm family's conv and ssm states, which
-prefill hands over at their decode shapes, so the copy below is a plain
-copy for them.
+every family: the KV caches (L, B, S, ...) of the attention and MoE
+families and the hybrid's (J, B, S, ...) by group, all with the window
+ring buffer, are copied into the first S positions of the decode
+buffers (axis 2); the conv and ssm states of the ssm and hybrid
+families, which prefill hands over at their decode shapes, are plain
+copies.
 """
 from __future__ import annotations
 

@@ -1,8 +1,10 @@
-"""State-space blocks: Mamba1 (falcon-mamba).
+"""State-space blocks: Mamba1 (falcon-mamba) and Mamba2/SSD (zamba2).
 
-The port's counterpart of the Mamba1 half of ``repro/models/ssm.py``.
-Shapes: d_inner di = expand * d, state N, conv K, dt rank R. The decode
-state is ``{"conv": (B, K-1, di), "ssm": (B, di, N) fp32}``.
+The port's counterpart of ``repro/models/ssm.py``. Shapes: d_inner di =
+expand * d, state N, conv K; Mamba1's dt rank R; Mamba2's nh = di /
+headdim heads of width p = headdim, one scalar A per head. The decode
+state is ``{"conv": (B, K-1, di), "ssm": (B, di, N) fp32}`` for Mamba1
+and ``{"conv": (B, K-1, di+2N), "ssm": (B, nh, p, N) fp32}`` for Mamba2.
 
 The selective scan goes through
 ``kernels/mamba_scan/ops.gated_selective_scan``: B7's gated mode on the
@@ -17,8 +19,9 @@ widened, then ``dt_bias`` added and softplus taken, A = -exp(A_log), and
 the ``silu(z)`` gate in fp32; the gated scan does those last steps
 itself, on the card inside B7, with torch's own formulas.
 
-One departure: the reference's decode conv (``conv_step``) is an einsum
-that sums the K products in fp32 and rounds once, unlike its forward.
+One departure, in both versions: the reference's decode conv
+(``conv_step``) is an einsum that sums the K products in fp32 and rounds
+once, unlike its forward.
 In bf16 that one-ulp gap, fed back through 64 layers, puts decode after
 prefill further than the 5e-2 logit bar from the forward of the same
 tokens. Here the decode conv does the forward's arithmetic, so prefill
@@ -31,8 +34,16 @@ it stays within the layer's 3e-5 bar of the reference's decode
 is below exp(-20) = 2.1e-9, under half an ulp of x there, so the fp32
 results agree; below 20 both are log1p(exp(x)) up to rounding.
 
-Mamba2 (``init_mamba2``, ``_ssd_chunked``, ``mamba2_forward``,
-``mamba2_decode``) waits for the hybrid slice, ``ROADMAP.md`` A15c.
+Mamba2's chunked SSD is jnp in the reference (no Pallas kernel), so
+:func:`ssd_chunked` is plain PyTorch on every device, all in fp32. The
+reference writes three of its contractions as three-operand einsums; here
+each is contracted by hand, in an order that never builds the 6-D
+(b, chunk, i, j, h, p) tensor (21 GB at 4 x 4,096 for zamba2): the
+intra-chunk weights ``C.B * L`` are formed per head and multiplied into
+``dt * x`` by a batched product over j, ``decay_to_end`` is folded into
+``dt * x`` before the product over positions that makes the chunk
+states, and ``state_decay`` is applied after the product over N. The
+chunk-state recurrence is the reference's, one chunk after the other.
 """
 from __future__ import annotations
 
@@ -43,9 +54,6 @@ from torch import nn
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.mamba_scan import ops
 from repro_torch.models.layers import module_device, new_weight
-
-MAMBA2_TODO = ("Mamba2 (the SSD chunked scan of models/ssm.py) waits for "
-               "the hybrid slice, ROADMAP.md A15c")
 
 
 # ------------------------------------------------------------------ helpers
@@ -92,8 +100,6 @@ class Mamba1(nn.Module):
 
     def __init__(self, cfg: ArchConfig, device=None):
         super().__init__()
-        if cfg.ssm_version != 1:
-            raise NotImplementedError(f"{cfg.name}: {MAMBA2_TODO}")
         device = module_device(device)
         d, di, N, K = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_conv
         R = cfg.resolved_dt_rank
@@ -194,19 +200,198 @@ def mamba1_decode(x_t: torch.Tensor, state: dict, mod: Mamba1,
     return y @ mod.out_proj.to(y.dtype), {"conv": conv_state, "ssm": h}
 
 
-def mamba_ref_sequential(x: torch.Tensor, mod: Mamba1,
+# =============================================================== Mamba 2 ====
+class Mamba2(nn.Module):
+    """One Mamba2 mixer, with the reference's leaf names: in_proj (d,
+    2di+2N+nh), conv_w (K, di+2N), conv_b (di+2N,) and out_proj (di, d)
+    in ``cfg.dtype``; dt_bias, A_log and D (nh,) and norm_scale (di,) in
+    ``cfg.param_dtype``, as :class:`Mamba1` keeps its leaves. Left unset,
+    on ``device`` (``cuda`` unless ``"cpu"``; ``"meta"`` allocates
+    nothing)."""
+
+    def __init__(self, cfg: ArchConfig, device=None):
+        super().__init__()
+        device = module_device(device)
+        d, di, N, K = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_conv
+        nh = di // cfg.ssm_headdim
+        dt, pdt = getattr(torch, cfg.dtype), getattr(torch, cfg.param_dtype)
+        self.in_proj = new_weight((d, 2 * di + 2 * N + nh), dt, device)
+        self.conv_w = new_weight((K, di + 2 * N), dt, device)
+        self.conv_b = new_weight((di + 2 * N,), dt, device)
+        self.dt_bias = new_weight((nh,), pdt, device)
+        self.A_log = new_weight((nh,), pdt, device)
+        self.D = new_weight((nh,), pdt, device)
+        self.norm_scale = new_weight((di,), pdt, device)
+        self.out_proj = new_weight((di, d), dt, device)
+
+
+def init_mamba2(mod: Mamba2, cfg: ArchConfig,
+                generator: torch.Generator) -> None:
+    """Fill ``mod`` with the reference's initialisation, drawn from
+    ``generator`` in fp32 in the order in_proj, conv_w, out_proj: in_proj
+    d^-0.5 N(0, 1), conv_w 0.5 N(0, 1) / K, out_proj di^-0.5 N(0, 1);
+    dt_bias = 0, A_log = log(linspace(1, 16, nh)), D = 1, norm_scale = 1,
+    conv_b = 0."""
+    d, di, K = cfg.d_model, cfg.d_inner, cfg.ssm_conv
+    nh = di // cfg.ssm_headdim
+    dev, f32 = mod.in_proj.device, torch.float32
+
+    def normal(param, scale):
+        param.copy_(scale * torch.randn(param.shape, generator=generator,
+                                        device=dev, dtype=f32))
+
+    normal(mod.in_proj, d ** -0.5)
+    normal(mod.conv_w, 0.5 / K)
+    normal(mod.out_proj, di ** -0.5)
+    # computed in float64 and rounded once, as Mamba1's A_log
+    mod.A_log.copy_(torch.log(torch.linspace(
+        1.0, 16.0, nh, dtype=torch.float64, device=dev)).to(f32))
+    mod.dt_bias.zero_()
+    mod.D.fill_(1.0)
+    mod.norm_scale.fill_(1.0)
+    mod.conv_b.zero_()
+
+
+def ssd_chunked(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                B: torch.Tensor, C: torch.Tensor, chunk: int):
+    """Chunked SSD (Mamba2). xh (b, s, nh, p), dt (b, s, nh) fp32, A (nh,),
+    B and C (b, s, N) -> (y (b, s, nh, p), the final state (b, nh, p, N)),
+    both fp32. The chunk is ``min(chunk, s)`` and must divide s (the
+    reference asserts it; here ``ValueError``)."""
+    b, s, nh, p = xh.shape
+    N = B.shape[-1]
+    chunk = min(chunk, s)
+    if s % chunk:
+        raise ValueError(f"ssd_chunked: the sequence length {s} is not a "
+                         f"multiple of the chunk {chunk}")
+    nc, f32 = s // chunk, torch.float32
+    # head-major layouts: (b, c, h, l, ...) so each product is a batched
+    # matmul over contiguous (l, ...) blocks
+    xc = xh.reshape(b, nc, chunk, nh, p).to(f32).permute(0, 1, 3, 2, 4)
+    dtc = dt.reshape(b, nc, chunk, nh).permute(0, 1, 3, 2)  # (b,c,h,l)
+    Bc = B.reshape(b, nc, chunk, N).to(f32)
+    Cc = C.reshape(b, nc, chunk, N).to(f32)
+
+    a_cum = torch.cumsum(dtc * A[:, None], dim=-1)  # (b,c,h,l), negative
+    # intra-chunk: L_ij = exp(a_cum_i - a_cum_j) for j <= i; the mask goes
+    # BEFORE the exp (the upper triangle would overflow)
+    upper = torch.ones((chunk, chunk), dtype=torch.bool,
+                       device=xh.device).triu(1)
+    w = a_cum[..., :, None] - a_cum[..., None, :]  # (b,c,h,i,j)
+    w.masked_fill_(upper, float("-inf")).exp_()
+    cb = torch.matmul(Cc, Bc.transpose(-1, -2))  # (b,c,i,j)
+    w.mul_(cb[:, :, None])
+    dtx = dtc[..., None] * xc  # (b,c,h,l,p)
+    y = torch.matmul(w, dtx)  # y_diag (b,c,h,i,p)
+    del w
+
+    # chunk states: S_c = sum_l exp(a_cum_last - a_cum_l) dtx_l (x) B_l
+    decay_to_end = torch.exp(a_cum[..., -1:] - a_cum)  # (b,c,h,l)
+    states = torch.matmul((decay_to_end[..., None] * dtx).transpose(-1, -2),
+                          Bc[:, :, None])  # (b,c,h,p,N)
+    del dtx, decay_to_end
+    chunk_decay = torch.exp(a_cum[..., -1])  # (b,c,h)
+
+    # the reference's scan over chunks: each chunk reads the state before it
+    prev = torch.empty_like(states)
+    h = torch.zeros((b, nh, p, N), dtype=f32, device=xh.device)
+    for c in range(nc):
+        prev[:, c] = h
+        h = chunk_decay[:, c, :, None, None] * h + states[:, c]
+    del states
+
+    # y_off = (C . prev) * exp(a_cum): the product over N first
+    y_off = torch.matmul(Cc[:, :, None], prev.transpose(-1, -2))  # (b,c,h,l,p)
+    y = y + y_off * torch.exp(a_cum)[..., None]
+    del y_off, prev
+    return y.permute(0, 1, 3, 2, 4).reshape(b, s, nh, p), h
+
+
+def _mamba2_split(zxbcdt: torch.Tensor, cfg: ArchConfig):
+    di, N = cfg.d_inner, cfg.ssm_state
+    return (zxbcdt[..., :di], zxbcdt[..., di:2 * di + 2 * N],
+            zxbcdt[..., 2 * di + 2 * N:])
+
+
+def _gated_rmsnorm_out(y: torch.Tensor, z: torch.Tensor, mod: Mamba2,
+                       dtype: torch.dtype) -> torch.Tensor:
+    """y * silu(z), RMS-normalised and scaled by norm_scale, all in fp32,
+    then cast to ``dtype`` and projected by out_proj."""
+    y = y * F.silu(z.to(torch.float32))
+    y = y * torch.rsqrt(torch.mean(y * y, dim=-1, keepdim=True) + 1e-6)
+    y = (y * mod.norm_scale.to(torch.float32)).to(dtype)
+    return y @ mod.out_proj.to(dtype)
+
+
+def mamba2_forward(x: torch.Tensor, mod: Mamba2, cfg: ArchConfig,
+                   return_state: bool = False):
+    """Full-sequence SSD. x (B, S, d) -> (B, S, d) [+ the decode state
+    {"conv": (B, K-1, di+2N) in x's dtype, zero-padded in front when S <
+    K-1, "ssm": (B, nh, p, N) fp32}], with chunk ``min(cfg.ssd_chunk,
+    S)``, which must divide S."""
+    di, N, K = cfg.d_inner, cfg.ssm_state, cfg.ssm_conv
+    p = cfg.ssm_headdim
+    nh, f32 = di // p, torch.float32
+    z, xbc_raw, dt_in = _mamba2_split(x @ mod.in_proj.to(x.dtype), cfg)
+    xbc = F.silu(causal_conv1d(xbc_raw, mod.conv_w, mod.conv_b))
+    xs, B_ssm, C_ssm = xbc[..., :di], xbc[..., di:di + N], xbc[..., di + N:]
+    dt = F.softplus(dt_in.to(f32) + mod.dt_bias.to(f32))
+    A = -torch.exp(mod.A_log.to(f32))
+    xh = xs.reshape(*xs.shape[:-1], nh, p)
+    y, h = ssd_chunked(xh, dt, A, B_ssm, C_ssm, cfg.ssd_chunk)
+    y = y + mod.D.to(f32)[:, None] * xh.to(f32)
+    out = _gated_rmsnorm_out(y.reshape(*x.shape[:-1], di), z, mod, x.dtype)
+    if not return_state:
+        return out
+    Bsz, S, C = xbc_raw.shape
+    pad = xbc_raw.new_zeros((Bsz, max(K - 1 - S, 0), C))
+    conv_state = torch.cat([pad, xbc_raw[:, max(S - (K - 1), 0):]], dim=1)
+    return out, {"conv": conv_state, "ssm": h}
+
+
+def mamba2_decode(x_t: torch.Tensor, state: dict, mod: Mamba2,
+                  cfg: ArchConfig):
+    """One token. x_t (B, d); state {"conv" (B, K-1, di+2N), "ssm" (B, nh,
+    p, N)} -> (B, d), the new state (new tensors: the conv state in x_t's
+    dtype, the ssm state fp32)."""
+    di, N = cfg.d_inner, cfg.ssm_state
+    p = cfg.ssm_headdim
+    nh, f32 = di // p, torch.float32
+    z, xbc, dt_in = _mamba2_split(x_t @ mod.in_proj.to(x_t.dtype), cfg)
+    conv_state, xbc = conv_step(state["conv"], xbc, mod.conv_w, mod.conv_b)
+    xbc = F.silu(xbc)
+    xs, B_ssm, C_ssm = xbc[:, :di], xbc[:, di:di + N], xbc[:, di + N:]
+    dt = F.softplus(dt_in.to(f32) + mod.dt_bias.to(f32))  # (B, nh)
+    A = -torch.exp(mod.A_log.to(f32))
+    xh = xs.reshape(-1, nh, p).to(f32)
+    da = torch.exp(dt * A)
+    h = (da[..., None, None] * state["ssm"]
+         + (dt[..., None] * xh)[..., None] * B_ssm.to(f32)[:, None, None, :])
+    y = torch.matmul(h, C_ssm.to(f32)[:, None, :, None])[..., 0]  # (B,nh,p)
+    y = y + mod.D.to(f32)[:, None] * xh
+    out = _gated_rmsnorm_out(y.reshape(-1, di), z, mod, x_t.dtype)
+    return out, {"conv": conv_state, "ssm": h}
+
+
+def mamba_ref_sequential(x: torch.Tensor, mod: Mamba1 | Mamba2,
                          cfg: ArchConfig) -> torch.Tensor:
     """Step-by-step decode-path oracle for tests: running mamba1_decode
-    over the sequence must equal mamba1_forward."""
-    if cfg.ssm_version != 1:
-        raise NotImplementedError(f"{cfg.name}: {MAMBA2_TODO}")
+    (``ssm_version`` 1) or mamba2_decode over the sequence must equal the
+    version's forward."""
     B, S, _ = x.shape
     di, N, K = cfg.d_inner, cfg.ssm_state, cfg.ssm_conv
-    state = {"conv": x.new_zeros((B, K - 1, di)),
-             "ssm": torch.zeros((B, di, N), dtype=torch.float32,
-                                device=x.device)}
+    f32 = torch.float32
+    if cfg.ssm_version == 1:
+        step = mamba1_decode
+        state = {"conv": x.new_zeros((B, K - 1, di)),
+                 "ssm": torch.zeros((B, di, N), dtype=f32, device=x.device)}
+    else:
+        step, p = mamba2_decode, cfg.ssm_headdim
+        state = {"conv": x.new_zeros((B, K - 1, di + 2 * N)),
+                 "ssm": torch.zeros((B, di // p, p, N), dtype=f32,
+                                    device=x.device)}
     ys = []
     for t in range(S):
-        y, state = mamba1_decode(x[:, t], state, mod, cfg)
+        y, state = step(x[:, t], state, mod, cfg)
         ys.append(y)
     return torch.stack(ys, dim=1)

@@ -1,37 +1,40 @@
-"""Decoder-only LM for the attention families without experts and for
-the Mamba1 family.
+"""Decoder-only LM for every family of the zoo, for serving.
 
-The port's counterpart of ``repro/models/transformer.py`` for the dense,
-vlm (``prefix_embeds``) and audio (``embeds``) families:
+The port's counterpart of ``repro/models/transformer.py``:
 
-  [norm -> attn -> residual, norm -> (swiglu | gelu) -> residual] x L
+  dense / vlm / audio : [norm -> attn -> res, norm -> (swiglu | gelu) -> res] x L
+  moe                 : [norm -> attn -> res, norm -> moe_ffn -> res] x L
+  ssm (mamba1)        : [norm -> mamba1 -> res] x L
+  hybrid (zamba2)     : J = L / k groups, each k mamba2 layers followed by
+                        ONE SHARED transformer block (the same parameters
+                        in every group)
 
-and for the ssm family (falcon-mamba, ``models/ssm.py``):
-
-  [norm -> mamba1 -> residual] x L
+(``prefix_embeds`` feeds the vlm family, ``embeds`` the audio one.)
 
 Entry points (serving):
   init_model                    parameters drawn from a torch.Generator
   forward                       full-sequence logits (or hidden states)
+                                and the router's aux loss
   prefill                       last-token logits + filled caches (KV,
-                                or the ssm family's conv and ssm states)
+                                the ssm states, or the hybrid's both)
   init_caches / decode_step     one token against the caches
   make_serve_step               the decode step as a closure
 
 The model is a :class:`Transformer` module that carries its config, so
 the functions take it in place of the reference's ``(params, cfg)``
-pair. There is no mesh: sharding is ``ROADMAP.md`` A12. The
+pair. There is no mesh: sharding is ``ROADMAP.md`` A12, and the MoE
+layers run the reference's unsharded path in both serving modes. The
 full-sequence attention goes through ``kernels/flash_attention/ops``
-(B6 on the card, its plain version on the CPU), the selective scan of
-prefill and of every decode step through ``kernels/mamba_scan/ops``
-(B7, likewise). ``decode_step`` updates the caches it is given in place
-(the reference returns new arrays) and returns them.
+(B6 on the card, its plain version on the CPU), the Mamba1 selective
+scan of prefill and of every decode step through
+``kernels/mamba_scan/ops`` (B7, likewise); Mamba2's SSD and the experts
+are plain PyTorch, as they are jnp in the reference. ``decode_step``
+updates the caches it is given in place (the reference returns new
+arrays) and returns them.
 
-The hybrid and MoE families raise ``NotImplementedError`` naming the
-``ROADMAP.md`` item they wait for (A15c, A15d). The training entry
-points (``cross_entropy``, ``loss_fn``, ``make_train_step``) wait for
-the LM training slice and ``param_specs`` for sharding (A12); none is
-defined here yet.
+The training entry points (``cross_entropy``, ``loss_fn``,
+``make_train_step``) wait for the LM training slice and ``param_specs``
+for sharding (A12); none is defined here yet.
 """
 from __future__ import annotations
 
@@ -42,6 +45,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels.flash_attention import ops as attention_ops
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SS
 
 
@@ -53,31 +57,29 @@ def _pdt(cfg: ArchConfig) -> torch.dtype:
     return getattr(torch, cfg.param_dtype)
 
 
-def check_supported(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` for the families the port does not
-    run yet, naming what each waits for."""
-    if cfg.family == "ssm" and cfg.ssm_version != 1:
-        raise NotImplementedError(f"{cfg.name}: {SS.MAMBA2_TODO}")
-    if cfg.family == "hybrid":
-        raise NotImplementedError(
-            f"{cfg.name}: the hybrid family (Mamba2 blocks and the shared "
-            "attention block, models/ssm.py) waits for ROADMAP.md A15c")
-    if cfg.family == "moe" or cfg.num_experts:
-        raise NotImplementedError(
-            f"{cfg.name}: mixture-of-experts FFNs (models/moe.py) wait for "
-            "ROADMAP.md A15d")
+def num_groups(cfg: ArchConfig) -> int:
+    """The hybrid's J = L / k groups of k Mamba2 layers, each followed by
+    the shared block; ``ValueError`` unless k divides L."""
+    k = cfg.shared_attn_every
+    if not k or cfg.num_layers % k:
+        raise ValueError(f"{cfg.name}: shared_attn_every = {k} must divide "
+                         f"num_layers = {cfg.num_layers}")
+    return cfg.num_layers // k
 
 
 # ================================================================= modules
 class Block(nn.Module):
-    """One layer: attention projections, MLP, and (rmsnorm) two scales;
-    on ``device`` (:func:`~repro_torch.models.layers.module_device`)."""
+    """One attention layer: attention projections, the FFN (an
+    :class:`~repro_torch.models.moe.MoE` when ``cfg.num_experts``, else an
+    MLP), and (rmsnorm) two scales; on ``device``
+    (:func:`~repro_torch.models.layers.module_device`)."""
 
     def __init__(self, cfg: ArchConfig, device=None):
         super().__init__()
         device = L.module_device(device)
         self.attn = L.Attention(cfg, _dt(cfg), device)
-        self.ffn = L.MLP(cfg, _dt(cfg), device)
+        self.ffn = (MOE.MoE(cfg, device) if cfg.num_experts
+                    else L.MLP(cfg, _dt(cfg), device))
         if cfg.norm_type == "rmsnorm":
             self.norm1 = L.new_weight((cfg.d_model,), _pdt(cfg), device)
             self.norm2 = L.new_weight((cfg.d_model,), _pdt(cfg), device)
@@ -87,35 +89,43 @@ class Block(nn.Module):
 
 class MambaBlock(nn.Module):
     """One ssm layer: the (rmsnorm) scale ``norm`` in ``cfg.param_dtype``
-    and the Mamba1 mixer ``mamba``; on ``device`` (``cuda`` unless
+    and the mixer ``mamba``, Mamba1 for the ssm family and Mamba2 for the
+    hybrid, as the reference picks them; on ``device`` (``cuda`` unless
     ``"cpu"``; ``"meta"`` allocates nothing)."""
 
     def __init__(self, cfg: ArchConfig, device=None):
         super().__init__()
         device = L.module_device(device)
-        self.mamba = SS.Mamba1(cfg, device)
+        mixer = SS.Mamba1 if cfg.family == "ssm" else SS.Mamba2
+        self.mamba = mixer(cfg, device)
         self.norm = (L.new_weight((cfg.d_model,), _pdt(cfg), device)
                      if cfg.norm_type == "rmsnorm" else None)
 
 
 class Transformer(nn.Module):
     """The model: ``embed`` (V, d), ``layers`` (:class:`Block` s, or
-    :class:`MambaBlock` s for the ssm family), ``final_norm`` (rmsnorm
-    only) and, without tied embeddings, ``lm_head`` (d, V). Matmul
-    weights in ``cfg.dtype``, norm scales in ``cfg.param_dtype``. The
-    parameters are left unset, on ``device`` (``cuda`` unless ``"cpu"``
-    is asked for; ``"meta"`` allocates nothing)."""
+    :class:`MambaBlock` s for the ssm and hybrid families), the hybrid's
+    ``shared`` :class:`Block` (one set of parameters, run after every
+    group), ``final_norm`` (rmsnorm only) and, without tied embeddings,
+    ``lm_head`` (d, V). Matmul weights in ``cfg.dtype``, norm scales in
+    ``cfg.param_dtype``. The parameters are left unset, on ``device``
+    (``cuda`` unless ``"cpu"`` is asked for; ``"meta"`` allocates
+    nothing)."""
 
     def __init__(self, cfg: ArchConfig, device=None):
         super().__init__()
-        check_supported(cfg)
         device = L.module_device(device)
         self.cfg = cfg
         dt = _dt(cfg)
-        block = MambaBlock if cfg.family == "ssm" else Block
+        block = MambaBlock if cfg.family in ("ssm", "hybrid") else Block
         self.embed = L.new_weight((cfg.vocab_size, cfg.d_model), dt, device)
         self.layers = nn.ModuleList(block(cfg, device)
                                     for _ in range(cfg.num_layers))
+        if cfg.family == "hybrid":
+            num_groups(cfg)
+            self.shared = Block(cfg, device)
+        else:
+            self.shared = None
         self.final_norm = (L.new_weight((cfg.d_model,), _pdt(cfg), device)
                            if cfg.norm_type == "rmsnorm" else None)
         self.lm_head = (None if cfg.tie_embeddings else
@@ -134,11 +144,14 @@ def init_model(cfg: ArchConfig, generator: torch.Generator,
     fan_in^-0.5 (the embedding and the untied head by d^-0.5), zero
     biases, unit norm scales. The normals are drawn in fp32 from
     ``generator`` (which lives on ``device``), in the order embed, then
-    per layer wq, wk, wv, wo, w1, (w3,) w2 (the ssm family: per layer
-    the Mamba1 leaves in :func:`~repro_torch.models.ssm.init_mamba1`'s
-    order, with its distributions), then lm_head, and rounded to the
-    weights' dtype. The reference draws from ``jax.random``: the numbers
-    differ, the distribution is the same."""
+    per layer wq, wk, wv, wo, then w1, (w3,) w2 or the experts in
+    :func:`~repro_torch.models.moe.init_moe`'s order (the ssm and hybrid
+    families: per layer the Mamba leaves in
+    :func:`~repro_torch.models.ssm.init_mamba1`'s or
+    :func:`~repro_torch.models.ssm.init_mamba2`'s order, with their
+    distributions), then lm_head, then the hybrid's shared block, and
+    rounded to the weights' dtype. The reference draws from
+    ``jax.random``: the numbers differ, the distribution is the same."""
     dev = resolve_device(device)
     if generator.device.type != dev.type:
         raise ValueError(f"the generator lives on {generator.device}, the "
@@ -150,31 +163,42 @@ def init_model(cfg: ArchConfig, generator: torch.Generator,
             param.shape, generator=generator, device=dev,
             dtype=torch.float32))
 
-    fill(model.embed, cfg.d_model)
-    for blk in model.layers:
-        if isinstance(blk, MambaBlock):
-            SS.init_mamba1(blk.mamba, cfg, generator)
-            if blk.norm is not None:
-                blk.norm.fill_(1.0)
-            continue
+    def init_block(blk: Block):
         a, f = blk.attn, blk.ffn
         for w in (a.wq, a.wk, a.wv):
             fill(w, cfg.d_model)
         fill(a.wo, a.wo.shape[0])
-        fill(f.w1, cfg.d_model)
-        if f.w3 is not None:
-            fill(f.w3, cfg.d_model)
-        fill(f.w2, cfg.d_ff)
+        if isinstance(f, MOE.MoE):
+            MOE.init_moe(f, cfg, generator)
+        else:
+            fill(f.w1, cfg.d_model)
+            if f.w3 is not None:
+                fill(f.w3, cfg.d_model)
+            fill(f.w2, cfg.d_ff)
         for b in (a.bq, a.bk, a.bv):
             if b is not None:
                 b.zero_()
         for n in (blk.norm1, blk.norm2):
             if n is not None:
                 n.fill_(1.0)
+
+    fill(model.embed, cfg.d_model)
+    for blk in model.layers:
+        if isinstance(blk, MambaBlock):
+            if isinstance(blk.mamba, SS.Mamba1):
+                SS.init_mamba1(blk.mamba, cfg, generator)
+            else:
+                SS.init_mamba2(blk.mamba, cfg, generator)
+            if blk.norm is not None:
+                blk.norm.fill_(1.0)
+        else:
+            init_block(blk)
     if model.final_norm is not None:
         model.final_norm.fill_(1.0)
     if model.lm_head is not None:
         fill(model.lm_head, cfg.d_model)
+    if model.shared is not None:
+        init_block(model.shared)
     return model
 
 
@@ -196,15 +220,26 @@ def _attn_full(h, blk: Block, cfg: ArchConfig, rope):
     return h + blk.attn.out(o), (k, v)
 
 
-def _ffn_full(h, blk: Block, cfg: ArchConfig):
-    return h + blk.ffn(L.apply_norm(h, blk.norm2, cfg))
+def _ffn_full(h, blk: Block, cfg: ArchConfig,
+              moe_serving_mode: str = "weight_gather"):
+    """The FFN sub-block (pre-norm, residual): the new h and the router's
+    aux loss (None without experts)."""
+    x = L.apply_norm(h, blk.norm2, cfg)
+    if isinstance(blk.ffn, MOE.MoE):
+        out, aux = MOE.moe_ffn(x, blk.ffn, cfg,
+                               serving_mode=moe_serving_mode)
+        return h + out, aux
+    return h + blk.ffn(x), None
 
 
 def _ssm_full(h, blk: MambaBlock, cfg: ArchConfig):
-    """Full-sequence Mamba1 sub-block (pre-norm, residual). Returns the
-    new h and this layer's decode state {"conv", "ssm"}."""
-    y, state = SS.mamba1_forward(L.apply_norm(h, blk.norm, cfg), blk.mamba,
-                                 cfg, return_state=True)
+    """Full-sequence Mamba sub-block (pre-norm, residual). Returns the new
+    h and this layer's decode state {"conv", "ssm"}."""
+    x = L.apply_norm(h, blk.norm, cfg)
+    if cfg.family == "ssm":
+        y, state = SS.mamba1_forward(x, blk.mamba, cfg, return_state=True)
+    else:
+        y, state = SS.mamba2_forward(x, blk.mamba, cfg, return_state=True)
     return h + y, state
 
 
@@ -235,25 +270,47 @@ def _inputs(model: Transformer, tokens, embeds, prefix_embeds):
     return h
 
 
+def _run_layers(model: Transformer, h: torch.Tensor, caches=None):
+    """Every layer's full-sequence pass in order, the hybrid's shared
+    block after each group of ``shared_attn_every`` Mamba2 layers.
+    Returns (h, aux), aux the sum of the MoE layers' router losses (fp32,
+    0 without experts). With ``caches`` (prefill's buffers), each layer's
+    (k, v) or Mamba state is written into its slot: the shared block's of
+    group j into slot j."""
+    cfg = model.cfg
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    rope = (None if cfg.family == "ssm" else
+            _rope(torch.arange(h.shape[1], device=h.device), cfg))
+    k = cfg.shared_attn_every
+    for i, blk in enumerate(model.layers):
+        if isinstance(blk, MambaBlock):
+            h, state = _ssm_full(h, blk, cfg)
+            if caches is not None:
+                caches["conv"][i], caches["ssm"][i] = (state["conv"],
+                                                       state["ssm"])
+            if model.shared is None or (i + 1) % k:
+                continue
+            blk, i = model.shared, i // k
+        h, (kk, vv) = _attn_full(h, blk, cfg, rope)
+        if caches is not None:
+            caches["k"][i], caches["v"][i] = kk, vv
+        h, layer_aux = _ffn_full(h, blk, cfg)
+        if layer_aux is not None:
+            aux = aux + layer_aux
+    return h, aux
+
+
 # ============================================================ full forward
 def forward(model: Transformer, tokens=None, embeds=None, prefix_embeds=None,
             return_hidden: bool = False):
     """Full-sequence forward: tokens (B, S_text) or embeds (B, S, d), with
     optional prefix_embeds (B, P, d) in front. Returns (logits (B, S, V),
     aux) -- or (final-norm hidden states (B, S, d), aux) with
-    ``return_hidden``; aux is the router loss, 0 without experts."""
-    cfg = model.cfg
+    ``return_hidden``; aux is the sum of the MoE layers' router losses
+    (fp32), 0 without experts."""
     h = _inputs(model, tokens, embeds, prefix_embeds)
-    if cfg.family == "ssm":
-        for blk in model.layers:
-            h, _ = _ssm_full(h, blk, cfg)
-    else:
-        rope = _rope(torch.arange(h.shape[1], device=h.device), cfg)
-        for blk in model.layers:
-            h, _ = _attn_full(h, blk, cfg, rope)
-            h = _ffn_full(h, blk, cfg)
+    h, aux = _run_layers(model, h)
     h = final_norm(model, h)
-    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     if return_hidden:
         return h, aux
     return lm_logits(model, h), aux
@@ -264,6 +321,23 @@ def attn_cache_shape(cfg: ArchConfig, B: int, S_max: int):
     return (B, S_max, cfg.num_kv_heads, cfg.resolved_head_dim)
 
 
+def _state_shapes(cfg: ArchConfig, B: int):
+    """The conv and ssm state shapes of the L Mamba layers: (L, B, K-1,
+    di) and (L, B, di, N) for Mamba1, (L, B, K-1, di+2N) and (L, B, nh,
+    p, N) for the hybrid's Mamba2."""
+    nl, di, N, K = cfg.num_layers, cfg.d_inner, cfg.ssm_state, cfg.ssm_conv
+    if cfg.family == "ssm":
+        return (nl, B, K - 1, di), (nl, B, di, N)
+    p = cfg.ssm_headdim
+    return (nl, B, K - 1, di + 2 * N), (nl, B, di // p, p, N)
+
+
+def _kv_layers(cfg: ArchConfig) -> int:
+    """The KV caches' leading axis: L, or the hybrid's J groups (one set
+    of caches for each run of the shared block)."""
+    return num_groups(cfg) if cfg.family == "hybrid" else cfg.num_layers
+
+
 def init_caches(cfg: ArchConfig, B: int, S_max: int,
                 dtype: torch.dtype = torch.bfloat16, device=None) -> dict:
     """Zero decode caches on ``device`` (``cuda`` unless ``"cpu"``).
@@ -272,17 +346,22 @@ def init_caches(cfg: ArchConfig, B: int, S_max: int,
     ``kv_cache_dtype="int8"`` the caches are int8 codes with bf16
     per-(token, head) scales. The ssm family's caches are the conv
     states (L, B, K-1, di) in ``dtype`` and the ssm states (L, B, di, N)
-    in fp32, whatever S_max."""
-    check_supported(cfg)
+    in fp32, whatever S_max. The hybrid's are conv (L, B, K-1, di+2N) in
+    ``dtype``, ssm (L, B, nh, p, N) fp32 and k/v (J, B, S_max, KVH, hd)
+    in ``dtype`` (the reference's are bf16 whatever ``kv_cache_dtype``:
+    an int8 cache is refused with ``ValueError``)."""
     dev = resolve_device(device)
-    if cfg.family == "ssm":
-        di, N, K = cfg.d_inner, cfg.ssm_state, cfg.ssm_conv
-        L_ = cfg.num_layers
-        return {"conv": torch.zeros((L_, B, K - 1, di), dtype=dtype,
-                                    device=dev),
-                "ssm": torch.zeros((L_, B, di, N), dtype=torch.float32,
-                                   device=dev)}
-    shp = (cfg.num_layers,) + attn_cache_shape(cfg, B, S_max)
+    caches = {}
+    if cfg.family in ("ssm", "hybrid"):
+        conv, ssm = _state_shapes(cfg, B)
+        caches["conv"] = torch.zeros(conv, dtype=dtype, device=dev)
+        caches["ssm"] = torch.zeros(ssm, dtype=torch.float32, device=dev)
+        if cfg.family == "ssm":
+            return caches
+        if cfg.kv_cache_dtype == "int8":
+            raise ValueError(f"{cfg.name}: the hybrid's KV caches are bf16 "
+                             "(the reference has no int8 hybrid cache)")
+    shp = (_kv_layers(cfg),) + attn_cache_shape(cfg, B, S_max)
     if cfg.kv_cache_dtype == "int8":
         return {"k": torch.zeros(shp, dtype=torch.int8, device=dev),
                 "v": torch.zeros(shp, dtype=torch.int8, device=dev),
@@ -290,8 +369,9 @@ def init_caches(cfg: ArchConfig, B: int, S_max: int,
                                        device=dev),
                 "v_scale": torch.zeros(shp[:-1] + (1,), dtype=torch.bfloat16,
                                        device=dev)}
-    return {"k": torch.zeros(shp, dtype=dtype, device=dev),
-            "v": torch.zeros(shp, dtype=dtype, device=dev)}
+    caches["k"] = torch.zeros(shp, dtype=dtype, device=dev)
+    caches["v"] = torch.zeros(shp, dtype=dtype, device=dev)
+    return caches
 
 
 # ================================================================== prefill
@@ -301,36 +381,24 @@ def prefill(model: Transformer, tokens=None, embeds=None, prefix_embeds=None):
     {"k", "v"} of shape (L, B, S, KVH, hd) in the activation dtype,
     filled with the S positions). The ssm family's caches are the states
     after the prompt: {"conv": (L, B, K-1, di) in the activation dtype,
-    "ssm": (L, B, di, N) fp32}."""
+    "ssm": (L, B, di, N) fp32}; the hybrid's are {"conv": (L, B, K-1,
+    di+2N), "ssm": (L, B, nh, p, N) fp32, "k", "v": (J, B, S, KVH, hd)}."""
     cfg = model.cfg
     h = _inputs(model, tokens, embeds, prefix_embeds)
     B, S, _ = h.shape
-    if cfg.family == "ssm":
-        return _prefill_ssm(model, h)
-    rope = _rope(torch.arange(S, device=h.device), cfg)
-    shp = (cfg.num_layers,) + attn_cache_shape(cfg, B, S)
-    ks = torch.empty(shp, dtype=h.dtype, device=h.device)
-    vs = torch.empty(shp, dtype=h.dtype, device=h.device)
-    for i, blk in enumerate(model.layers):
-        h, (ks[i], vs[i]) = _attn_full(h, blk, cfg, rope)
-        h = _ffn_full(h, blk, cfg)
+    caches = {}
+    if cfg.family in ("ssm", "hybrid"):
+        conv, ssm = _state_shapes(cfg, B)
+        caches["conv"] = torch.empty(conv, dtype=h.dtype, device=h.device)
+        caches["ssm"] = torch.empty(ssm, dtype=torch.float32,
+                                    device=h.device)
+    if cfg.family != "ssm":
+        shp = (_kv_layers(cfg),) + attn_cache_shape(cfg, B, S)
+        caches["k"] = torch.empty(shp, dtype=h.dtype, device=h.device)
+        caches["v"] = torch.empty(shp, dtype=h.dtype, device=h.device)
+    h, _ = _run_layers(model, h, caches)
     h = final_norm(model, h[:, -1:])
-    return lm_logits(model, h)[:, 0], {"k": ks, "v": vs}
-
-
-def _prefill_ssm(model: Transformer, h: torch.Tensor):
-    cfg = model.cfg
-    B = h.shape[0]
-    di, N, K = cfg.d_inner, cfg.ssm_state, cfg.ssm_conv
-    convs = torch.empty((cfg.num_layers, B, K - 1, di), dtype=h.dtype,
-                        device=h.device)
-    ssms = torch.empty((cfg.num_layers, B, di, N), dtype=torch.float32,
-                       device=h.device)
-    for i, blk in enumerate(model.layers):
-        h, state = _ssm_full(h, blk, cfg)
-        convs[i], ssms[i] = state["conv"], state["ssm"]
-    h = final_norm(model, h[:, -1:])
-    return lm_logits(model, h)[:, 0], {"conv": convs, "ssm": ssms}
+    return lm_logits(model, h)[:, 0], caches
 
 
 # ================================================================== decode
@@ -344,9 +412,10 @@ def _quant(x: torch.Tensor):
 
 def _attn_decode(h, blk: Block, cfg: ArchConfig, caches: dict, i: int,
                  pos: int, window: bool, rope):
-    """h (B,1,d) against layer i's cache slots; writes this token's k, v
-    (int8 codes and scales with ``kv_cache_dtype="int8"``) into slot
-    ``pos`` (``pos % S_c`` with ``window``, a ring buffer)."""
+    """h (B,1,d) against cache slot i's positions (layer i, or the
+    hybrid's group i); writes this token's k, v (int8 codes and scales
+    with ``kv_cache_dtype="int8"``) into position ``pos`` (``pos % S_c``
+    with ``window``, a ring buffer)."""
     dt = _dt(cfg)
     x = L.apply_norm(h, blk.norm1, cfg)
     q, k, v = blk.attn.qkv(x)
@@ -378,54 +447,61 @@ def _attn_decode(h, blk: Block, cfg: ArchConfig, caches: dict, i: int,
     return h + blk.attn.out(o)
 
 
+def _ssm_decode(h, blk: MambaBlock, cfg: ArchConfig, caches: dict, i: int):
+    """h (B, 1, d) through Mamba layer i from its states, which are
+    overwritten with the new ones."""
+    x = L.apply_norm(h[:, 0], blk.norm, cfg)
+    step = SS.mamba1_decode if cfg.family == "ssm" else SS.mamba2_decode
+    y, state = step(x, {"conv": caches["conv"][i], "ssm": caches["ssm"][i]},
+                    blk.mamba, cfg)
+    caches["conv"][i], caches["ssm"][i] = state["conv"], state["ssm"]
+    return h + y[:, None]
+
+
 @torch.no_grad()
 def decode_step(model: Transformer, caches: dict, token=None, embed=None,
-                pos=None, window: bool = False):
+                pos=None, window: bool = False,
+                moe_serving_mode: str = "weight_gather"):
     """One serving step: next-token logits (B, V) given the caches at
     position ``pos`` (an int). token (B,) or embed (B, d). The caches are
     updated in place and returned. The ssm family reads no position: its
-    caches are the states after the tokens so far."""
+    caches are the states after the tokens so far. ``moe_serving_mode``
+    is the reference's knob; without a mesh both modes run the same
+    local MoE path.
+
+    The reference's decode returns the conv states in the activation
+    dtype, so a conv cache in another dtype (bf16 caches under an fp32
+    model) takes the activation dtype here, once; in bf16 serving the two
+    agree and nothing is copied."""
     cfg = model.cfg
     if embed is not None:
         h = torch.as_tensor(embed, device=model.device)[:, None, :].to(
             _dt(cfg))
     else:
         h = embed_tokens(model, torch.as_tensor(token)[:, None])
-    if cfg.family == "ssm":
-        return _decode_ssm(model, caches, h), caches
-    pos = int(pos)
-    rope = _rope(torch.tensor([pos], device=h.device), cfg)
+    if "conv" in caches and caches["conv"].dtype != h.dtype:
+        caches["conv"] = caches["conv"].to(h.dtype)
+    rope = (None if cfg.family == "ssm" else
+            _rope(torch.tensor([int(pos)], device=h.device), cfg))
+    k = cfg.shared_attn_every
     for i, blk in enumerate(model.layers):
-        h = _attn_decode(h, blk, cfg, caches, i, pos, window, rope)
-        h = _ffn_full(h, blk, cfg)
+        if isinstance(blk, MambaBlock):
+            h = _ssm_decode(h, blk, cfg, caches, i)
+            if model.shared is None or (i + 1) % k:
+                continue
+            blk, i = model.shared, i // k
+        h = _attn_decode(h, blk, cfg, caches, i, int(pos), window, rope)
+        h, _ = _ffn_full(h, blk, cfg, moe_serving_mode)
     h = final_norm(model, h)
     return lm_logits(model, h[:, 0]), caches
 
 
-def _decode_ssm(model: Transformer, caches: dict, h: torch.Tensor):
-    """h (B, 1, d) through every Mamba1 layer from its states, which are
-    overwritten with the new ones. The reference's decode returns the
-    conv states in the activation dtype, so a conv cache in another
-    dtype (bf16 caches under an fp32 model) takes the activation dtype
-    here, once; in bf16 serving the two agree and nothing is copied."""
-    cfg = model.cfg
-    if caches["conv"].dtype != h.dtype:
-        caches["conv"] = caches["conv"].to(h.dtype)
-    for i, blk in enumerate(model.layers):
-        x = L.apply_norm(h[:, 0], blk.norm, cfg)
-        y, state = SS.mamba1_decode(
-            x, {"conv": caches["conv"][i], "ssm": caches["ssm"][i]},
-            blk.mamba, cfg)
-        caches["conv"][i], caches["ssm"][i] = state["conv"], state["ssm"]
-        h = h + y[:, None]
-    h = final_norm(model, h)
-    return lm_logits(model, h[:, 0])
-
-
-def make_serve_step(model: Transformer, window: bool = False):
+def make_serve_step(model: Transformer, window: bool = False,
+                    moe_serving_mode: str = "weight_gather"):
     def serve_step(caches, token_or_embed, pos):
         kw = ({"embed": token_or_embed} if model.cfg.embeds_in
               else {"token": token_or_embed})
-        return decode_step(model, caches, pos=pos, window=window, **kw)
+        return decode_step(model, caches, pos=pos, window=window,
+                           moe_serving_mode=moe_serving_mode, **kw)
 
     return serve_step

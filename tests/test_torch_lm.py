@@ -280,16 +280,6 @@ def test_sampled_generate_is_seeded():
     assert run(3).shape == (B, 4)
 
 
-@pytest.mark.parametrize("arch", ["zamba2-2.7b", "granite-moe-1b-a400m",
-                                  "dbrx-132b"])
-def test_unsupported_families_raise(arch):
-    cfg = tconfigs.get_config(arch).reduced()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A15"):
-        tmodels.init_model(cfg, torch.Generator(), device="cpu")
-    with pytest.raises(NotImplementedError):
-        tmodels.init_caches(cfg, 1, 8, device="cpu")
-
-
 def test_init_model_draws_from_the_generator():
     cfg = tconfigs.get_config("olmo-1b").reduced()
 

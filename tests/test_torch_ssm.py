@@ -380,17 +380,6 @@ def test_mamba_modules_default_to_the_card():
             tmodels.MambaBlock(cfg)
 
 
-def test_mamba2_waits_for_the_hybrid_slice():
-    cfg = dataclasses.replace(CFG1, ssm_version=2, ssm_headdim=16)
-    assert tconfigs.get_config("zamba2-2.7b").ssm_version == 2
-    with pytest.raises(NotImplementedError, match="A15c"):
-        tmodels.init_model(cfg, torch.Generator(), device="cpu")
-    with pytest.raises(NotImplementedError, match="A15c"):
-        S.Mamba1(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="A15c"):
-        S.mamba_ref_sequential(torch.zeros(1, 2, 32), None, cfg)
-
-
 def test_converter_rejects_mismatched_ssm_trees():
     pair = _pair("float32")
     params = jax.tree.map(np.asarray, pair.params)

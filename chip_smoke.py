@@ -17,7 +17,11 @@ llama3.2-1b at full width, prefill of 4 x 4,096 tokens, 32 greedy tokens
 through ``models.generate``, prefill of 1 x 32,768), the SSM serving
 path (falcon-mamba-7b at full width and depth, the same three runs) and
 the hybrid and MoE ones (zamba2-2.7b and granite-moe-1b-a400m at full
-width and depth, the same three runs each),
+width and depth, the same three runs each) and the streaming training
+path (``repro_torch.launch.train --stream`` at d = 1,000,000, m = 12:
+8 days of 4,000 sessions, window 2, 5 inner iterations, overlapped and
+synchronous; then its gates, the drift reference arming
+``launch.serve --monitor``, and the jax-free ``cuda`` tests),
 shows that each path launched its kernels, holds the card's OWLQN+
 trajectories and a reduced LM of each family against the CPU's, times
 the kernels beside their plain versions, their bound and one library
@@ -3197,10 +3201,468 @@ def phase_moe_card_vs_cpu(torch, dev):
           f"outputs max |err| {float(err.max()):.3e} (bar {LM_CPU_TOL})")
 
 
+# ------------------------------------------------------------ phase 25
+# the streaming path: the --sparse phase's width and weights, 8 days of
+# 4,000 sessions x 4 ads with the paper path's K (24 user, 12 ad ids),
+# window 2, 5 inner iterations, drift 0.02, the "reset" history policy
+STREAM_DAYS, STREAM_WINDOW, STREAM_INNER = 8, 2, 5
+STREAM_DRIFT = 0.02
+STREAM_K = (24, 12)
+STREAM_GATE_D, STREAM_GATE_SESSIONS = 50_000, 1000  # phase 26's stream
+DEMO = dict(d=400, m=4, days=6, sessions=192, k=(8, 5), drift=0.06,
+            lam=0.25)  # the reference's streaming NLL gate
+
+
+def _stream_argv(dev, d, sessions, days, *extra, m=REGIONS):
+    return ["--stream", "--sparse-features", str(d), "--regions", str(m),
+            "--sessions", str(sessions), "--days", str(days), "--window",
+            str(STREAM_WINDOW), "--inner-iters", str(STREAM_INNER),
+            "--drift", str(STREAM_DRIFT), "--active-user", str(STREAM_K[0]),
+            "--active-ad", str(STREAM_K[1]), "--lam", str(LAM), "--beta",
+            str(BETA), "--history", "reset", "--seed", str(SEED),
+            "--device", str(dev), *extra]
+
+
+def _stream_kernels(torch, dev, batch, theta):
+    """B1, B2 and B3 against their plain versions at the shapes the
+    streaming path gives them: one window's two days of DayStream's
+    drifting ids, its transpose plans, and the gradient of its loss at
+    the stream's Theta, with phase 5's bars. Returns the max abs errors."""
+    from repro_torch.core.objective import smooth_loss_and_grad
+    from repro_torch.kernels.lsplm_sparse_scatter import ops as sops
+
+    e, shapes = _b1_at_training_shapes(torch, (("stream window", batch),),
+                                       theta)
+    err = {"lsplm_sparse_fused_forward": e, "lsplm_sparse_scatter": 0.0}
+    rng = np.random.default_rng(SEED + 25)
+    lines = []
+    for side, ids, vals, plan in (
+            ("user", batch.user_ids, batch.user_vals, batch.user_plan),
+            ("ad", batch.ad_ids, batch.ad_vals, batch.ad_plan)):
+        dz = torch.from_numpy(rng.normal(size=(vals.shape[0], 2 * REGIONS))
+                              .astype(np.float32)).to(dev)
+        e = _check_scatter(torch, sops, plan, vals, dz,
+                           f"stream window {side} side")
+        unplanned = sops.scatter_add_unplanned(ids, vals, dz, plan.num_rows,
+                                               plan.num_rows - 1)
+        check(torch.equal(unplanned, sops.scatter_add_planned(plan, vals, dz)),
+              f"B2 on the card-sorted entries differs from the plan's "
+              f"(stream window {side} side)")
+        err["lsplm_sparse_scatter"] = max(err["lsplm_sparse_scatter"], e)
+        lines.append(f"{side} side E'={plan.num_kept:,} U={plan.num_unique:,}"
+                     f" pieces={plan.piece_run.numel():,} max|err| {e:.2e}")
+    _, grad = smooth_loss_and_grad(theta, batch)
+    err["owlqn_direction"] = _check_b3(
+        torch, theta, grad, LAM, BETA,
+        f"the stream window's gradient D={theta.shape[0]:,}", exact=True)
+    print(f"  kernels vs plain at the streaming path's shapes: B1 "
+          f"({', '.join(shapes)}; the stream's final Theta, in-kernel dedup, "
+          f"bitwise the pre-pass + B1) z rtol {Z_RTOL}/atol {Z_ATOL}, p atol "
+          f"{P_ATOL}, max |err| {err['lsplm_sparse_fused_forward']:.3e}; B2 "
+          f"(bitwise scatter_runs_ref and the card-sorted layout, |err| <= "
+          f"{B2_REL} x sum|terms| + {B2_ABS} vs the class gathers): "
+          + "; ".join(lines) + f"; B3 bitwise its plain version on the "
+          f"window's gradient at the stream's Theta, max |err| "
+          f"{err['owlqn_direction']:.2e}")
+    return err
+
+
+def phase_stream(torch, dev, tmp: Path):
+    """``launch.train --stream`` at paper width with ``--sync-planner``
+    and overlapped, in turns (synchronous, overlapped, overlapped,
+    synchronous) after a small warm-up run: bitwise equal runs, the
+    kernels' launches (the first overlapped run), each mode's walls and
+    overlap ratio; then a window's host build split into its parts, B1,
+    B2 and B3 against their plain versions at that window's shapes, one
+    window's steps profiled and the "reset" history's allocation timed.
+    Returns the counted run's launches and the kernels' max errors."""
+    from repro_torch.core.objective import nll_sparse, smooth_loss_and_grad
+    from repro_torch.kernels.lsplm_sparse_fused.lsplm_sparse_fused import (
+        LAUNCHES as B1,
+    )
+    from repro_torch.kernels.lsplm_sparse_scatter.lsplm_sparse_scatter import (
+        LAUNCHES as B2,
+    )
+    from repro_torch.kernels.owlqn_direction.owlqn_direction import (
+        LAUNCHES as B3,
+    )
+    from repro_torch.launch import train as train_driver
+    from repro_torch.obs.ledger import read_jsonl
+    from repro_torch.optim.owlqn_plus import OWLQNPlus
+    from repro_torch.stream import DayStream, plan_window, to_device
+
+    t_phase = t0 = time.perf_counter()
+    train_driver.run(_stream_argv(dev, STREAM_GATE_D, STREAM_GATE_SESSIONS,
+                                  2))  # loads the kernels and cuBLAS
+    warm_s = time.perf_counter() - t0
+    runs = []
+    for mode in ("synchronous", "overlapped", "overlapped", "synchronous"):
+        ledger = tmp / f"stream_{len(runs)}.jsonl"
+        extra = ("--sync-planner",) if mode == "synchronous" else ()
+        _reset((B1, B2, B3))
+        t0 = time.perf_counter()
+        rep = train_driver.run(_stream_argv(
+            dev, D_FEATURES, SESSIONS, STREAM_DAYS, "--ledger-out",
+            str(ledger), *extra))
+        wall = time.perf_counter() - t0
+        launches = {"lsplm_sparse_fused_forward":
+                    B1["lsplm_sparse_fused_forward"], **B2, **B3}
+        recs = read_jsonl(str(ledger))
+        runs.append(dict(mode=mode, rep=rep, wall=wall, launches=launches,
+                         wins=[r for r in recs
+                               if r["kind"] == "stream_window"],
+                         iters=[r for r in recs
+                                if r["kind"] == "train_iter"]))
+    over, sync = runs[1], runs[0]
+    wins = over["rep"]["windows"]
+    check(len(wins) == STREAM_DAYS, f"{len(wins)} windows, not {STREAM_DAYS}")
+    check(all(np.isfinite(w["fs"]).all() and w["fs"][-1] <= w["fs"][0]
+              for w in wins), "a window's f is not finite or rose")
+    nlls = [w["next_day_nll"] for w in wins[:-1]]
+    check(all(np.isfinite(nlls)) and all(0 < v < 2 for v in nlls),
+          f"next-day NLL out of range: {nlls}")
+    for run in runs:
+        check([w["fs"] for w in run["rep"]["windows"]]
+              == [w["fs"] for w in wins],
+              "the overlapped and the synchronous planner give other f "
+              "traces")
+        check(torch.equal(run["rep"]["theta"], over["rep"]["theta"]),
+              "the overlapped and the synchronous planner give another "
+              "Theta")
+    launches = over["launches"]
+    for name, count in launches.items():
+        check(count > 0, f"the streaming path never launched {name}")
+    steps = len(over["iters"])
+    trials = sum(r["ls_iters"] for r in over["iters"])
+    check(launches["lsplm_sparse_scatter"] == 2 * steps,
+          f"B2 launched {launches['lsplm_sparse_scatter']} times, not 2 per "
+          f"gradient ({2 * steps})")
+    check(launches["owlqn_direction"] == steps,
+          f"B3 launched {launches['owlqn_direction']} times, not once per "
+          f"step ({steps})")
+    check(over["rep"]["overlap_ratio"] > 0,
+          "the overlapped planner hid none of its build time")
+    check(all(run["rep"]["overlap_ratio"] == 0.0 and not any(
+        w["prefetched"] for w in run["wins"]) for run in runs
+        if run["mode"] == "synchronous"),
+        "the synchronous planner prefetched a window")
+    print(f"phase 25: streaming main path (launch.train --stream) at "
+          f"d={D_FEATURES:,}, m={REGIONS}, {STREAM_DAYS} days x {SESSIONS:,} "
+          f"sessions x 4 ads (K {STREAM_K[0]}/{STREAM_K[1]}), window "
+          f"{STREAM_WINDOW}, {STREAM_INNER} inner iterations, drift "
+          f"{STREAM_DRIFT}, reset (after a {warm_s:.1f} s warm-up run at "
+          f"d={STREAM_GATE_D:,}): synchronous, overlapped, overlapped, "
+          f"synchronous all bitwise equal (f traces of {STREAM_DAYS} "
+          f"windows and the final Theta, "
+          f"{int((over['rep']['theta'] != 0).sum()):,} non-zeros); f "
+          f"{wins[0]['fs'][0]:.2f} -> {wins[-1]['fs'][-1]:.2f}; next-day "
+          f"NLL " + ", ".join(f"{v:.4f}" for v in nlls))
+    print(f"  launches {launches} over {steps} steps with {trials} "
+          f"line-search trials: per window B1 "
+          f"{launches['lsplm_sparse_fused_forward'] / STREAM_DAYS:.1f} "
+          f"(2 per loss evaluation = {2 * (steps + trials)} in all, plus "
+          f"the next-day evaluations), B2 "
+          f"{launches['lsplm_sparse_scatter'] / STREAM_DAYS:.0f}, B3 "
+          f"{launches['owlqn_direction'] / STREAM_DAYS:.0f}")
+    for run in runs:
+        ws = run["wins"]
+        pre = [w for w in ws if w["prefetched"]]
+        print(f"  {run['mode']}: {run['wall']:.2f} s driver wall, "
+              f"{run['rep']['wall_s'] / STREAM_DAYS * 1e3:.1f} ms per window "
+              f"(trainer with next-day eval); step median "
+              f"{np.median([w['step_s'] for w in ws]) * 1e3:.1f} ms; build "
+              f"{sum(w['build_s'] for w in ws) * 1e3:.1f} ms in all (median "
+              f"{np.median([w['build_s'] for w in ws]) * 1e3:.1f}), exposed "
+              f"wait {sum(w['wait_s'] for w in ws) * 1e3:.1f} ms "
+              f"({sum(w['wait_s'] for w in pre) * 1e3:.1f} ms on "
+              f"{len(pre)} prefetched windows); overlap ratio "
+              f"{run['rep']['overlap_ratio']:.4f}")
+    walls = {mode: [r["rep"]["wall_s"] for r in runs if r["mode"] == mode]
+             for mode in ("synchronous", "overlapped")}
+    print(f"  synchronous / overlapped trainer wall: "
+          f"{sum(walls['synchronous']) / sum(walls['overlapped']):.3f}x "
+          f"over the two runs of each (printed, not gated)")
+
+    # one window's step, profiled, and the reset's history allocation
+    stream = DayStream(STREAM_DAYS, sessions_per_day=SESSIONS,
+                       num_features=D_FEATURES, active_user=STREAM_K[0],
+                       active_ad=STREAM_K[1], drift=STREAM_DRIFT, seed=SEED)
+    side = torch.cuda.Stream(dev)
+    for rnd in ("first", "again"):  # "again": days cached, pinned blocks held
+        t0 = time.perf_counter()
+        raw = stream.window(STREAM_DAYS - 1, STREAM_WINDOW)
+        t1 = time.perf_counter()
+        planned = plan_window(raw)
+        t2 = time.perf_counter()
+        batch, ready = to_device(planned, dev, side)
+        t3 = time.perf_counter()
+        torch.cuda.synchronize(dev)
+        t4 = time.perf_counter()
+        print(f"  a window's host build, split ({rnd}, synchronous): slide "
+              f"{(t1 - t0) * 1e3:.1f} ms (drawing its days when not "
+              f"cached), plans {(t2 - t1) * 1e3:.1f} ms, pin + enqueue the "
+              f"copies {(t3 - t2) * 1e3:.1f} ms, copies landing "
+              f"{(t4 - t3) * 1e3:.1f} ms")
+    torch.cuda.current_stream().wait_event(ready)
+    theta = over["rep"]["theta"]
+    err = _stream_kernels(torch, dev, batch, theta)
+    opt = OWLQNPlus(lambda th: smooth_loss_and_grad(th, batch), lam=LAM,
+                    beta=BETA, loss=lambda th: nll_sparse(th, batch))
+    reset_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = opt.init(theta)
+        torch.cuda.synchronize()
+        reset_ms.append((time.perf_counter() - t0) * 1e3)
+
+    def window_steps():
+        st = state
+        for _ in range(STREAM_INNER):
+            st, _ = opt.step(st)
+        return st
+
+    _, wall_us, kernels = _device_profile(torch, window_steps)
+    check(bool(kernels), "the profiled window showed no device time")
+    busy = sum(v[0] for v in kernels.values())
+    n = sum(v[1] for v in kernels.values())
+    ours = {label: [sum(us for name, (us, _) in kernels.items()
+                        if label in name),
+                    sum(k for name, (_, k) in kernels.items()
+                        if label in name)]
+            for label in SPARSE_STEP_KERNELS}
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:6]
+    print(f"  one window's {STREAM_INNER} steps (day {STREAM_DAYS - 1}, "
+          f"{batch.ad_ids.shape[0]:,} samples, under torch.profiler): "
+          f"{wall_us / 1e3:.2f} ms wall, {busy / 1e3:.3f} ms of device in "
+          f"{n} launches (device idle {1 - busy / wall_us:.1%}); "
+          + ", ".join(f"{label} x{k} {us / 1e3:.3f} ms"
+                      for label, (us, k) in ours.items())
+          + "; top: " + "; ".join(f"{name[:60]} x{k} {us / 1e3:.3f} ms"
+                                  for name, (us, k) in top))
+    print(f"  the reset's fresh history and Theta copies (opt.init at "
+          f"d={D_FEATURES:,}: {2 * 10 * theta.numel() * 4 / 1e9:.2f} GB of "
+          f"zeros): " + ", ".join(f"{ms:.2f}" for ms in reset_ms) + " ms")
+    print(f"phase 25 took {time.perf_counter() - t_phase:.1f} s")
+    return launches, err
+
+
+# ------------------------------------------------------------ phase 26
+def _seen_theta0(stream, days, m):
+    """0.01 N(0, 1) from ``SEED`` with the rows that no id of the stream's
+    first ``days`` days touches at exact zero (as phase 7's d = 50,000
+    start)."""
+    d = stream.num_features
+    theta = (0.01 * np.random.default_rng(SEED).normal(size=(d, 2 * m))
+             ).astype(np.float32)
+    seen = np.zeros(d, bool)
+    for t in range(days):
+        b = stream.day(t)
+        for ids in (b.user_ids.numpy(), b.ad_ids.numpy()):
+            seen[ids[ids < d]] = True
+    return theta * seen[:, None]
+
+
+def phase_stream_gates(torch, dev, tmp: Path):
+    """The streaming gates on the card: full window == full batch bitwise,
+    card vs CPU at the bars, --ckpt/--resume exact, the demo stream beats
+    train-once, and the drift reference arming the monitored serving
+    driver (int8 and fp32). Returns the monitored runs' B1/B4 launches."""
+    from repro_torch import obs
+    from repro_torch.core.objective import nll_sparse, smooth_loss_and_grad
+    from repro_torch.data.sparse import sparse_predict
+    from repro_torch.io import checkpoint
+    from repro_torch.kernels.lsplm_sparse_fused.lsplm_sparse_fused import (
+        LAUNCHES as B1,
+    )
+    from repro_torch.launch import serve, train as train_driver
+    from repro_torch.obs.metrics import MetricsRegistry
+    from repro_torch.optim.owlqn_plus import OWLQNPlus
+    from repro_torch.stream import (
+        DayStream,
+        StreamTrainer,
+        plan_window,
+        to_device,
+    )
+
+    t_phase = time.perf_counter()
+    d, g = STREAM_GATE_D, STREAM_GATE_SESSIONS
+    kw = dict(sessions_per_day=g, num_features=d, active_user=STREAM_K[0],
+              active_ad=STREAM_K[1], drift=STREAM_DRIFT, seed=SEED)
+    # (a) window = the whole dataset under reset == full-batch OWLQN+
+    days = 2
+    s = DayStream(days, **kw)
+    theta0 = torch.from_numpy(_seen_theta0(s, days, REGIONS)).to(dev)
+    full, _ = to_device(plan_window(s.window(days - 1, days)), dev)
+    opt = OWLQNPlus(lambda th: smooth_loss_and_grad(th, full), lam=LAM,
+                    beta=BETA, loss=lambda th: nll_sparse(th, full))
+    st, fs = opt.init(theta0), []
+    for _ in range(STREAM_INNER):
+        st, stats = opt.step(st)
+        fs.append(stats.f_new)
+    tr = StreamTrainer(s, lam=LAM, beta=BETA, window=days,
+                       inner_iters=STREAM_INNER, device=dev)
+    state, trace = tr.run(tr.init(theta0)._replace(day=days - 1), days=1)
+    check(list(trace[0].fs) == fs and torch.equal(state.opt.theta, st.theta),
+          "the full-window stream differs from full-batch OWLQN+")
+    print(f"phase 26: full window ({days} days, d={d:,}, {STREAM_INNER} "
+          f"steps, reset) == full-batch OWLQN+ bitwise on the card (f "
+          f"{fs[0]:.4f} -> {fs[-1]:.4f})")
+
+    # (b) card vs CPU, 3 windows x 2 steps
+    days = 3
+    traj = {}
+    for tag, where in (("card", dev), ("cpu", torch.device("cpu"))):
+        s = DayStream(days, **kw)
+        tr = StreamTrainer(s, lam=LAM, beta=BETA, window=STREAM_WINDOW,
+                           inner_iters=2, device=where)
+        t0 = time.perf_counter()
+        state, trace = tr.run(tr.init(_seen_theta0(s, days, REGIONS)))
+        traj[tag] = (state.opt.theta.cpu().numpy(),
+                            np.array([w.fs for w in trace]),
+                            time.perf_counter() - t0)
+    (t_card, f_card, w_card), (t_cpu, f_cpu, w_cpu) = traj["card"], traj["cpu"]
+    f_err = float(np.max(np.abs(f_card - f_cpu) / np.abs(f_cpu)))
+    beyond = _beyond_bar(t_card, t_cpu)
+    flips = int(((t_card == 0) != (t_cpu == 0)).sum())
+    check(f_err <= TRAJ_F_RTOL, f"stream f card vs CPU rtol {f_err:.2e}")
+    check(not beyond.any(), f"stream Theta card vs CPU beyond the bar in "
+                            f"{int(beyond.sum())} elements")
+    check(flips == 0, f"stream zero pattern card vs CPU differs in {flips}")
+    print(f"  card vs CPU stream ({days} windows x 2 steps, d={d:,}, {g:,} "
+          f"sessions a day): f max rel diff {f_err:.2e} (bar {TRAJ_F_RTOL}),"
+          f" Theta max |diff| {float(np.abs(t_card - t_cpu).max()):.2e} "
+          f"within rtol {TRAJ_RTOL}/atol {TRAJ_ATOL}, zero pattern equal "
+          f"({int((t_card != 0).sum()):,} non-zeros); wall card "
+          f"{w_card:.2f} s, CPU {w_cpu:.2f} s")
+
+    # (c) --ckpt then --resume continues exactly, and the drift reference
+    ckpt, dref = str(tmp / "stream.npz"), str(tmp / "dref.npz")
+    straight = train_driver.run(_stream_argv(
+        dev, d, g, 4, "--drift-ref", dref, "--monitor"))
+    train_driver.run(_stream_argv(dev, d, g, 2, "--ckpt", ckpt))
+    resumed = train_driver.run(_stream_argv(dev, d, g, 4, "--ckpt", ckpt,
+                                            "--resume"))
+    check(resumed["resumed_at"] == 2 and [w["day"] for w in
+                                          resumed["windows"]] == [2, 3],
+          "--resume did not continue from day 2")
+    check([w["fs"] for w in resumed["windows"]]
+          == [w["fs"] for w in straight["windows"][2:]]
+          and torch.equal(resumed["theta"], straight["theta"]),
+          "the resumed stream differs from the uninterrupted one")
+    print(f"  --ckpt after day 1, then --resume: days 2-3 and the final "
+          f"Theta bitwise the uninterrupted 4-day run's (d={d:,})")
+
+    # (d) the demo stream beats train-once on next-day NLL
+    s = DayStream(DEMO["days"] + 1, sessions_per_day=DEMO["sessions"],
+                  num_features=DEMO["d"], active_user=DEMO["k"][0],
+                  active_ad=DEMO["k"][1], drift=DEMO["drift"],
+                  head_width=0.06, head_frac=0.85, seed=11)
+    theta_demo = (0.01 * np.random.default_rng(SEED).normal(
+        size=(DEMO["d"], 2 * DEMO["m"]))).astype(np.float32)
+    held, _ = to_device(s.day(DEMO["days"]), dev)
+    nll = {}
+    for tag, window, inner, n in (("train-once", 1, 5 * DEMO["days"], 1),
+                                  ("streamed", 2, 5, DEMO["days"])):
+        tr = StreamTrainer(s, lam=DEMO["lam"], beta=DEMO["lam"],
+                           window=window, inner_iters=inner, device=dev)
+        state, _ = tr.run(tr.init(theta_demo), days=n)
+        nll[tag] = float(nll_sparse(state.opt.theta, held)) / held.y.shape[0]
+    check(nll["streamed"] < nll["train-once"] - 0.02,
+          f"the streamed model does not beat train-once: {nll}")
+    print(f"  demo stream (d={DEMO['d']}, {DEMO['days']} days): next-day NLL "
+          f"streamed {nll['streamed']:.4f} vs train-once "
+          f"{nll['train-once']:.4f}")
+
+    # (e) the drift reference arms the monitored serving driver
+    ref = obs.load_drift_reference(dref)
+    theta_ckpt = checkpoint.save(str(tmp / "theta.npz"),
+                                 {"theta": straight["theta"]})
+    common = ["--ckpt", theta_ckpt, "--requests", "256", "--seed", str(SEED),
+              "--device", str(dev)]
+    mon_args = ["--monitor", "--drift-ref", dref]
+    reps, monitored = {}, {}
+    # in turns: unmonitored and monitored fp32, then monitored and
+    # unmonitored int8; the monitored runs' launches are counted
+    for tag in ("fp32", "fp32 monitored", "int8 monitored", "int8"):
+        extra = (["--int8"] if tag.startswith("int8") else []) + (
+            mon_args if "monitored" in tag else [])
+        if "monitored" in tag:
+            _reset((B1,))
+        reps[tag] = serve.run(common + extra)
+        if "monitored" in tag:
+            for name, count in B1.items():
+                monitored[name] = monitored.get(name, 0) + count
+    for tag in ("fp32 monitored", "int8 monitored"):
+        sig = reps[tag]["monitor"]["signals"]
+        missing = [k for k in ("drift.score_psi", "drift.score_kl",
+                               "drift.id_psi") if k not in sig]
+        check(not missing, f"{tag}: the monitor has no {missing}")
+    for name, count in monitored.items():
+        check(count > 0, f"the monitored serving path never launched {name}")
+    # calib.*: the armed monitor fed the stream's last held-out day, scored
+    # on the card
+    nxt, _ = to_device(DayStream(4, **kw).day(3), dev)
+    p = sparse_predict(straight["theta"], nxt).cpu().numpy()
+    mon = obs.HealthMonitor(registry=MetricsRegistry())
+    mon.arm_drift(ref)
+    mon.observe_predictions(p, nxt.y.cpu().numpy())
+    calib = {k: v for k, v in mon.signals().items() if k.startswith("calib.")}
+    check(calib["calib.ratio"] is not None and np.isfinite(
+        calib["calib.ratio"]), f"calib.ratio not populated: {calib}")
+    print(f"  drift reference from the stream's last held-out day "
+          f"({int(ref.score_counts.sum()):,} scores, top-"
+          f"{ref.top_ids.shape[0]} ids, ratio {ref.ratio:.3f}); "
+          f"launch.serve --monitor --drift-ref on the stream's final Theta: "
+          + "; ".join(f"{tag} " + ", ".join(
+              f"{k}={v:.4f}" for k, v in sorted(
+                  reps[tag]["monitor"]["signals"].items())
+              if k.startswith("drift.")) + f" ("
+              f"{reps[tag]['monitor']['alerts']} alert changes)"
+              for tag in ("fp32 monitored", "int8 monitored"))
+          + "; the armed monitor on the held-out day: " + ", ".join(
+              f"{k}={v}" if v is None else f"{k}={v:.4f}"
+              for k, v in sorted(calib.items()))
+          + f"; monitored launches {monitored}")
+    for kind in ("fp32", "int8"):
+        plain = reps[kind]["engine"]["latency_us"]
+        mon_us = reps[f"{kind} monitored"]["engine"]["latency_us"]
+        print(f"  {kind} engine wall per request (the mean over its "
+              f"single and batched replays), unmonitored vs monitored: "
+              f"{plain:.1f} vs {mon_us:.1f} us ({mon_us / plain:.3f}x)")
+    print(f"phase 26 took {time.perf_counter() - t_phase:.1f} s")
+    return monitored
+
+
+# ------------------------------------------------------------ phase 27
+def phase_card_tests():
+    """The jax-free ``cuda``-marked tests of the streaming slice, in a
+    pytest process of their own (they build nothing: the kernels phase 1
+    built load from ``build/``)."""
+    import os
+
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src") + (
+        os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "pytest", "-q", "-m", "cuda",
+         "-p", "no:cacheprovider", "tests/test_torch_stream_card.py"],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    tail = proc.stdout.strip().splitlines()[-1] if proc.stdout.strip() else ""
+    passed = re.search(r"(\d+) passed", tail)
+    check(proc.returncode == 0 and passed and int(passed.group(1)) > 0,
+          f"pytest -m cuda tests/test_torch_stream_card.py exited "
+          f"{proc.returncode}: {proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+    print(f"phase 27: pytest -m cuda tests/test_torch_stream_card.py: "
+          f"{tail} ({time.perf_counter() - t0:.1f} s)")
+
+
 SERVE_PHASES = (2, 3, 4)  # the serving path's phases, runnable alone
 TRAIN_PHASES = (5, 6, 7, 8)  # the sparse training path's, runnable alone
 SCAN_PHASES = (17, 18, 19, 20)  # the SSM path's phases, runnable alone
 FAMILY_PHASES = (21, 22, 23, 24)  # the hybrid and MoE paths', likewise
+STREAM_PHASES = (25, 26, 27)  # the streaming path's, likewise
 
 
 def _serving_model(torch, dev):
@@ -3233,8 +3695,9 @@ def _sparse_problem(torch, dev):
 
 def _run_only(torch, dev, only, t_start) -> int:
     """Phase 1 and the given serving (2-4), sparse training (5-8), SSM
-    (17-20), hybrid or MoE (21-24) phases alone (``--only``): a partial
-    run, so it prints no kernels line and no result line."""
+    (17-20), hybrid or MoE (21-24) or streaming (25-27) phases alone
+    (``--only``): a partial run, so it prints no kernels line and no
+    result line."""
     if only & {2, 4}:
         model = _serving_model(torch, dev)
     if only & set(TRAIN_PHASES):
@@ -3271,8 +3734,16 @@ def _run_only(torch, dev, only, t_start) -> int:
             phase_lm_card_vs_cpu(torch, dev, HYBRID_ARCH, 22, **HYBRID_CPU)
         elif phase == 23:
             phase_moe_lm(torch, dev)
-        else:
+        elif phase == 24:
             phase_moe_card_vs_cpu(torch, dev)
+        elif phase == 25:
+            with tempfile.TemporaryDirectory() as tmp:
+                phase_stream(torch, dev, Path(tmp))
+        elif phase == 26:
+            with tempfile.TemporaryDirectory() as tmp:
+                phase_stream_gates(torch, dev, Path(tmp))
+        else:
+            phase_card_tests()
     print(f"phases 1 and {sorted(only)} passed in "
           f"{time.perf_counter() - t_start:.1f} s (partial run: no result)")
     return 0
@@ -3280,14 +3751,15 @@ def _run_only(torch, dev, only, t_start) -> int:
 
 def main(argv: list[str]) -> int:
     """``chip_smoke.py`` runs every phase; ``chip_smoke.py --only 2,3,4``
-    (or ``5,6,8``, or ``17,20``, or ``21,22,23,24``) runs phase 1 and the
-    named phases of the serving path (2-4), the sparse training path
-    (5-8), the SSM path (17-20) or the hybrid and MoE paths (21-24)
-    alone."""
+    (or ``5,6,8``, or ``17,20``, or ``21,22,23,24``, or ``25,26,27``) runs
+    phase 1 and the named phases of the serving path (2-4), the sparse
+    training path (5-8), the SSM path (17-20), the hybrid and MoE paths
+    (21-24) or the streaming path (25-27) alone."""
     import torch
 
     only = set()
-    alone = SERVE_PHASES + TRAIN_PHASES + SCAN_PHASES + FAMILY_PHASES
+    alone = (SERVE_PHASES + TRAIN_PHASES + SCAN_PHASES + FAMILY_PHASES
+             + STREAM_PHASES)
     if argv:
         if len(argv) != 2 or argv[0] != "--only":
             raise SmokeFailure(f"usage: chip_smoke.py [--only "
@@ -3384,6 +3856,14 @@ def main(argv: list[str]) -> int:
     err["flash_attention"] = max(err["flash_attention"], hybrid_err,
                                  moe_err)
 
+    with tempfile.TemporaryDirectory() as tmp:
+        stream_launches, stream_err = phase_stream(torch, dev, Path(tmp))
+    for name, e in stream_err.items():
+        err[name] = max(err[name], e)
+    with tempfile.TemporaryDirectory() as tmp:
+        monitored_launches = phase_stream_gates(torch, dev, Path(tmp))
+    phase_card_tests()
+
     kernels = []
     for name in ("lsplm_sparse_fused_forward",
                  "lsplm_sparse_fused_int8_forward",
@@ -3393,6 +3873,10 @@ def main(argv: list[str]) -> int:
         by_path = {"serve": serve_launches.get(name, 0),
                    "train": train_launches.get(name, 0),
                    "dense_train": dense_launches["dense_train"].get(name, 0)}
+        if name in stream_launches:
+            by_path["stream_train"] = stream_launches[name]
+        if name in monitored_launches:
+            by_path["serve_monitored"] = monitored_launches[name]
         if name == "lsplm_fused_forward":
             by_path["dense_serve"] = dense_launches["dense_serve"]
         if name == "flash_attention":

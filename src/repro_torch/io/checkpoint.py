@@ -96,3 +96,91 @@ def load_nested(path: str) -> dict:
                 node = node.setdefault(part, {})
             node[parts[-1]] = data[key]
     return out
+
+
+# --------------------------------------------------------- stream state
+# the reference's streaming checkpoint: its OWLQNState's pytree leaves
+# (the L-BFGS history rolled oldest -> newest, zero slots in front) and
+# the day cursor
+STREAM_KEYS = ("opt/theta", "opt/history/s", "opt/history/y",
+               "opt/history/rho", "opt/history/valid", "opt/history/gamma",
+               "opt/prev_theta", "opt/prev_d", "opt/step", "opt/f", "day")
+
+
+def save_stream(path: str, stream_state) -> str:
+    """Checkpoint a streaming trainer state (Theta + OWLQN+ history + day
+    cursor) in the reference's key layout (:data:`STREAM_KEYS`). The
+    port's ring-buffer history is unrolled into the reference's order:
+    the M slots oldest to newest, unfilled slots zero and invalid in
+    front. A file written here resumes in the reference's
+    ``StreamTrainer.load`` and the other way round. Returns the real path
+    written."""
+    opt = stream_state.opt
+    h = opt.history
+    m = h.memory
+    slots = list(reversed(h.newest_first()))  # oldest -> newest
+    lead = m - len(slots)
+    s, y, rho = (np.zeros_like(_leaf(a)) for a in (h.s, h.y, h.rho))
+    valid = np.zeros(m, bool)
+    if slots:
+        idx = torch.tensor(slots, device=h.s.device)
+        s[lead:] = _leaf(h.s.index_select(0, idx))
+        y[lead:] = _leaf(h.y.index_select(0, idx))
+        rho[lead:] = _leaf(h.rho)[slots]
+        valid[lead:] = [h.valid[i] for i in slots]
+    tree = {"opt": {"theta": opt.theta,
+                    "history": {"s": s, "y": y, "rho": rho, "valid": valid,
+                                "gamma": h.gamma},
+                    "prev_theta": opt.prev_theta, "prev_d": opt.prev_d,
+                    "step": np.asarray(opt.step, np.int32),
+                    "f": np.asarray(opt.f, np.float32)},
+            "day": np.asarray(int(stream_state.day), np.int64)}
+    return save(path, tree)
+
+
+def load_stream(path: str, like):
+    """Restore a streaming trainer state saved by either package's
+    ``save_stream`` into the structure of ``like`` (e.g.
+    ``StreamTrainer.init(theta0)``): tensors on ``like``'s device and
+    dtype, the day cursor a python int. The history comes back as a full
+    ring whose slots hold the file's pairs oldest to newest, so the next
+    push replaces the oldest, as the reference's roll does. A shape that
+    differs from ``like``'s raises: the file was saved under another
+    configuration."""
+    from repro_torch.optim.lbfgs import LBFGSHistory
+
+    with np.load(path) as data:
+        flat = {k: data[k] for k in data.files}
+    missing = [k for k in STREAM_KEYS if k not in flat]
+    if missing:
+        raise KeyError(f"checkpoint {path!r} is not a stream state: "
+                       f"missing {missing}")
+    opt = like.opt
+    want = {"opt/theta": tuple(opt.theta.shape),
+            "opt/prev_theta": tuple(opt.theta.shape),
+            "opt/prev_d": tuple(opt.theta.shape),
+            "opt/history/s": tuple(opt.history.s.shape),
+            "opt/history/y": tuple(opt.history.y.shape),
+            "opt/history/rho": (opt.history.memory,),
+            "opt/history/valid": (opt.history.memory,)}
+    for key, shape in want.items():
+        if tuple(flat[key].shape) != shape:
+            raise ValueError(
+                f"checkpoint leaf {key!r} has shape {tuple(flat[key].shape)}, "
+                f"expected {shape}: the checkpoint was saved under a "
+                f"different configuration")
+
+    def tensor(key):
+        return torch.from_numpy(np.array(flat[key], order="C")).to(
+            device=opt.theta.device, dtype=opt.theta.dtype)
+
+    m = opt.history.memory
+    history = LBFGSHistory(
+        s=tensor("opt/history/s"), y=tensor("opt/history/y"),
+        rho=tensor("opt/history/rho"), gamma=tensor("opt/history/gamma"),
+        valid=[bool(v) for v in flat["opt/history/valid"]], newest=m - 1)
+    new_opt = type(opt)(theta=tensor("opt/theta"), history=history,
+                        prev_theta=tensor("opt/prev_theta"),
+                        prev_d=tensor("opt/prev_d"),
+                        step=int(flat["opt/step"]), f=float(flat["opt/f"]))
+    return type(like)(opt=new_opt, day=int(flat["day"]))

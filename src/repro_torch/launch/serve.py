@@ -27,7 +27,11 @@ the size win and the probability drift vs fp32 (gated at 1e-2).
 through the micro-batching queue (p50/p99 latency, achieved QPS,
 candidates/sec); ``--coalesce`` merges due per-envelope groups into one
 dispatch; ``--real-clock`` also replays each rate through the wall-clock
-pump. ``--device cpu`` runs the plain versions on the CPU.
+pump. ``--monitor`` runs the health monitor over the dispatches
+(``obs.monitor``) and prints its summary line; ``--drift-ref PATH`` (a
+reference ``repro_torch.launch.train --drift-ref`` captured, standalone or
+embedded in an artifact) arms its drift and calibration detectors, and
+needs ``--monitor``. ``--device cpu`` runs the plain versions on the CPU.
 """
 from __future__ import annotations
 
@@ -116,6 +120,10 @@ def run(argv: list[str] | None = None) -> dict:
     numbers, the engine stats and one queue report per offered rate."""
     argv = sys.argv[1:] if argv is None else list(argv)
     args = _parser().parse_args(argv)
+    if args.drift_ref and not args.monitor:
+        raise SystemExit(
+            "--drift-ref arms the health monitor's drift detectors; "
+            "combine it with --monitor")
     if args.real_clock and not args.load_qps:
         raise SystemExit("--real-clock paces the queue with wall-time "
                          "Poisson arrivals; combine it with --load-qps")
@@ -234,6 +242,13 @@ def _serve(args, device: torch.device) -> dict:
                 f"max |dp| = {dp:.1e} vs fp32")
 
     engine = ScoringEngine(model, device=device)
+    mon = obs.get_monitor()
+    if args.drift_ref:
+        ref = obs.load_drift_reference(args.drift_ref)
+        mon.arm_drift(ref)
+        obs.log(f"monitor armed from {args.drift_ref}: "
+                f"{ref.num_bins} score bins, top-{ref.top_ids.shape[0]} id "
+                f"traffic, reference calibration ratio {ref.ratio:.3f}")
     requests = synthetic_requests(args.requests, num_features=d,
                                   seed=args.seed + 1)
     # deploy-time warm-up: build the traffic's bucket set (all batch
@@ -294,6 +309,20 @@ def _serve(args, device: torch.device) -> dict:
                 report["real_clock"].append(_real_clock_smoke(
                     engine, requests, qps=qps, config=cfg,
                     seed=args.seed + 3))
+
+    if mon.enabled:
+        mon.evaluate()  # settle the last partial eval_every window
+        summ = mon.summary()
+        report["monitor"] = summ
+        active = ", ".join(summ["active"]) if summ["active"] else "none"
+        drift = {k: v for k, v in summ["signals"].items()
+                 if k.startswith(("drift.", "calib."))}
+        obs.log(f"monitor: {summ['alerts']} alert state changes, "
+                f"active: {active}"
+                + (f"; drift signals: "
+                   + ", ".join(f"{k}={v:.4f}"
+                               for k, v in sorted(drift.items()))
+                   if drift else ""))
     return report
 
 

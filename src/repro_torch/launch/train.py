@@ -2,7 +2,7 @@
 default.
 
 The port's counterpart of ``repro/launch/train.py`` (its single-device
-paths). Two modes:
+paths). Three modes:
 
 * dense (the default, the reference's ``train_dense``): the synthetic
   common-feature workload of ``data/synthetic_ctr`` (user columns once
@@ -31,19 +31,38 @@ paths). Two modes:
   (B1), every gradient its run-length scatter backward (B2), and every
   step the Eq. 9 direction kernel (B3).
 
+* ``--stream``: the production cadence (``repro_torch.stream``). A
+  day-sliced stream with id-traffic drift; per day the last ``--window``
+  days are re-planned on the host and copied to the card on a side
+  stream, overlapped with the previous window's device iterations, and
+  OWLQN+ runs ``--inner-iters`` warm-started steps; each day prints its
+  line and the held-out NEXT day's NLL and AUC::
+
+    PYTHONPATH=src python -m repro_torch.launch.train --stream \
+        --days 8 --window 2 --inner-iters 5 --sessions 256 \
+        --sparse-features 100000 --regions 4 --ckpt /tmp/stream.npz
+
+  ``--ckpt`` saves the resumable stream state (Theta + L-BFGS history +
+  day cursor, in the reference's layout) after every window;
+  ``--resume`` continues from it. ``--sync-planner`` builds each window
+  inline (same results, serial schedule).
+
 ``--device cpu`` runs the plain versions. Each iteration prints one line
 rendered from its ``train_iter`` record (objective, step, non-zero
 count, wall; test AUC every 5 iterations and at the last). ``--ckpt``
 saves ``{"theta": ...}`` in the reference's npz layout, which
 ``repro_torch.launch.serve --ckpt`` (and the reference's loaders) read.
+``--drift-ref PATH`` (``--sparse`` or ``--stream``) captures a drift
+reference from the held-out scores (the test batch, or the last next
+day) that ``repro_torch.launch.serve --monitor --drift-ref`` arms.
 
-Not ported yet, and refused: ``--stream`` (queue item A9),
-``--mesh-data``/``--mesh-model`` (A12), the tuning flags (A10) and
-``--drift-ref`` (A11).
+Not ported yet, and refused: ``--mesh-data``/``--mesh-model`` (ROADMAP
+A12) and the tuning flags (A10).
 """
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 import time
 
@@ -78,7 +97,6 @@ from repro_torch.optim.owlqn_plus import OWLQNPlus
 # flags of the reference driver whose paths are not ported yet -> the
 # ROADMAP queue item each waits for
 _NOT_PORTED = {
-    "stream": "--stream waits for the streaming port (ROADMAP A9)",
     "mesh_data": "--mesh-data/--mesh-model wait for the sharding port "
                  "(ROADMAP A12)",
     "mesh_model": "--mesh-data/--mesh-model wait for the sharding port "
@@ -87,8 +105,6 @@ _NOT_PORTED = {
     "block_k": "the tuning flags wait for the tuning port (ROADMAP A10)",
     "chunk": "the tuning flags wait for the tuning port (ROADMAP A10)",
     "tune": "the tuning flags wait for the tuning port (ROADMAP A10)",
-    "drift_ref": "--drift-ref waits for the drift monitor's port "
-                 "(ROADMAP A11)",
 }
 
 
@@ -115,8 +131,32 @@ def _parser() -> argparse.ArgumentParser:
                     help="save {'theta': ...} here after training")
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default) or 'cpu'")
+    ap.add_argument("--stream", action="store_true",
+                    help="streaming day-by-day training on the sparse path "
+                         "(repro_torch.stream): sliding-window minibatch "
+                         "OWLQN+ with an overlapped host re-planner")
+    ap.add_argument("--days", type=int, default=8,
+                    help="--stream: days in the synthetic stream")
+    ap.add_argument("--window", type=int, default=2,
+                    help="--stream: sliding window width (days)")
+    ap.add_argument("--inner-iters", type=int, default=5,
+                    help="--stream: OWLQN+ iterations per window")
+    ap.add_argument("--history", choices=("reset", "carry"), default="reset",
+                    help="--stream: L-BFGS history policy at window "
+                         "boundaries (Theta always carries)")
+    ap.add_argument("--drift", type=float, default=0.02,
+                    help="--stream: per-day id-traffic drift fraction")
+    ap.add_argument("--active-user", type=int, default=16,
+                    help="--stream: user ids per session (DayStream's K)")
+    ap.add_argument("--active-ad", type=int, default=8,
+                    help="--stream: ad ids per sample")
+    ap.add_argument("--sync-planner", action="store_true",
+                    help="--stream: build each window inline instead of "
+                         "in the background (same results, serial "
+                         "schedule)")
+    ap.add_argument("--resume", action="store_true",
+                    help="--stream: resume from --ckpt if it exists")
     # refused until their paths are ported (see _NOT_PORTED)
-    ap.add_argument("--stream", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--mesh-data", type=int, default=0, help=argparse.SUPPRESS)
     ap.add_argument("--mesh-model", type=int, default=0,
                     help=argparse.SUPPRESS)
@@ -126,7 +166,6 @@ def _parser() -> argparse.ArgumentParser:
                     help=argparse.SUPPRESS)
     ap.add_argument("--chunk", type=int, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--tune", action="store_true", help=argparse.SUPPRESS)
-    ap.add_argument("--drift-ref", default=None, help=argparse.SUPPRESS)
     obs.add_flags(ap)
     return ap
 
@@ -150,11 +189,18 @@ def run(argv: list[str] | None = None, *, prebuilt: tuple | None = None
     for flag, why in _NOT_PORTED.items():
         if getattr(args, flag):
             raise SystemExit(why)
+    mode = "stream" if args.stream else "sparse" if args.sparse else "dense"
+    if args.drift_ref and mode == "dense":
+        raise SystemExit(
+            "--drift-ref captures a sparse-id traffic reference; combine "
+            "it with --sparse or --stream (the dense path has no feature "
+            "ids to histogram)")
     device = resolve_device(args.device)
-    mode = "sparse" if args.sparse else "dense"
     session = obs.configure_from_args(args, driver="repro_torch.launch.train",
                                       device=device, argv=argv, mode=mode)
     try:
+        if args.stream:
+            return _train_stream(args, device)
         if args.sparse:
             return _train_sparse(args, device, prebuilt)
         return _train_dense(args, device, prebuilt)
@@ -309,17 +355,136 @@ def _train_sparse(args, device: torch.device, prebuilt=None) -> dict:
                 f"{plan.num_unique:,} unique ids, "
                 f"{len(plan.class_width)} popularity classes, "
                 f"{plan.piece_run.numel():,} scatter pieces")
+
+    def drift_ref(theta):
+        p = sparse_predict(theta, test).cpu().numpy()
+        ids = np.concatenate([test.user_ids.cpu().numpy().ravel(),
+                              test.ad_ids.cpu().numpy().ravel()])
+        report["drift_ref"] = _capture_drift_ref(
+            args.drift_ref, p, test.y.cpu().numpy(), ids, d,
+            f"held-out test, {p.shape[0]} scores")
+
     return _iterate(args, device, opt, theta0,
                     lambda theta: sparse_predict(theta, test), test.y,
-                    report)
+                    report, trained=drift_ref if args.drift_ref else None)
+
+
+def _capture_drift_ref(path: str, scores, labels, ids, d: int,
+                       what: str) -> str:
+    ref = obs.capture_reference(scores, labels, ids, num_features=d)
+    written = obs.save_drift_reference(path, ref)
+    obs.log(f"drift reference ({what}, ratio={ref.ratio:.3f}) -> {written}")
+    return written
+
+
+def _train_stream(args, device: torch.device) -> dict:
+    """Day-by-day streaming training (``repro_torch.stream``): per day the
+    last ``--window`` days are re-planned on the host and copied to the
+    device, overlapped with the previous window's device iterations, and
+    OWLQN+ runs ``--inner-iters`` warm-started steps. ``--ckpt`` saves the
+    resumable stream state after every window; ``--resume`` continues
+    from it. Returns the run's report: one record per window, the
+    planner's accounting, the walls, the paths written and the final
+    Theta."""
+    from repro_torch.stream import DayStream, StreamTrainer
+    from repro_torch.stream.planner import to_device
+
+    # np.savez appends .npz to suffix-less paths; normalise up front so
+    # the --resume existence probe and the printed path match the file
+    ckpt = args.ckpt and (args.ckpt if args.ckpt.endswith(".npz")
+                          else args.ckpt + ".npz")
+    d, m = args.sparse_features, args.regions
+    stream = DayStream(args.days, sessions_per_day=args.sessions,
+                       num_features=d, active_user=args.active_user,
+                       active_ad=args.active_ad, drift=args.drift,
+                       seed=args.seed)
+    theta0 = _theta0(d, m, args.seed, device)
+    trainer = StreamTrainer(
+        stream, lam=args.lam, beta=args.beta, window=args.window,
+        inner_iters=args.inner_iters, history=args.history,
+        overlap=not args.sync_planner, device=device)
+    kern = ("CUDA kernels: fused forward B1, run-length scatter B2, Eq. 9 "
+            "direction B3" if device.type == "cuda" else "plain versions")
+    obs.log(f"stream: {args.days} days x {args.sessions} sessions, d={d:,}, "
+            f"window={args.window}, {args.inner_iters} inner iters/window, "
+            f"history={args.history}, planner="
+            f"{'synchronous' if args.sync_planner else 'overlapped'}, "
+            f"device={device} ({kern})")
+    report: dict = {"mode": "stream", "device": str(device),
+                    "num_features": d, "regions": m, "days": args.days,
+                    "sessions": args.sessions, "windows": []}
+    if args.resume and ckpt and os.path.exists(ckpt):
+        state = trainer.load(ckpt, theta0)
+        obs.log(f"resumed from {ckpt} at day {state.day}")
+        report["resumed_at"] = state.day
+    else:
+        state = trainer.init(theta0)
+    del theta0
+    mon = obs.get_monitor()
+    last_eval: dict = {}  # scores/labels/ids of the newest held-out day
+
+    def cb(t, ws, st):
+        rec = {"day": t, "days_in_window": ws.days_in_window,
+               "fs": list(ws.fs), "alpha": ws.alpha, "nnz": ws.nnz,
+               "build_s": ws.build_seconds, "step_s": ws.step_seconds}
+        msg = obs.render_stream_day(rec)
+        if t + 1 < stream.num_days:  # held-out NEXT-day quality
+            nxt, _ = to_device(stream.day(t + 1), device)
+            theta = trainer.theta(st)
+            nll = float(nll_sparse(theta, nxt)) / nxt.y.shape[0]
+            p = sparse_predict(theta, nxt).cpu().numpy()
+            y = nxt.y.cpu().numpy()
+            a = float(auc(y, p))
+            rec.update(next_day_nll=nll, next_day_auc=a)
+            msg += f"  next-day nll={nll:.4f} auc={a:.4f}"
+            obs.log(msg, kind="stream_eval", day=t, next_day_nll=nll,
+                    next_day_auc=a)
+            mon.observe_predictions(p, y)
+            if args.drift_ref:
+                last_eval.update(scores=p, labels=y, ids=np.concatenate(
+                    [nxt.user_ids.cpu().numpy().ravel(),
+                     nxt.ad_ids.cpu().numpy().ravel()]))
+        else:
+            obs.log(msg)
+        report["windows"].append(rec)
+        if ckpt:  # every window is a resumable checkpoint
+            trainer.save(ckpt, st)
+
+    t0 = time.perf_counter()
+    days_left = stream.num_days - state.day
+    state, _ = trainer.run(state, callback=cb)
+    wall = time.perf_counter() - t0
+    ps = trainer.planner_stats
+    report.update(wall_s=wall, planner=ps._asdict(),
+                  overlap_ratio=ps.overlap_ratio, final_day=state.day,
+                  theta=trainer.theta(state))
+    obs.log(f"trained {days_left} windows in {wall:.1f}s; planner: "
+            f"{ps.build_seconds:.2f}s host build, {ps.wait_seconds:.2f}s "
+            f"exposed, overlap ratio {ps.overlap_ratio:.2f}")
+    if args.drift_ref:
+        if not last_eval:
+            raise SystemExit(
+                "--drift-ref needs at least one held-out next-day eval; "
+                "run with --days >= 2 (or resume earlier in the stream)")
+        report["drift_ref"] = _capture_drift_ref(
+            args.drift_ref, last_eval["scores"], last_eval["labels"],
+            last_eval["ids"], d,
+            f"last held-out day, {last_eval['scores'].shape[0]} scores")
+    if ckpt:
+        report["ckpt"] = ckpt
+        obs.log(f"stream checkpoint -> {ckpt} (resume with --resume)")
+    if mon.enabled:
+        report["monitor"] = mon.summary()
+    return report
 
 
 def _iterate(args, device: torch.device, opt: OWLQNPlus,
              theta0: torch.Tensor, predict, y_test: torch.Tensor,
-             report: dict, nnz_width: int = 8) -> dict:
+             report: dict, nnz_width: int = 8, trained=None) -> dict:
     """``--iters`` OWLQN+ steps from ``theta0``, one ``train_iter``
     record each (test AUC of ``predict(theta)`` every 5 iterations and at
-    the last), then the walls and the checkpoint into ``report``."""
+    the last), then the walls, ``trained(theta)`` (when given) and the
+    checkpoint into ``report``."""
     state = opt.init(theta0)
     del theta0
     tracer = obs.get_tracer()
@@ -346,6 +511,8 @@ def _iterate(args, device: torch.device, opt: OWLQNPlus,
                           if report["iters"] else None)
     obs.log(f"trained {args.iters} OWLQN+ iterations in {train_s:.2f}s "
             f"({report['s_per_iter'] * 1e3:.1f} ms/iter)")
+    if trained is not None:
+        trained(state.theta)
     if args.ckpt:
         report["ckpt"] = checkpoint.save(args.ckpt, {"theta": state.theta})
         obs.log(f"checkpoint -> {report['ckpt']}")

@@ -1,20 +1,33 @@
 """Append-only structured run ledger: typed JSONL event records.
 
-The port's copy of ``repro/obs/ledger.py``, cut to the record kinds the
-ported drivers emit. Records use the reference's schema unchanged, so a
-port ledger passes ``python -m repro.obs.ledger --check`` as well as
-this module's own ``python -m repro_torch.obs.ledger --check``:
+The port's copy of ``repro/obs/ledger.py``. Records use the reference's
+schema unchanged, so a port ledger passes ``python -m repro.obs.ledger
+--check`` as well as this module's own ``python -m repro_torch.obs.ledger
+--check``:
 
   * ``train_iter``     one OWLQN+ iteration: objective before/after,
                        accepted step, line-search trials, direction norm
                        (the Eq. 4 optimality measure), non-zero count,
                        wall and (every few iterations) test AUC;
+  * ``stream_window``  one streaming window: plan/compile/total build
+                       walls, exposed wait, prefetched flag, device step
+                       wall, carry policy -- the planner's overlap ratio
+                       reconstructs from these records exactly;
+  * ``stream_summary`` the planner's end-of-run overlap accounting;
   * ``serve_dispatch`` one engine dispatch: envelope key, group size,
                        occupancy, queue delay, measured wall, flush
                        reason;
-  * ``run_meta`` / ``log``  driver context (device name and count) and
-                       free-text lines that keep their human-readable
-                       rendering.
+  * ``alert``          one health-monitor state change (firing or
+                       cleared): the rule, the signal value that crossed
+                       it and the hysteresis shape (``obs.monitor``);
+  * ``run_meta`` / ``stream_eval`` / ``log``  driver context (device name
+                       and count), held-out per-day quality and free-text
+                       lines that keep their human-readable rendering.
+
+OBSERVERS: ``add_observer(fn)`` subscribes a callable to every record the
+ledger accepts (the health monitor's live feed). Observers run on the
+emitting thread AFTER the ledger lock is released, so an observer may
+itself emit (the monitor's alert records) without deadlocking.
 
 Records validate against :data:`SCHEMA` on emit and again offline.
 Unknown EXTRA fields are allowed (forward compatibility); unknown KINDS,
@@ -54,11 +67,33 @@ SCHEMA: dict[str, dict[str, dict[str, Any]]] = {
         "optional": {"ls_iters": int, "wall_s": _NUM, "day": int,
                      "window_iter": int, "test_auc": _NUM},
     },
+    "stream_window": {
+        "required": {"day": int, "days_in_window": int, "plan_s": _NUM,
+                     "compile_s": _NUM, "build_s": _NUM, "wait_s": _NUM,
+                     "prefetched": bool, "step_s": _NUM, "carry": str,
+                     "alpha": _NUM, "nnz": int, "fs": list},
+        "optional": {},
+    },
+    "stream_summary": {
+        "required": {"windows": int, "build_seconds": _NUM,
+                     "wait_seconds": _NUM, "prefetched_build_seconds": _NUM,
+                     "prefetched_wait_seconds": _NUM, "overlap_ratio": _NUM},
+        "optional": {},
+    },
+    "stream_eval": {
+        "required": {"day": int},
+        "optional": {"next_day_nll": _NUM, "next_day_auc": _NUM},
+    },
     "serve_dispatch": {
         "required": {"envelope": list, "g": int, "requests": int,
                      "candidates": int, "occupancy": _NUM, "wall_s": _NUM,
                      "flush_reason": str, "queue_delay_us": _NUM},
         "optional": {},
+    },
+    "alert": {
+        "required": {"rule": str, "state": str, "signal": str,
+                     "value": _NUM, "threshold": _NUM},
+        "optional": {"op": str, "breach_n": int, "clear_n": int, "day": int},
     },
 }
 
@@ -108,7 +143,8 @@ class RunLedger:
     ``emit`` validates (raise on schema violation), stamps ``t`` (unix
     seconds) and ``kind``, appends, and — when ``path`` is given — writes
     one JSON line immediately (line-buffered, so a crashed run still
-    leaves a readable prefix). Thread-safe.
+    leaves a readable prefix). Thread-safe: the stream planner's thread
+    and the main thread may emit concurrently.
     """
 
     enabled = True
@@ -117,6 +153,7 @@ class RunLedger:
         self.path = path
         self._lock = threading.Lock()
         self._events: list[dict] = []
+        self._observers: list = []
         self._fh = None
         if path:
             parent = os.path.dirname(path)
@@ -133,7 +170,21 @@ class RunLedger:
             self._events.append(event)
             if self._fh is not None:
                 self._fh.write(json.dumps(event, sort_keys=True) + "\n")
+        # outside the lock: an observer may emit back into this ledger
+        # (the monitor's alert records) without deadlocking
+        for fn in list(self._observers):
+            fn(event)
         return event
+
+    def add_observer(self, fn) -> None:
+        """Subscribe ``fn(event)`` to every accepted record (called on the
+        emitting thread, after the record is stored/written)."""
+        if fn not in self._observers:
+            self._observers.append(fn)
+
+    def remove_observer(self, fn) -> None:
+        if fn in self._observers:
+            self._observers.remove(fn)
 
     def events(self, kind: str | None = None) -> list[dict]:
         with self._lock:
@@ -160,6 +211,12 @@ class NullLedger:
 
     def events(self, kind: str | None = None) -> list[dict]:
         return []
+
+    def add_observer(self, fn) -> None:
+        return None
+
+    def remove_observer(self, fn) -> None:
+        return None
 
     def close(self) -> None:
         return None
@@ -203,6 +260,16 @@ def render_train_iter(rec: dict, *, nnz_width: int = 8) -> str:
     if "wall_s" in rec:
         out += f" ({rec['wall_s'] * 1e3:.0f} ms/iter)"
     return out
+
+
+def render_stream_day(rec: dict) -> str:
+    """``launch/train --stream``'s per-day line from a ``stream_window``
+    record (the held-out next-day suffix is the driver's own
+    ``stream_eval`` record)."""
+    return (f"day {rec['day']:3d}  window={rec['days_in_window']}d "
+            f"f={rec['fs'][-1]:12.2f} alpha={rec['alpha']:.3g} "
+            f"nnz={rec['nnz']:8d} plan={rec['build_s'] * 1e3:6.0f}ms "
+            f"step={rec['step_s'] * 1e3:6.0f}ms")
 
 
 # ----------------------------------------------------- offline validation

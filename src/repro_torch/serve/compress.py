@@ -154,11 +154,22 @@ def dequantize(quant: QuantizedArtifact) -> ServingArtifact:
                            num_features=quant.num_features)
 
 
-def save_artifact(path: str,
-                  artifact: ServingArtifact | QuantizedArtifact) -> str:
+def save_artifact(path: str, artifact: ServingArtifact | QuantizedArtifact,
+                  *, drift_ref=None) -> str:
     """Write either artifact form as a flat npz (the reference's keys).
-    Returns the real path written (``.npz`` appended when missing)."""
-    return checkpoint.save(path, artifact)
+    Returns the real path written (``.npz`` appended when missing).
+
+    ``drift_ref`` (a :class:`repro_torch.obs.drift.DriftReference`) embeds
+    the training-time drift reference under ``drift_ref/*`` keys in the
+    same file, so one deploy artifact also arms the serving monitor
+    (``obs.load_drift_reference`` reads it back from the artifact path).
+    :func:`load_artifact` picks only the artifact's own fields, so an
+    embedded reference never changes what is served."""
+    if drift_ref is None:
+        return checkpoint.save(path, artifact)
+    tree = {f: getattr(artifact, f) for f in artifact._fields}
+    tree["drift_ref"] = drift_ref
+    return checkpoint.save(path, tree)
 
 
 def artifact_from_numpy(data: dict, device=None

@@ -341,7 +341,11 @@ class ScoringEngine:
                 requests=len(requests), candidates=n_cands,
                 occupancy=len(requests) / key[0], wall_s=wall,
                 flush_reason=reason, queue_delay_us=qdelay)
-        return [p[s, :r.ad_ids.shape[0]] for s, r in enumerate(requests)]
+        out = [p[s, :r.ad_ids.shape[0]] for s, r in enumerate(requests)]
+        mon = obs.get_monitor()
+        if mon.enabled:
+            mon.observe_dispatch(out, requests)
+        return out
 
     def score(self, request: BundleRequest) -> np.ndarray:
         """p(y=1|x) for each of the request's N candidates, in order

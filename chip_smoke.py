@@ -21,7 +21,12 @@ width and depth, the same three runs each) and the streaming training
 path (``repro_torch.launch.train --stream`` at d = 1,000,000, m = 12:
 8 days of 4,000 sessions, window 2, 5 inner iterations, overlapped and
 synchronous; then its gates, the drift reference arming
-``launch.serve --monitor``, and the jax-free ``cuda`` tests),
+``launch.serve --monitor``, and the jax-free ``cuda`` tests) and the LM
+training path (``repro_torch.models.make_train_step``: llama3.2-1b
+trainable at full width and depth, 4 x 4,096 tokens a step, B6 in the
+forward and its checkpointed recompute, the plain attention backward,
+AdamW; then a reduced model of each family against the CPU and B6's and
+B7's autograd Functions against their plain versions' gradients),
 shows that each path launched its kernels, holds the card's OWLQN+
 trajectories and a reduced LM of each family against the CPU's, times
 the kernels beside their plain versions, their bound and one library
@@ -1776,6 +1781,11 @@ def phase_attention_kernel(torch, dev):
 
 # ------------------------------------------------------------ phase 14
 LM_KERNELS = ("wgmma_attention_kernel", "fma_attention_kernel")
+GEMM_NAMES = ("nvjet", "gemm", "xmma")  # cuBLAS kernels' names hold one
+
+
+def _is_gemm(name: str) -> bool:
+    return any(g in name.lower() for g in GEMM_NAMES)
 
 
 def _print_profile(title, wall_us, kernels, labels=LM_KERNELS, tag="B6"):
@@ -1787,8 +1797,7 @@ def _print_profile(title, wall_us, kernels, labels=LM_KERNELS, tag="B6"):
     ours = [(n, us, c) for n, (us, c) in kernels.items()
             if any(label in n for label in labels)]
     ours_us = sum(us for _, us, _ in ours)
-    gemm_us = sum(us for n, (us, _) in kernels.items()
-                  if any(g in n.lower() for g in ("nvjet", "gemm", "xmma")))
+    gemm_us = sum(us for n, (us, _) in kernels.items() if _is_gemm(n))
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:6]
     print(f"  profile of {title} (under torch.profiler): "
           f"{wall_us / 1e3:.2f} ms wall, {busy_us / 1e3:.2f} ms of device "
@@ -1824,8 +1833,7 @@ def _print_elementwise(kernels, labels) -> None:
     busy_us = sum(v[0] for v in kernels.values())
     ops: dict[str, list] = {}
     for name, (us, n) in kernels.items():
-        if any(label in name for label in labels) or any(
-                g in name.lower() for g in ("nvjet", "gemm", "xmma")):
+        if any(label in name for label in labels) or _is_gemm(name):
             continue
         k = ops.setdefault(_op_label(name), [0.0, 0])
         k[0] += us
@@ -3635,10 +3643,16 @@ def phase_stream_gates(torch, dev, tmp: Path):
 
 
 # ------------------------------------------------------------ phase 27
+CARD_TESTS = ("tests/test_torch_stream_card.py",
+              "tests/test_torch_flash_attention_card.py",
+              "tests/test_torch_lm_train_card.py")
+
+
 def phase_card_tests():
-    """The jax-free ``cuda``-marked tests of the streaming slice, in a
-    pytest process of their own (they build nothing: the kernels phase 1
-    built load from ``build/``)."""
+    """The jax-free ``cuda``-marked tests (the streaming slice's, B6's
+    against its plain version, the training path's), in a pytest process
+    of their own (they build nothing: the kernels phase 1 built load from
+    ``build/``)."""
     import os
 
     env = dict(os.environ)
@@ -3647,15 +3661,468 @@ def phase_card_tests():
     t0 = time.perf_counter()
     proc = subprocess.run(
         [sys.executable, "-m", "pytest", "-q", "-m", "cuda",
-         "-p", "no:cacheprovider", "tests/test_torch_stream_card.py"],
+         "-p", "no:cacheprovider", *CARD_TESTS],
         cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
     tail = proc.stdout.strip().splitlines()[-1] if proc.stdout.strip() else ""
     passed = re.search(r"(\d+) passed", tail)
-    check(proc.returncode == 0 and passed and int(passed.group(1)) > 0,
-          f"pytest -m cuda tests/test_torch_stream_card.py exited "
+    files = " ".join(CARD_TESTS)
+    check(proc.returncode == 0 and passed and int(passed.group(1)) > 0
+          and "skipped" not in tail,
+          f"pytest -m cuda {files} exited "
           f"{proc.returncode}: {proc.stdout[-2000:]} {proc.stderr[-2000:]}")
-    print(f"phase 27: pytest -m cuda tests/test_torch_stream_card.py: "
+    print(f"phase 27: pytest -m cuda {files}: "
           f"{tail} ({time.perf_counter() - t0:.1f} s)")
+
+
+# ------------------------------------------------------------ phase 28
+# LM training: llama3.2-1b at full width and depth, trainable (fp32
+# leaves), the train_4k shape with its batch cut from 256 to 4, lr 3e-4
+TRAIN_BATCH, TRAIN_STEPS, TRAIN_LR = 4, 3, 3e-4
+TRAIN_CE_CHUNK = 1024  # the chunked-CE step beside the config's full CE
+PROBE_LR, PROBE_STEPS = 3e-5, 4  # the fall gated at a tenth of the lr
+CE_RTOL = 1e-4  # tests/test_chunked_ce.py:31
+class _Spans:
+    """Device time spans of wrapped functions, by CUDA events on the
+    current stream: each call adds one (start, end) pair to its label."""
+
+    def __init__(self, torch):
+        self.torch, self.pairs = torch, {}
+
+    def wrap(self, label, fn):
+        torch = self.torch
+
+        def wrapped(*args, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kw)
+            end.record()
+            self.pairs.setdefault(label, []).append((start, end))
+            return out
+
+        return wrapped
+
+    def ms(self, label) -> tuple[float, int]:
+        """(summed ms, calls) of ``label`` since the last :meth:`clear`;
+        the caller has synchronised."""
+        pairs = self.pairs.get(label, [])
+        return sum(s.elapsed_time(e) for s, e in pairs), len(pairs)
+
+    def clear(self):
+        self.pairs.clear()
+
+
+def _loss_and_grads(torch, model, batch):
+    """(loss, ce, {name: gradient}) of one loss_fn and backward."""
+    from repro_torch.models import loss_fn
+
+    named = list(model.named_parameters())
+    loss, (ce, _) = loss_fn(model, batch)
+    grads = torch.autograd.grad(loss, [p for _, p in named],
+                                allow_unused=True)
+    return loss.detach(), ce.detach(), {
+        n: torch.zeros_like(p) if g is None else g
+        for (n, p), g in zip(named, grads)}
+
+
+def phase_lm_train(torch, dev):
+    """LM training at full width: llama3.2-1b trainable from a seeded
+    torch.Generator, a 4 x 4,096 batch from the token stream. (a) one
+    loss_fn and backward: every gradient leaf finite and not all zero
+    (the graph is not cut at B6), B6 32 times; (b) the same with
+    ce_chunk = 1024 on the same weights: the loss within CE_RTOL, both
+    peaks; (c) make_train_step: one warm-up step, three timed steps
+    (ms, tokens/s, MFU, peak memory, B6 launches each, the device spans
+    of the plain attention backward and AdamW); every loss finite and the
+    first update lowering the loss; (d) a profiled step, its device time
+    split by op; (e) three updates from the same initial weights at lr
+    3e-5: the loss falls at each.
+
+    At lr 3e-4 only the first update is gated to lower the loss: on one
+    repeated batch from random weights, AdamW's first steps move every
+    leaf by about lr (the update is near lr sign(g)), and at 3e-4 the
+    full-width loss overshoots past the first update (on an H100: 12.34,
+    9.73, 16.85, 13.09). Its fall over three updates is gated at a tenth
+    of that lr, in (e)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.kernels.flash_attention import ops as attn_ops
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        LAUNCHES as B6,
+    )
+    from repro_torch.models import init_model, make_train_step
+    from repro_torch.optim import adamw
+
+    t_phase = time.perf_counter()
+    cfg = get_config(LM_ARCH)
+    model = init_model(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                       device=dev, trainable=True)
+    n_params = sum(p.numel() for p in model.parameters())
+    check(n_params == LM_PARAMS and all(
+        p.requires_grad and p.dtype == torch.float32
+        for p in model.parameters()),
+        f"{LM_ARCH}: {n_params:,} parameters, not {LM_PARAMS:,} fp32 "
+        "leaves with a gradient")
+    raw = TokenStream(cfg.vocab_size, seed=SEED).batch(TRAIN_BATCH,
+                                                        LM_SEQ + 1)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in raw.items()}
+    tokens = TRAIN_BATCH * LM_SEQ
+    layers = cfg.num_layers
+
+    # (a) the gradient gate, the config as it stands (full CE)
+    _reset((B6,))
+    torch.cuda.reset_peak_memory_stats()
+    loss_full, _, grads = _loss_and_grads(torch, model, batch)
+    torch.cuda.synchronize()
+    peak_full = torch.cuda.max_memory_allocated() / 1e9
+    check(B6["flash_attention"] == 2 * layers,
+          f"B6 launched {B6['flash_attention']} times in a forward and "
+          f"backward, not {2 * layers} (each layer's forward and its "
+          "checkpointed recompute)")
+    bad = [n for n, g in grads.items()
+           if not bool(torch.isfinite(g).all()) or not bool(g.any())]
+    check(not bad, f"gradient leaves not finite or all zero: {bad[:8]}")
+    attn_leaves = [n for n in grads if re.search(r"\.attn\.w[qkv]$", n)]
+    check(len(attn_leaves) == 3 * layers,
+          f"{len(attn_leaves)} wq/wk/wv leaves, not {3 * layers}")
+    g_norms = {n: float(grads[n].norm()) for n in attn_leaves}
+    del grads
+
+    # (b) the same weights and batch with the CE in chunks of 1,024
+    model.cfg = dataclasses.replace(cfg, ce_chunk=TRAIN_CE_CHUNK)
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        loss_chunk, _, grads = _loss_and_grads(torch, model, batch)
+        torch.cuda.synchronize()
+        peak_chunk = torch.cuda.max_memory_allocated() / 1e9
+        del grads
+    finally:
+        model.cfg = cfg
+    rel = abs(float(loss_chunk) - float(loss_full)) / abs(float(loss_full))
+    check(rel <= CE_RTOL, f"chunked CE loss {float(loss_chunk)} vs the full "
+          f"CE's {float(loss_full)}: relative {rel:.2e} > {CE_RTOL}")
+    print(f"phase 28: {LM_ARCH} trainable at full width ({n_params:,} fp32 "
+          f"parameters), batch {TRAIN_BATCH} x {LM_SEQ}: loss_fn + backward "
+          f"launched B6 {2 * layers} times ({layers} forward, {layers} in "
+          f"the checkpointed recompute); all {len(g_norms)} "
+          f"wq/wk/wv leaves and every other leaf finite and nonzero (wq/wk/wv"
+          f" gradient norms {min(g_norms.values()):.3e}.."
+          f"{max(g_norms.values()):.3e}); full CE loss "
+          f"{float(loss_full):.6f} (peak {peak_full:.2f} GB) vs ce_chunk "
+          f"{TRAIN_CE_CHUNK} {float(loss_chunk):.6f} (peak {peak_chunk:.2f} "
+          f"GB): relative {rel:.2e} (bar {CE_RTOL})")
+
+    # (c) the train step: a warm-up, then timed steps with spans
+    opt, step = make_train_step(model, lr=TRAIN_LR)
+    state = opt.init(dict(model.named_parameters()))
+    state, warm = step(state, batch)
+    warm_loss = float(warm["loss"])
+    spans = _Spans(torch)
+    backward_plain = attn_ops.attention_backward_plain
+    apply = adamw.AdamW.apply
+    attn_ops.attention_backward_plain = spans.wrap("attention_backward",
+                                                   backward_plain)
+    adamw.AdamW.apply = spans.wrap("adamw", apply)
+    losses, secs, counts, span_ms = [], [], [], []
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(TRAIN_STEPS):
+            _reset((B6,))
+            spans.clear()
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            losses.append(float(metrics["loss"]))
+            counts.append(B6["flash_attention"])
+            span_ms.append({k: spans.ms(k) for k in ("attention_backward",
+                                                      "adamw")})
+        peak_train = torch.cuda.max_memory_allocated() / 1e9
+    finally:
+        attn_ops.attention_backward_plain = backward_plain
+        adamw.AdamW.apply = apply
+    check(all(np.isfinite(losses)) and losses[0] < warm_loss,
+          f"the training loss is not finite, or the first update did not "
+          f"lower it: {warm_loss} then {losses}")
+    check(all(c == 2 * layers for c in counts),
+          f"B6 launches per step {counts}, not {2 * layers}")
+    step_s = float(np.mean(secs))
+    flops = 6 * n_params * tokens
+    mfu = flops / step_s / BF16_OPS_PER_S
+    bwd_ms = float(np.mean([s["attention_backward"][0] for s in span_ms]))
+    opt_ms = float(np.mean([s["adamw"][0] for s in span_ms]))
+    print(f"  train step (make_train_step, lr {TRAIN_LR}): loss "
+          f"{warm_loss:.6f} (warm-up step) -> "
+          + " -> ".join(f"{x:.6f}" for x in losses)
+          + f"; {step_s * 1e3:.1f} ms a step ("
+          + ", ".join(f"{s * 1e3:.1f}" for s in secs)
+          + f"), {tokens / step_s:,.0f} tokens/s, MFU {mfu:.2%} (6 N T = "
+          f"{flops:.4e} FLOP a step over {BF16_OPS_PER_S:.3g} FLOP/s dense "
+          f"bf16; no attention term, no recompute), peak memory "
+          f"{peak_train:.2f} GB, B6 {counts[0]} launches a step; device "
+          f"spans (CUDA events): the plain attention backward "
+          f"{bwd_ms:.1f} ms in {span_ms[0]['attention_backward'][1]} calls "
+          f"({bwd_ms / (step_s * 1e3):.1%} of the step), AdamW "
+          f"{opt_ms:.1f} ms ({opt_ms / (step_s * 1e3):.1%})")
+
+    # (d) where a step's device time goes, by op
+    attn_ops.attention_backward_plain = spans.wrap("attention_backward",
+                                                   backward_plain)
+    try:
+        spans.clear()
+        (state, _), wall_us, kernels = _device_profile(
+            torch, lambda: step(state, batch))
+        bwd_prof_ms = spans.ms("attention_backward")[0]
+    finally:
+        attn_ops.attention_backward_plain = backward_plain
+    busy_us = sum(v[0] for v in kernels.values())
+    split = {"B6": 0.0, "GEMMs": 0.0, "the rest": 0.0}
+    for name, (us, _) in kernels.items():
+        key = ("B6" if any(k in name for k in LM_KERNELS) else
+               "GEMMs" if _is_gemm(name) else "the rest")
+        split[key] += us
+    _print_profile("a train step", wall_us, kernels)
+    if busy_us:
+        print("  a train step's device time: " + "; ".join(
+            f"{k} {us / 1e3:.1f} ms ({us / busy_us:.1%})"
+            for k, us in split.items())
+              + f"; of it the plain attention backward's span "
+              f"{bwd_prof_ms:.1f} ms ({bwd_prof_ms * 1e3 / busy_us:.1%}, "
+              "its GEMMs and elementwise ops included)")
+        _print_elementwise(kernels, LM_KERNELS)
+
+    # (e) the same start at a tenth of the lr
+    del model, state, opt, step
+    model = init_model(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                       device=dev, trainable=True)
+    opt, step = make_train_step(model, lr=PROBE_LR)
+    state = opt.init(dict(model.named_parameters()))
+    probe = []
+    for _ in range(PROBE_STEPS):
+        state, metrics = step(state, batch)
+        probe.append(float(metrics["loss"]))
+    check(all(np.isfinite(probe)) and all(
+        b < a for a, b in zip(probe, probe[1:])),
+        f"at lr {PROBE_LR} the loss did not fall at each update: {probe}")
+    print(f"  the same start at lr {PROBE_LR}: loss "
+          + " -> ".join(f"{x:.6f}" for x in probe) + " (falls at each "
+          "update)")
+    del model, state, opt, step
+    print(f"phase 28 took {time.perf_counter() - t_phase:.1f} s")
+    return counts[0], {
+        "ms_per_step": step_s * 1e3, "tokens_per_s": tokens / step_s,
+        "mfu": mfu, "flop_per_step": flops, "peak_gb": peak_train,
+        "peak_gb_full_ce": peak_full, "peak_gb_ce_chunk": peak_chunk,
+        "losses": [warm_loss] + losses, "probe_losses": probe,
+        "attention_backward_ms": bwd_ms,
+        "adamw_ms": opt_ms, "device_split_ms": {
+            k: v / 1e3 for k, v in split.items()}}
+
+
+# ------------------------------------------------------------ phase 29
+TRAIN_CPU_ARCHS = {LM_ARCH: "B6", SSM_ARCH: "B7",
+                   HYBRID_ARCH: "B6, Mamba2", MOE_ARCH: "B6, MoE"}
+TRAIN_CPU_LR, TRAIN_CPU_STEPS = 1e-3, 3
+GRAD_REL, GRAD_ABS = 1e-4, 1e-7  # max |err| <= GRAD_REL max |g_cpu| + ..
+LOSS_RTOL = 1e-5
+PARAM_BAR, PARAM_SHARE = 1e-6, 0.999  # trouble spot (f): see below
+B6_GRAD_SHAPES = ((4, LM_SEQ, 32, 8, 64, "bfloat16"),
+                  (2, 1100, 8, 2, 64, "float32"))
+B7_GRAD_SHAPE = (2, 256, 512, 16)
+
+
+def _leaf_errors(card: dict, cpu: dict):
+    """{name: (max |card - cpu|, max |cpu|)} over the gradient leaves."""
+    return {n: (float((card[n].cpu() - g).abs().max()),
+                float(g.abs().max())) for n, g in cpu.items()}
+
+
+def _train_batch(cfg, seq=32):
+    from repro_torch.data.tokens import TokenStream
+
+    return TokenStream(cfg.vocab_size, seed=SEED).batch(2, seq + 1)
+
+
+def _card_vs_cpu_training(torch, dev, arch, kernels):
+    """One reduced ``arch`` in fp32, trainable, on the card and on the CPU
+    from the same weights and batch: loss_fn and every gradient leaf at
+    the CPU tests' bars, then three AdamW steps (lr 1e-3): losses within
+    1e-4, every parameter within 2 lr n and within 1e-6 on 99.9% of the
+    elements; the MoE's kept assignments equal in every dispatch
+    (forward and recompute). Returns the card's launches of B6 and B7."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        LAUNCHES as B6,
+    )
+    from repro_torch.kernels.mamba_scan.mamba_scan import LAUNCHES as B7
+    from repro_torch.models import Transformer, init_model, make_train_step
+    from repro_torch.models import moe
+
+    cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
+    cpu = init_model(cfg, torch.Generator().manual_seed(SEED), device="cpu",
+                     trainable=True)
+    card = Transformer(cfg, device=dev, trainable=True)
+    card.load_state_dict(cpu.state_dict())
+    raw = _train_batch(cfg)
+    batches = {"cpu": {k: torch.from_numpy(v) for k, v in raw.items()},
+               "cuda": {k: torch.from_numpy(v).to(dev)
+                        for k, v in raw.items()}}
+    kept = {"cuda": [], "cpu": []}
+    plan = _recording(moe, "dispatch_plan", lambda out: kept[
+        out.keep.device.type].append(out.keep.cpu()))
+    try:
+        _reset((B6, B7))
+        out = {name: _loss_and_grads(torch, m, batches[name])
+               for name, m in (("cpu", cpu), ("cuda", card))}
+        torch.cuda.synchronize()
+        launches = {"B6": B6["flash_attention"],
+                    "B7": B7["mamba1_scan_gated"]}
+    finally:
+        moe.dispatch_plan = plan
+    (l_cpu, _, g_cpu), (l_card, _, g_card) = out["cpu"], out["cuda"]
+    rel = abs(float(l_card) - float(l_cpu)) / abs(float(l_cpu))
+    check(rel <= LOSS_RTOL, f"{arch}: loss card {float(l_card)} vs CPU "
+          f"{float(l_cpu)}, relative {rel:.2e} > {LOSS_RTOL}")
+    errs = _leaf_errors(g_card, g_cpu)
+    bad = {n: e for n, e in errs.items()
+           if not e[0] <= GRAD_REL * e[1] + GRAD_ABS or e[1] == 0.0}
+    check(not bad, f"{arch}: gradient leaves card vs CPU beyond "
+          f"{GRAD_REL} max|g| + {GRAD_ABS} (or all zero): "
+          f"{dict(list(bad.items())[:6])}")
+    worst = max(errs.items(), key=lambda kv: kv[1][0] / kv[1][1])
+    if cfg.num_experts:
+        check(len(kept["cuda"]) == len(kept["cpu"]) == 2 * cfg.num_layers
+              and all(torch.equal(a, b) for a, b in zip(kept["cuda"],
+                                                        kept["cpu"])),
+              f"{arch}: the card and the CPU keep different MoE "
+              "assignments, or not one dispatch per layer in the forward "
+              "and one in the recompute")
+    # each attention layer (the hybrid: each group's shared block) and
+    # each Mamba1 layer launches its kernel twice: forward and recompute
+    ssm = cfg.family == "ssm"
+    attention = (0 if ssm else cfg.num_layers // cfg.shared_attn_every
+                 if cfg.family == "hybrid" else cfg.num_layers)
+    want = {"B6": 2 * attention, "B7": 2 * cfg.num_layers * ssm}
+    check(launches == want, f"{arch}: launches {launches} in a forward "
+          f"and backward, not {want}")
+
+    losses = {}
+    for name, m in (("cpu", cpu), ("cuda", card)):
+        opt, step = make_train_step(m, lr=TRAIN_CPU_LR)
+        state = opt.init(dict(m.named_parameters()))
+        losses[name] = []
+        for _ in range(TRAIN_CPU_STEPS):
+            state, metrics = step(state, batches[name])
+            losses[name].append(float(metrics["loss"]))
+    rel_l = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"],
+                                                     losses["cpu"]))
+    check(rel_l <= CE_RTOL, f"{arch}: training losses card {losses['cuda']} "
+          f"vs CPU {losses['cpu']}")
+    check(losses["cpu"][-1] < losses["cpu"][0], f"{arch}: the loss did not "
+          f"fall: {losses['cpu']}")
+    card_p = dict(card.named_parameters())
+    diffs = torch.cat([(card_p[n].detach().cpu() - p.detach()).abs().ravel()
+                       for n, p in cpu.named_parameters()])
+    limit = 2 * TRAIN_CPU_LR * TRAIN_CPU_STEPS
+    share = float((diffs <= PARAM_BAR).float().mean())
+    check(float(diffs.max()) <= limit and share >= PARAM_SHARE,
+          f"{arch}: parameters after {TRAIN_CPU_STEPS} steps, card vs CPU: "
+          f"max |err| {float(diffs.max()):.3e} (bar {limit}), "
+          f"{share:.5f} within {PARAM_BAR} (bar {PARAM_SHARE})")
+    moe_note = (f"; the same kept assignments in all {len(kept['cpu'])} "
+                "dispatches (forward + recompute)" if cfg.num_experts else "")
+    print(f"  {arch} (reduced, {cfg.num_layers} layers, fp32; {kernels}): "
+          f"loss rel {rel:.2e}, worst gradient leaf {worst[0]} "
+          f"{worst[1][0]:.3e} of max {worst[1][1]:.3e}; launches "
+          f"{launches}; {TRAIN_CPU_STEPS} steps losses card "
+          + " -> ".join(f"{x:.6f}" for x in losses["cuda"])
+          + f" (rel {rel_l:.2e}); parameters max |err| "
+          f"{float(diffs.max()):.3e}, {share:.6f} within {PARAM_BAR}"
+          + moe_note)
+    return launches
+
+
+def _ulp_bar(torch, g, dtype) -> float:
+    """One ulp of max |g| in ``dtype`` (bf16), or 1e-6 max |g| (fp32)."""
+    top = float(g.abs().max())
+    if dtype == torch.float32:
+        return 1e-6 * top
+    return torch.finfo(dtype).eps * 2.0 ** np.floor(np.log2(top))
+
+
+def phase_lm_train_card_vs_cpu(torch, dev):
+    """The training path's gates at reduced size and on the Functions:
+    (a) llama (B6), falcon-mamba (B7), zamba2 (B6 + Mamba2) and
+    granite-moe (B6 + MoE) card vs CPU (``_card_vs_cpu_training``); (b)
+    B6's Function against autograd of plain_attention on one ``do`` at
+    llama's full-width layer shape in bf16 and a reduced one in fp32; (c)
+    B7's Function against autograd of plain_gated_scan, bitwise."""
+    from repro_torch.kernels.flash_attention import ops as attn_ops
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        LAUNCHES as B6,
+    )
+    from repro_torch.kernels.mamba_scan import ops as scan_ops
+    from repro_torch.kernels.mamba_scan.mamba_scan import LAUNCHES as B7
+
+    t_phase = time.perf_counter()
+    print("phase 29: LM training, reduced, card vs CPU on the same weights")
+    launches = {arch: _card_vs_cpu_training(torch, dev, arch, kernels)
+                for arch, kernels in TRAIN_CPU_ARCHS.items()}
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 29)
+    for B, S, H, kvh, hd, dt in B6_GRAD_SHAPES:
+        dtype = getattr(torch, dt)
+        q, k, v, do = (torch.randn((B, S, h, hd), generator=gen, device=dev)
+                       .to(dtype) for h in (H, kvh, kvh, H))
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        _reset((B6,))
+        o = attn_ops.causal_attention(*leaves)
+        got = torch.autograd.grad(o, leaves, do)
+        check(B6["flash_attention"] == 1, "the Function did not launch B6")
+        del o
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        o = attn_ops.plain_attention(*leaves)
+        want = torch.autograd.grad(o, leaves, do)
+        del o
+        errs = []
+        for name, g, w in zip("qkv", got, want):
+            err, bar = float((g.float() - w.float()).abs().max()), _ulp_bar(
+                torch, w.float(), dtype)
+            check(g.dtype == w.dtype and err <= bar, f"B6 Function d{name} "
+                  f"vs autograd of plain_attention at {(B, S, H, kvh, hd)} "
+                  f"{dt}: max |err| {err:.3e} > {bar:.3e}")
+            errs.append(f"d{name} {err:.3e} (bar {bar:.3e})")
+        print(f"  B6 Function vs autograd of plain_attention at (B, S, H, "
+              f"KVH, hd) = {(B, S, H, kvh, hd)} {dt}: " + ", ".join(errs))
+        del q, k, v, do, got, want, leaves
+
+    Bq, S, di, N = B7_GRAD_SHAPE
+    f = lambda *s: torch.randn(s, generator=gen, device=dev)  # noqa: E731
+    args = [3 * f(Bq, S, di), f(di) - 3, f(Bq, S, di), f(Bq, S, N),
+            f(Bq, S, N), 0.5 * f(di, N), f(di), f(Bq, S, di), None]
+    dy, dh = f(Bq, S, di), f(Bq, di, N)
+    results = []
+    for fn in (scan_ops.gated_selective_scan, scan_ops.plain_gated_scan):
+        leaves = [None if a is None else a.clone().requires_grad_()
+                  for a in args]
+        _reset((B7,))
+        y, hT = fn(*leaves)
+        results.append(torch.autograd.grad(
+            [y, hT], [t for t in leaves if t is not None], [dy, dh]))
+        if fn is scan_ops.gated_selective_scan:
+            check(B7["mamba1_scan_gated"] == 1,
+                  "the Function did not launch B7")
+    same = all(torch.equal(a, b) for a, b in zip(*results))
+    check(same, "B7 Function gradients differ from autograd of "
+          "plain_gated_scan")
+    print(f"  B7 Function vs autograd of plain_gated_scan at (B, S, di, N) "
+          f"= {B7_GRAD_SHAPE}: all 8 input gradients bitwise equal")
+    print(f"phase 29 took {time.perf_counter() - t_phase:.1f} s")
+    return launches
 
 
 SERVE_PHASES = (2, 3, 4)  # the serving path's phases, runnable alone
@@ -3663,6 +4130,7 @@ TRAIN_PHASES = (5, 6, 7, 8)  # the sparse training path's, runnable alone
 SCAN_PHASES = (17, 18, 19, 20)  # the SSM path's phases, runnable alone
 FAMILY_PHASES = (21, 22, 23, 24)  # the hybrid and MoE paths', likewise
 STREAM_PHASES = (25, 26, 27)  # the streaming path's, likewise
+LM_TRAIN_PHASES = (28, 29)  # the LM training path's, likewise
 
 
 def _serving_model(torch, dev):
@@ -3695,7 +4163,8 @@ def _sparse_problem(torch, dev):
 
 def _run_only(torch, dev, only, t_start) -> int:
     """Phase 1 and the given serving (2-4), sparse training (5-8), SSM
-    (17-20), hybrid or MoE (21-24) or streaming (25-27) phases alone
+    (17-20), hybrid or MoE (21-24), streaming (25-27) or LM training
+    (28-29) phases alone
     (``--only``): a partial run, so it prints no kernels line and no
     result line."""
     if only & {2, 4}:
@@ -3742,8 +4211,12 @@ def _run_only(torch, dev, only, t_start) -> int:
         elif phase == 26:
             with tempfile.TemporaryDirectory() as tmp:
                 phase_stream_gates(torch, dev, Path(tmp))
-        else:
+        elif phase == 27:
             phase_card_tests()
+        elif phase == 28:
+            phase_lm_train(torch, dev)
+        else:
+            phase_lm_train_card_vs_cpu(torch, dev)
     print(f"phases 1 and {sorted(only)} passed in "
           f"{time.perf_counter() - t_start:.1f} s (partial run: no result)")
     return 0
@@ -3751,15 +4224,16 @@ def _run_only(torch, dev, only, t_start) -> int:
 
 def main(argv: list[str]) -> int:
     """``chip_smoke.py`` runs every phase; ``chip_smoke.py --only 2,3,4``
-    (or ``5,6,8``, or ``17,20``, or ``21,22,23,24``, or ``25,26,27``) runs
-    phase 1 and the named phases of the serving path (2-4), the sparse
-    training path (5-8), the SSM path (17-20), the hybrid and MoE paths
-    (21-24) or the streaming path (25-27) alone."""
+    (or ``5,6,8``, or ``17,20``, or ``21,22,23,24``, or ``25,26,27``, or
+    ``28,29``) runs phase 1 and the named phases of the serving path
+    (2-4), the sparse training path (5-8), the SSM path (17-20), the
+    hybrid and MoE paths (21-24), the streaming path (25-27) or the LM
+    training path (28-29) alone."""
     import torch
 
     only = set()
     alone = (SERVE_PHASES + TRAIN_PHASES + SCAN_PHASES + FAMILY_PHASES
-             + STREAM_PHASES)
+             + STREAM_PHASES + LM_TRAIN_PHASES)
     if argv:
         if len(argv) != 2 or argv[0] != "--only":
             raise SmokeFailure(f"usage: chip_smoke.py [--only "
@@ -3863,6 +4337,8 @@ def main(argv: list[str]) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         monitored_launches = phase_stream_gates(torch, dev, Path(tmp))
     phase_card_tests()
+    train_b6, train_metrics = phase_lm_train(torch, dev)
+    train_cpu_launches = phase_lm_train_card_vs_cpu(torch, dev)
 
     kernels = []
     for name in ("lsplm_sparse_fused_forward",
@@ -3887,10 +4363,17 @@ def main(argv: list[str]) -> int:
                 by_path[path] = sum(runs.values())
                 by_path.update({f"{path}/{step}": n
                                 for step, n in runs.items()})
+            by_path["lm_train/step"] = train_b6
+            by_path.update({f"lm_train_reduced/{arch}": n["B6"]
+                            for arch, n in train_cpu_launches.items()
+                            if n["B6"]})
         if name == "mamba1_scan":
             by_path = {"lm_serve_ssm": ssm_total, **{
                 f"lm_serve_ssm/{step}": n
                 for step, n in ssm_launches.items()}}
+            by_path.update({f"lm_train_reduced/{arch}": n["B7"]
+                            for arch, n in train_cpu_launches.items()
+                            if n["B7"]})
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name],
@@ -3915,6 +4398,7 @@ def main(argv: list[str]) -> int:
     print(f"SSM serving ({SSM_ARCH}): " + json.dumps(ssm_metrics))
     print(f"hybrid serving ({HYBRID_ARCH}): " + json.dumps(hybrid_metrics))
     print(f"MoE serving ({MOE_ARCH}): " + json.dumps(moe_metrics))
+    print(f"LM training ({LM_ARCH}): " + json.dumps(train_metrics))
     print(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -17,7 +17,10 @@ Both packages keep the same flat-npz layout, so the crossing is arrays:
     ``CommonFeatureBatch`` -> the port's batch of tensors;
   * :func:`model_from_reference` — the reference LM's parameter pytree
     (``repro.models.init_model``'s, as numpy arrays) -> the port's
-    :class:`~repro_torch.models.transformer.Transformer`.
+    :class:`~repro_torch.models.transformer.Transformer`, for serving or
+    (``trainable=True``) training;
+  * :func:`params_to_reference` — the other way: a model's leaves as
+    numpy arrays in the reference's layout.
 """
 from __future__ import annotations
 
@@ -91,10 +94,31 @@ def common_feature_batch_from_numpy(batch, device) -> CommonFeatureBatch:
         y=t(batch.y, torch.float32), weight=t(batch.weight, torch.float32))
 
 
+def _leaves(block) -> dict:
+    """{(group, name) or (name,): parameter} of one block."""
+    out = {(name,): p for name, p in block.named_parameters(recurse=False)}
+    for group, mod in block.named_children():
+        out.update({(group, name): p for name, p in
+                    mod.named_parameters(recurse=False)})
+    return out
+
+
+def _top_level(model: Transformer) -> dict:
+    """{name: parameter} of the leaves outside ``layers`` and ``shared``."""
+    want = {"embed": model.embed}
+    if model.final_norm is not None:
+        want["final_norm"] = model.final_norm
+    if model.lm_head is not None:
+        want["lm_head"] = model.lm_head
+    return want
+
+
+@torch.no_grad()
 def model_from_reference(params: dict, cfg: ArchConfig,
-                         device=None) -> Transformer:
-    """The port's model on ``device`` (``cuda`` unless ``"cpu"``) from the
-    reference's parameters as numpy arrays: ``layers`` (each leaf stacked
+                         device=None, trainable: bool = False) -> Transformer:
+    """The port's model on ``device`` (``cuda`` unless ``"cpu"``),
+    trainable or not (``Transformer``), from the reference's parameters
+    as numpy arrays: ``layers`` (each leaf stacked
     on a leading L axis: ``attn`` wq/wk/wv/wo and, with ``qkv_bias``,
     bq/bk/bv; ``ffn`` w1/(w3)/w2, or the MoE's router/w1/w3/w2;
     ``norm1``/``norm2`` with rmsnorm; for the ssm family ``mamba``
@@ -104,30 +128,19 @@ def model_from_reference(params: dict, cfg: ArchConfig,
     (rmsnorm), ``lm_head`` (untied) and the hybrid's ``shared`` block
     (``attn``, ``ffn``, ``norm1``/``norm2``, not stacked). Every leaf is
     copied into the parameter of the same name, in that parameter's dtype
-    (the matmul weights round to ``cfg.dtype`` once here, as the
-    reference rounds them at every use; A_log, dt_bias, D, norm_scale and
-    the norm scales stay in ``cfg.param_dtype``). Raises ``ValueError``
-    on a missing, surplus or misshapen leaf."""
-    model = Transformer(cfg, device=resolve_device(device))
-    want = {"embed": model.embed}
-    if model.final_norm is not None:
-        want["final_norm"] = model.final_norm
-    if model.lm_head is not None:
-        want["lm_head"] = model.lm_head
+    (for serving the matmul weights round to ``cfg.dtype`` once here, as
+    the reference rounds them at every use; A_log, dt_bias, D, norm_scale
+    and the norm scales stay in ``cfg.param_dtype``; a trainable model
+    keeps every leaf in ``cfg.param_dtype``, fp32 leaves unrounded).
+    Raises ``ValueError`` on a missing, surplus or misshapen leaf."""
+    model = Transformer(cfg, device=resolve_device(device),
+                        trainable=trainable)
+    want = _top_level(model)
     got = {k for k in params if k != "layers"}
     if got != set(want) | ({"shared"} if model.shared is not None else set()):
         raise ValueError(f"expected top-level leaves {sorted(want)} + "
                          f"layers{' + shared' if model.shared is not None else ''}, got "
                          f"{sorted(params)}")
-
-    def leaves(block):
-        """{(group, name) or (name,): parameter} of one block."""
-        out = {(name,): p for name, p in block.named_parameters(
-            recurse=False)}
-        for group, mod in block.named_children():
-            out.update({(group, name): p for name, p in
-                        mod.named_parameters(recurse=False)})
-        return out
 
     def flat(tree):
         out = {}
@@ -152,7 +165,7 @@ def model_from_reference(params: dict, cfg: ArchConfig,
 
     stacked = {}
     for blk in model.layers:
-        for key, p in leaves(blk).items():
+        for key, p in _leaves(blk).items():
             stacked.setdefault(key, []).append(p)
     layers = flat(params["layers"])
     match("layer", stacked, layers)
@@ -166,8 +179,38 @@ def model_from_reference(params: dict, cfg: ArchConfig,
         for i, param in enumerate(per_layer):
             copy(param, array[i])
     if model.shared is not None:
-        shared, arrays = leaves(model.shared), flat(params["shared"])
+        shared, arrays = _leaves(model.shared), flat(params["shared"])
         match("shared", shared, arrays)
         for key, param in shared.items():
             copy(param, arrays[key])
     return model
+
+
+def params_to_reference(model: Transformer) -> dict:
+    """The model's leaves as host numpy arrays in the reference's layout
+    (``init_model``'s pytree): ``layers`` with each leaf stacked on a
+    leading L axis, ``shared`` (the hybrid) unstacked, the top-level
+    leaves as they are. The inverse of :func:`model_from_reference`: a
+    trainable model's fp32 leaves come back bit for bit (bf16 serving
+    weights come back widened to fp32, which is exact)."""
+    def array(p):
+        return p.detach().to("cpu", torch.float32).numpy()
+
+    def nest(flat: dict) -> dict:
+        out: dict = {}
+        for key, value in flat.items():
+            if len(key) == 1:
+                out[key[0]] = value
+            else:
+                out.setdefault(key[0], {})[key[1]] = value
+        return out
+
+    out = {name: array(p) for name, p in _top_level(model).items()}
+    per_layer = [_leaves(blk) for blk in model.layers]
+    out["layers"] = nest({key: np.stack([array(leaves[key])
+                                         for leaves in per_layer])
+                          for key in per_layer[0]})
+    if model.shared is not None:
+        out["shared"] = nest({key: array(p) for key, p in
+                              _leaves(model.shared).items()})
+    return out

@@ -5,7 +5,9 @@ design and what bounds it) and replaces the Pallas kernel of
 ``repro/kernels/flash_attention/flash_attention.py``. The wrapper checks
 its tensors, allocates the output with ``torch.empty``, launches on
 PyTorch's current stream without synchronising, raises if the launch was
-refused, and adds one to :data:`LAUNCHES`.
+refused, and adds one to :data:`LAUNCHES`. It has no backward, so it
+refuses an input that requires a gradient under grad mode
+(``ops.causal_attention`` is the differentiable entry).
 
 q is (B, S, H, hd); k and v are the KV-head-sized (B, S, KVH, hd) tensors
 (H % KVH == 0), not GQA-repeated copies: the kernel reads KV head
@@ -26,7 +28,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, refuse_grad
 
 # launches of the wrapper, for runs that must show they went through the
 # kernel (reset by the caller, read after the run)
@@ -102,6 +104,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     causal or not. Returns a contiguous (B, S, H, hd) tensor in q's
     dtype."""
     name = "flash_attention"
+    refuse_grad(name, "ops.causal_attention", q, k, v)
     if q.device.type != "cuda":
         raise ValueError(f"{name} runs on CUDA tensors, got {q.device} "
                          "(ops.plain_attention serves CPU tensors)")

@@ -6,7 +6,9 @@ design and what bounds it) and replaces the Pallas kernel of
 reference's ``(x, u, w)`` signature, checks its tensors, allocates p
 with ``torch.empty``, launches on PyTorch's current stream without
 synchronising, raises if the launch was refused, and adds one to
-:data:`LAUNCHES`.
+:data:`LAUNCHES`. It has no backward, so it refuses an input that
+requires a gradient under grad mode (the NLL's differentiable forward
+is ``core.lsplm.predict_logits_stable``).
 
 The kernel reads U and W as one row-major Theta = [U | W] of row stride
 ldt = 2m rounded up to 16 bytes. The two halves of the port's own (d, 2m)
@@ -28,7 +30,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, refuse_grad
 
 # launches of the wrapper, for runs that must show they went through the
 # kernel (reset by the caller, read after the run)
@@ -115,6 +117,7 @@ def lsplm_fused_forward(x: torch.Tensor, u: torch.Tensor,
     tensors of one dtype (float32, or bfloat16 with fp32 accumulation).
     Returns p (B,) in x's dtype."""
     name = "lsplm_fused_forward"
+    refuse_grad(name, "core.lsplm.predict_logits_stable", x, u, w)
     if x.device.type != "cuda":
         raise ValueError(f"{name} runs on CUDA tensors, got {x.device} "
                          "(ref.lsplm_forward_ref serves CPU tensors)")

@@ -18,7 +18,10 @@ points here:
 Each wrapper checks its tensors, allocates y and hT with
 ``torch.empty``, launches on PyTorch's current stream without
 synchronising, raises if the launch was refused, and adds one to its
-key of :data:`LAUNCHES`. x, B_in and C_in are float32 or bfloat16; every
+key of :data:`LAUNCHES`. Neither has a backward, so each refuses an
+input that requires a gradient under grad mode
+(``ops.gated_selective_scan`` is the differentiable entry of the gated
+mode, ``ops.plain_scan`` the contract's). x, B_in and C_in are float32 or bfloat16; every
 (B, S, .) operand is read through its batch and position strides as long
 as its last dim is unit-stride, so a bf16 activation, the column slices
 of one (B, S, R + 2N) projection and the z half of the in_proj output go
@@ -33,7 +36,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, refuse_grad
 
 # launches of each wrapper, for runs that must show they went through the
 # kernel (reset by the caller, read after the run)
@@ -198,6 +201,7 @@ def mamba1_scan(dt: torch.Tensor, x: torch.Tensor, B_in: torch.Tensor,
     (B, S, di) fp32, hT (B, di, N) fp32), from h0 (zeros when None).
     ``group`` forces G (threads per channel; default: from B * di)."""
     name = "mamba1_scan"
+    refuse_grad(name, "ops.plain_scan", dt, x, B_in, C_in, A, D, h0)
     _on_card(name, x, [dt, B_in, C_in, A, D, h0])
     check_inputs(name, dt, x, B_in, C_in, A, D, h0)
     N = B_in.shape[2]
@@ -230,6 +234,8 @@ def mamba1_scan_gated(dt_raw: torch.Tensor, dt_bias: torch.Tensor,
     di, N) fp32), from h0 (zeros when None). ``group`` as for
     :func:`mamba1_scan`."""
     name = "mamba1_scan_gated"
+    refuse_grad(name, "ops.gated_selective_scan", dt_raw, dt_bias, x, B_in,
+                C_in, A_log, D, z, h0)
     _on_card(name, x, [dt_raw, dt_bias, B_in, C_in, A_log, D, z, h0])
     check_gated_inputs(name, dt_raw, dt_bias, x, B_in, C_in, A_log, D, z, h0)
     N = B_in.shape[2]

@@ -1,17 +1,19 @@
 """The LM backbone of the port (the counterpart of ``repro.models``): every
 family of the zoo (dense, vlm, audio, MoE, the Mamba1 ssm family and the
-Mamba2 + shared-attention hybrid), for serving.
-The training names of the reference (``cross_entropy``, ``loss_fn``,
-``make_train_step``, ``param_specs``) wait for the LM training slice and
-for sharding."""
+Mamba2 + shared-attention hybrid), for serving and training. The
+reference's ``param_specs`` waits for sharding."""
 from repro_torch.models.transformer import (  # noqa: F401
     Block,
     MambaBlock,
     Transformer,
+    chunked_cross_entropy,
+    cross_entropy,
     decode_step,
     forward,
     init_caches,
     init_model,
+    loss_fn,
     make_serve_step,
+    make_train_step,
     prefill,
 )

@@ -10,10 +10,14 @@ conventions:
     (B, S, heads, hd), weights (in, out) applied as ``x @ w``.
 
 The reference keeps fp32 parameters and casts each weight to the
-activation dtype at every use. The modules here hold the matmul weights
-in the activation dtype once, at load: the same bits, without the cast
-per call. The rmsnorm scales stay in ``cfg.param_dtype``, since the
-reference multiplies by them in fp32.
+activation dtype at every use. For serving, the modules here hold the
+matmul weights in the activation dtype once, at load: the same bits,
+without the cast per call. The rmsnorm scales stay in
+``cfg.param_dtype``, since the reference multiplies by them in fp32. A
+module built with ``trainable=True`` holds every leaf in
+``cfg.param_dtype`` with ``requires_grad``, as the reference trains
+them; the forward rounds each weight to the activation dtype at each
+use either way (``.to(x.dtype)`` is free on a weight already there).
 
 Full-sequence attention runs on ``kernels/flash_attention/ops`` (B6 on
 the card); :func:`chunked_causal_attention` here is its plain causal
@@ -171,31 +175,44 @@ def module_device(device=None) -> torch.device:
     return resolve_device(device)
 
 
-def new_weight(shape, dtype, device) -> nn.Parameter:
-    """An uninitialised parameter (serving: no gradient)."""
+def weight_dtype(cfg: ArchConfig, trainable: bool) -> torch.dtype:
+    """The matmul weights' dtype: ``cfg.dtype`` for serving,
+    ``cfg.param_dtype`` for training."""
+    return getattr(torch, cfg.param_dtype if trainable else cfg.dtype)
+
+
+def new_weight(shape, dtype, device, trainable: bool = False) -> nn.Parameter:
+    """An uninitialised parameter: with a gradient when ``trainable``,
+    without one for serving."""
     return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
-                        requires_grad=False)
+                        requires_grad=trainable)
 
 
 class Attention(nn.Module):
     """The attention projections: wq (d, H*hd), wk/wv (d, KVH*hd), wo
-    (H*hd, d), and with ``qkv_bias`` (qwen1.5) bq, bk, bv; on ``device``
-    (:func:`module_device`)."""
+    (H*hd, d), and with ``qkv_bias`` (qwen1.5) bq, bk, bv, in ``dtype``;
+    on ``device`` (:func:`module_device`), with a gradient when
+    ``trainable``."""
 
-    def __init__(self, cfg: ArchConfig, dtype, device=None):
+    def __init__(self, cfg: ArchConfig, dtype, device=None,
+                 trainable: bool = False):
         super().__init__()
         device = module_device(device)
         d, H, KVH = cfg.d_model, cfg.num_heads, cfg.num_kv_heads
         hd = cfg.resolved_head_dim
         self.cfg = cfg
-        self.wq = new_weight((d, H * hd), dtype, device)
-        self.wk = new_weight((d, KVH * hd), dtype, device)
-        self.wv = new_weight((d, KVH * hd), dtype, device)
-        self.wo = new_weight((H * hd, d), dtype, device)
+
+        def weight(*shape):
+            return new_weight(shape, dtype, device, trainable)
+
+        self.wq = weight(d, H * hd)
+        self.wk = weight(d, KVH * hd)
+        self.wv = weight(d, KVH * hd)
+        self.wo = weight(H * hd, d)
         if cfg.qkv_bias:
-            self.bq = new_weight((H * hd,), dtype, device)
-            self.bk = new_weight((KVH * hd,), dtype, device)
-            self.bv = new_weight((KVH * hd,), dtype, device)
+            self.bq = weight(H * hd)
+            self.bk = weight(KVH * hd)
+            self.bv = weight(KVH * hd)
         else:
             self.bq = self.bk = self.bv = None
 
@@ -222,17 +239,20 @@ class Attention(nn.Module):
 
 
 class MLP(nn.Module):
-    """SwiGLU (w1, w3: (d, f); w2: (f, d)) or GELU (w1, w2); on
-    ``device`` (:func:`module_device`)."""
+    """SwiGLU (w1, w3: (d, f); w2: (f, d)) or GELU (w1, w2) in ``dtype``;
+    on ``device`` (:func:`module_device`), with a gradient when
+    ``trainable``."""
 
-    def __init__(self, cfg: ArchConfig, dtype, device=None):
+    def __init__(self, cfg: ArchConfig, dtype, device=None,
+                 trainable: bool = False):
         super().__init__()
         device = module_device(device)
         d, f = cfg.d_model, cfg.d_ff
         self.swiglu = cfg.mlp_type == "swiglu"
-        self.w1 = new_weight((d, f), dtype, device)
-        self.w3 = new_weight((d, f), dtype, device) if self.swiglu else None
-        self.w2 = new_weight((f, d), dtype, device)
+        self.w1 = new_weight((d, f), dtype, device, trainable)
+        self.w3 = (new_weight((d, f), dtype, device, trainable)
+                   if self.swiglu else None)
+        self.w2 = new_weight((f, d), dtype, device, trainable)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.swiglu:

@@ -35,25 +35,26 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.layers import module_device, new_weight
+from repro_torch.models.layers import module_device, new_weight, weight_dtype
 
 SERVING_MODES = ("weight_gather", "token_gather")
 
 
 class MoE(nn.Module):
     """The experts of one layer: router (d, E), w1 and w3 (E, d, f), w2
-    (E, f, d), in ``cfg.dtype``. Left unset, on ``device`` (``cuda``
-    unless ``"cpu"``; ``"meta"`` allocates nothing)."""
+    (E, f, d), in ``cfg.dtype`` (``cfg.param_dtype``, with a gradient,
+    when ``trainable``). Left unset, on ``device`` (``cuda`` unless
+    ``"cpu"``; ``"meta"`` allocates nothing)."""
 
-    def __init__(self, cfg: ArchConfig, device=None):
+    def __init__(self, cfg: ArchConfig, device=None, trainable: bool = False):
         super().__init__()
         device = module_device(device)
         d, f, E = cfg.d_model, cfg.d_ff, cfg.num_experts
-        dt = getattr(torch, cfg.dtype)
-        self.router = new_weight((d, E), dt, device)
-        self.w1 = new_weight((E, d, f), dt, device)
-        self.w3 = new_weight((E, d, f), dt, device)
-        self.w2 = new_weight((E, f, d), dt, device)
+        dt = weight_dtype(cfg, trainable)
+        self.router = new_weight((d, E), dt, device, trainable)
+        self.w1 = new_weight((E, d, f), dt, device, trainable)
+        self.w3 = new_weight((E, d, f), dt, device, trainable)
+        self.w2 = new_weight((E, f, d), dt, device, trainable)
 
 
 def init_moe(mod: MoE, cfg: ArchConfig, generator: torch.Generator) -> None:

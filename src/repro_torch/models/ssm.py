@@ -53,7 +53,7 @@ from torch import nn
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.mamba_scan import ops
-from repro_torch.models.layers import module_device, new_weight
+from repro_torch.models.layers import module_device, new_weight, weight_dtype
 
 
 # ------------------------------------------------------------------ helpers
@@ -94,25 +94,30 @@ class Mamba1(nn.Module):
     2di), conv_w (K, di), conv_b (di,), x_proj (di, R+2N), dt_proj (R,
     di) and out_proj (di, d) in ``cfg.dtype`` (the reference rounds them
     to the activation dtype at every use); dt_bias (di,), A_log (di, N)
-    and D (di,) in ``cfg.param_dtype`` (the reference uses them in fp32).
-    Left unset, on ``device`` (``cuda`` unless ``"cpu"``; ``"meta"``
-    allocates nothing)."""
+    and D (di,) in ``cfg.param_dtype`` (the reference uses them in fp32);
+    every leaf in ``cfg.param_dtype``, with a gradient, when
+    ``trainable``. Left unset, on ``device`` (``cuda`` unless ``"cpu"``;
+    ``"meta"`` allocates nothing)."""
 
-    def __init__(self, cfg: ArchConfig, device=None):
+    def __init__(self, cfg: ArchConfig, device=None, trainable: bool = False):
         super().__init__()
         device = module_device(device)
         d, di, N, K = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_conv
         R = cfg.resolved_dt_rank
-        dt, pdt = getattr(torch, cfg.dtype), getattr(torch, cfg.param_dtype)
-        self.in_proj = new_weight((d, 2 * di), dt, device)
-        self.conv_w = new_weight((K, di), dt, device)
-        self.conv_b = new_weight((di,), dt, device)
-        self.x_proj = new_weight((di, R + 2 * N), dt, device)
-        self.dt_proj = new_weight((R, di), dt, device)
-        self.dt_bias = new_weight((di,), pdt, device)
-        self.A_log = new_weight((di, N), pdt, device)
-        self.D = new_weight((di,), pdt, device)
-        self.out_proj = new_weight((di, d), dt, device)
+        dt, pdt = weight_dtype(cfg, trainable), getattr(torch, cfg.param_dtype)
+
+        def weight(dtype, *shape):
+            return new_weight(shape, dtype, device, trainable)
+
+        self.in_proj = weight(dt, d, 2 * di)
+        self.conv_w = weight(dt, K, di)
+        self.conv_b = weight(dt, di)
+        self.x_proj = weight(dt, di, R + 2 * N)
+        self.dt_proj = weight(dt, R, di)
+        self.dt_bias = weight(pdt, di)
+        self.A_log = weight(pdt, di, N)
+        self.D = weight(pdt, di)
+        self.out_proj = weight(dt, di, d)
 
 
 def init_mamba1(mod: Mamba1, cfg: ArchConfig,
@@ -205,24 +210,29 @@ class Mamba2(nn.Module):
     """One Mamba2 mixer, with the reference's leaf names: in_proj (d,
     2di+2N+nh), conv_w (K, di+2N), conv_b (di+2N,) and out_proj (di, d)
     in ``cfg.dtype``; dt_bias, A_log and D (nh,) and norm_scale (di,) in
-    ``cfg.param_dtype``, as :class:`Mamba1` keeps its leaves. Left unset,
-    on ``device`` (``cuda`` unless ``"cpu"``; ``"meta"`` allocates
-    nothing)."""
+    ``cfg.param_dtype``, as :class:`Mamba1` keeps its leaves (and, like
+    it, all in ``cfg.param_dtype`` with a gradient when ``trainable``).
+    Left unset, on ``device`` (``cuda`` unless ``"cpu"``; ``"meta"``
+    allocates nothing)."""
 
-    def __init__(self, cfg: ArchConfig, device=None):
+    def __init__(self, cfg: ArchConfig, device=None, trainable: bool = False):
         super().__init__()
         device = module_device(device)
         d, di, N, K = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_conv
         nh = di // cfg.ssm_headdim
-        dt, pdt = getattr(torch, cfg.dtype), getattr(torch, cfg.param_dtype)
-        self.in_proj = new_weight((d, 2 * di + 2 * N + nh), dt, device)
-        self.conv_w = new_weight((K, di + 2 * N), dt, device)
-        self.conv_b = new_weight((di + 2 * N,), dt, device)
-        self.dt_bias = new_weight((nh,), pdt, device)
-        self.A_log = new_weight((nh,), pdt, device)
-        self.D = new_weight((nh,), pdt, device)
-        self.norm_scale = new_weight((di,), pdt, device)
-        self.out_proj = new_weight((di, d), dt, device)
+        dt, pdt = weight_dtype(cfg, trainable), getattr(torch, cfg.param_dtype)
+
+        def weight(dtype, *shape):
+            return new_weight(shape, dtype, device, trainable)
+
+        self.in_proj = weight(dt, d, 2 * di + 2 * N + nh)
+        self.conv_w = weight(dt, K, di + 2 * N)
+        self.conv_b = weight(dt, di + 2 * N)
+        self.dt_bias = weight(pdt, nh)
+        self.A_log = weight(pdt, nh)
+        self.D = weight(pdt, nh)
+        self.norm_scale = weight(pdt, di)
+        self.out_proj = weight(dt, di, d)
 
 
 def init_mamba2(mod: Mamba2, cfg: ArchConfig,
@@ -277,10 +287,12 @@ def ssd_chunked(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     # BEFORE the exp (the upper triangle would overflow)
     upper = torch.ones((chunk, chunk), dtype=torch.bool,
                        device=xh.device).triu(1)
+    # (out of place: exp's backward reads its output, which an in-place
+    # multiply would overwrite)
     w = a_cum[..., :, None] - a_cum[..., None, :]  # (b,c,h,i,j)
-    w.masked_fill_(upper, float("-inf")).exp_()
+    w = torch.exp(w.masked_fill(upper, float("-inf")))
     cb = torch.matmul(Cc, Bc.transpose(-1, -2))  # (b,c,i,j)
-    w.mul_(cb[:, :, None])
+    w = w * cb[:, :, None]
     dtx = dtc[..., None] * xc  # (b,c,h,l,p)
     y = torch.matmul(w, dtx)  # y_diag (b,c,h,i,p)
     del w

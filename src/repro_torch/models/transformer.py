@@ -1,4 +1,4 @@
-"""Decoder-only LM for every family of the zoo, for serving.
+"""Decoder-only LM for every family of the zoo, for serving and training.
 
 The port's counterpart of ``repro/models/transformer.py``:
 
@@ -11,10 +11,19 @@ The port's counterpart of ``repro/models/transformer.py``:
 
 (``prefix_embeds`` feeds the vlm family, ``embeds`` the audio one.)
 
-Entry points (serving):
+Entry points:
   init_model                    parameters drawn from a torch.Generator
+                                (``trainable=True``: fp32 leaves with a
+                                gradient, as the reference trains them)
   forward                       full-sequence logits (or hidden states)
-                                and the router's aux loss
+                                and the router's aux loss; under
+                                autograd each block (the hybrid: each
+                                group) is checkpointed, as the
+                                reference's ``jax.checkpoint``
+  cross_entropy / chunked_cross_entropy / loss_fn
+                                the LM loss, the chunked CE never
+                                holding the (B, S, V) logits
+  make_train_step               one backward and one AdamW update
   prefill                       last-token logits + filled caches (KV,
                                 the ssm states, or the hybrid's both)
   init_caches / decode_step     one token against the caches
@@ -32,14 +41,18 @@ are plain PyTorch, as they are jnp in the reference. ``decode_step``
 updates the caches it is given in place (the reference returns new
 arrays) and returns them.
 
-The training entry points (``cross_entropy``, ``loss_fn``,
-``make_train_step``) wait for the LM training slice and ``param_specs``
-for sharding (A12); none is defined here yet.
+Training differentiates through B6 and B7: their ``ops`` entries are
+``torch.autograd.Function`` s on the card whose backward is the plain
+version's gradient, recomputed (the reference has no backward kernel).
+With remat, each B6 forward runs twice a step: once in the forward and
+once in its block's recompute. ``param_specs`` waits for sharding
+(A12).
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
@@ -47,6 +60,7 @@ from repro_torch.kernels.flash_attention import ops as attention_ops
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SS
+from repro_torch.optim.adamw import AdamW
 
 
 def _dt(cfg: ArchConfig) -> torch.dtype:
@@ -72,17 +86,21 @@ class Block(nn.Module):
     """One attention layer: attention projections, the FFN (an
     :class:`~repro_torch.models.moe.MoE` when ``cfg.num_experts``, else an
     MLP), and (rmsnorm) two scales; on ``device``
-    (:func:`~repro_torch.models.layers.module_device`)."""
+    (:func:`~repro_torch.models.layers.module_device`), trainable or
+    not (:class:`Transformer`)."""
 
-    def __init__(self, cfg: ArchConfig, device=None):
+    def __init__(self, cfg: ArchConfig, device=None, trainable: bool = False):
         super().__init__()
         device = L.module_device(device)
-        self.attn = L.Attention(cfg, _dt(cfg), device)
-        self.ffn = (MOE.MoE(cfg, device) if cfg.num_experts
-                    else L.MLP(cfg, _dt(cfg), device))
+        dt = L.weight_dtype(cfg, trainable)
+        self.attn = L.Attention(cfg, dt, device, trainable)
+        self.ffn = (MOE.MoE(cfg, device, trainable) if cfg.num_experts
+                    else L.MLP(cfg, dt, device, trainable))
         if cfg.norm_type == "rmsnorm":
-            self.norm1 = L.new_weight((cfg.d_model,), _pdt(cfg), device)
-            self.norm2 = L.new_weight((cfg.d_model,), _pdt(cfg), device)
+            self.norm1 = L.new_weight((cfg.d_model,), _pdt(cfg), device,
+                                      trainable)
+            self.norm2 = L.new_weight((cfg.d_model,), _pdt(cfg), device,
+                                      trainable)
         else:
             self.norm1 = self.norm2 = None
 
@@ -91,14 +109,15 @@ class MambaBlock(nn.Module):
     """One ssm layer: the (rmsnorm) scale ``norm`` in ``cfg.param_dtype``
     and the mixer ``mamba``, Mamba1 for the ssm family and Mamba2 for the
     hybrid, as the reference picks them; on ``device`` (``cuda`` unless
-    ``"cpu"``; ``"meta"`` allocates nothing)."""
+    ``"cpu"``; ``"meta"`` allocates nothing), trainable or not."""
 
-    def __init__(self, cfg: ArchConfig, device=None):
+    def __init__(self, cfg: ArchConfig, device=None, trainable: bool = False):
         super().__init__()
         device = L.module_device(device)
         mixer = SS.Mamba1 if cfg.family == "ssm" else SS.Mamba2
-        self.mamba = mixer(cfg, device)
-        self.norm = (L.new_weight((cfg.d_model,), _pdt(cfg), device)
+        self.mamba = mixer(cfg, device, trainable)
+        self.norm = (L.new_weight((cfg.d_model,), _pdt(cfg), device,
+                                  trainable)
                      if cfg.norm_type == "rmsnorm" else None)
 
 
@@ -107,29 +126,36 @@ class Transformer(nn.Module):
     :class:`MambaBlock` s for the ssm and hybrid families), the hybrid's
     ``shared`` :class:`Block` (one set of parameters, run after every
     group), ``final_norm`` (rmsnorm only) and, without tied embeddings,
-    ``lm_head`` (d, V). Matmul weights in ``cfg.dtype``, norm scales in
-    ``cfg.param_dtype``. The parameters are left unset, on ``device``
-    (``cuda`` unless ``"cpu"`` is asked for; ``"meta"`` allocates
-    nothing)."""
+    ``lm_head`` (d, V). For serving, matmul weights in ``cfg.dtype``,
+    norm scales in ``cfg.param_dtype``, and no gradient; with
+    ``trainable=True`` every leaf in ``cfg.param_dtype`` with
+    ``requires_grad`` (the forward rounds each weight to the activation
+    dtype at each use, as the reference does). The parameters are left
+    unset, on ``device`` (``cuda`` unless ``"cpu"`` is asked for;
+    ``"meta"`` allocates nothing)."""
 
-    def __init__(self, cfg: ArchConfig, device=None):
+    def __init__(self, cfg: ArchConfig, device=None, trainable: bool = False):
         super().__init__()
         device = L.module_device(device)
         self.cfg = cfg
-        dt = _dt(cfg)
+        dt = L.weight_dtype(cfg, trainable)
+
+        def weight(dtype, *shape):
+            return L.new_weight(shape, dtype, device, trainable)
+
         block = MambaBlock if cfg.family in ("ssm", "hybrid") else Block
-        self.embed = L.new_weight((cfg.vocab_size, cfg.d_model), dt, device)
-        self.layers = nn.ModuleList(block(cfg, device)
+        self.embed = weight(dt, cfg.vocab_size, cfg.d_model)
+        self.layers = nn.ModuleList(block(cfg, device, trainable)
                                     for _ in range(cfg.num_layers))
         if cfg.family == "hybrid":
             num_groups(cfg)
-            self.shared = Block(cfg, device)
+            self.shared = Block(cfg, device, trainable)
         else:
             self.shared = None
-        self.final_norm = (L.new_weight((cfg.d_model,), _pdt(cfg), device)
+        self.final_norm = (weight(_pdt(cfg), cfg.d_model)
                            if cfg.norm_type == "rmsnorm" else None)
         self.lm_head = (None if cfg.tie_embeddings else
-                        L.new_weight((cfg.d_model, cfg.vocab_size), dt, device))
+                        weight(dt, cfg.d_model, cfg.vocab_size))
 
     @property
     def device(self) -> torch.device:
@@ -137,10 +163,12 @@ class Transformer(nn.Module):
 
 
 # ==================================================================== init
+@torch.no_grad()
 def init_model(cfg: ArchConfig, generator: torch.Generator,
-               device=None) -> Transformer:
-    """A model on ``device`` (``cuda`` unless ``"cpu"`` is asked for) with
-    the reference's initialisation: N(0, 1) weights scaled by
+               device=None, trainable: bool = False) -> Transformer:
+    """A model on ``device`` (``cuda`` unless ``"cpu"`` is asked for),
+    trainable or not (:class:`Transformer`), with the reference's
+    initialisation: N(0, 1) weights scaled by
     fan_in^-0.5 (the embedding and the untied head by d^-0.5), zero
     biases, unit norm scales. The normals are drawn in fp32 from
     ``generator`` (which lives on ``device``), in the order embed, then
@@ -156,7 +184,7 @@ def init_model(cfg: ArchConfig, generator: torch.Generator,
     if generator.device.type != dev.type:
         raise ValueError(f"the generator lives on {generator.device}, the "
                          f"model on {dev}")
-    model = Transformer(cfg, device=dev)
+    model = Transformer(cfg, device=dev, trainable=trainable)
 
     def fill(param, fan_in):
         param.copy_(fan_in ** -0.5 * torch.randn(
@@ -270,50 +298,201 @@ def _inputs(model: Transformer, tokens, embeds, prefix_embeds):
     return h
 
 
-def _run_layers(model: Transformer, h: torch.Tensor, caches=None):
-    """Every layer's full-sequence pass in order, the hybrid's shared
-    block after each group of ``shared_attn_every`` Mamba2 layers.
-    Returns (h, aux), aux the sum of the MoE layers' router losses (fp32,
-    0 without experts). With ``caches`` (prefill's buffers), each layer's
-    (k, v) or Mamba state is written into its slot: the shared block's of
-    group j into slot j."""
+def _units(model: Transformer, rope, caches=None) -> list:
+    """The layers as the reference checkpoints them: a list of functions
+    h -> (h, the router's aux loss or None), one per block, or for the
+    hybrid one per group of ``shared_attn_every`` Mamba2 layers followed
+    by the shared block. With ``caches`` (prefill's buffers), each
+    layer's (k, v) or Mamba state is written into its slot: the shared
+    block's of group j into slot j."""
     cfg = model.cfg
-    aux = torch.zeros((), dtype=torch.float32, device=h.device)
-    rope = (None if cfg.family == "ssm" else
-            _rope(torch.arange(h.shape[1], device=h.device), cfg))
-    k = cfg.shared_attn_every
-    for i, blk in enumerate(model.layers):
-        if isinstance(blk, MambaBlock):
+
+    def attention(blk: Block, i: int):
+        def unit(h):
+            h, (kk, vv) = _attn_full(h, blk, cfg, rope)
+            if caches is not None:
+                caches["k"][i], caches["v"][i] = kk, vv
+            return _ffn_full(h, blk, cfg)
+        return unit
+
+    def mamba(blk: MambaBlock, i: int):
+        def unit(h):
             h, state = _ssm_full(h, blk, cfg)
             if caches is not None:
                 caches["conv"][i], caches["ssm"][i] = (state["conv"],
                                                        state["ssm"])
-            if model.shared is None or (i + 1) % k:
-                continue
-            blk, i = model.shared, i // k
-        h, (kk, vv) = _attn_full(h, blk, cfg, rope)
-        if caches is not None:
-            caches["k"][i], caches["v"][i] = kk, vv
-        h, layer_aux = _ffn_full(h, blk, cfg)
+            return h, None
+        return unit
+
+    if cfg.family == "ssm":
+        return [mamba(blk, i) for i, blk in enumerate(model.layers)]
+    if cfg.family != "hybrid":
+        return [attention(blk, i) for i, blk in enumerate(model.layers)]
+    k = cfg.shared_attn_every
+
+    def group(j: int):
+        layers = [mamba(model.layers[i], i) for i in range(j * k, j * k + k)]
+        shared = attention(model.shared, j)
+
+        def unit(h):
+            for layer in layers:
+                h, _ = layer(h)
+            return shared(h)
+        return unit
+
+    return [group(j) for j in range(num_groups(cfg))]
+
+
+def _run_layers(model: Transformer, h: torch.Tensor, caches=None,
+                remat: bool = False):
+    """Every layer's full-sequence pass in order (:func:`_units`), each
+    unit through ``torch.utils.checkpoint`` with ``remat``. Returns (h,
+    aux), aux the sum of the MoE layers' router losses (fp32, 0 without
+    experts)."""
+    cfg = model.cfg
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    rope = (None if cfg.family == "ssm" else
+            _rope(torch.arange(h.shape[1], device=h.device), cfg))
+    for unit in _units(model, rope, caches):
+        if remat:
+            h, layer_aux = checkpoint(unit, h, use_reentrant=False)
+        else:
+            h, layer_aux = unit(h)
         if layer_aux is not None:
             aux = aux + layer_aux
     return h, aux
 
 
+def _differentiated(model: Transformer) -> bool:
+    """Whether a forward now builds a graph: grad mode on and a parameter
+    that requires a gradient."""
+    return torch.is_grad_enabled() and any(
+        p.requires_grad for p in model.parameters())
+
+
 # ============================================================ full forward
 def forward(model: Transformer, tokens=None, embeds=None, prefix_embeds=None,
-            return_hidden: bool = False):
+            return_hidden: bool = False, remat: bool = True):
     """Full-sequence forward: tokens (B, S_text) or embeds (B, S, d), with
     optional prefix_embeds (B, P, d) in front. Returns (logits (B, S, V),
     aux) -- or (final-norm hidden states (B, S, d), aux) with
     ``return_hidden``; aux is the sum of the MoE layers' router losses
-    (fp32), 0 without experts."""
+    (fp32), 0 without experts. With ``remat``, a forward that builds a
+    graph (grad mode on, a parameter that requires a gradient) runs each
+    block -- for the hybrid each group -- through
+    ``torch.utils.checkpoint``: its activations are recomputed in the
+    backward instead of kept, as the reference's ``jax.checkpoint``;
+    the numbers are the same either way."""
     h = _inputs(model, tokens, embeds, prefix_embeds)
-    h, aux = _run_layers(model, h)
+    h, aux = _run_layers(model, h, remat=remat and _differentiated(model))
     h = final_norm(model, h)
     if return_hidden:
         return h, aux
     return lm_logits(model, h), aux
+
+
+# =============================================================== loss/train
+def cross_entropy(logits: torch.Tensor, labels, weights=None) -> torch.Tensor:
+    """Mean token CE of logits (..., V) at labels (...), the log-softmax
+    in fp32; with ``weights`` (...), the weighted sum over max(sum(w),
+    1)."""
+    logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+    labels = torch.as_tensor(labels, device=logits.device).long()
+    ll = torch.gather(logp, -1, labels[..., None])[..., 0]
+    if weights is None:
+        return -torch.mean(ll)
+    w = torch.as_tensor(weights, device=logits.device).to(torch.float32)
+    return -torch.sum(ll * w) / torch.clamp(torch.sum(w), min=1.0)
+
+
+def chunked_cross_entropy(model: Transformer, h: torch.Tensor, labels,
+                          weights, chunk: int) -> torch.Tensor:
+    """The CE of the logits of hidden states h (B, S, d), one sequence
+    chunk at a time: the (B, S, V) logits are never held (the peak is
+    (B, chunk, V)), and under autograd each chunk goes through
+    ``torch.utils.checkpoint``, so the backward recomputes its logits
+    instead of keeping them. ``min(chunk, S)`` must divide S (the
+    reference asserts it; here ``ValueError``)."""
+    B, S, _ = h.shape
+    chunk = min(chunk, S)
+    if S % chunk:
+        raise ValueError(f"chunked_cross_entropy: the sequence length {S} "
+                         f"is not a multiple of the chunk {chunk}")
+    dev = h.device
+    labels = torch.as_tensor(labels, device=dev).long()
+    if weights is not None:
+        weights = torch.as_tensor(weights, device=dev).to(torch.float32)
+
+    def body(hc, lc, wc):
+        logp = torch.log_softmax(lm_logits(model, hc).to(torch.float32),
+                                 dim=-1)
+        ll = torch.gather(logp, -1, lc[..., None])[..., 0]
+        if wc is None:
+            return -torch.sum(ll), torch.tensor(float(ll.numel()),
+                                                device=dev)
+        return -torch.sum(ll * wc), torch.sum(wc)
+
+    remat = torch.is_grad_enabled() and (h.requires_grad
+                                         or _differentiated(model))
+    tot = torch.zeros((), dtype=torch.float32, device=dev)
+    cnt = torch.zeros((), dtype=torch.float32, device=dev)
+    for c0 in range(0, S, chunk):
+        args = (h[:, c0:c0 + chunk], labels[:, c0:c0 + chunk],
+                None if weights is None else weights[:, c0:c0 + chunk])
+        s, n = (checkpoint(body, *args, use_reentrant=False) if remat
+                else body(*args))
+        tot, cnt = tot + s, cnt + n
+    return tot / torch.clamp(cnt, min=1.0)
+
+
+def loss_fn(model: Transformer, batch: dict):
+    """(loss, (ce, aux)) of a batch {"labels" (B, S_text), and "tokens"
+    (B, S_text) or "embeds" (B, S, d), optionally "prefix_embeds" (B, P,
+    d) and "loss_weights" (B, S_text)}: loss = ce + router_aux_coef *
+    aux. The prefix positions (vlm) carry no LM loss. With
+    ``cfg.ce_chunk`` the CE is :func:`chunked_cross_entropy`'s."""
+    cfg = model.cfg
+    labels = batch["labels"]
+    out, aux = forward(model, tokens=batch.get("tokens"),
+                       embeds=batch.get("embeds"),
+                       prefix_embeds=batch.get("prefix_embeds"),
+                       return_hidden=bool(cfg.ce_chunk))
+    pad = out.shape[1] - labels.shape[1]
+    if pad:  # prefix positions (vlm) carry no LM loss
+        out = out[:, pad:]
+    if cfg.ce_chunk:
+        ce = chunked_cross_entropy(model, out, labels,
+                                   batch.get("loss_weights"), cfg.ce_chunk)
+    else:
+        ce = cross_entropy(out, labels, batch.get("loss_weights"))
+    return ce + cfg.router_aux_coef * aux, (ce, aux)
+
+
+def make_train_step(model: Transformer, lr: float = 3e-4):
+    """(opt, train_step): AdamW(lr, weight_decay=0.01) and a step
+    ``train_step(opt_state, batch) -> (opt_state, {"loss", "ce",
+    "aux"})`` that takes one backward of :func:`loss_fn` and updates the
+    model's parameters in place. The model must be trainable; the state
+    is ``opt.init(dict(model.named_parameters()))``. A parameter the
+    loss does not reach (the untied embedding of an ``embeds`` model)
+    gets a zero gradient, as in the reference."""
+    params = dict(model.named_parameters())
+    if not all(p.requires_grad for p in params.values()):
+        raise ValueError("make_train_step needs a trainable model "
+                         "(init_model(..., trainable=True))")
+    opt = AdamW(lr=lr, weight_decay=0.01)
+
+    def train_step(opt_state, batch):
+        loss, (ce, aux) = loss_fn(model, batch)
+        grads = torch.autograd.grad(loss, list(params.values()),
+                                    allow_unused=True)
+        grads = {name: torch.zeros_like(p) if g is None else g
+                 for (name, p), g in zip(params.items(), grads)}
+        _, opt_state = opt.apply(grads, opt_state, params)
+        return opt_state, {"loss": loss.detach(), "ce": ce.detach(),
+                           "aux": aux.detach()}
+
+    return opt, train_step
 
 
 # ================================================================== caches

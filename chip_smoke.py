@@ -26,7 +26,11 @@ training path (``repro_torch.models.make_train_step``: llama3.2-1b
 trainable at full width and depth, 4 x 4,096 tokens a step, B6 in the
 forward and its checkpointed recompute, the plain attention backward,
 AdamW; then a reduced model of each family against the CPU and B6's and
-B7's autograd Functions against their plain versions' gradients),
+B7's autograd Functions against their plain versions' gradients) and the
+autotuning path (``repro_torch.tune.sweep`` over B1, B4 and B2 at the
+reference's sweep shapes, every config parity-gated, the committed
+``cuda-sm90.json`` held to ``check_table``; then ``--tune``,
+``--block-n`` and ``--block-k`` through the drivers),
 shows that each path launched its kernels, holds the card's OWLQN+
 trajectories and a reduced LM of each family against the CPU's, times
 the kernels beside their plain versions, their bound and one library
@@ -41,6 +45,7 @@ It imports nothing of JAX and nothing of the JAX package ``repro``.
 from __future__ import annotations
 
 import json
+import os
 import re
 import subprocess
 import sys
@@ -268,6 +273,29 @@ def _check_bundles(torch, dev, rng, theta, codes, scales):
     return err
 
 
+FAILURES = Path(os.environ.get("CHIP_SMOKE_FAILURES",
+                               ROOT / "build" / "failures"))
+
+
+def _save_case(torch, name: str, *, ids, theta, codes, scales, deq,
+               **arrays) -> Path:
+    """Save a failed phase-2 case for a replay: its ids and every other
+    tensor given, with Theta, the codes, the scales and the dequantised
+    rows cut to the rows the ids read (``rows``; the pad row included).
+    The directory is ``$CHIP_SMOKE_FAILURES``, else ``build/failures``."""
+    rows = torch.unique(torch.cat([ids.reshape(-1), torch.tensor(
+        [theta.shape[0] - 1], device=ids.device, dtype=ids.dtype)]))
+    cut = {"rows": rows, "ids": ids, "theta_rows": theta[rows.long()],
+           "codes_rows": codes[rows.long()],
+           "scales_rows": scales[rows.long()], "deq_rows": deq[rows.long()]}
+    out = {key: (t.cpu().numpy() if hasattr(t, "cpu") else t)
+           for key, t in {**cut, **arrays}.items()}
+    FAILURES.mkdir(parents=True, exist_ok=True)
+    path = FAILURES / f"{name}.npz"
+    np.savez(path, **out)
+    return path
+
+
 def phase_kernels(torch, dev, theta, codes, scales):
     from repro_torch.kernels.lsplm_sparse_fused import ops
     from repro_torch.kernels.lsplm_sparse_fused.lsplm_sparse_fused import (
@@ -306,8 +334,21 @@ def phase_kernels(torch, dev, theta, codes, scales):
                 check(_z_ok(zi, zi_ref), f"B4 z vs plain int8 at {tag}")
                 check(float((pi - pi_ref).abs().max()) <= P_ATOL,
                       f"B4 p vs plain int8 at {tag}")
-                check(_z_ok(zi, zd) and float((pi - pd).abs().max()) <= P_ATOL,
-                      f"B4 vs B1 on the dequantised Theta at {tag}")
+                if not (_z_ok(zi, zd)
+                        and float((pi - pd).abs().max()) <= P_ATOL):
+                    zd_plain = ops._chunked_zmap(ids, vals, deq)
+                    saved = _save_case(
+                        torch, f"phase2_b4_vs_b1_n{n}_k{k}_dedup{int(dedup)}",
+                        ids=ids, vals=vals, theta=theta, codes=codes,
+                        scales=scales, deq=deq, z=z, p=p, zi=zi, pi=pi,
+                        zd=zd, pd=pd, zd_plain=zd_plain,
+                        dedup=np.array(dedup))
+                    check(False, f"B4 vs B1 on the dequantised Theta at "
+                          f"{tag}: max |dz| {float((zi - zd).abs().max()):.3e}"
+                          f", |dp| {float((pi - pd).abs().max()):.3e}; B1 "
+                          f"vs plain on that Theta: max |dz| "
+                          f"{float((zd - zd_plain).abs().max()):.3e}; the "
+                          f"case is saved to {saved}")
                 bitwise &= bool(torch.equal(zi, zd) and torch.equal(pi, pd))
                 if dedup:  # the fused dedup is the pre-pass, bit for bit
                     pp, zp = lsplm_sparse_fused_forward(pre_ids, pre_vals,
@@ -3645,16 +3686,16 @@ def phase_stream_gates(torch, dev, tmp: Path):
 # ------------------------------------------------------------ phase 27
 CARD_TESTS = ("tests/test_torch_stream_card.py",
               "tests/test_torch_flash_attention_card.py",
-              "tests/test_torch_lm_train_card.py")
+              "tests/test_torch_lm_train_card.py",
+              "tests/test_torch_sparse_card.py")
 
 
 def phase_card_tests():
     """The jax-free ``cuda``-marked tests (the streaming slice's, B6's
-    against its plain version, the training path's), in a pytest process
+    against its plain version, the training path's, B1/B4/B2's against
+    their plain versions and at every autotune config), in a pytest process
     of their own (they build nothing: the kernels phase 1 built load from
     ``build/``)."""
-    import os
-
     env = dict(os.environ)
     env["PYTHONPATH"] = str(ROOT / "src") + (
         os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
@@ -4125,12 +4166,339 @@ def phase_lm_train_card_vs_cpu(torch, dev):
     return launches
 
 
+# ------------------------------------------------------------ phase 30
+TUNE_TOL = 2.0  # check_table's freshness bar (the reference's --check-tol)
+TUNE_TABLE = ROOT / "src" / "repro_torch" / "tune" / "tables" / "cuda-sm90.json"
+
+
+def phase_tune_sweep(torch, dev):
+    """The autotune sweep on the card (``repro_torch.tune.sweep``): B1, B4
+    and B2 at the reference's PROD_SHAPES + SMOKE_SHAPES, every config
+    parity-gated (bitwise the default's output, within 2e-4 of the
+    plain oracle; B2 bitwise ``scatter_runs_ref``) before it is timed,
+    per envelope the default and the winner with their µs, a departure
+    from the default re-timed on Zipf ids and kept only if it holds there;
+    the swept table as one JSON line; B1's two copy schemes at the
+    sparse training
+    path's own Zipf batches; then ``check_table`` on the committed
+    ``cuda-sm90.json`` at tol 2.0."""
+    from repro_torch import tune
+    from repro_torch.data.sparse import generate_sparse
+    from repro_torch.kernels.lsplm_sparse_fused import ops
+    from repro_torch.kernels.lsplm_sparse_fused.lsplm_sparse_fused import (
+        launch_config,
+        lsplm_sparse_fused_forward,
+    )
+    from repro_torch.launch.train import _theta0, _user_range
+    from repro_torch.tune import sweep
+
+    t_phase = time.perf_counter()
+    shapes = sweep.PROD_SHAPES + sweep.SMOKE_SHAPES
+    records = []
+    table = sweep.sweep_shapes(
+        shapes, device=dev, records=records, log=lambda msg: None,
+        generator="python3 chip_smoke.py --only 30 (phase 30)")
+    backend = tune.backend_key(dev)
+    for r in records:
+        check(r["best_us"] < float("inf"),
+              f"{r['kernel']}/{r['envelope']}: no config passed parity")
+        ratio = (f"{r['default_us'] / r['best_us']:.3f}x"
+                 if r["default_us"] else "n/a")
+        z = r["zipf"]
+        print(f"phase 30: {r['kernel']} {r['envelope']} (N, K, d, m = "
+              f"{tuple(r['shape'])}): default {r['default']} "
+              + (f"{r['default_us']:.2f} us" if r["default_us"] else "-")
+              + f", winner {r['best']} {r['best_us']:.2f} us, default/winner "
+              f"{ratio}; {r['configs']} configs, {r['rejected']} rejected"
+              + (f" ({'; '.join(sorted(set(r['rejected_why'])))})"
+                 if r["rejected"] else "")
+              + ("" if z is None else
+                 f"; on Zipf ids default {z['default_us']:.2f} us, winner "
+                 f"{z['best_us']:.2f} us, default/winner "
+                 f"{z['default_us'] / z['best_us']:.3f}x: "
+                 + ("held" if z["held"] else "not held"))
+              + f"; table gets {r['committed']}")
+    moved = [r for r in records if r["committed"] != r["default"]]
+    print(f"phase 30: {len(moved)} of {len(records)} swept entries depart "
+          f"from the builtin default"
+          + "".join(f"; {r['kernel']} {r['envelope']} {r['committed']}"
+                    for r in moved)
+          + f" ({sum(r['zipf'] is not None for r in records)} departures "
+          f"on uniform ids re-timed on Zipf ids, "
+          f"{sum(bool(r['zipf'] and not r['zipf']['held']) for r in records)}"
+          f" not held)")
+    print("phase 30: swept table " + json.dumps(
+        json.loads(table.to_json(backend)), sort_keys=True))
+
+    # B1's copy schemes at the training path's Zipf batches (phase 6's
+    # data: batch seed --seed + 1, Theta0 from --seed), in turns
+    train = generate_sparse(num_features=D_FEATURES,
+                            num_user_features_range=_user_range(D_FEATURES),
+                            sessions=SESSIONS, seed=SEED + 1,
+                            with_plans=False, device=dev)
+    tp = ops.pad_theta(_theta0(D_FEATURES, REGIONS, SEED, dev))
+    flush = torch.empty(128 * 2**20 // 4, dtype=torch.float32, device=dev)
+    for side, ids, vals in (("ad", train.ad_ids, train.ad_vals),
+                            ("user", train.user_ids, train.user_vals)):
+        n, k = ids.shape
+        warps, rule = launch_config(n, k, 2 * REGIONS, int8=False,
+                                    dedup=True)
+        ms = {tune.COPY_LANE: [], tune.COPY_PIECE: []}
+        outs = {}
+        for copy in (tune.COPY_PIECE, tune.COPY_LANE, tune.COPY_LANE,
+                     tune.COPY_PIECE):
+            def fn(copy=copy):
+                return lsplm_sparse_fused_forward(ids, vals, tp, dedup=True,
+                                                  copy=copy)
+            outs[copy] = fn()
+            ms[copy].append(_time_ms(torch, fn, flush))
+        check(all(torch.equal(a, b) for a, b in zip(
+            outs[tune.COPY_LANE], outs[tune.COPY_PIECE])),
+            f"B1's copy schemes differ at the training {side} side")
+        lane, piece = (min(ms[tune.COPY_LANE]), min(ms[tune.COPY_PIECE]))
+        print(f"phase 30: B1 copy schemes at the training {side} side "
+              f"(Zipf, N={n:,} K={k}, dedup, {warps} rows a block; the rule "
+              f"takes {'by piece' if rule == tune.COPY_PIECE else 'lane'}): "
+              f"by piece {piece:.4f} ms, lane per row {lane:.4f} ms "
+              f"(lane/piece {lane / piece:.3f}); runs by piece "
+              f"{ms[tune.COPY_PIECE]}, lane {ms[tune.COPY_LANE]}; outputs "
+              "bitwise equal")
+    del train, tp, flush
+
+    check(TUNE_TABLE.is_file(), f"no committed table at {TUNE_TABLE}")
+    committed = tune.AutotuneTable.load(TUNE_TABLE)
+    meta = committed.meta.get(backend, {})
+    check(bool(meta.get("nvidia_smi")), "the committed table's meta does not "
+          "name the card and its power limit")
+    checks = []
+    failures = sweep.check_table(shapes, committed, device=dev, tol=TUNE_TOL,
+                                 records=checks, log=lambda msg: None)
+    for r in checks:
+        print(f"phase 30: check {r['kernel']} {r['envelope']}: committed "
+              f"{r['committed']} {r['us']:.2f} us vs fresh best {r['best']} "
+              f"{r['best_us']:.2f} us ({r['ratio']:.2f}x, bar {TUNE_TOL})")
+    check(not failures, "check_table on the committed cuda-sm90.json: "
+          + "; ".join(failures))
+    print(f"phase 30: the committed {TUNE_TABLE.name} (swept on "
+          f"{meta['nvidia_smi']}, torch {meta.get('torch')}, CUDA "
+          f"{meta.get('cuda')}) passes check_table at tol {TUNE_TOL} on "
+          f"{len(checks)} (kernel, envelope) pairs")
+    print(f"phase 30 took {time.perf_counter() - t_phase:.1f} s")
+
+
+# ------------------------------------------------------------ phase 31
+def _off_rule_table(tune, backend):
+    """A table holding, at every envelope of ``backend`` at 2m = 24, a
+    config B1's, B4's and B2's rules do not take at the drivers' shapes:
+    two rows a block (the rule takes 1 at N <= 132 and 8 past 528), fp32
+    rows by piece (the rule copies lane per row below N = 2,048), B2's 128
+    entries a block (the default 256). Returns (table, {wrapper: knobs})."""
+    installed = {"lsplm_sparse_fused_forward": (2, tune.COPY_PIECE),
+                 "lsplm_sparse_fused_int8_forward": (2,),
+                 "lsplm_sparse_scatter": (128,)}
+    table = tune.AutotuneTable()
+    for n in tune.N_BUCKETS:
+        for k in tune.K_BUCKETS:
+            env = tune.fused_envelope(n, k, 2 * REGIONS)
+            table.put(backend, "fused_fwd", env,
+                      {"block_n": 2, "copy": tune.COPY_PIECE})
+            table.put(backend, "fused_fwd_int8", env, {"block_n": 2})
+    for e in tune.E_BUCKETS:
+        table.put(backend, "scatter", tune.scatter_envelope(e, 2 * REGIONS),
+                  {"block_e": 128})
+    return table, installed
+
+
+def _counting_knobs(module, name, keys, counts):
+    """Wrap ``module.name`` (a kernel wrapper as its call site sees it) to
+    count its calls by the knobs they pass; returns the original, which
+    the caller puts back."""
+    fn = getattr(module, name)
+
+    def wrapped(*args, **kw):
+        key = (name, tuple(kw.get(x) for x in keys))
+        counts[key] = counts.get(key, 0) + 1
+        return fn(*args, **kw)
+
+    setattr(module, name, wrapped)
+    return fn
+
+
+def phase_tune_drivers(torch, dev, tmp: Path):
+    """The tuning flags through the drivers on the card: ``launch.train
+    --sparse`` untuned, ``--tune`` and ``--block-n 2`` give bitwise equal
+    trajectories and Theta at d = 50,000; ``launch.serve --tune`` gives
+    bitwise equal scores in fp32 and int8; both drivers again under an
+    installed table whose entries the rules never take there, every
+    kernel launched with those knobs; phase 3's G=1 dispatch wall
+    with the committed table against an empty one, in turns; ``--block-k``
+    exits with the stated departure."""
+    from repro_torch import tune
+    from repro_torch.kernels.lsplm_sparse_fused import ops as fops
+    from repro_torch.kernels.lsplm_sparse_fused.lsplm_sparse_fused import (
+        LAUNCHES as B1,
+    )
+    from repro_torch.kernels.lsplm_sparse_scatter import ops as sops
+    from repro_torch.kernels.lsplm_sparse_scatter.lsplm_sparse_scatter import (
+        LAUNCHES as B2,
+    )
+    from repro_torch.launch import serve, train as train_driver
+    from repro_torch.serve.compress import compress
+    from repro_torch.serve.engine import ScoringEngine, synthetic_requests
+
+    t_phase = time.perf_counter()
+    d = STREAM_GATE_D
+    base = ["--sparse", "--sparse-features", str(d), "--sessions",
+            str(STREAM_GATE_SESSIONS), "--regions", str(REGIONS), "--lam",
+            str(LAM), "--beta", str(BETA), "--iters", "10", "--seed",
+            str(SEED)]
+    runs = {}
+    for tag, extra in (("untuned", []), ("--tune", ["--tune"]),
+                       ("--block-n 2", ["--block-n", "2"])):
+        ckpt = str(tmp / f"theta{len(runs)}.npz")
+        _reset((B1, B2))
+        t0 = time.perf_counter()
+        rep = train_driver.run(base + extra + ["--ckpt", ckpt])
+        wall = time.perf_counter() - t0
+        check(B1["lsplm_sparse_fused_forward"] > 0
+              and B2["lsplm_sparse_scatter"] > 0,
+              f"launch.train --sparse {tag} launched no B1 or B2")
+        recs = [{k: v for k, v in r.items() if k != "wall_s"}
+                for r in rep["iters"]]
+        runs[tag] = (recs, np.load(ckpt)["theta"], ckpt)
+        print(f"phase 31: launch.train --sparse {tag} (d={d:,}, "
+              f"{STREAM_GATE_SESSIONS} sessions, 10 iterations): f "
+              f"{recs[0]['f_new']:.4f} -> {recs[-1]['f_new']:.4f}, nnz "
+              f"{recs[-1]['nnz']:,}, test AUC {rep['test_auc']:.4f}, "
+              f"{wall:.1f} s with set-up")
+    want, theta, ckpt = runs["untuned"]
+    for tag in ("--tune", "--block-n 2"):
+        check(runs[tag][0] == want and np.array_equal(
+            runs[tag][1].view(np.int32), theta.view(np.int32)),
+            f"launch.train --sparse {tag} left the untuned trajectory")
+    check(not tune.get_overrides(), "the driver left overrides behind")
+    print("phase 31: --tune and --block-n 2 trajectories and Theta bitwise "
+          "equal to the untuned run's")
+
+    untuned = {}
+    for tag, extra in (("fp32", []), ("int8", ["--int8"])):
+        argv = ["--ckpt", ckpt, "--requests", "256", "--seed", str(SEED)]
+        plain = untuned[tag] = serve.run(argv + extra)["scores"]
+        tuned = serve.run(argv + extra + ["--tune"])["scores"]
+        check(np.array_equal(plain.view(np.int32), tuned.view(np.int32)),
+              f"launch.serve --tune ({tag}) changed the scores")
+        print(f"phase 31: launch.serve --tune ({tag}, d={d:,}): "
+              f"{plain.size:,} scores bitwise equal to the untuned run's")
+
+    # the table path itself: an installed table whose every envelope holds
+    # a config the rule does not take at the drivers' shapes
+    odd, installed = _off_rule_table(tune, tune.backend_key(dev))
+    tune.set_active_table(odd)
+    knobs = {}
+    kept = [_counting_knobs(fops, name, keys, knobs) for name, keys in (
+        ("lsplm_sparse_fused_forward", ("block_n", "copy")),
+        ("lsplm_sparse_fused_int8_forward", ("block_n",)))]
+    kept.append(_counting_knobs(sops, "lsplm_sparse_scatter", ("block_e",),
+                                knobs))
+    try:
+        rep = train_driver.run(base + ["--ckpt", str(tmp / "theta_odd.npz")])
+        odd_theta = np.load(tmp / "theta_odd.npz")["theta"]
+        served = {tag: serve.run(["--ckpt", ckpt, "--requests", "256",
+                                  "--seed", str(SEED)] + extra)["scores"]
+                  for tag, extra in (("fp32", []), ("int8", ["--int8"]))}
+    finally:
+        for (module, name), fn in zip(
+                ((fops, "lsplm_sparse_fused_forward"),
+                 (fops, "lsplm_sparse_fused_int8_forward"),
+                 (sops, "lsplm_sparse_scatter")), kept):
+            setattr(module, name, fn)
+        tune.set_active_table(None)
+    check([{k: v for k, v in r.items() if k != "wall_s"}
+           for r in rep["iters"]] == want
+          and np.array_equal(odd_theta.view(np.int32), theta.view(np.int32)),
+          "launch.train --sparse under the off-rule table left the untuned "
+          "trajectory")
+    for tag, scores in served.items():
+        check(np.array_equal(untuned[tag].view(np.int32),
+                             scores.view(np.int32)),
+              f"launch.serve ({tag}) under the off-rule table changed the "
+              "scores")
+    for name, want in installed.items():
+        check(knobs.get((name, want), 0) > 0,
+              f"no {name} launch took the installed {want}")
+    entries = sum(len(e) for e in odd.entries(
+        tune.backend_key(dev)).values())
+    print(f"phase 31: under an installed table holding {installed} at "
+          f"every envelope ({entries} entries), launch.train --sparse gives "
+          f"the untuned trajectory and Theta and launch.serve the untuned "
+          f"scores (fp32, int8), bitwise; launches by knobs: "
+          f"{dict(sorted(knobs.items(), key=str))}")
+
+    # phase 3's model and G=1 dispatches, committed table vs empty, in turns
+    rng = np.random.default_rng(SEED)
+    theta = np.zeros((D_FEATURES, 2 * REGIONS), np.float32)
+    alive = rng.random(D_FEATURES) < ALIVE_FRACTION
+    theta[alive] = (rng.normal(size=(int(alive.sum()), 2 * REGIONS))
+                    * 0.3).astype(np.float32)
+    art = compress(theta)
+    reqs = synthetic_requests(128, num_features=D_FEATURES, seed=SEED + 6)
+    engine = ScoringEngine(art, device="cuda")
+    engine.warm({engine.envelope(r) for r in reqs},
+                batch_sizes=engine.g_buckets)
+    walls = {"committed": [], "empty": []}
+    scores = {}
+    for tag in ("committed", "empty", "empty", "committed"):
+        tune.set_active_table(None if tag == "committed"
+                              else tune.AutotuneTable())
+        engine.score_many(reqs[:16])  # the shapes' knobs resolved once
+        t0 = time.perf_counter()
+        scores[tag] = engine.score_many(reqs)
+        walls[tag].append((time.perf_counter() - t0) * 1e6 / len(reqs))
+    tune.set_active_table(None)
+    check(all(np.array_equal(a, b) for a, b in zip(scores["committed"],
+                                                   scores["empty"])),
+          "the committed table changed the G=1 scores")
+    hits = sorted({tune.fused_envelope(*shape, 2 * REGIONS)
+                   for r in reqs for shape in (
+                       (1, engine.envelope(r)[0]),
+                       (engine.envelope(r)[2], engine.envelope(r)[1]))}
+                  & set(tune.active_table().entries(
+                      tune.backend_key(dev)).get("fused_fwd", {})))
+    print(f"phase 31: G=1 dispatch wall (phase 3's model, {len(reqs)} "
+          f"requests a run): committed table "
+          f"{', '.join(f'{w:.1f}' for w in walls['committed'])} us, empty "
+          f"table {', '.join(f'{w:.1f}' for w in walls['empty'])} us "
+          f"(runs in turns: committed, empty, empty, committed); scores "
+          f"bitwise equal; dispatch envelopes with a committed fused_fwd "
+          f"entry: {hits or 'none'}")
+    on = torch.device("cuda", torch.cuda.current_device())  # as ops.py asks
+    key = ("fused_fwd", 1, 24, 2 * REGIONS, on)
+    tune.resolve_fused(*key)
+    t0 = time.perf_counter()
+    for _ in range(100_000):
+        tune.resolve_fused(*key)
+    per_us = (time.perf_counter() - t0) * 10
+    print(f"phase 31: resolving a seen shape's knobs (resolve_fused on "
+          f"{on}): {per_us:.3f} us of host time a launch, 2 launches "
+          f"a G=1 dispatch")
+
+    try:
+        train_driver.run(base + ["--block-k", "4"])
+        check(False, "launch.train --block-k 4 did not exit")
+    except SystemExit as e:
+        check("no counterpart on the card" in str(e),
+              f"--block-k 4 exited with {e}")
+        print(f"phase 31: --block-k 4 exits: {e}")
+    print(f"phase 31 took {time.perf_counter() - t_phase:.1f} s")
+
+
 SERVE_PHASES = (2, 3, 4)  # the serving path's phases, runnable alone
 TRAIN_PHASES = (5, 6, 7, 8)  # the sparse training path's, runnable alone
 SCAN_PHASES = (17, 18, 19, 20)  # the SSM path's phases, runnable alone
 FAMILY_PHASES = (21, 22, 23, 24)  # the hybrid and MoE paths', likewise
 STREAM_PHASES = (25, 26, 27)  # the streaming path's, likewise
 LM_TRAIN_PHASES = (28, 29)  # the LM training path's, likewise
+TUNE_PHASES = (30, 31)  # the autotune sweep and the tuning flags, likewise
 
 
 def _serving_model(torch, dev):
@@ -4163,8 +4531,8 @@ def _sparse_problem(torch, dev):
 
 def _run_only(torch, dev, only, t_start) -> int:
     """Phase 1 and the given serving (2-4), sparse training (5-8), SSM
-    (17-20), hybrid or MoE (21-24), streaming (25-27) or LM training
-    (28-29) phases alone
+    (17-20), hybrid or MoE (21-24), streaming (25-27), LM training
+    (28-29) or autotuning (30-31) phases alone
     (``--only``): a partial run, so it prints no kernels line and no
     result line."""
     if only & {2, 4}:
@@ -4215,8 +4583,13 @@ def _run_only(torch, dev, only, t_start) -> int:
             phase_card_tests()
         elif phase == 28:
             phase_lm_train(torch, dev)
-        else:
+        elif phase == 29:
             phase_lm_train_card_vs_cpu(torch, dev)
+        elif phase == 30:
+            phase_tune_sweep(torch, dev)
+        else:
+            with tempfile.TemporaryDirectory() as tmp:
+                phase_tune_drivers(torch, dev, Path(tmp))
     print(f"phases 1 and {sorted(only)} passed in "
           f"{time.perf_counter() - t_start:.1f} s (partial run: no result)")
     return 0
@@ -4225,15 +4598,16 @@ def _run_only(torch, dev, only, t_start) -> int:
 def main(argv: list[str]) -> int:
     """``chip_smoke.py`` runs every phase; ``chip_smoke.py --only 2,3,4``
     (or ``5,6,8``, or ``17,20``, or ``21,22,23,24``, or ``25,26,27``, or
-    ``28,29``) runs phase 1 and the named phases of the serving path
-    (2-4), the sparse training path (5-8), the SSM path (17-20), the
-    hybrid and MoE paths (21-24), the streaming path (25-27) or the LM
-    training path (28-29) alone."""
+    ``28,29``, or ``30,31``) runs phase 1 and the named phases of the
+    serving path (2-4), the sparse training path (5-8), the SSM path
+    (17-20), the hybrid and MoE paths (21-24), the streaming path
+    (25-27), the LM training path (28-29) or the autotuning path (30-31)
+    alone."""
     import torch
 
     only = set()
     alone = (SERVE_PHASES + TRAIN_PHASES + SCAN_PHASES + FAMILY_PHASES
-             + STREAM_PHASES + LM_TRAIN_PHASES)
+             + STREAM_PHASES + LM_TRAIN_PHASES + TUNE_PHASES)
     if argv:
         if len(argv) != 2 or argv[0] != "--only":
             raise SmokeFailure(f"usage: chip_smoke.py [--only "
@@ -4339,6 +4713,9 @@ def main(argv: list[str]) -> int:
     phase_card_tests()
     train_b6, train_metrics = phase_lm_train(torch, dev)
     train_cpu_launches = phase_lm_train_card_vs_cpu(torch, dev)
+    phase_tune_sweep(torch, dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_tune_drivers(torch, dev, Path(tmp))
 
     kernels = []
     for name in ("lsplm_sparse_fused_forward",

@@ -89,6 +89,15 @@ def planted_ctr_labels(user_ids, user_vals, ad_ids, ad_vals, session_id,
     return (rng.random(session_id.shape[0]) < p).astype(np.float32)
 
 
+def zipf_ids(rng: np.random.Generator, lo: int, hi: int,
+             shape) -> np.ndarray:
+    """int64 ids in [lo, hi) with the very hot head at ``lo`` that CTR id
+    traffic has (``u ** 10``), the law of :func:`generate_sparse`."""
+    u = rng.random(shape)
+    r = (hi - lo) * (u ** 10.0)
+    return (lo + r).astype(np.int64)
+
+
 def generate_sparse(
     num_features: int = 1_000_000,
     num_user_features_range: tuple[int, int] = (600_000, 1_000_000),
@@ -110,13 +119,8 @@ def generate_sparse(
     b = g * a
     user_lo = num_user_features_range[0]
 
-    def zipf_ids(lo, hi, shape):
-        u = rng.random(shape)
-        r = (hi - lo) * (u ** 10.0)  # very hot head at lo (CTR id traffic)
-        return (lo + r).astype(np.int64)
-
-    user_ids = zipf_ids(user_lo, d, (g, active_user))
-    ad_ids = zipf_ids(0, user_lo, (b, active_ad))
+    user_ids = zipf_ids(rng, user_lo, d, (g, active_user))
+    ad_ids = zipf_ids(rng, 0, user_lo, (b, active_ad))
     user_vals = rng.normal(size=(g, active_user)).astype(np.float32) / np.sqrt(active_user)
     ad_vals = rng.normal(size=(b, active_ad)).astype(np.float32) / np.sqrt(active_ad)
     session_id = np.repeat(np.arange(g, dtype=np.int32), a)

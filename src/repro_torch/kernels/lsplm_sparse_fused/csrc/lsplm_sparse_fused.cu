@@ -33,10 +33,11 @@
 //      4 bytes a copy, the widest the row width and the rows' base address
 //      allow), so every row load of the group is in flight before one
 //      wait, and a row pays one memory round trip per group and not one
-//      per slot. Lane t copies entry t's row at the serving shapes and for
-//      int8; fp32 rows at N >= 2,048 are copied piece by piece by
-//      neighbouring lanes (whole rows per instruction, half the L2
-//      requests). Lane j then walks the group in order,
+//      per slot. Lane t copies entry t's row, or (fp32 rows only)
+//      neighbouring lanes copy one row's pieces (whole rows per
+//      instruction, half the L2 requests), as the caller's `by_piece`
+//      says: the tune table's entry, or the rule (by piece at N >= 2,048).
+//      Lane j then walks the group in order,
 //      one __fmaf_rn(v, row[j], acc) per live row, from acc = 0.
 //   4. Optional addend (the bundle head): z = z_add[session[n]] + acc with
 //      one __fadd_rn, the bits of `z_user.index_select(0, session) + z_ad`.
@@ -71,6 +72,9 @@ constexpr int kMaxChunks = 4;        // 2m <= 128 columns
 constexpr int kMaxDedupK = 1024;     // slots a row may carry with dedup = 1
                                      // (MAX_DEDUP_K of the Python wrapper)
 constexpr int kSmemBudget = 48 * 1024;
+constexpr int kOverBudget = -1;      // launch(): an explicit `warps` the
+                                     // budget cannot hold (OVER_BUDGET of
+                                     // the Python wrapper)
 constexpr unsigned kFullMask = 0xffffffffu;
 constexpr int kLast = 1 << 30;       // "last slot of its run" in a rank word
 
@@ -459,13 +463,51 @@ void launch_copy(bool by_piece, int mode, dim3 grid, dim3 block, size_t smem,
   }
 }
 
+// One warp's region of shared memory: its buffer of 32 rows (each slot
+// 16-aligned), the head's 2m floats and the dedup's work area. launch()
+// lays it out; lsplm_sparse_fused_max_warps reports what the budget holds.
+int warp_region_bytes(int K, int m2, bool int8, int dedup) {
+  const int row_stride = ((int8 ? m2 : m2 * 4) + 15) / 16 * 16;
+  const int work = !dedup ? 0 : K <= 32 ? 96 : 5 * K;
+  return (32 * row_stride + (m2 + work) * 4 + 15) / 16 * 16;
+}
+
+// The most rows a block (1, 2, 4 or 8) whose regions fit the budget.
+int max_warps(int warp_bytes) {
+  int warps = kMaxWarpsPerBlock;
+  while (warps > 1 && static_cast<size_t>(warps) * warp_bytes > kSmemBudget)
+    warps >>= 1;
+  return warps;
+}
+
+// The rule every launch took before the tune table. Small N spreads the
+// rows over the SMs, large N takes full blocks, halved while over the
+// budget. Lane-per-row copies reach the wait sooner and win at the serving
+// shapes and for int8 rows; fp32 rows at training sizes and above are
+// bandwidth-bound and take the coalesced copies (set by a same-call probe).
+int rule_warps(int N, int warp_bytes) {
+  const int want = N <= 132 ? 1 : N <= 264 ? 2 : N <= 528 ? 4
+                                                          : kMaxWarpsPerBlock;
+  const int fit = max_warps(warp_bytes);
+  return want < fit ? want : fit;
+}
+
+bool rule_by_piece(int N, bool int8) { return !int8 && N >= 2048; }
+
+// `warps` (rows a block, one warp a row: 1, 2, 4 or 8) and `by_piece` are
+// the tune table's entry, or 0 and -1 for the rule. Neither changes a
+// row's bits (see the header). An explicit block over the shared-memory
+// budget is refused (kOverBudget), never shrunk.
 template <bool kInt8>
-int launch(Args a, int dedup, cudaStream_t stream) {
+int launch(Args a, int dedup, int warps, int by_piece, cudaStream_t stream) {
   const int m2 = 2 * a.m;
   const int chunks = (m2 + 31) / 32;
   if (a.N <= 0 || a.K < 0 || a.D < 1 || a.m < 1 || chunks > kMaxChunks ||
       (dedup && a.K > kMaxDedupK) ||
-      (a.z_add != nullptr && (a.session == nullptr || a.G < 1)))
+      (a.z_add != nullptr && (a.session == nullptr || a.G < 1)) ||
+      (warps != 0 && warps != 1 && warps != 2 && warps != 4 &&
+       warps != kMaxWarpsPerBlock) ||
+      (kInt8 && by_piece > 0))
     return static_cast<int>(cudaErrorInvalidValue);
   const int mode = !dedup ? kNoDedup : a.K <= 32 ? kDedupRegs : kDedupShared;
   // cp.async width: the widest of 16, 8, 4 bytes that divides the row and
@@ -480,35 +522,31 @@ int launch(Args a, int dedup, cudaStream_t stream) {
          (a.row_bytes % a.copy_bytes || base % a.copy_bytes))
     a.copy_bytes >>= 1;
   if (base % a.copy_bytes) return static_cast<int>(cudaErrorMisalignedAddress);
-  // lane-per-row copies reach the wait sooner, and win at the serving
-  // shapes and for int8 rows; fp32 rows at training sizes and above are
-  // bandwidth-bound and take the coalesced copies (set by a same-call probe)
-  const bool by_piece = !kInt8 && a.N >= 2048;
-  const int work = mode == kNoDedup ? 0 : mode == kDedupRegs ? 96 : 5 * a.K;
-  a.warp_bytes = (32 * a.row_stride + (m2 + work) * 4 + 15) / 16 * 16;
-  // small N: spread the rows over the SMs; large N: full blocks
-  int warps = a.N <= 132 ? 1 : a.N <= 264 ? 2 : a.N <= 528 ? 4
-                                                           : kMaxWarpsPerBlock;
-  while (warps > 1 && static_cast<size_t>(warps) * a.warp_bytes > kSmemBudget)
-    warps >>= 1;
+  a.warp_bytes = warp_region_bytes(a.K, m2, kInt8, dedup);
+  if (warps == 0) {
+    warps = rule_warps(a.N, a.warp_bytes);
+  } else if (static_cast<size_t>(warps) * a.warp_bytes > kSmemBudget) {
+    return kOverBudget;
+  }
+  if (by_piece < 0) by_piece = rule_by_piece(a.N, kInt8);
   const dim3 block(warps * 32);
   const dim3 grid((a.N + warps - 1) / warps);
   const size_t smem = static_cast<size_t>(warps) * a.warp_bytes;
   switch (chunks) {
     case 1:
-      launch_copy<1, kInt8>(by_piece, mode, grid, block, smem, stream,
+      launch_copy<1, kInt8>(by_piece != 0, mode, grid, block, smem, stream,
                              a);
       break;
     case 2:
-      launch_copy<2, kInt8>(by_piece, mode, grid, block, smem, stream,
+      launch_copy<2, kInt8>(by_piece != 0, mode, grid, block, smem, stream,
                              a);
       break;
     case 3:
-      launch_copy<3, kInt8>(by_piece, mode, grid, block, smem, stream,
+      launch_copy<3, kInt8>(by_piece != 0, mode, grid, block, smem, stream,
                              a);
       break;
     default:
-      launch_copy<4, kInt8>(by_piece, mode, grid, block, smem, stream,
+      launch_copy<4, kInt8>(by_piece != 0, mode, grid, block, smem, stream,
                              a);
       break;
   }
@@ -538,17 +576,22 @@ Args make_args(const void* ids, const void* vals, const void* z_add,
 
 extern "C" {
 
-// Returns cudaGetLastError() after the launch (0 = launched). z_add (G, 2m)
-// and session (N,) are optional (null: no addend); p may be null (no head).
+// Returns cudaGetLastError() after the launch (0 = launched), or
+// kOverBudget. z_add (G, 2m) and session (N,) are optional (null: no
+// addend); p may be null (no head). warps: rows a block (1, 2, 4, 8; 0:
+// the rule); by_piece: 1 copies fp32 rows by piece, 0 lane per row, -1
+// the rule.
 int lsplm_sparse_fused_forward(const void* ids, const void* vals,
                                const void* theta, const void* z_add,
                                const void* session, int session_wide, int G,
                                void* p, void* z, int N, int K, int D, int m,
-                               int dedup, void* stream) {
+                               int dedup, int warps, int by_piece,
+                               void* stream) {
   Args a = make_args(ids, vals, z_add, session, session_wide, G, p, z, N, K,
                      D, m);
   a.theta = static_cast<const float*>(theta);
-  return launch<false>(a, dedup, static_cast<cudaStream_t>(stream));
+  return launch<false>(a, dedup, warps, by_piece,
+                       static_cast<cudaStream_t>(stream));
 }
 
 int lsplm_sparse_fused_int8_forward(const void* ids, const void* vals,
@@ -556,12 +599,26 @@ int lsplm_sparse_fused_int8_forward(const void* ids, const void* vals,
                                     const void* z_add, const void* session,
                                     int session_wide, int G, void* p, void* z,
                                     int N, int K, int D, int m, int dedup,
-                                    void* stream) {
+                                    int warps, int by_piece, void* stream) {
   Args a = make_args(ids, vals, z_add, session, session_wide, G, p, z, N, K,
                      D, m);
   a.codes = static_cast<const int8_t*>(codes);
   a.scales = static_cast<const float*>(scales);
-  return launch<true>(a, dedup, static_cast<cudaStream_t>(stream));
+  return launch<true>(a, dedup, warps, by_piece,
+                      static_cast<cudaStream_t>(stream));
+}
+
+// The most rows a block the shared-memory budget holds at K slots and m
+// regions (the explicit `warps` a launch takes).
+int lsplm_sparse_fused_max_warps(int K, int m, int int8, int dedup) {
+  return max_warps(warp_region_bytes(K, 2 * m, int8 != 0, dedup));
+}
+
+// The rule's launch config at N rows: rows a block and by_piece (0, 1).
+void lsplm_sparse_fused_rule(int N, int K, int m, int int8, int dedup,
+                             int* warps, int* by_piece) {
+  *warps = rule_warps(N, warp_region_bytes(K, 2 * m, int8 != 0, dedup));
+  *by_piece = rule_by_piece(N, int8 != 0);
 }
 
 const char* lsplm_cuda_error_string(int code) {

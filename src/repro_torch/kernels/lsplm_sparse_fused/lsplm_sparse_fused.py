@@ -20,7 +20,17 @@ Options of both wrappers:
     ``z_add.index_select(0, session) + z``. A session outside [0, G)
     adds a zero row, like the pad (no range check: that would cost a
     device sync per call);
-  * ``head=False`` skips the Eq. 2 head; p is then None.
+  * ``head=False`` skips the Eq. 2 head; p is then None;
+  * ``block_n`` (rows a block, one warp a row: 1, 2, 4 or 8) and, for
+    fp32 rows, ``copy`` (``COPY_LANE``: lane t copies entry t's row;
+    ``COPY_PIECE``: neighbouring lanes copy one row's pieces) set the
+    launch (:func:`launch_config`). None takes the rule every launch
+    had before the tune table, which the .cu keeps with its shared-memory
+    layout: rows a block by N, halved while over the 48 KB budget, and by
+    piece at N >= 2,048. Neither changes a row's bits. An explicit
+    ``block_n`` the budget cannot hold raises ``ValueError``
+    (:func:`max_block_n`); it is never shrunk. The callers in ``ops.py``
+    pass what ``repro_torch.tune`` resolves.
 
 Unlike the TPU kernels, ragged N and K need no padding: each warp owns one
 row and reads exactly its K slots. Theta (or the int8 codes) must carry
@@ -36,6 +46,7 @@ import functools
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.tune.table import COPY_LANE, COPY_PIECE
 
 # launches per wrapper, for runs that must show they went through the
 # kernels (reset by the caller, read after the run)
@@ -45,6 +56,8 @@ LAUNCHES = {"lsplm_sparse_fused_forward": 0,
 _SOURCE = "lsplm_sparse_fused"
 _MAX_COLUMNS = 128  # the kernel keeps at most 4 x 32 columns per lane
 MAX_DEDUP_K = 1024  # slots per row with dedup=True (kMaxDedupK in the .cu)
+BLOCK_N_GRID = (1, 2, 4, 8)  # rows a block the kernel takes
+OVER_BUDGET = -1  # the launch's refusal of a block_n (kOverBudget)
 
 
 @functools.cache
@@ -53,11 +66,15 @@ def _lib() -> ctypes.CDLL:
     builds the source if needed)."""
     lib = _build.load(_SOURCE)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    tail = [ptr, ptr, i32, i32, ptr, ptr] + [i32] * 5 + [ptr]
+    tail = [ptr, ptr, i32, i32, ptr, ptr] + [i32] * 7 + [ptr]
     lib.lsplm_sparse_fused_forward.argtypes = [ptr] * 3 + tail
     lib.lsplm_sparse_fused_forward.restype = i32
     lib.lsplm_sparse_fused_int8_forward.argtypes = [ptr] * 4 + tail
     lib.lsplm_sparse_fused_int8_forward.restype = i32
+    lib.lsplm_sparse_fused_max_warps.argtypes = [i32] * 4
+    lib.lsplm_sparse_fused_max_warps.restype = i32
+    lib.lsplm_sparse_fused_rule.argtypes = [i32] * 5 + [ptr, ptr]
+    lib.lsplm_sparse_fused_rule.restype = None
     lib.lsplm_cuda_error_string.argtypes = [i32]
     lib.lsplm_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -110,6 +127,66 @@ def _check(name: str, ids: torch.Tensor, vals: torch.Tensor,
         raise ValueError(f"{name}: sizes must fit in int32")
 
 
+def _knob_args(block_n: int | None, copy: int | None, *,
+               int8: bool) -> tuple[int, int]:
+    """(warps, by_piece) as the C launch takes them: 0 and -1 take the
+    rule. Raises ``ValueError`` for a ``block_n`` off :data:`BLOCK_N_GRID`
+    or a ``copy`` the variant does not have; the budget is the launch's
+    to check."""
+    if block_n is not None and block_n not in BLOCK_N_GRID:
+        raise ValueError(f"block_n must be one of {BLOCK_N_GRID} (rows a "
+                         f"block, one warp a row), got {block_n!r}")
+    if int8 and copy not in (None, COPY_LANE):
+        raise ValueError(f"copy={copy!r}: int8 rows are always copied "
+                         f"lane per row (COPY_LANE = {COPY_LANE})")
+    if copy not in (None, COPY_LANE, COPY_PIECE):
+        raise ValueError(f"copy must be COPY_LANE ({COPY_LANE}) or "
+                         f"COPY_PIECE ({COPY_PIECE}), got {copy!r}")
+    return (0 if block_n is None else block_n,
+            -1 if copy is None else int(copy == COPY_PIECE))
+
+
+def max_block_n(k: int, m2: int, *, int8: bool, dedup: bool) -> int:
+    """The most rows a block the 48 KB shared-memory budget holds at K
+    slots and 2m columns, as the .cu lays a block out (card only: it
+    asks the built library)."""
+    return _lib().lsplm_sparse_fused_max_warps(k, m2 // 2, int(int8),
+                                                int(dedup))
+
+
+def launch_config(n: int, k: int, m2: int, *, int8: bool, dedup: bool,
+                  block_n: int | None = None,
+                  copy: int | None = None) -> tuple[int, int]:
+    """(rows a block, copy scheme) a launch at N rows, K slots and 2m
+    columns takes (card only: it asks the built library). A knob left
+    None takes the .cu's rule: 1, 2, 4 or 8 rows a block at N <= 132,
+    264, 528 or above (small N spreads rows over the SMs), halved while
+    over the budget; fp32 rows by piece at N >= 2,048, where they are
+    bandwidth-bound, and int8 rows always lane per row. A given knob is
+    checked as a launch checks it: off the grid, over the budget, or a
+    ``copy`` the variant does not have raises ``ValueError``."""
+    warps, by_piece = _knob_args(block_n, copy, int8=int8)
+    rule_warps, rule_piece = ctypes.c_int(), ctypes.c_int()
+    _lib().lsplm_sparse_fused_rule(n, k, m2 // 2, int(int8), int(dedup),
+                                   ctypes.byref(rule_warps),
+                                   ctypes.byref(rule_piece))
+    if warps == 0:
+        warps = rule_warps.value
+    elif warps > max_block_n(k, m2, int8=int8, dedup=dedup):
+        _raise_over_budget(warps, k, m2, int8=int8, dedup=dedup)
+    piece = rule_piece.value if by_piece < 0 else by_piece
+    return warps, COPY_PIECE if piece else COPY_LANE
+
+
+def _raise_over_budget(block_n: int, k: int, m2: int, *, int8: bool,
+                 dedup: bool):
+    raise ValueError(
+        f"block_n={block_n} does not fit: {block_n} rows a block exceed "
+        f"the shared memory a block may use at K={k}, 2m={m2}"
+        f"{', int8' if int8 else ''}{', dedup' if dedup else ''}; take "
+        f"block_n <= {max_block_n(k, m2, int8=int8, dedup=dedup)}")
+
+
 def _raise_on(rc: int, name: str) -> None:
     if rc != 0:
         msg = _lib().lsplm_cuda_error_string(rc).decode()
@@ -117,10 +194,12 @@ def _raise_on(rc: int, name: str) -> None:
 
 
 def _launch(name, fn, ids, vals, row_ptrs, rows, dedup, z_add, session,
-            head):
+            head, block_n, copy):
     """Allocate (p, z), launch ``fn`` on the current stream, count it."""
     n, k = ids.shape
     d, m2 = rows.shape
+    int8 = rows.dtype == torch.int8
+    warps, by_piece = _knob_args(block_n, copy, int8=int8)
     p = (torch.empty((n,), dtype=torch.float32, device=ids.device)
          if head else None)
     z = torch.empty((n, m2), dtype=torch.float32, device=ids.device)
@@ -131,8 +210,10 @@ def _launch(name, fn, ids, vals, row_ptrs, rows, dedup, z_add, session,
         int(session.dtype == torch.int64), z_add.shape[0])
     rc = fn(ids.data_ptr(), vals.data_ptr(), *row_ptrs, *addend,
             None if p is None else p.data_ptr(), z.data_ptr(), n, k, d,
-            m2 // 2, int(dedup),
+            m2 // 2, int(dedup), warps, by_piece,
             torch.cuda.current_stream(ids.device).cuda_stream)
+    if rc == OVER_BUDGET:
+        _raise_over_budget(block_n, k, m2, int8=int8, dedup=dedup)
     _raise_on(rc, name)
     LAUNCHES[name] += 1
     return p, z
@@ -142,7 +223,8 @@ def lsplm_sparse_fused_forward(ids: torch.Tensor, vals: torch.Tensor,
                                theta: torch.Tensor, *, dedup: bool = False,
                                z_add: torch.Tensor | None = None,
                                session: torch.Tensor | None = None,
-                               head: bool = True
+                               head: bool = True, block_n: int | None = None,
+                               copy: int | None = None
                                ) -> tuple[torch.Tensor | None, torch.Tensor]:
     """Fused fp32 forward on the card. ids (N, K) int32 with pad id
     D-1, vals (N, K) float32, theta (D, 2m) float32 with its zero pad
@@ -151,7 +233,8 @@ def lsplm_sparse_fused_forward(ids: torch.Tensor, vals: torch.Tensor,
     name = "lsplm_sparse_fused_forward"
     _check(name, ids, vals, theta, torch.float32, dedup, z_add, session)
     return _launch(name, _lib().lsplm_sparse_fused_forward, ids, vals,
-                   (theta.data_ptr(),), theta, dedup, z_add, session, head)
+                   (theta.data_ptr(),), theta, dedup, z_add, session, head,
+                   block_n, copy)
 
 
 def lsplm_sparse_fused_int8_forward(ids: torch.Tensor, vals: torch.Tensor,
@@ -159,7 +242,8 @@ def lsplm_sparse_fused_int8_forward(ids: torch.Tensor, vals: torch.Tensor,
                                     *, dedup: bool = False,
                                     z_add: torch.Tensor | None = None,
                                     session: torch.Tensor | None = None,
-                                    head: bool = True
+                                    head: bool = True,
+                                    block_n: int | None = None
                                     ) -> tuple[torch.Tensor | None,
                                                torch.Tensor]:
     """Fused int8-native forward on the card: rows are ``codes[i] *
@@ -178,4 +262,4 @@ def lsplm_sparse_fused_int8_forward(ids: torch.Tensor, vals: torch.Tensor,
                          f"{scales.device}")
     return _launch(name, _lib().lsplm_sparse_fused_int8_forward, ids, vals,
                    (codes.data_ptr(), scales.data_ptr()), codes, dedup, z_add,
-                   session, head)
+                   session, head, block_n, None)

@@ -29,6 +29,12 @@ at a time with ``index_select`` and add them into z in slot order (the
 dedup does not apply there, as on the reference's jnp path). There is
 no fallback: a CUDA call launches its kernel or raises.
 
+The launch knobs come from ``repro_torch.tune`` at the shape of each
+call (``resolve_fused``: one dict lookup once a shape has been seen):
+B1's ``block_n`` and ``copy`` (``"fused_fwd"``), B4's ``block_n``
+(``"fused_fwd_int8"``) and the plain loops' ``chunk`` (``"chunk_fwd"``).
+None of them changes a bit of (p, z).
+
 Training differentiates ``sparse_gather_matmul`` (and
 ``lsplm_sparse_logps`` on top of it) through :class:`_GatherMatmul`, a
 ``torch.autograd.Function`` around the same forward; its backward is the
@@ -57,8 +63,7 @@ from repro_torch.kernels.lsplm_sparse_scatter.ops import (
     scatter_add_planned,
     scatter_add_unplanned,
 )
-
-DEFAULT_CHUNK = 8  # slots gathered per step by the plain versions
+from repro_torch.tune.table import resolve_fused
 
 
 def pad_theta(theta: torch.Tensor) -> torch.Tensor:
@@ -130,13 +135,25 @@ def dedup_tile_ids(ids: torch.Tensor, vals: torch.Tensor,
     return ids_d[:, :k].contiguous(), vals_d[:, :k].contiguous()
 
 
+def _chunk(ids: torch.Tensor, rows: torch.Tensor, chunk: int | None) -> int:
+    """The plain forward's chunk: the caller's, else the tune table's
+    ``chunk_fwd`` at this shape (builtin 8)."""
+    if chunk is None:
+        chunk = _knobs("chunk_fwd", ids, rows)["chunk"]
+    if chunk < 1:
+        raise ValueError(f"chunk must be a positive int, got {chunk!r}")
+    return chunk
+
+
 def _chunked_zmap(ids: torch.Tensor, vals: torch.Tensor, theta: torch.Tensor,
-                  chunk: int = DEFAULT_CHUNK) -> torch.Tensor:
+                  chunk: int | None = None) -> torch.Tensor:
     """Plain forward z (N, 2m) in Theta's dtype: gather ``chunk`` slots of
     rows at a time (``index_select``, int64 ids) and add their ``vals *
     row`` terms into z one slot at a time, in slot order -- so a row's z
-    never depends on N or on the other rows. Pad slots add exact zeros."""
+    never depends on N, on the other rows or on the chunk. Pad slots add
+    exact zeros. ``chunk`` None takes the tune table's."""
     n, k = ids.shape
+    chunk = _chunk(ids, theta, chunk)
     z = torch.zeros((n, theta.shape[1]), dtype=theta.dtype,
                     device=theta.device)
     for k0 in range(0, k, chunk):
@@ -150,12 +167,13 @@ def _chunked_zmap(ids: torch.Tensor, vals: torch.Tensor, theta: torch.Tensor,
 
 def _chunked_zmap_int8(ids: torch.Tensor, vals: torch.Tensor,
                        codes: torch.Tensor, scales: torch.Tensor,
-                       chunk: int = DEFAULT_CHUNK) -> torch.Tensor:
+                       chunk: int | None = None) -> torch.Tensor:
     """Int8 plain forward: :func:`_chunked_zmap` with each gathered code
     row turned into fp32 by one multiply by its row scale, so the row
     values -- and z -- are IDENTICAL to :func:`_chunked_zmap` on the
     dequantised ``codes * scales`` Theta; only int8 rows are gathered."""
     n, k = ids.shape
+    chunk = _chunk(ids, codes, chunk)
     z = torch.zeros((n, codes.shape[1]), dtype=torch.float32,
                     device=codes.device)
     for k0 in range(0, k, chunk):
@@ -198,12 +216,18 @@ def _check_int8_model(codes: torch.Tensor, scales: torch.Tensor) -> None:
                          f"{tuple(scales.shape)}")
 
 
+def _knobs(kernel, ids, rows):
+    """The tune table's launch knobs of ``kernel`` at this call's shape."""
+    return resolve_fused(kernel, *ids.shape, rows.shape[1], rows.device)
+
+
 def _forward(ids, vals, theta, dedup):
     """(p or None, z): the kernel's pair on the card, z alone on the CPU."""
     _check_theta(theta)
     if _on_card(theta):
-        return lsplm_sparse_fused_forward(*_kernel_inputs(ids, vals),
-                                          theta.contiguous(), dedup=dedup)
+        return lsplm_sparse_fused_forward(
+            *_kernel_inputs(ids, vals), theta.contiguous(), dedup=dedup,
+            **_knobs("fused_fwd", ids, theta))
     return None, _chunked_zmap(ids, vals, theta)
 
 
@@ -212,7 +236,8 @@ def _forward_int8(ids, vals, codes, scales, dedup):
     if _on_card(codes):
         return lsplm_sparse_fused_int8_forward(
             *_kernel_inputs(ids, vals), codes.contiguous(),
-            scales.contiguous(), dedup=dedup)
+            scales.contiguous(), dedup=dedup,
+            **_knobs("fused_fwd_int8", ids, codes))
     return None, _chunked_zmap_int8(ids, vals, codes, scales)
 
 
@@ -355,20 +380,22 @@ def bundle_forward(user_ids, user_vals, ad_ids, ad_vals, session, *,
     rows' launch skips the head; the ad rows' launch adds their user row
     and applies it. Bitwise ``z_user.index_select(0, session) + z_ad``
     for z, and the kernel's own head for p. ``session`` (B,) is int32 or
-    int64; a value outside [0, G) adds a zero row."""
+    int64; a value outside [0, G) adds a zero row. Each launch takes the
+    tune table's knobs at its own shape."""
     if theta is not None:
         _check_theta(theta)
 
         def run(ids, vals, **kw):
             return lsplm_sparse_fused_forward(
                 *_kernel_inputs(ids, vals), theta.contiguous(), dedup=dedup,
-                **kw)
+                **_knobs("fused_fwd", ids, theta), **kw)
     else:
         _check_int8_model(codes, scales)
 
         def run(ids, vals, **kw):
             return lsplm_sparse_fused_int8_forward(
                 *_kernel_inputs(ids, vals), codes.contiguous(),
-                scales.contiguous(), dedup=dedup, **kw)
+                scales.contiguous(), dedup=dedup,
+                **_knobs("fused_fwd_int8", ids, codes), **kw)
     z_user = run(user_ids, user_vals, head=False)[1]
     return run(ad_ids, ad_vals, z_add=z_user, session=session.contiguous())

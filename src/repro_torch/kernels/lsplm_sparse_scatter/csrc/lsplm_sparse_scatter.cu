@@ -52,6 +52,11 @@
 //       the tasks' rows, so zero blocks fill the card as task blocks
 //       retire, and the latency-bound hot runs finish under the sweep.
 //
+// Block size: `warps` task warps a block (4, 8 or 16, so 128, 256 or 512
+// sorted entries a task block: the tune table's `block_e`; 8 by default),
+// one kernel instantiation each. It decides only which warp takes which
+// task and how the zero sweep is cut, never an operation's order.
+//
 // Bits: each piece sums from 0 in entry order with __fmul_rn then
 // __fadd_rn (nvcc contracts nothing into an FMA), and a run's partials
 // are added from 0 in piece order, whichever warp finishes the run. Every
@@ -64,9 +69,10 @@
 
 namespace {
 
-constexpr int kWarpsPerBlock = 8;
-constexpr int kThreads = kWarpsPerBlock * 32;
 constexpr int kSweepPerThread = 4;  // stores per zero-block thread
+constexpr int kMaxSmem = 232448;    // dynamic shared memory a block may use
+constexpr int kOverBudget = -1;     // a block whose buffers exceed kMaxSmem
+                                    // (OVER_BUDGET of the Python wrapper)
 constexpr int kMaxChunks = 4;       // 2m <= 128 columns
 constexpr int kBatch = 32;          // dz rows / partials per cp.async wait
 constexpr int kUnroll = 8;          // terms formed ahead of their adds
@@ -336,7 +342,7 @@ __device__ void run_task(const Args& a, int task, int lane, float* buf) {
 
 // Zeros to every untouched row, block b's slice of kThreads *
 // kSweepPerThread stores (16 bytes each when kVec).
-template <bool kVec>
+template <bool kVec, int kThreads>
 __device__ void zero_rows(const Args& a, int b) {
   const int per_row = kVec ? a.m2 / 4 : a.m2;
   const int total = a.num_rows * per_row;
@@ -353,25 +359,33 @@ __device__ void zero_rows(const Args& a, int b) {
   }
 }
 
-template <int C, bool kVec>
-__global__ void __launch_bounds__(kThreads) scatter_runs_kernel(Args a) {
+template <int C, bool kVec, int kWarps>
+__global__ void __launch_bounds__(kWarps * 32) scatter_runs_kernel(Args a) {
   extern __shared__ __align__(16) float smem[];
   const int b = blockIdx.x;
   if (b >= a.task_blocks) {
-    zero_rows<kVec>(a, b - a.task_blocks);
+    zero_rows<kVec, kWarps * 32>(a, b - a.task_blocks);
     return;
   }
   const int warp = threadIdx.x >> 5;
-  const int task = b * kWarpsPerBlock + warp;
+  const int task = b * kWarps + warp;
   if (task >= a.num_tasks) return;  // warp-uniform
   run_task<C, kVec>(a, task, threadIdx.x & 31, smem + warp * kBatch * a.m2);
 }
 
-template <int C, bool kVec>
-int launch(const Args& a, cudaStream_t stream) {
-  const auto kernel = scatter_runs_kernel<C, kVec>;
-  const size_t smem = sizeof(float) * kWarpsPerBlock * kBatch * a.m2;
-  if (smem > 48 * 1024) {  // 2m > 48: past the default dynamic limit
+// A block's dz row buffers: kBatch rows of 2m floats a task warp.
+size_t block_smem(int warps, int m2) {
+  return sizeof(float) * warps * kBatch * m2;
+}
+
+template <int C, bool kVec, int kWarps>
+int launch(Args a, cudaStream_t stream) {
+  constexpr int kThreads = kWarps * 32;
+  const auto kernel = scatter_runs_kernel<C, kVec, kWarps>;
+  const size_t smem = block_smem(kWarps, a.m2);
+  if (smem > kMaxSmem) return kOverBudget;
+  a.task_blocks = (a.num_tasks + kWarps - 1) / kWarps;
+  if (smem > 48 * 1024) {  // past the default dynamic limit
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
@@ -384,23 +398,39 @@ int launch(const Args& a, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+using LaunchFn = int (*)(Args, cudaStream_t);
+
+template <int kWarps>
+LaunchFn pick(bool vec, int chunks) {
+  return vec ? (chunks == 1   ? launch<1, true, kWarps>
+                : chunks == 2 ? launch<2, true, kWarps>
+                : chunks == 3 ? launch<3, true, kWarps>
+                              : launch<4, true, kWarps>)
+             : (chunks == 1   ? launch<1, false, kWarps>
+                : chunks == 2 ? launch<2, false, kWarps>
+                : chunks == 3 ? launch<3, false, kWarps>
+                              : launch<4, false, kWarps>);
+}
+
 }  // namespace
 
 extern "C" {
 
 // out (num_rows, m2) <- dense dTheta; partial (num_pieces, m2) is
 // scratch, ticket (num_unique,) must be all 0 and is all 0 again after
-// the kernel. Returns cudaGetLastError() after the launch (0 = launched).
+// the kernel; warps: task warps a block (4, 8 or 16). Returns
+// cudaGetLastError() after the launch (0 = launched), or kOverBudget.
 int lsplm_sparse_scatter(const void* task_piece_start, const void* piece_start,
                          const void* piece_run, const void* run_piece_start,
                          const void* row_ids, const void* order,
                          const void* sample_sorted, const void* inv_sorted,
                          const void* vals, const void* dz, void* partial,
                          void* ticket, void* out, int num_tasks,
-                         int num_rows, int num_unique, int m2, void* stream) {
+                         int num_rows, int num_unique, int m2, int warps,
+                         void* stream) {
   const int chunks = (m2 + 31) / 32;
   if (num_tasks < 0 || num_rows < 1 || num_unique < 0 || m2 < 1 ||
-      chunks > kMaxChunks)
+      chunks > kMaxChunks || (warps != 4 && warps != 8 && warps != 16))
     return static_cast<int>(cudaErrorInvalidValue);
   // 16-byte copies and stores: whole float4s per row, dz's rows aligned
   // (partial and out are the wrapper's own allocations)
@@ -419,19 +449,22 @@ int lsplm_sparse_scatter(const void* task_piece_start, const void* piece_start,
                static_cast<int32_t*>(ticket),
                static_cast<float*>(out),
                num_tasks,
-               (num_tasks + kWarpsPerBlock - 1) / kWarpsPerBlock,
+               0,  // task_blocks: set by launch() for its block size
                num_rows,
                num_unique,
                m2};
-  const auto fn = vec ? (chunks == 1   ? launch<1, true>
-                         : chunks == 2 ? launch<2, true>
-                         : chunks == 3 ? launch<3, true>
-                                       : launch<4, true>)
-                      : (chunks == 1   ? launch<1, false>
-                         : chunks == 2 ? launch<2, false>
-                         : chunks == 3 ? launch<3, false>
-                                       : launch<4, false>);
+  const auto fn = warps == 4 ? pick<4>(vec, chunks)
+                  : warps == 8 ? pick<8>(vec, chunks)
+                               : pick<16>(vec, chunks);
   return fn(a, static_cast<cudaStream_t>(stream));
+}
+
+// The most task warps a block (16, 8 or 4) whose buffers fit at 2m
+// columns, or 0.
+int lsplm_sparse_scatter_max_warps(int m2) {
+  for (int warps = 16; warps >= 4; warps >>= 1)
+    if (block_smem(warps, m2) <= kMaxSmem) return warps;
+  return 0;
 }
 
 const char* lsplm_scatter_error_string(int code) {

@@ -16,6 +16,14 @@ ticket at 0 again. It takes CUDA tensors only: the plain versions in
 Unlike the TPU kernel, the sorted entries need no sentinel padding: the
 plan's piece and task tables (``plan.run_pieces``) say where each run
 starts and ends and which warp takes it.
+
+``block_e`` (128, 256 or 512: 4, 8 or 16 task warps a block, 32 sorted
+entries a warp) sets the block size; None is the 256 every launch had
+before the tune table (``ops._scatter_card`` passes what
+``repro_torch.tune`` resolves). It decides which warp takes which task,
+never the order of a sum. A ``block_e`` outside the grid, or one whose
+row buffers (32 dz rows a warp) exceed a block's shared memory
+(:func:`max_block_e`, from the .cu), raises ``ValueError``.
 """
 from __future__ import annotations
 
@@ -32,6 +40,9 @@ LAUNCHES = {"lsplm_sparse_scatter": 0}
 
 _SOURCE = "lsplm_sparse_scatter"
 _MAX_COLUMNS = 128  # the kernel keeps at most 4 x 32 columns per lane
+BLOCK_E_GRID = (128, 256, 512)  # sorted entries a task block covers
+DEFAULT_BLOCK_E = 256  # 8 task warps a block
+OVER_BUDGET = -1  # the launch's refusal of a block_e (kOverBudget)
 # the run tickets of each (device, stream): all 0 between calls
 _TICKETS: dict[tuple[int, int], torch.Tensor] = {}
 # the layout's int32 tables, in the C function's argument order
@@ -43,8 +54,10 @@ _TABLES = ("task_piece_start", "piece_start", "piece_run", "run_piece_start",
 def _lib() -> ctypes.CDLL:
     lib = _build.load(_SOURCE)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.lsplm_sparse_scatter.argtypes = [ptr] * 13 + [i32] * 4 + [ptr]
+    lib.lsplm_sparse_scatter.argtypes = [ptr] * 13 + [i32] * 5 + [ptr]
     lib.lsplm_sparse_scatter.restype = i32
+    lib.lsplm_sparse_scatter_max_warps.argtypes = [i32]
+    lib.lsplm_sparse_scatter_max_warps.restype = i32
     lib.lsplm_scatter_error_string.argtypes = [i32]
     lib.lsplm_scatter_error_string.restype = ctypes.c_char_p
     return lib
@@ -91,6 +104,24 @@ def _check(layout, vals, dz) -> None:
         raise ValueError(f"{name}: sizes must fit in int32")
 
 
+def warps_for(block_e: int | None) -> int:
+    """Task warps a block for ``block_e`` sorted entries (None: the
+    default); raises ``ValueError`` for a ``block_e`` the kernel has no
+    block for. Whether its buffers fit is the launch's to check."""
+    block_e = DEFAULT_BLOCK_E if block_e is None else block_e
+    if block_e not in BLOCK_E_GRID:
+        raise ValueError(f"block_e must be one of {BLOCK_E_GRID} (32 sorted "
+                         f"entries a task warp), got {block_e!r}")
+    return block_e // 32
+
+
+def max_block_e(m2: int) -> int:
+    """The largest ``block_e`` whose dz row buffers fit a block's shared
+    memory at 2m columns, as the .cu lays a block out (card only: it asks
+    the built library)."""
+    return 32 * _lib().lsplm_sparse_scatter_max_warps(m2)
+
+
 def _tickets(device: torch.device, stream: int, n: int) -> torch.Tensor:
     """The zeroed ticket buffer of ``stream``, at least ``n`` long."""
     key = (device.index, stream)
@@ -101,8 +132,8 @@ def _tickets(device: torch.device, stream: int, n: int) -> torch.Tensor:
     return t
 
 
-def lsplm_sparse_scatter(layout, vals: torch.Tensor,
-                         dz: torch.Tensor) -> torch.Tensor:
+def lsplm_sparse_scatter(layout, vals: torch.Tensor, dz: torch.Tensor, *,
+                         block_e: int | None = None) -> torch.Tensor:
     """The dense dTheta (D, 2m) fp32 on the card: row r is the sum of
     ``vals[order[e]] * dz[sample_sorted[e]]`` over the sorted entries e of
     id r, every untouched row (the pad row included) exactly 0.
@@ -111,9 +142,11 @@ def lsplm_sparse_scatter(layout, vals: torch.Tensor,
     ``ops.RunLayout`` on ``dz``'s device: its int32 tables (``_TABLES``)
     and ``num_entries``; D = ``inv_sorted.numel()``. ``vals`` is the
     batch's (N*K,) flat float32 values, ``dz`` the (N, 2m) float32
-    upstream gradient, both contiguous."""
+    upstream gradient, both contiguous. ``block_e`` as in the module
+    docstring."""
     _check(layout, vals, dz)
     num_rows, m2 = layout.inv_sorted.numel(), dz.shape[1]
+    warps = warps_for(block_e)
     num_unique = layout.run_piece_start.numel() - 1
     num_pieces = layout.piece_run.numel()
     out = torch.empty((num_rows, m2), dtype=torch.float32, device=dz.device)
@@ -124,7 +157,13 @@ def lsplm_sparse_scatter(layout, vals: torch.Tensor,
     rc = _lib().lsplm_sparse_scatter(
         *(getattr(layout, f).data_ptr() for f in _TABLES), vals.data_ptr(),
         dz.data_ptr(), partial.data_ptr(), ticket.data_ptr(), out.data_ptr(),
-        layout.task_piece_start.numel() - 1, num_rows, num_unique, m2, stream)
+        layout.task_piece_start.numel() - 1, num_rows, num_unique, m2, warps,
+        stream)
+    if rc == OVER_BUDGET:
+        raise ValueError(
+            f"block_e={32 * warps} does not fit at 2m={m2}: its warps' dz "
+            f"row buffers exceed the shared memory a block may use; take "
+            f"block_e <= {max_block_e(m2)}")
     if rc != 0:
         msg = _lib().lsplm_scatter_error_string(rc).decode()
         raise RuntimeError(f"lsplm_sparse_scatter: kernel launch failed: "

@@ -19,6 +19,13 @@ Every output row of dTheta has one writer and a fixed summation order on
 both devices, so repeated calls give bitwise equal results. Which
 implementation runs follows the device of ``dz`` and nothing else; a CUDA
 call launches the kernel or raises.
+
+The knobs come from ``repro_torch.tune`` at each call's shape: B2's
+``block_e`` (``"scatter"``, by kept entries and 2m) and the slots
+``dvals_unplanned`` gathers at a time (``"chunk_bwd"``; all K by
+default). Neither changes a bit. The unplanned dTheta on the CPU stays
+the exact ``index_add_`` in entry order: it has no chunk, since chunking
+it would reorder its adds.
 """
 from __future__ import annotations
 
@@ -35,6 +42,7 @@ from repro_torch.kernels.lsplm_sparse_scatter.plan import (  # noqa: F401
     run_pieces,
 )
 from repro_torch.kernels.lsplm_sparse_scatter.ref import scatter_add_ref
+from repro_torch.tune.table import resolve_fused, resolve_scatter
 
 
 class RunLayout(NamedTuple):
@@ -90,10 +98,12 @@ def sorted_runs(ids: torch.Tensor, num_rows: int, pad_id: int) -> RunLayout:
 
 def _scatter_card(layout, vals: torch.Tensor, dz: torch.Tensor
                   ) -> torch.Tensor:
-    """B2 on a plan or a :class:`RunLayout`: the dense dTheta."""
+    """B2 on a plan or a :class:`RunLayout`: the dense dTheta, with the
+    tune table's ``block_e`` at its kept entries and 2m."""
+    cfg = resolve_scatter(layout.order.numel(), dz.shape[1], dz.device)
     return lsplm_sparse_scatter(
         layout, vals.reshape(-1).to(torch.float32).contiguous(),
-        dz.to(torch.float32).contiguous())
+        dz.to(torch.float32).contiguous(), block_e=cfg["block_e"])
 
 
 def _compact_classes(plan: TransposePlan, vals: torch.Tensor,
@@ -144,9 +154,31 @@ def dvals_planned(plan: TransposePlan, theta: torch.Tensor, dz: torch.Tensor,
     return dv.index_select(0, plan.rank).reshape(shape)
 
 
+def _dvals_chunk(ids: torch.Tensor, theta: torch.Tensor,
+                 chunk: int | None) -> int:
+    """The unplanned dvals' chunk: the caller's, else the tune table's
+    ``chunk_bwd`` at this shape (builtin: all K at once)."""
+    if chunk is None:
+        chunk = resolve_fused("chunk_bwd", *ids.shape, theta.shape[1],
+                              theta.device)["chunk"] or ids.shape[1]
+    if chunk < 1:
+        raise ValueError(f"chunk must be a positive int, got {chunk!r}")
+    return chunk
+
+
 def dvals_unplanned(ids: torch.Tensor, theta: torch.Tensor,
-                    dz: torch.Tensor) -> torch.Tensor:
-    """dvals (N, K) by a direct gather of the rows."""
+                    dz: torch.Tensor, chunk: int | None = None
+                    ) -> torch.Tensor:
+    """dvals (N, K) by a direct gather of the rows, ``chunk`` slots at a
+    time (None: the tune table's ``chunk_bwd``, all K by default). Each
+    element is one dot over 2m whatever the chunk, so the chunk changes
+    no bit."""
     n, k = ids.shape
-    rows = theta.index_select(0, ids.reshape(-1).long()).to(dz.dtype)
-    return (rows.view(n, k, -1) * dz[:, None, :]).sum(dim=-1)
+    chunk = _dvals_chunk(ids, theta, chunk)
+    parts = []
+    for k0 in range(0, k, chunk):
+        part = ids[:, k0:k0 + chunk]
+        rows = theta.index_select(0, part.reshape(-1).long()).to(dz.dtype)
+        parts.append((rows.view(n, part.shape[1], -1)
+                      * dz[:, None, :]).sum(dim=-1))
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)

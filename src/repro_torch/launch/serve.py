@@ -31,7 +31,11 @@ pump. ``--monitor`` runs the health monitor over the dispatches
 (``obs.monitor``) and prints its summary line; ``--drift-ref PATH`` (a
 reference ``repro_torch.launch.train --drift-ref`` captured, standalone or
 embedded in an artifact) arms its drift and calibration detectors, and
-needs ``--monitor``. ``--device cpu`` runs the plain versions on the CPU.
+needs ``--monitor``. ``--block-n``/``--chunk`` pin a kernel knob and
+``--tune`` sweeps the traffic's own envelopes before the warm-up
+(``repro_torch.launch.tuning``; the scores are bitwise those of an
+untuned run); ``--block-k`` is refused. ``--device cpu`` runs the plain
+versions on the CPU.
 """
 from __future__ import annotations
 
@@ -48,6 +52,12 @@ from repro_torch.convert import theta_from_numpy
 from repro_torch.device import resolve_device
 from repro_torch.io import checkpoint
 from repro_torch.launch.train import sparse_problem
+from repro_torch.launch.tuning import (
+    add_tuning_flags,
+    apply_tuning_flags,
+    tune_job_shapes,
+    tuning_scope,
+)
 from repro_torch.serve.compress import (
     compress,
     load_artifact,
@@ -106,6 +116,7 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default) or 'cpu'")
+    add_tuning_flags(ap)
     obs.add_flags(ap)
     return ap
 
@@ -117,7 +128,8 @@ def main(argv: list[str] | None = None) -> int:
 
 def run(argv: list[str] | None = None) -> dict:
     """Parse ``argv``, serve, and return the run's report: the prune
-    numbers, the engine stats and one queue report per offered rate."""
+    numbers, the engine stats, the single-request replay's scores and one
+    queue report per offered rate."""
     argv = sys.argv[1:] if argv is None else list(argv)
     args = _parser().parse_args(argv)
     if args.drift_ref and not args.monitor:
@@ -131,7 +143,9 @@ def run(argv: list[str] | None = None) -> dict:
     session = obs.configure_from_args(args, driver="repro_torch.launch.serve",
                                       device=device, argv=argv)
     try:
-        return _serve(args, device)
+        with tuning_scope():
+            apply_tuning_flags(args)  # value check up front; geometry later
+            return _serve(args, device)
     finally:
         session.close()
 
@@ -254,6 +268,18 @@ def _serve(args, device: torch.device) -> dict:
     # deploy-time warm-up: build the traffic's bucket set (all batch
     # sizes the G>1 path can round onto), then the replay is steady state
     envelopes = {engine.envelope(r) for r in requests}
+    # the engine pads K/N up to its buckets before the kernels run, so
+    # the geometry the knobs must fit is the PADDED envelope set
+    kmax = max(max(ku, ka) for ku, ka, _n in envelopes)
+    nmax = engine.max_batch * max(n for _ku, _ka, n in envelopes)
+    apply_tuning_flags(args, batch_n=nmax, batch_k=kmax)
+    if args.tune:
+        m = report["regions"]
+        gs = (1, engine.max_batch)
+        tune_job_shapes(
+            {(g * n, ka, d, m) for _ku, ka, n in envelopes for g in gs}
+            | {(g, ku, d, m) for ku, _ka, _n in envelopes for g in gs},
+            device=device, log=obs.log)
     if args.coalesce:
         # coalesced flushes dispatch at the elementwise max of merged
         # envelopes: warm the closure so they never build an entry either
@@ -270,6 +296,7 @@ def _serve(args, device: torch.device) -> dict:
         raise RuntimeError(f"steady state built envelope entries: "
                            f"{s.compiles} != {warm_builds}")
     report["engine"] = s.as_dict()
+    report["scores"] = np.concatenate(single)
     obs.log(f"engine: {s.requests} requests / {s.candidates} candidates "
             f"over {len(s.bucket_hits)} buckets; {s.compiles} envelope "
             f"builds ({s.compile_seconds:.2f}s, all in warm-up), steady "

@@ -56,8 +56,13 @@ saves ``{"theta": ...}`` in the reference's npz layout, which
 reference from the held-out scores (the test batch, or the last next
 day) that ``repro_torch.launch.serve --monitor --drift-ref`` arms.
 
+``--block-n``/``--chunk`` (``--sparse`` or ``--stream``) pin a kernel
+knob and ``--tune`` sweeps the job's own shapes first
+(``repro_torch.launch.tuning``; the results are bitwise those of an
+untuned run); ``--block-k`` is refused, B1 having no K tile on the card.
+
 Not ported yet, and refused: ``--mesh-data``/``--mesh-model`` (ROADMAP
-A12) and the tuning flags (A10).
+A12).
 """
 from __future__ import annotations
 
@@ -92,6 +97,13 @@ from repro_torch.data.synthetic_ctr import (
 from repro_torch.device import resolve_device
 from repro_torch.eval.metrics import auc
 from repro_torch.io import checkpoint
+from repro_torch.launch.tuning import (
+    add_tuning_flags,
+    apply_tuning_flags,
+    tune_job_shapes,
+    tuning_flags_set,
+    tuning_scope,
+)
 from repro_torch.optim.owlqn_plus import OWLQNPlus
 
 # flags of the reference driver whose paths are not ported yet -> the
@@ -101,10 +113,6 @@ _NOT_PORTED = {
                  "(ROADMAP A12)",
     "mesh_model": "--mesh-data/--mesh-model wait for the sharding port "
                   "(ROADMAP A12)",
-    "block_n": "the tuning flags wait for the tuning port (ROADMAP A10)",
-    "block_k": "the tuning flags wait for the tuning port (ROADMAP A10)",
-    "chunk": "the tuning flags wait for the tuning port (ROADMAP A10)",
-    "tune": "the tuning flags wait for the tuning port (ROADMAP A10)",
 }
 
 
@@ -160,12 +168,7 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--mesh-data", type=int, default=0, help=argparse.SUPPRESS)
     ap.add_argument("--mesh-model", type=int, default=0,
                     help=argparse.SUPPRESS)
-    ap.add_argument("--block-n", type=int, default=None,
-                    help=argparse.SUPPRESS)
-    ap.add_argument("--block-k", type=int, default=None,
-                    help=argparse.SUPPRESS)
-    ap.add_argument("--chunk", type=int, default=None, help=argparse.SUPPRESS)
-    ap.add_argument("--tune", action="store_true", help=argparse.SUPPRESS)
+    add_tuning_flags(ap)
     obs.add_flags(ap)
     return ap
 
@@ -189,6 +192,11 @@ def run(argv: list[str] | None = None, *, prebuilt: tuple | None = None
     for flag, why in _NOT_PORTED.items():
         if getattr(args, flag):
             raise SystemExit(why)
+    if tuning_flags_set(args) and not (args.sparse or args.stream):
+        raise SystemExit(
+            "--block-n/--block-k/--chunk/--tune steer the sparse kernels; "
+            "combine them with --sparse or --stream (the dense path has "
+            "no tunable block sizes)")
     mode = "stream" if args.stream else "sparse" if args.sparse else "dense"
     if args.drift_ref and mode == "dense":
         raise SystemExit(
@@ -199,11 +207,14 @@ def run(argv: list[str] | None = None, *, prebuilt: tuple | None = None
     session = obs.configure_from_args(args, driver="repro_torch.launch.train",
                                       device=device, argv=argv, mode=mode)
     try:
-        if args.stream:
-            return _train_stream(args, device)
-        if args.sparse:
-            return _train_sparse(args, device, prebuilt)
-        return _train_dense(args, device, prebuilt)
+        with tuning_scope():
+            if tuning_flags_set(args):
+                apply_tuning_flags(args)  # the values, before any set-up
+            if args.stream:
+                return _train_stream(args, device)
+            if args.sparse:
+                return _train_sparse(args, device, prebuilt)
+            return _train_dense(args, device, prebuilt)
     finally:
         session.close()
 
@@ -338,6 +349,13 @@ def _train_sparse(args, device: torch.device, prebuilt=None) -> dict:
     (train, theta0, opt), test = prebuilt
     _sync(device)
     setup_s = time.perf_counter() - t0
+    ku, ka = train.user_ids.shape[-1], train.ad_ids.shape[-1]
+    apply_tuning_flags(args, batch_n=train.ad_ids.shape[0],
+                       batch_k=max(ku, ka))
+    if args.tune:
+        tune_job_shapes([(train.user_ids.shape[0], ku, d, m),
+                         (train.ad_ids.shape[0], ka, d, m)], device=device,
+                        log=obs.log)
     kern = ("CUDA kernels: fused forward B1, run-length scatter B2, Eq. 9 "
             "direction B3" if device.type == "cuda" else "plain versions")
     obs.log(f"sparse mode: d={d:,} columns, Theta {tuple(theta0.shape)} "
@@ -399,6 +417,15 @@ def _train_stream(args, device: torch.device) -> dict:
                        active_ad=args.active_ad, drift=args.drift,
                        seed=args.seed)
     theta0 = _theta0(d, m, args.seed, device)
+    if tuning_flags_set(args):
+        day0 = stream.day(0)
+        ku, ka = day0.user_ids.shape[-1], day0.ad_ids.shape[-1]
+        apply_tuning_flags(args, batch_k=max(ku, ka))
+        if args.tune:
+            g, b, w = day0.user_ids.shape[0], day0.ad_ids.shape[0], args.window
+            tune_job_shapes({(g, ku, d, m), (b, ka, d, m),
+                             (g * w, ku, d, m), (b * w, ka, d, m)},
+                            device=device, log=obs.log)
     trainer = StreamTrainer(
         stream, lam=args.lam, beta=args.beta, window=args.window,
         inner_iters=args.inner_iters, history=args.history,

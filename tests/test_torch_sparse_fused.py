@@ -5,8 +5,8 @@ On the CPU the port's ops take their plain versions (the CUDA kernels run
 only on a card); the reference runs both its jnp path and its Pallas
 kernels in interpret mode. Tolerances: z rtol 1e-5 / atol 1e-6 and p atol
 1e-6, because fp32 sums reassociate across the two frameworks; dedup ids
-are equal exactly. The ``cuda``-marked tests hold the kernels against the
-plain versions on a card and skip without one.
+are equal exactly. The kernels' own tests on a card (against the port's
+plain versions, no JAX) are in ``tests/test_torch_sparse_card.py``.
 """
 import numpy as np
 import jax.numpy as jnp
@@ -325,123 +325,3 @@ def test_build_finds_the_cuda_source():
     assert path.parent == _build.BUILD_DIR
     assert path == _build.library_path(srcs["lsplm_sparse_fused"])  # stable
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
-
-
-# ------------------------------------------------ on the card
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
-    return torch.device("cuda")
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("dedup", [True, False])
-def test_kernels_match_plain_on_card(cuda, dedup):
-    theta, codes, scales, ids, vals = _inputs(11, n=300, k=40)
-    t, c, s, i, v = (x.to(cuda) for x in _t(theta, codes, scales, ids, vals))
-    z_ref = tops._chunked_zmap(i, v, t)
-    zi_ref = tops._chunked_zmap_int8(i, v, c, s)
-    ki, kv = tops.dedup_tile_ids(i, v, D - 1) if dedup else (i, v)
-    p, z = tk.lsplm_sparse_fused_forward(ki, kv, t)
-    pi, zi = tk.lsplm_sparse_fused_int8_forward(ki, kv, c, s)
-    torch.cuda.synchronize()
-    torch.testing.assert_close(z, z_ref, rtol=Z_RTOL, atol=Z_ATOL)
-    torch.testing.assert_close(p, tops.finalize_p(z_ref), rtol=0, atol=P_ATOL)
-    torch.testing.assert_close(zi, zi_ref, rtol=Z_RTOL, atol=Z_ATOL)
-    torch.testing.assert_close(pi, tops.finalize_p(zi_ref), rtol=0,
-                               atol=P_ATOL)
-
-
-@pytest.mark.cuda
-def test_forward_p_keeps_the_kernel_p_and_its_grad_on_card(cuda):
-    """The differentiable p-level op returns B1's own p, planned or not,
-    and its planned and unplanned gradients agree with the CPU's."""
-    from repro_torch.kernels.lsplm_sparse_scatter.plan import (
-        build_transpose_plan)
-
-    theta, _, _, ids, vals = _inputs(12, n=300, k=40)
-    vals[ids == D - 1] = 0.0  # padded COO: the plan drops the pad slots
-    t, i, v = (x.to(cuda) for x in _t(theta, ids, vals))
-    p_kernel = tk.lsplm_sparse_fused_forward(i, v, t, dedup=True)[0]
-    plan = build_transpose_plan(ids, D, pad_id=D - 1).to(cuda)
-    grads = []
-    for pl in (None, plan):
-        tt = t.clone().requires_grad_(True)
-        p = tops.lsplm_sparse_forward(i, v, tt, plan=pl)
-        assert torch.equal(p, p_kernel)
-        p.sum().backward()
-        grads.append(tt.grad)
-    tc = torch.from_numpy(theta).requires_grad_(True)
-    tops.lsplm_sparse_forward(*_t(ids, vals), tc).sum().backward()
-    for g in grads:
-        torch.testing.assert_close(g.cpu(), tc.grad, rtol=1e-5, atol=1e-6)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("n", [1, 37, 4096])
-@pytest.mark.parametrize("k", [8, 24, 40, 64, 65, 200])
-def test_fused_dedup_is_bitwise_the_pre_pass_on_card(cuda, n, k):
-    """dedup=True in the kernel gives (z, p) bit for bit what
-    ``dedup_tile_ids`` followed by the kernel with dedup=False gives, for
-    B1 and B4; B4 with dedup on is bitwise B1 on the dequantised Theta;
-    both stay within the plain version's tolerances."""
-    theta, codes, scales, ids, vals = _dup_inputs(40 + k, n=n, k=k)
-    t, c, s, i, v = (x.to(cuda) for x in _t(theta, codes, scales, ids, vals))
-    deq = c.to(torch.float32) * s[:, None]
-    di, dv = tops.dedup_tile_ids(i, v, D - 1)
-    fused = tk.lsplm_sparse_fused_forward(i, v, t, dedup=True)
-    pre = tk.lsplm_sparse_fused_forward(di, dv, t)
-    fused8 = tk.lsplm_sparse_fused_int8_forward(i, v, c, s, dedup=True)
-    pre8 = tk.lsplm_sparse_fused_int8_forward(di, dv, c, s)
-    on_deq = tk.lsplm_sparse_fused_forward(i, v, deq, dedup=True)
-    torch.cuda.synchronize()
-    for a, b in ((fused, pre), (fused8, pre8), (fused8, on_deq)):
-        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
-    z_ref = tops._chunked_zmap(i, v, t)
-    torch.testing.assert_close(fused[1], z_ref, rtol=Z_RTOL, atol=Z_ATOL)
-    torch.testing.assert_close(fused[0], tops.finalize_p(z_ref), rtol=0,
-                               atol=P_ATOL)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("session_dtype", [torch.int32, torch.int64])
-def test_bundle_addend_matches_index_select_add_on_card(cuda, session_dtype):
-    """The ad-side launch with the user rows' z as its addend: z bitwise
-    ``z_user.index_select(0, session) + z_ad``, p within 1e-6 of
-    ``finalize_p``; ``ops.bundle_forward`` is those two launches."""
-    theta, codes, scales, uids, uvals = _dup_inputs(50, n=8, k=24)
-    _, _, _, aids, avals = _dup_inputs(51, n=256, k=16)
-    t, c, s, ui, uv, ai, av = (x.to(cuda) for x in _t(
-        theta, codes, scales, uids, uvals, aids, avals))
-    session = torch.arange(8, device=cuda).repeat_interleave(32).to(
-        session_dtype)
-    for rows, fn in (((t,), tk.lsplm_sparse_fused_forward),
-                     ((c, s), tk.lsplm_sparse_fused_int8_forward)):
-        z_user = fn(ui, uv, *rows, dedup=True, head=False)[1]
-        z_ad = fn(ai, av, *rows, dedup=True)[1]
-        p, z = fn(ai, av, *rows, dedup=True, z_add=z_user, session=session)
-        torch.cuda.synchronize()
-        want = z_user.index_select(0, session.long()) + z_ad
-        assert torch.equal(z, want)
-        torch.testing.assert_close(p, tops.finalize_p(want), rtol=0,
-                                   atol=P_ATOL)
-        kw = dict(theta=t) if len(rows) == 1 else dict(codes=c, scales=s)
-        before = dict(tk.LAUNCHES)
-        pb, zb = tops.bundle_forward(ui, uv, ai, av, session, **kw)
-        assert sum(tk.LAUNCHES.values()) - sum(before.values()) == 2
-        assert torch.equal(pb, p) and torch.equal(zb, z)
-
-
-@pytest.mark.cuda
-def test_k_limit_on_card(cuda):
-    """Past MAX_DEDUP_K slots the card path refuses dedup=True (no quiet
-    route back to the torch pre-pass) and still serves dedup=False."""
-    k = tk.MAX_DEDUP_K + 1
-    theta = torch.zeros((D, 2 * M), device=cuda)
-    ids = torch.full((2, k), D - 1, dtype=torch.int32, device=cuda)
-    vals = torch.zeros((2, k), device=cuda)
-    with pytest.raises(ValueError, match=str(tk.MAX_DEDUP_K)):
-        tops.sparse_gather_matmul(ids, vals, theta)
-    z = tops.sparse_gather_matmul(ids, vals, theta, dedup=False)
-    assert torch.equal(z, torch.zeros_like(z))

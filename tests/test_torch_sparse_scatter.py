@@ -9,9 +9,9 @@ frameworks); the pad row's and untouched rows' cotangents must be exactly
 0. ``ref.scatter_runs_ref`` (B2's association in plain PyTorch) is held
 against the reference at the cross-package bar |err| <= 1e-5 * sum|terms|
 + 1e-6, and bitwise against a per-piece loop in numpy float32. The
-``cuda``-marked tests hold the run-length kernel (B2) bitwise against
-``scatter_runs_ref`` and against the plain class gathers at that bar on a
-card, bitwise repeatable, and skip without one.
+run-length kernel's (B2's) tests on a card -- bitwise ``scatter_runs_ref``
+and the plain class gathers at that bar, bitwise repeatable -- are in
+``tests/test_torch_sparse_card.py`` (no JAX).
 """
 import numpy as np
 import jax.numpy as jnp
@@ -298,62 +298,3 @@ def test_scatter_runs_ref_is_b2s_association(case):
     got = tref.scatter_runs_ref(tp, torch.from_numpy(vals),
                                 torch.from_numpy(dz), rows).numpy()
     np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
-
-
-# ------------------------------------------------------------ on the card
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
-    return torch.device("cuda")
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("zipf,piece_split", [(False, False), (True, False),
-                                              (True, True)])
-def test_scatter_kernel_matches_plain_on_card(cuda, zipf, piece_split):
-    n = 3000 if piece_split else 200  # a hot run of > 256 entries
-    ids, vals, dz = _batch(11, n=n, zipf=zipf)
-    tp = tplan.build_transpose_plan(ids, 301, pad_id=300).to(cuda)
-    v, z = torch.from_numpy(vals).to(cuda), torch.from_numpy(dz).to(cuda)
-    got = tops.scatter_add_planned(tp, v, z)
-    again = tops.scatter_add_planned(tp, v, z)
-    plain = tops._compact_classes(tp, v, z).index_select(0, tp.inv_compact)
-    scale = tops._compact_classes(tp, v.abs(), z.abs()).index_select(
-        0, tp.inv_compact)
-    runs = tref.scatter_runs_ref(tp, v, z, 301)
-    torch.cuda.synchronize()
-    assert torch.equal(got, again)  # no float atomics: bitwise repeatable
-    assert torch.equal(got, runs)  # B2's association
-    assert bool(((got - plain).abs() <= B2_REL * scale + B2_ABS).all())
-    untouched = tp.inv_sorted == tp.num_unique
-    assert bool((got[untouched] == 0).all())
-    unplanned = tops.scatter_add_unplanned(torch.from_numpy(ids).to(cuda), v,
-                                           z, 301, 300)
-    assert torch.equal(unplanned, got)  # same sorted layout, same kernel
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("m2,offset", [(8, 0), (24, 0), (24, 1), (6, 0),
-                                       (70, 0), (128, 0)])
-def test_scatter_kernel_bitwise_runs_ref_on_card(cuda, m2, offset):
-    """Every copy width and column count: 16-byte copies (2m % 4 == 0 and
-    an aligned dz), 4-byte ones (2m = 6, or dz one float off alignment),
-    2m up to 128; a hot run of several pieces, pad slots."""
-    rng = np.random.default_rng(14)
-    ids, vals, _ = _batch(15, n=3000, zipf=True)
-    tp = tplan.build_transpose_plan(ids, 301, pad_id=300).to(cuda)
-    flat = torch.from_numpy(rng.normal(size=3000 * m2 + offset).astype(
-        np.float32)).to(cuda)
-    z = flat[offset:].view(3000, m2)
-    v = torch.from_numpy(vals).to(cuda)
-    got = tops.scatter_add_planned(tp, v, z)
-    want = tref.scatter_runs_ref(tp, v, z, 301)
-    unplanned = tops.scatter_add_unplanned(torch.from_numpy(ids).to(cuda), v,
-                                           z, 301, 300)
-    torch.cuda.synchronize()
-    assert torch.equal(got, want)
-    assert torch.equal(unplanned, got)
-    assert bool((got[tp.inv_sorted == tp.num_unique] == 0).all())
-    # every run ticket is back at 0 for the next call
-    assert not any(bool(t.any()) for t in tk._TICKETS.values())

@@ -30,7 +30,11 @@ B7's autograd Functions against their plain versions' gradients) and the
 autotuning path (``repro_torch.tune.sweep`` over B1, B4 and B2 at the
 reference's sweep shapes, every config parity-gated, the committed
 ``cuda-sm90.json`` held to ``check_table``; then ``--tune``,
-``--block-n`` and ``--block-k`` through the drivers),
+``--block-n`` and ``--block-k`` through the drivers) and the sharded
+training path (``repro_torch.launch.train --mesh-data --mesh-model``:
+the paper-width sparse problem on 2 x 2, 1 x 2 and 2 x 1 meshes of
+ranks sharing the one card, B1, B2 and B3 on each rank's rows, against
+the unsharded run; then the three drivers on a 2 x 2 mesh),
 shows that each path launched its kernels, holds the card's OWLQN+
 trajectories and a reduced LM of each family against the CPU's, times
 the kernels beside their plain versions, their bound and one library
@@ -3687,7 +3691,8 @@ def phase_stream_gates(torch, dev, tmp: Path):
 CARD_TESTS = ("tests/test_torch_stream_card.py",
               "tests/test_torch_flash_attention_card.py",
               "tests/test_torch_lm_train_card.py",
-              "tests/test_torch_sparse_card.py")
+              "tests/test_torch_sparse_card.py",
+              "tests/test_torch_shard_card.py")
 
 
 def phase_card_tests():
@@ -4492,6 +4497,496 @@ def phase_tune_drivers(torch, dev, tmp: Path):
     print(f"phase 31 took {time.perf_counter() - t_phase:.1f} s")
 
 
+# ------------------------------------------------------------ phases 32-33
+# the meshes on the one card, grouped by world: each world is spawned
+# once and runs its meshes in turn (a spawn costs ~15 s on the card)
+SHARD_WORLDS = {4: ((2, 2),), 2: ((1, 2), (2, 1))}
+SHARD_LOSS_RTOL, SHARD_GRAD_ATOL = 2e-5, 3e-5  # tests/test_shard_step.py
+SHARD_D, SHARD_SESSIONS, SHARD_ITERS = 50_000, 512, 6  # phase 33
+SHARD_DENSE = (25_000, 20_000, 5_000, 256)  # user, ad, noise, sessions
+SHARD_STREAM_DAYS = 3
+
+
+def _sparse_counters():
+    """The launch counters of B1, B2 and B3 in this process."""
+    from repro_torch.kernels.lsplm_sparse_fused.lsplm_sparse_fused import (
+        LAUNCHES as B1,
+    )
+    from repro_torch.kernels.lsplm_sparse_scatter.lsplm_sparse_scatter import (
+        LAUNCHES as B2,
+    )
+    from repro_torch.kernels.owlqn_direction.owlqn_direction import (
+        LAUNCHES as B3,
+    )
+    return (B1, B2, B3)
+
+
+def _shard_entries(routed) -> list[int]:
+    """Routed (user + ad) entries each id-range shard holds."""
+    R = routed.rows_per_shard
+    return [int((routed.user_ids[s] != R).sum() + (routed.ad_ids[s] != R).sum())
+            for s in range(routed.num_shards)]
+
+
+def _untouched_max(torch, routed, shard: int, grad) -> float:
+    """The largest |dTheta| on the rows of ``shard``'s block that no routed
+    id touches (its pad rows included): must be exactly 0."""
+    R = routed.rows_per_shard
+    touched = torch.zeros(R + 1, dtype=torch.bool)
+    for ids in (routed.user_ids[shard], routed.ad_ids[shard]):
+        touched[ids.reshape(-1).long()] = True
+    rows = (~touched[:R]).to(grad.device)
+    return float(grad[rows].abs().max()) if bool(rows.any()) else 0.0
+
+
+def _cell_kernels(torch, cell, theta, grad, tag):
+    """B1, B2 and B3 against their plain versions at the shapes the
+    sharded path gives them on this rank, with phase 5's bars: B1 on the
+    cell's local ids into the (R + 1)-row padded block at ``theta`` (the
+    rank's rows, in-kernel dedup, bitwise the pre-pass + B1), B2 on the
+    cell's sliced plans (and the card-sorted layout bitwise), B3 bitwise
+    on the rank's all-reduced dTheta block ``grad``. Returns (max abs
+    errors, what was checked)."""
+    from repro_torch.kernels.lsplm_sparse_scatter import ops as sops
+
+    b = cell.batch
+    e, shapes = _b1_at_training_shapes(torch, ((tag, b),), theta)
+    err = {"lsplm_sparse_fused_forward": e, "lsplm_sparse_scatter": 0.0}
+    rng = np.random.default_rng(SEED + 32 + cell.data_rank * cell.num_shards
+                                + cell.model_rank)
+    for side, ids, vals, plan in (
+            ("user", b.user_ids, b.user_vals, b.user_plan),
+            ("ad", b.ad_ids, b.ad_vals, b.ad_plan)):
+        dz = torch.from_numpy(rng.normal(size=(vals.shape[0], 2 * REGIONS))
+                              .astype(np.float32)).to(vals.device)
+        e = _check_scatter(torch, sops, plan, vals, dz, f"{tag} {side} side")
+        unplanned = sops.scatter_add_unplanned(ids, vals, dz, plan.num_rows,
+                                               plan.num_rows - 1)
+        check(torch.equal(unplanned, sops.scatter_add_planned(plan, vals, dz)),
+              f"B2 on the card-sorted entries differs from the plan's "
+              f"({tag} {side} side)")
+        err["lsplm_sparse_scatter"] = max(err["lsplm_sparse_scatter"], e)
+        shapes.append(f"{side} plan E'={plan.num_kept:,} "
+                      f"U={plan.num_unique:,} rows={plan.num_rows:,}")
+    err["owlqn_direction"] = _check_b3(
+        torch, theta, grad, LAM, BETA,
+        f"{tag} dTheta block {tuple(theta.shape)}", exact=True)
+    return err, shapes
+
+
+def _shard_rank(rank, dev, data, model):
+    """One rank of phase 32 (module level: the spawned ranks import it).
+    The training driver's problem at paper width on a (data, model) mesh
+    (``launch.train.sharded_sparse_problem``): the loss and gradient at
+    Theta0 over equal and over balanced id ranges, TRAIN_ITERS sharded
+    OWLQN+ steps with their walls, all-reduces and launches (counted from
+    0 just before them), the gathered Theta, then one more step under
+    torch.profiler. B1, B2 and B3 are held against their plain versions
+    on this rank's cell of each partition (:func:`_cell_kernels`) before
+    the counted steps. Rank 0 returns the gathered arrays."""
+    import torch
+
+    from repro_torch.data.sparse import generate_sparse
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.launch.train import sharded_sparse_problem
+    from repro_torch.shard.partition import balanced_partition
+
+    mesh = Mesh(data, model)
+    root = mesh.rank == 0
+    kw = dict(lam=LAM, beta=BETA, seed=SEED, batch_seed=SEED + 1, mesh=mesh,
+              device=dev)
+    t0 = time.perf_counter()
+    routed, part, cell, theta0, opt = sharded_sparse_problem(
+        D_FEATURES, REGIONS, SESSIONS, **kw)
+    torch.cuda.synchronize()
+    out = {"rank": rank, "backend": mesh.backend,
+           "setup_s": time.perf_counter() - t0, "bounds": {}, "entries": {},
+           "untouched_max": {}, "loss0": {}, "grad0": {}, "kernels": {}}
+
+    def progress(what):  # rank 0's stages, as they end
+        if root:
+            print(f"    [{data} x {model}] rank 0: {what} at "
+                  f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    progress("set-up")
+    host = generate_sparse(num_features=D_FEATURES,
+                           num_user_features_range=(int(0.6 * D_FEATURES),
+                                                    D_FEATURES),
+                           sessions=SESSIONS, seed=SEED + 1, with_plans=False,
+                           device="cpu")
+    balanced = balanced_partition(D_FEATURES, model, host.user_ids,
+                                  host.ad_ids, pad_id=D_FEATURES)
+    # one id range has nothing to balance
+    for name in ("equal", "balanced") if model > 1 else ("equal",):
+        if name == "equal":
+            r, p, c, o, th = routed, part, cell, opt, theta0
+        else:
+            r, p, c, th, o = sharded_sparse_problem(
+                D_FEATURES, REGIONS, SESSIONS, **kw, partition=balanced)
+        loss, grad = o.loss_and_grad(th)
+        out["kernels"][name] = _cell_kernels(
+            torch, c, th, grad, f"{data} x {model} rank {rank} cell of the "
+            f"{name} ranges")
+        out["bounds"][name] = p.bounds.tolist()
+        out["entries"][name] = _shard_entries(r)
+        out["untouched_max"][name] = _untouched_max(torch, r,
+                                                    mesh.model_rank, grad)
+        out["loss0"][name] = float(loss)
+        g = p.unpad_rows(mesh.gather_rows(grad))
+        out["grad0"][name] = g.cpu().numpy() if root else None
+        del r, c, o, th, grad, g
+        progress(f"loss and gradient over {name} ranges")
+    counters = _sparse_counters()
+    _reset(counters)
+    mesh.reset_counts()
+    state = opt.init(theta0)
+    its, walls = [], []
+    for _ in range(TRAIN_ITERS):
+        t1 = time.perf_counter()
+        state, s = opt.step(state)  # ends in host syncs
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t1)
+        its.append((s.f, s.f_new, s.alpha, s.nnz, s.ls_iters))
+    out["launches"] = {"lsplm_sparse_fused_forward":
+                       counters[0]["lsplm_sparse_fused_forward"],
+                       **counters[1], **counters[2]}
+    out.update(iters=its, walls=walls, collectives=mesh.collective_counts())
+    theta = part.unpad_rows(mesh.gather_rows(state.theta))
+    out["theta"] = theta.cpu().numpy() if root else None
+    del theta
+    progress(f"{TRAIN_ITERS} steps and the gathered Theta")
+    (_, s), wall_us, kernels = _device_profile(torch,
+                                               lambda: opt.step(state))
+    out["profile"] = {
+        "wall_us": wall_us, "ls_iters": s.ls_iters,
+        "device_us": sum(v[0] for v in kernels.values()),
+        "copy_us": sum(v[0] for name, v in kernels.items()
+                       if "memcpy" in name.lower()),
+        "launches": sum(v[1] for v in kernels.values()),
+        "ours": {label: sum(n for name, (_, n) in kernels.items()
+                            if label in name)
+                 for label in SPARSE_STEP_KERNELS}}
+    out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    return out
+
+
+def _shard_world(rank, dev, shapes):
+    """One rank of a spawned world: :func:`_shard_rank` on each (data,
+    model) mesh of ``shapes`` in turn."""
+    return {shape: _shard_rank(rank, dev, *shape) for shape in shapes}
+
+
+def _flips(theta, ref) -> int:
+    """Elements whose sign (or zero) differs between two Thetas."""
+    return int((np.sign(theta) != np.sign(ref)).sum())
+
+
+def _gate_theta(theta, ref, tag, share) -> str:
+    allowed = int(share * ref.size)
+    beyond = int(_beyond_bar(theta, ref).sum())
+    flips = _flips(theta, ref)
+    check(beyond <= allowed and flips <= allowed,
+          f"{tag}: Theta beyond rtol {TRAJ_RTOL}/atol {TRAJ_ATOL} in {beyond}"
+          f" elements, {flips} flipped in sign or zero (allowed {allowed})")
+    return (f"Theta beyond the bar in {beyond}, flipped {flips} of "
+            f"{ref.size:,} (allowed {allowed}), max |diff| "
+            f"{float(np.abs(theta - ref).max()):.2e}")
+
+
+def _gate_fs(fs, ref, tag) -> float:
+    err = float(np.max(np.abs(np.subtract(fs, ref)) / np.abs(ref)))
+    check(err <= TRAJ_F_RTOL, f"{tag}: f rtol {err:.2e}")
+    return err
+
+
+def phase_shard(torch, dev):
+    """Sharded LS-PLM training at paper width: the training driver's
+    problem (d = 10^6, m = 12, 4,000 sessions x 4 ads, lam = beta = 0.05,
+    TRAIN_ITERS iterations) unsharded on the card, on a 1 x 1 mesh (bitwise
+    the unsharded run) and on the meshes of SHARD_WORLDS as spawned ranks
+    sharing the one card (gloo). Each mesh against the unsharded run: the loss and
+    gradient at Theta0 over equal and balanced ranges, untouched and pad
+    rows' gradient exactly 0, f and Theta at phase 7's bars, every rank's
+    f, step size and nnz bitwise equal. Returns the 2 x 2 run's launches
+    summed over its ranks (the ``train_sharded`` path) and the max abs
+    errors of B1, B2 and B3 against their plain versions on every rank's
+    cell."""
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.launch.train import sparse_problem
+
+    t0 = time.perf_counter()
+    batch, theta0, opt = sparse_problem(D_FEATURES, REGIONS, SESSIONS,
+                                        lam=LAM, beta=BETA, seed=SEED,
+                                        batch_seed=SEED + 1, device=dev)
+    loss0, grad0 = opt.loss_and_grad(theta0)
+    grad0 = grad0.cpu().numpy()
+    g_scale = max(1.0, float(np.abs(grad0).max()))
+    state = opt.init(theta0)
+    fs, walls = [], []
+    for _ in range(TRAIN_ITERS):
+        t1 = time.perf_counter()
+        state, s = opt.step(state)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t1)
+        fs.append(s.f_new)
+    ref_theta = state.theta.cpu().numpy()
+    del batch, opt, state
+    print(f"phase 32: unsharded at d={D_FEATURES:,}, m={REGIONS}, "
+          f"{SESSIONS:,} sessions: {np.median(walls) * 1e3:.2f} ms/iter "
+          f"(median of {TRAIN_ITERS}), f {fs[0]:.2f} -> {fs[-1]:.2f} "
+          f"({time.perf_counter() - t0:.1f} s with set-up)")
+
+    one = _shard_rank(0, dev, 1, 1)
+    check(one["iters"] and [it[1] for it in one["iters"]] == fs,
+          "the 1 x 1 mesh's f trajectory is not bitwise the unsharded one")
+    check(np.array_equal(one["theta"], ref_theta)
+          and np.array_equal(one["grad0"]["equal"], grad0)
+          and one["loss0"]["equal"] == float(loss0),
+          "the 1 x 1 mesh's Theta, loss or gradient is not bitwise the "
+          "unsharded one")
+    print(f"  1 x 1 mesh: loss, gradient, {TRAIN_ITERS} steps' f and Theta "
+          f"bitwise the unsharded run; {np.median(one['walls']) * 1e3:.2f} "
+          f"ms/iter; B1, B2, B3 vs plain on its cell (phase 5's bars) max "
+          f"|err| " + ", ".join(f"{e:.2e}"
+                                for e in one["kernels"]["equal"][0].values()))
+    train_sharded, runs = {}, {}
+    kernel_err = dict(one["kernels"]["equal"][0])
+    for size, shapes in SHARD_WORLDS.items():
+        t1 = time.perf_counter()
+        world = run_ranks(_shard_world, size, shapes, device=dev)
+        wall = time.perf_counter() - t1
+        print(f"  a world of {size} ranks on one card ran the meshes "
+              f"{list(shapes)} in {wall:.1f} s, spawn and set-up included")
+        runs.update({shape: [r[shape] for r in world] for shape in shapes})
+    for (data, model), ranks in runs.items():
+        r0, tag = ranks[0], f"mesh {data} x {model}"
+        for name in r0["loss0"]:
+            err = abs(r0["loss0"][name] - float(loss0)) / float(loss0)
+            check(err <= SHARD_LOSS_RTOL, f"{tag} {name}: loss rtol {err:.2e}")
+            gerr = float(np.abs(r0["grad0"][name] - grad0).max()) / g_scale
+            check(gerr <= SHARD_GRAD_ATOL,
+                  f"{tag} {name}: gradient {gerr:.2e} of g_scale")
+            worst = max(r["untouched_max"][name] for r in ranks)
+            check(worst == 0.0, f"{tag} {name}: untouched or pad rows' "
+                  f"gradient {worst:.2e}, not 0")
+            lines = []
+            for r in ranks:
+                errs, shapes = r["kernels"][name]
+                for k, e in errs.items():
+                    kernel_err[k] = max(kernel_err[k], e)
+                lines.append(
+                    f"rank {r['rank']} ({', '.join(shapes[2:])}; B1 "
+                    f"{', '.join(x.split(' ranges ')[-1] for x in shapes[:2])}"
+                    f"): max |err| B1 {errs['lsplm_sparse_fused_forward']:.2e}"
+                    f", B2 {errs['lsplm_sparse_scatter']:.2e}, B3 "
+                    f"{errs['owlqn_direction']:.2e}")
+            print(f"  {tag} {name} ranges, kernels vs plain on each rank's "
+                  f"cell at Theta0 (phase 5's bars: B1 z rtol {Z_RTOL}/atol "
+                  f"{Z_ATOL}, p atol {P_ATOL}, bitwise the pre-pass + B1; B2 "
+                  f"bitwise scatter_runs_ref and the card-sorted layout, "
+                  f"|err| <= {B2_REL} x sum|terms| + {B2_ABS}, pad and "
+                  f"untouched rows 0; B3 bitwise on the dTheta block): "
+                  + "; ".join(lines))
+        check(all(r["iters"] == r0["iters"] for r in ranks),
+              f"{tag}: the ranks' f, step sizes or nnz differ")
+        f_err = _gate_fs([it[1] for it in r0["iters"]], fs, tag)
+        theta_line = _gate_theta(r0["theta"], ref_theta, tag, PATTERN_SHARE)
+        launches = {n: sum(r["launches"][n] for r in ranks)
+                    for n in r0["launches"]}
+        for n, c in launches.items():
+            check(c > 0, f"{tag}: the sharded path never launched {n}")
+        if (data, model) == (2, 2):
+            train_sharded = launches
+        per_iter = {a: {k: v / TRAIN_ITERS for k, v in c.items()}
+                    for a, c in r0["collectives"].items()}
+        ls = sum(it[4] for it in r0["iters"])
+        print(f"  {tag} ({data * model} ranks on one card, backend "
+              f"{r0['backend']}): "
+              f"{np.median(r0['walls']) * 1e3:.2f} ms/iter (median; rank 0; "
+              f"{ls} line-search trials), f rel {f_err:.2e}, "
+              f"{theta_line}; loss/grad at Theta0 within "
+              f"{SHARD_LOSS_RTOL}/{SHARD_GRAD_ATOL} over "
+              f"{' and '.join(r0['loss0'])} ranges, untouched and pad rows' "
+              f"dTheta 0; every rank's f, "
+              f"alpha, nnz bitwise equal; all-reduces per iteration "
+              + ", ".join(f"{a} {c['all_reduce']:.1f} ({c['bytes'] / 1e6:.3f}"
+                          f" MB, {c['seconds'] * 1e3:.2f} ms on rank 0's "
+                          f"host)" for a, c in per_iter.items())
+              + f"; launches over ranks {launches}")
+        print("    entries per shard: " + ", ".join(
+            f"{name} {r0['entries'][name]} (bounds {r0['bounds'][name]})"
+            for name in r0["entries"]))
+        for r in ranks:
+            p = r["profile"]
+            idle = (1 - p["device_us"] / p["wall_us"] if p["device_us"]
+                    else float("nan"))
+            dev_ms = (f"{p['device_us'] / 1e3:.2f} ms of device in "
+                      f"{p['launches']} launches, {p['copy_us'] / 1e3:.2f} "
+                      f"ms of it copies (idle {idle:.1%})"
+                      if p["launches"] else "device time not measured")
+            in_ar = ", ".join(
+                f"{a} {c['seconds'] * 1e3 / TRAIN_ITERS:.2f}"
+                for a, c in r["collectives"].items())
+            print(f"    rank {r['rank']}: set-up {r['setup_s']:.1f} s, "
+                  f"{np.median(r['walls']) * 1e3:.2f} ms/iter, of it in "
+                  f"all-reduces (host wall, mean per iteration) {in_ar} ms;"
+                  f" profiled "
+                  f"step ({p['ls_iters']} trials) {p['wall_us'] / 1e3:.2f} "
+                  f"ms wall, {dev_ms}, hand-written {p['ours']}; peak "
+                  f"{r['peak_gb']:.2f} GB")
+    return train_sharded, kernel_err
+
+
+def _shard_stream_rank(rank, dev, tmp):
+    """Phase 33's stream gates on one rank of a 2 x 2 mesh: the full
+    window under ``history="reset"`` bitwise the sharded full batch on the
+    same mesh, and a checkpoint taken mid-stream resuming bitwise."""
+    import torch
+
+    from repro_torch.data.sparse import build_batch_plans
+    from repro_torch.dist import make_distributed_step, shard_sparse_batch
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.optim.owlqn_plus import OWLQNPlus
+    from repro_torch.shard.partition import make_partition
+    from repro_torch.shard.step import make_sharded_sparse_loss
+    from repro_torch.stream import DayStream, StreamTrainer
+
+    mesh = Mesh(2, 2)
+    days, d = SHARD_STREAM_DAYS, SHARD_D
+    stream = DayStream(days, sessions_per_day=SHARD_SESSIONS,
+                       num_features=d, active_user=STREAM_K[0],
+                       active_ad=STREAM_K[1], drift=STREAM_DRIFT, seed=SEED)
+    theta0 = torch.from_numpy(_seen_theta0(stream, days, REGIONS))
+    part = make_partition(d, mesh.model)
+    full = build_batch_plans(stream.window(days - 1, days), shards=part,
+                             data_shards=mesh.data)
+    loss_and_grad, loss = make_sharded_sparse_loss(
+        shard_sparse_batch(mesh, full, dev), mesh)
+    opt = OWLQNPlus(loss_and_grad, lam=LAM, beta=BETA, loss=loss)
+    step = make_distributed_step(opt, mesh)
+    st = opt.init(part.shard_rows(part.pad_rows(theta0),
+                                  mesh.model_rank).to(dev))
+    fs_ref = []
+    for _ in range(STREAM_INNER):
+        st, s = step(st)
+        fs_ref.append(s.f_new)
+    tr = StreamTrainer(stream, lam=LAM, beta=BETA, window=days,
+                       inner_iters=STREAM_INNER, mesh=mesh, device=dev)
+    state, trace = tr.run(tr.init(theta0)._replace(day=days - 1), days=1)
+    full_ok = (list(trace[0].fs) == fs_ref
+               and torch.equal(st.theta, state.opt.theta))
+    tr = StreamTrainer(stream, lam=LAM, beta=BETA, window=STREAM_WINDOW,
+                       inner_iters=STREAM_INNER, mesh=mesh, device=dev)
+    mid, _ = tr.run(tr.init(theta0), days=days - 1)
+    path = tr.save(str(Path(tmp) / "stream.npz"), mid)
+    torch.distributed.barrier()
+    back = tr.load(path, theta0)
+    fin_a, ta = tr.run(mid, days=1)
+    fin_b, tb = tr.run(back, days=1)
+    theta_a, theta_b = tr.theta(fin_a), tr.theta(fin_b)
+    return {"full_window_bitwise": bool(full_ok), "fs": fs_ref,
+            "resume_bitwise": ([w.fs for w in ta] == [w.fs for w in tb]
+                               and bool(torch.equal(theta_a, theta_b))),
+            "resumed_day": back.day}
+
+
+def phase_shard_drivers(torch, dev, tmp: Path):
+    """``launch.train`` with ``--mesh-data 2 --mesh-model 2`` at d = 50,000
+    in its three modes (sparse, dense, stream), each against its unsharded
+    run at phase 7's bars with every rank's scalars bitwise equal; the
+    sparse run's checkpoint (the unpadded Theta) loads unsharded and gives
+    its final objective; then the stream's full window under reset against
+    the sharded full batch and a mid-stream checkpoint's resume, both
+    bitwise, on the same mesh."""
+    from repro_torch.io import checkpoint
+    from repro_torch.launch import train as train_driver
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.launch.train import sparse_problem
+
+    mesh_flags = ["--mesh-data", "2", "--mesh-model", "2"]
+    du, da, dn, dsess = SHARD_DENSE
+    runs = {
+        "sparse": ["--sparse", "--sparse-features", str(SHARD_D),
+                   "--sessions", str(SHARD_SESSIONS), "--regions",
+                   str(REGIONS), "--lam", str(LAM), "--beta", str(BETA),
+                   "--iters", str(SHARD_ITERS), "--device", str(dev)],
+        "dense": ["--user-features", str(du), "--ad-features", str(da),
+                  "--noise-features", str(dn), "--sessions", str(dsess),
+                  "--regions", str(REGIONS), "--lam", str(DENSE_LAM),
+                  "--beta", str(DENSE_BETA), "--iters", str(SHARD_ITERS),
+                  "--device", str(dev)],
+        "stream": _stream_argv(dev, SHARD_D, SHARD_SESSIONS,
+                               SHARD_STREAM_DAYS)}
+    for mode, argv in runs.items():
+        ck = [str(tmp / f"{mode}-single.npz"), str(tmp / f"{mode}-mesh.npz")]
+        t0 = time.perf_counter()
+        single = train_driver.run(argv + ["--ckpt", ck[0]])
+        t1 = time.perf_counter()
+        mesh = train_driver.run(argv + ["--ckpt", ck[1]] + mesh_flags)
+        t2 = time.perf_counter()
+        tag = f"{mode} driver 2 x 2 vs unsharded"
+        if mode == "stream":
+            fs = [f for w in mesh["windows"] for f in w["fs"]]
+            ref = [f for w in single["windows"] for f in w["fs"]]
+            theta, ref_theta = (mesh["theta"].numpy(),
+                                single["theta"].cpu().numpy())
+            consistent = all(r["windows"] == mesh["ranks"][0]["windows"]
+                             for r in mesh["ranks"])
+        else:
+            fs = [r["f_new"] for r in mesh["iters"]]
+            ref = [r["f_new"] for r in single["iters"]]
+            theta = np.load(ck[1])["theta"]
+            ref_theta = np.load(ck[0])["theta"]
+            consistent = all(r["iters"] == mesh["ranks"][0]["iters"]
+                             for r in mesh["ranks"])
+        check(consistent, f"{tag}: the ranks' scalars differ")
+        f_err = _gate_fs(fs, ref, tag)
+        line = _gate_theta(theta, ref_theta, tag, PATTERN_SHARE)
+        launches = {}
+        for r in mesh["ranks"]:
+            for n, c in r["launches"].items():
+                launches[n] = launches.get(n, 0) + c
+        wanted = (("owlqn_direction",) if mode == "dense" else
+                  ("lsplm_sparse_fused_forward", "lsplm_sparse_scatter",
+                   "owlqn_direction"))
+        check(all(r["launches"].get(n, 0) > 0 for r in mesh["ranks"]
+                  for n in wanted),
+              f"{tag}: a rank never launched one of {wanted}: "
+              f"{[r['launches'] for r in mesh['ranks']]}")
+        print(f"phase 33: {tag}: f rel {f_err:.2e}, {line}; every rank's "
+              f"scalars bitwise equal; backend {mesh['ranks'][0]['backend']}"
+              f"; walls unsharded {t1 - t0:.1f} s, 2 x 2 {t2 - t1:.1f} s "
+              f"(spawn included); launches over ranks "
+              f"{ {n: c for n, c in launches.items() if c} }")
+        if mode == "sparse":
+            batch, _, opt = sparse_problem(SHARD_D, REGIONS, SHARD_SESSIONS,
+                                           lam=LAM, beta=BETA, seed=SEED,
+                                           batch_seed=SEED + 1, device=dev)
+            loaded = checkpoint.load(ck[1], {"theta": torch.zeros(
+                SHARD_D, 2 * REGIONS, device=dev)})["theta"]
+            f = float(opt.objective(loaded))
+            err = abs(f - fs[-1]) / abs(fs[-1])
+            check(err <= SHARD_LOSS_RTOL,
+                  f"the sharded checkpoint's objective {f:.4f} unsharded vs "
+                  f"{fs[-1]:.4f} (rtol {err:.2e})")
+            print(f"  the 2 x 2 checkpoint (unpadded Theta) loads unsharded:"
+                  f" f {f:.4f} against the run's {fs[-1]:.4f} (rtol "
+                  f"{err:.2e}, bar {SHARD_LOSS_RTOL})")
+            del batch, opt, loaded
+    t0 = time.perf_counter()
+    ranks = run_ranks(_shard_stream_rank, 4, str(tmp), device=dev)
+    check(all(r["full_window_bitwise"] for r in ranks),
+          "the sharded stream's full window under reset is not bitwise the "
+          "sharded full batch")
+    check(all(r["resume_bitwise"] and r["resumed_day"] == SHARD_STREAM_DAYS - 1
+              for r in ranks), "the sharded stream's resume is not bitwise")
+    print(f"  stream on the 2 x 2 mesh: full window ({SHARD_STREAM_DAYS} "
+          f"days, reset) bitwise the sharded full batch (f "
+          f"{[round(f, 4) for f in ranks[0]['fs']]}), a day-"
+          f"{SHARD_STREAM_DAYS - 1} checkpoint resumes bitwise "
+          f"({time.perf_counter() - t0:.1f} s)")
+
+
 SERVE_PHASES = (2, 3, 4)  # the serving path's phases, runnable alone
 TRAIN_PHASES = (5, 6, 7, 8)  # the sparse training path's, runnable alone
 SCAN_PHASES = (17, 18, 19, 20)  # the SSM path's phases, runnable alone
@@ -4499,6 +4994,7 @@ FAMILY_PHASES = (21, 22, 23, 24)  # the hybrid and MoE paths', likewise
 STREAM_PHASES = (25, 26, 27)  # the streaming path's, likewise
 LM_TRAIN_PHASES = (28, 29)  # the LM training path's, likewise
 TUNE_PHASES = (30, 31)  # the autotune sweep and the tuning flags, likewise
+SHARD_PHASES = (32, 33)  # sharded training at paper width, the drivers
 
 
 def _serving_model(torch, dev):
@@ -4532,7 +5028,7 @@ def _sparse_problem(torch, dev):
 def _run_only(torch, dev, only, t_start) -> int:
     """Phase 1 and the given serving (2-4), sparse training (5-8), SSM
     (17-20), hybrid or MoE (21-24), streaming (25-27), LM training
-    (28-29) or autotuning (30-31) phases alone
+    (28-29), autotuning (30-31) or sharded training (32-33) phases alone
     (``--only``): a partial run, so it prints no kernels line and no
     result line."""
     if only & {2, 4}:
@@ -4587,9 +5083,14 @@ def _run_only(torch, dev, only, t_start) -> int:
             phase_lm_train_card_vs_cpu(torch, dev)
         elif phase == 30:
             phase_tune_sweep(torch, dev)
-        else:
+        elif phase == 31:
             with tempfile.TemporaryDirectory() as tmp:
                 phase_tune_drivers(torch, dev, Path(tmp))
+        elif phase == 32:
+            phase_shard(torch, dev)
+        else:
+            with tempfile.TemporaryDirectory() as tmp:
+                phase_shard_drivers(torch, dev, Path(tmp))
     print(f"phases 1 and {sorted(only)} passed in "
           f"{time.perf_counter() - t_start:.1f} s (partial run: no result)")
     return 0
@@ -4598,16 +5099,16 @@ def _run_only(torch, dev, only, t_start) -> int:
 def main(argv: list[str]) -> int:
     """``chip_smoke.py`` runs every phase; ``chip_smoke.py --only 2,3,4``
     (or ``5,6,8``, or ``17,20``, or ``21,22,23,24``, or ``25,26,27``, or
-    ``28,29``, or ``30,31``) runs phase 1 and the named phases of the
-    serving path (2-4), the sparse training path (5-8), the SSM path
-    (17-20), the hybrid and MoE paths (21-24), the streaming path
-    (25-27), the LM training path (28-29) or the autotuning path (30-31)
-    alone."""
+    ``28,29``, or ``30,31``, or ``32,33``) runs phase 1 and the named
+    phases of the serving path (2-4), the sparse training path (5-8), the
+    SSM path (17-20), the hybrid and MoE paths (21-24), the streaming path
+    (25-27), the LM training path (28-29), the autotuning path (30-31) or
+    the sharded training path (32-33) alone."""
     import torch
 
     only = set()
     alone = (SERVE_PHASES + TRAIN_PHASES + SCAN_PHASES + FAMILY_PHASES
-             + STREAM_PHASES + LM_TRAIN_PHASES + TUNE_PHASES)
+             + STREAM_PHASES + LM_TRAIN_PHASES + TUNE_PHASES + SHARD_PHASES)
     if argv:
         if len(argv) != 2 or argv[0] != "--only":
             raise SmokeFailure(f"usage: chip_smoke.py [--only "
@@ -4716,6 +5217,11 @@ def main(argv: list[str]) -> int:
     phase_tune_sweep(torch, dev)
     with tempfile.TemporaryDirectory() as tmp:
         phase_tune_drivers(torch, dev, Path(tmp))
+    sharded_launches, shard_err = phase_shard(torch, dev)
+    for name, e in shard_err.items():
+        err[name] = max(err[name], e)
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_shard_drivers(torch, dev, Path(tmp))
 
     kernels = []
     for name in ("lsplm_sparse_fused_forward",
@@ -4730,6 +5236,8 @@ def main(argv: list[str]) -> int:
             by_path["stream_train"] = stream_launches[name]
         if name in monitored_launches:
             by_path["serve_monitored"] = monitored_launches[name]
+        if name in sharded_launches:
+            by_path["train_sharded"] = sharded_launches[name]
         if name == "lsplm_fused_forward":
             by_path["dense_serve"] = dense_launches["dense_serve"]
         if name == "flash_attention":

@@ -40,9 +40,11 @@ def choose_orthant(theta: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
 
 
 def directional_derivative(theta: torch.Tensor, grad: torch.Tensor,
-                           d: torch.Tensor, lam: float,
-                           beta: float) -> torch.Tensor:
-    """f'(Theta; d) in closed form (Lemma 1 / Appendix A, Eq. 15+18+19)."""
+                           d: torch.Tensor, lam: float, beta: float,
+                           reduce=None) -> torch.Tensor:
+    """f'(Theta; d) in closed form (Lemma 1 / Appendix A, Eq. 15+18+19).
+    On a row-sharded Theta ``reduce`` (the mesh's sum over ``model``)
+    turns this rank's partial into the global value."""
     smooth = torch.dot(grad.reshape(-1), d.reshape(-1))
     rn = row_norm_keepdims(theta)[..., 0]
     row_nonzero = rn > 0.0
@@ -52,4 +54,5 @@ def directional_derivative(theta: torch.Tensor, grad: torch.Tensor,
     l21_term = torch.where(row_nonzero, inner / safe_rn, dnorm).sum()
     l1_term = torch.where(theta != 0.0, torch.sign(theta) * d,
                           d.abs()).sum()
-    return smooth + lam * l21_term + beta * l1_term
+    local = smooth + lam * l21_term + beta * l1_term
+    return local if reduce is None else reduce(local)

@@ -1,7 +1,6 @@
 """Sparse CTR batches in padded COO, the paper's input format.
 
-The port's counterpart of ``repro/data/sparse.py`` (single device; the
-``shards=`` routing waits for the sharding slice). Each sample holds a
+The port's counterpart of ``repro/data/sparse.py``. Each sample holds a
 few dozen active feature ids out of ~10^6 columns:
 
     ids  (B, K) int32    active column ids (pad with id = d, value 0)
@@ -14,7 +13,9 @@ The generator draws from numpy's ``default_rng`` in the reference's order,
 so its arrays equal the reference's bit for bit. Transpose plans are built
 on the host once per batch (:func:`build_batch_plans`) and moved to the
 batch's device once; every optimizer step's backward then runs without a
-sort.
+sort. With ``shards=`` (a shard count or a ``repro_torch.shard.Partition``)
+the planned batch is routed for a (data x model) mesh and a
+``repro_torch.shard.ShardedSparseBatch`` is returned instead.
 """
 from __future__ import annotations
 
@@ -49,16 +50,40 @@ class SparseCTRBatch(NamedTuple):
         return self.ad_ids.device
 
 
-def build_batch_plans(batch: SparseCTRBatch) -> SparseCTRBatch:
+def _route(batch: SparseCTRBatch, shards, data_shards: int):
+    """Coerce ``shards`` (a count or a Partition) and route the batch for
+    a (data x model) mesh."""
+    from repro_torch.shard.partition import (
+        Partition,
+        make_partition,
+        route_batch,
+    )
+
+    part = shards if isinstance(shards, Partition) else make_partition(
+        batch.num_features, int(shards))
+    return route_batch(batch, part, data_shards=data_shards)
+
+
+def build_batch_plans(batch: SparseCTRBatch, *, shards=None,
+                      data_shards: int = 1):
     """Attach the per-batch transpose plans (one argsort per id tensor, on
     the host), moved to the batch's device. Plans address the PADDED Theta
-    (d + 1 rows, pad id == d)."""
+    (d + 1 rows, pad id == d).
+
+    With ``shards`` (a model-shard count or a ``repro_torch.shard.
+    Partition``) the planned batch is ROUTED for a (data x model) mesh
+    and a ``repro_torch.shard.ShardedSparseBatch`` is returned instead:
+    ids bucketed per id-range shard and the plans sliced per (data block,
+    id range) cell, without a second sort."""
     rows, pad = batch.num_features + 1, batch.num_features
-    return batch._replace(
+    batch = batch._replace(
         user_plan=build_transpose_plan(batch.user_ids, rows,
                                        pad_id=pad).to(batch.device),
         ad_plan=build_transpose_plan(batch.ad_ids, rows,
                                      pad_id=pad).to(batch.device))
+    if shards is None:
+        return batch
+    return _route(batch, shards, data_shards)
 
 
 # ----------------------------------------------------------------- generator
@@ -107,12 +132,19 @@ def generate_sparse(
     active_ad: int = 12,
     seed: int = 0,
     with_plans: bool = True,
+    shards=None,
+    data_shards: int = 1,
     *,
     device,
 ) -> SparseCTRBatch:
     """A million-column sparse CTR batch with session structure, on
     ``device``. Ids are Zipf-hot (``u ** 10``): one id carries about a
-    quarter of each side's entries at the defaults."""
+    quarter of each side's entries at the defaults.
+
+    ``shards`` (a model-shard count or a ``repro_torch.shard.Partition``)
+    routes the batch for a (data x model) mesh and returns a
+    ``repro_torch.shard.ShardedSparseBatch`` on ``device`` (see
+    :func:`build_batch_plans`)."""
     rng = np.random.default_rng(seed)
     d = num_features
     g, a = sessions, ads_per_session
@@ -136,7 +168,12 @@ def generate_sparse(
         ad_ids=t(ad_ids, torch.int32), ad_vals=t(ad_vals, torch.float32),
         session_id=t(session_id, torch.int32), y=t(y, torch.float32),
         num_features=d)
-    return build_batch_plans(batch) if with_plans else batch
+    if with_plans:
+        return build_batch_plans(batch, shards=shards,
+                                 data_shards=data_shards)
+    if shards is not None:  # routed, unplanned backward
+        return _route(batch, shards, data_shards)
+    return batch
 
 
 def to_dense(batch: SparseCTRBatch) -> np.ndarray:

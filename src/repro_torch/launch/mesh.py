@@ -1,0 +1,256 @@
+"""(data, model) meshes on ``torch.distributed``: the paper's workers and
+parameter servers.
+
+The port's counterpart of ``repro/launch/mesh.py``. A :class:`Mesh` names
+the ranks of an initialised process group as a (data, model) grid in the
+row-major order of the reference's ``jax.make_mesh((data, model), ("data",
+"model"))``: rank = data_rank * model + model_rank. Each rank holds
+
+  * one id range of Theta's rows (its ``model_rank``: a parameter server),
+  * one block of sessions and samples (its ``data_rank``: a worker),
+
+and the mesh owns the two families of subgroups the sharded path reduces
+over: the ``model`` group of a rank (the ranks of its data block, which
+together hold all of Theta) and its ``data`` group (the ranks holding the
+same id range). A 1 x 1 mesh is the single-device path: every reduction is
+the identity and no process group is needed.
+
+Collectives. The backend is chosen by where the ranks run, never by a
+flag: **NCCL when every rank has a card of its own, gloo otherwise** (ranks
+on the CPU, or several ranks sharing one card; gloo all-reduces CUDA
+tensors by staging them through the host). Tensors and kernels stay on
+each rank's device either way. The mesh counts what it issues: the number
+of all-reduces, their bytes and the host time spent in them, per group
+(:meth:`Mesh.collective_counts`).
+
+Process start. :func:`run_ranks` starts ``data * model`` ranks with the
+*spawn* start method (a card forbids fork after CUDA is initialised) and a
+``FileStore`` rendezvous in a temporary directory, so concurrent runs
+never contend for a TCP port; under ``torchrun`` a driver joins the world
+it is given instead (:func:`init_from_env`).
+"""
+from __future__ import annotations
+
+import datetime
+import os
+import pickle
+import tempfile
+import time
+from typing import Callable
+
+import torch
+import torch.distributed as dist
+
+AXES = ("data", "model")
+
+
+class Mesh:
+    """A (data, model) grid over the current process group (or over one
+    process when ``data == model == 1``)."""
+
+    axis_names = AXES
+    data_axes = ("data",)  # the axes that split the batch (no 'pod' axis)
+
+    def __init__(self, data: int = 1, model: int = 1):
+        data, model = int(data), int(model)
+        if data < 1 or model < 1:
+            raise ValueError(f"mesh extents must be >= 1, got ({data}, "
+                             f"{model})")
+        self.data, self.model = data, model
+        world = data * model
+        self._groups: dict[str, object] = {"data": None, "model": None}
+        if world == 1:
+            self.rank, self.backend = 0, None
+        else:
+            if not dist.is_initialized():
+                raise RuntimeError(
+                    f"a ({data}, {model}) mesh needs an initialised process "
+                    "group (run_ranks or torchrun)")
+            if dist.get_world_size() != world:
+                raise ValueError(
+                    f"mesh ({data}, {model}) needs {world} ranks, the world "
+                    f"has {dist.get_world_size()}")
+            self.rank, self.backend = dist.get_rank(), dist.get_backend()
+            # every rank creates every group, in one order
+            b, j = divmod(self.rank, model)
+            if model > 1:
+                for row in range(data):
+                    g = dist.new_group([row * model + c for c in range(model)])
+                    if row == b:
+                        self._groups["model"] = g
+            if data > 1:
+                for col in range(model):
+                    g = dist.new_group([r * model + col for r in range(data)])
+                    if col == j:
+                        self._groups["data"] = g
+        self.data_rank, self.model_rank = divmod(self.rank, model)
+        self.reset_counts()
+
+    @property
+    def shape(self) -> dict[str, int]:
+        return {"data": self.data, "model": self.model}
+
+    @property
+    def size(self) -> int:
+        return self.data * self.model
+
+    def __repr__(self) -> str:
+        return (f"Mesh(data={self.data}, model={self.model}, rank={self.rank}"
+                f", backend={self.backend})")
+
+    # ----------------------------------------------------------- collectives
+    def all_reduce_(self, t: torch.Tensor, axis: str) -> torch.Tensor:
+        """Sum ``t`` in place over ``axis`` ("data" or "model"); the
+        identity on an axis of extent 1. Returns ``t``."""
+        if self.shape[axis] == 1:
+            return t
+        t0 = time.perf_counter()
+        dist.all_reduce(t, group=self._groups[axis])
+        c = self._counts[axis]
+        c[0] += 1
+        c[1] += t.numel() * t.element_size()
+        c[2] += time.perf_counter() - t0
+        return t
+
+    def sum(self, t: torch.Tensor, axis: str) -> torch.Tensor:
+        """The sum of ``t`` over ``axis`` as a new tensor (``t`` itself on
+        an axis of extent 1)."""
+        if self.shape[axis] == 1:
+            return t
+        return self.all_reduce_(t.clone(), axis)
+
+    def sum_model(self, t: torch.Tensor) -> torch.Tensor:
+        """A rank-local partial of a sum over Theta's rows -> the global
+        sum (the optimizer's reductions)."""
+        return self.sum(t, "model")
+
+    def gather_rows(self, block: torch.Tensor) -> torch.Tensor:
+        """Every model rank's equal row block, concatenated in rank order
+        (the padded layout). Built as one all-reduce of the blocks' bit
+        patterns into a zero buffer over ``model`` (gloo has no all-gather
+        of CUDA tensors), so the result is the blocks' exact bits."""
+        if self.model == 1:
+            return block
+        if block.element_size() != 4:
+            raise ValueError(f"gather_rows moves 4-byte elements, got "
+                             f"{block.dtype}")
+        n = block.shape[0]
+        full = torch.zeros((self.model * n,) + tuple(block.shape[1:]),
+                           dtype=torch.int32, device=block.device)
+        full[self.model_rank * n:(self.model_rank + 1) * n] = \
+            block.contiguous().view(torch.int32)
+        return self.all_reduce_(full, "model").view(block.dtype)
+
+    def collective_counts(self) -> dict[str, dict[str, float]]:
+        """``{axis: {"all_reduce": n, "bytes": b, "seconds": s}}`` issued
+        so far; ``s`` is the host's wall time inside the calls (the wait
+        for the slowest rank of the group and gloo's staging through the
+        host included)."""
+        return {a: {"all_reduce": c[0], "bytes": c[1], "seconds": c[2]}
+                for a, c in self._counts.items()}
+
+    def reset_counts(self) -> None:
+        self._counts = {a: [0, 0, 0.0] for a in AXES}
+
+
+class _SumOver(torch.autograd.Function):
+    """All-reduce over one mesh axis whose backward passes the cotangent
+    through unchanged: everything downstream of the sum is replicated over
+    the axis, so each rank's share of the gradient is the cotangent
+    itself."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        return mesh.sum(x, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+def sum_over(x: torch.Tensor, mesh: Mesh | None, axis: str) -> torch.Tensor:
+    """Differentiable sum of ``x`` over ``axis`` (identity without a mesh
+    or on an axis of extent 1)."""
+    if mesh is None or mesh.shape[axis] == 1:
+        return x
+    return _SumOver.apply(x, mesh, axis)
+
+
+def make_debug_mesh(data: int = 2, model: int = 2) -> Mesh:
+    """A (data, model) mesh over the initialised process group (its world
+    must be ``data * model``); 1 x 1 needs none."""
+    return Mesh(data, model)
+
+
+# ----------------------------------------------------------- process start
+def rank_device(device: torch.device, rank: int) -> torch.device:
+    """The device of ``rank``: card ``rank % cards`` on CUDA (ranks share
+    the cards round-robin), else the CPU."""
+    if device.type == "cuda":
+        return torch.device("cuda", rank % torch.cuda.device_count())
+    return torch.device("cpu")
+
+
+def backend_for(device: torch.device, world: int) -> str:
+    """NCCL when every rank has a card of its own, gloo otherwise."""
+    if device.type == "cuda" and torch.cuda.device_count() >= world:
+        return "nccl"
+    return "gloo"
+
+
+def init_from_env(device: torch.device) -> tuple[int, int, torch.device]:
+    """Join a world started by ``torchrun`` (``RANK``, ``WORLD_SIZE``,
+    ``MASTER_ADDR``/``MASTER_PORT`` in the environment): returns ``(rank,
+    world, this rank's device)``. The device is ``LOCAL_RANK``'s card."""
+    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    local = int(os.environ.get("LOCAL_RANK", rank))
+    dev = rank_device(device, local)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    if not dist.is_initialized():
+        local_cards = int(os.environ.get("LOCAL_WORLD_SIZE", world))
+        dist.init_process_group(backend_for(device, local_cards),
+                                rank=rank, world_size=world)
+    return rank, world, dev
+
+
+def _rank_entry(rank: int, fn: Callable, world: int, store_path: str,
+                device: str, out_dir: str, timeout_s: float,
+                args: tuple) -> None:
+    dev = rank_device(torch.device(device), rank)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    else:  # CPU ranks share the host's cores
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    store = dist.FileStore(store_path, world)
+    dist.init_process_group(
+        backend_for(torch.device(device), world), store=store, rank=rank,
+        world_size=world, timeout=datetime.timedelta(seconds=timeout_s))
+    try:
+        out = fn(rank, dev, *args)
+        with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+            pickle.dump(out, f)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def run_ranks(fn: Callable, world: int, *args, device="cpu",
+              timeout_s: float = 600.0) -> list:
+    """Run ``fn(rank, rank_device, *args)`` on ``world`` spawned ranks of one
+    process group (backend by :func:`backend_for`) and return their return
+    values in rank order. ``fn`` must be importable by name (a module-level
+    function) and its arguments and results picklable; a rank that raises
+    ends every rank and raises here, and a collective that waits longer
+    than ``timeout_s`` raises in its rank."""
+    device = torch.device(device)
+    with tempfile.TemporaryDirectory(prefix="repro_torch_ranks_") as td:
+        torch.multiprocessing.start_processes(
+            _rank_entry, nprocs=world, join=True, start_method="spawn",
+            args=(fn, world, os.path.join(td, "store"), str(device), td,
+                  float(timeout_s), args))
+        out = []
+        for r in range(world):
+            with open(os.path.join(td, f"rank{r}.pkl"), "rb") as f:
+                out.append(pickle.load(f))
+    return out

@@ -10,6 +10,11 @@ no valid pair the two-loop returns d scaled by gamma = 1, i.e. d.
 
 ``rho`` and ``gamma`` stay float32 tensors on the parameters' device; the
 validity flags live on the host, which costs one sync per push.
+
+On a row-sharded Theta (``repro_torch.dist``) each rank holds its rows of
+the parameters and of the history; ``reduce`` (the mesh's sum over its
+``model`` group) turns each rank's partial dot product into the global
+one, so every rank takes the same branch. Without it the dots are local.
 """
 from __future__ import annotations
 
@@ -53,12 +58,19 @@ def init_history(like: torch.Tensor, memory: int) -> LBFGSHistory:
         gamma=like.new_ones(()))
 
 
+def _identity(t: torch.Tensor) -> torch.Tensor:
+    return t
+
+
 def push(history: LBFGSHistory, s_new: torch.Tensor, y_new: torch.Tensor,
-         eps: float = 1e-10) -> LBFGSHistory:
+         eps: float = 1e-10, reduce=None) -> LBFGSHistory:
     """Store (s, y) in the oldest slot, in place; the pair is masked when
     y.s <= eps. Returns ``history``."""
-    ys = vdot(y_new, s_new)
-    yy = vdot(y_new, y_new)
+    if reduce is None:
+        ys, yy = vdot(y_new, s_new), vdot(y_new, y_new)
+    else:  # one reduction for both dots
+        ys, yy = reduce(torch.stack([vdot(y_new, s_new),
+                                     vdot(y_new, y_new)]))
     ok = bool(ys > eps)
     slot = (history.newest + 1) % history.memory
     history.s[slot].copy_(s_new)
@@ -74,19 +86,21 @@ def push(history: LBFGSHistory, s_new: torch.Tensor, y_new: torch.Tensor,
     return history
 
 
-def two_loop(history: LBFGSHistory, d: torch.Tensor) -> torch.Tensor:
+def two_loop(history: LBFGSHistory, d: torch.Tensor,
+             reduce=None) -> torch.Tensor:
     """H @ d (H the implicit inverse Hessian); d plays the part the
     negative gradient plays in smooth L-BFGS. Returns a new tensor."""
+    reduce = _identity if reduce is None else reduce
     q = d.clone()
     slots = [i for i in history.newest_first() if history.valid[i]]
     alphas = {}
     for i in slots:  # newest -> oldest
-        a = history.rho[i] * vdot(history.s[i], q)
+        a = history.rho[i] * reduce(vdot(history.s[i], q))
         q.addcmul_(history.y[i], -a)
         alphas[i] = a
     q.mul_(history.gamma)
     for i in reversed(slots):  # oldest -> newest
-        b = history.rho[i] * vdot(history.y[i], q)
+        b = history.rho[i] * reduce(vdot(history.y[i], q))
         q.addcmul_(history.s[i], alphas[i] - b)
     return q
 

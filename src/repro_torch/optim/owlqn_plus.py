@@ -19,6 +19,18 @@ The step is a host loop. Line-search trials evaluate the loss ONLY, under
 drops it; the result is the same), and each trial's acceptance test is one
 ``.item()``. The accepted Theta is a plain tensor again before the next
 step, which takes the one gradient of the iteration.
+
+Row-sharded (``reduce=``, see ``repro_torch.dist``): each rank holds its
+rows of Theta and of the L-BFGS history, the loss it is given is already
+the global one (``repro_torch.shard.step``), and every GLOBAL reduction
+of the step goes through ``reduce``, the mesh's sum over its ``model``
+group (``Mesh.sum_model``): the regulariser, the two-loop's dot
+products, the history pair's y.s and y.y, ||p||^2 and ||d||^2, the line
+search's sufficient-decrease gain and the non-zero count. Row-local work
+(the Eq. 9 direction, B3 on the card, the orthant projections) stays
+local. Every host branch reads reduced scalars, which are bitwise equal
+on every rank, so no rank takes another path. (A reduction over the
+whole world would count each term ``data`` times.)
 """
 from __future__ import annotations
 
@@ -64,11 +76,14 @@ class OWLQNPlus:
     ``loss_and_grad(theta) -> (loss, grad)`` is the SMOOTH part (Eq. 5)
     only; the regularisers are handled here. ``loss(theta) -> loss`` is
     the same loss without a gradient, for the line search (default: the
-    first output of ``loss_and_grad``)."""
+    first output of ``loss_and_grad``). ``reduce(t) -> t`` sums a rank's
+    partials over the ranks that share its samples (default: none, the
+    whole Theta is here)."""
 
     def __init__(self, loss_and_grad: Callable, lam: float, beta: float,
                  memory: int = 10, c1: float = 1e-4, max_ls: int = 30,
-                 ls_shrink: float = 0.5, loss: Callable | None = None):
+                 ls_shrink: float = 0.5, loss: Callable | None = None,
+                 reduce: Callable | None = None):
         self.loss_and_grad = loss_and_grad
         self.loss = loss if loss is not None else (
             lambda t: loss_and_grad(t)[0])
@@ -78,6 +93,17 @@ class OWLQNPlus:
         self.c1 = c1
         self.max_ls = max_ls
         self.ls_shrink = ls_shrink
+        # the sum of a rank's partials of the global reductions (the
+        # mesh's model-group sum); None = the whole Theta is here
+        self.reduce = reduce
+
+    def _global(self, *partials: torch.Tensor):
+        """This rank's partials of global sums -> the sums, in one
+        reduction (the partials themselves without a mesh)."""
+        if self.reduce is None:
+            return partials if len(partials) > 1 else partials[0]
+        out = self.reduce(torch.stack(partials))
+        return tuple(out) if len(partials) > 1 else out[0]
 
     def init(self, theta0: torch.Tensor) -> OWLQNState:
         theta0 = theta0.detach()
@@ -89,7 +115,8 @@ class OWLQNPlus:
 
     def objective(self, theta: torch.Tensor) -> torch.Tensor:
         with torch.no_grad():
-            return self.loss(theta) + reg_value(theta, self.lam, self.beta)
+            return self.loss(theta) + self._global(
+                reg_value(theta, self.lam, self.beta))
 
     def step(self, state: OWLQNState) -> tuple[OWLQNState, StepStats]:
         """One iteration of Algorithm 1. The state's history is updated in
@@ -97,8 +124,9 @@ class OWLQNPlus:
         lam, beta = self.lam, self.beta
         theta = state.theta
         loss, grad = self.loss_and_grad(theta)
+        red = self.reduce
         with torch.no_grad():
-            f0 = loss + reg_value(theta, lam, beta)
+            f0 = loss + self._global(reg_value(theta, lam, beta))
 
             # (1) Eq. 9 direction
             d = dirlib.descent_direction(theta, grad, lam, beta)
@@ -108,17 +136,18 @@ class OWLQNPlus:
             history = state.history
             if state.step > 0:
                 lbfgs.push(history, theta - state.prev_theta,
-                           state.prev_d - d)
+                           state.prev_d - d, reduce=red)
 
             # (2) p = pi(H d; d); an empty/masked history gives p = d
-            p = dirlib.project_orthant(lbfgs.two_loop(history, d), d)
-            p_norm2 = lbfgs.vdot(p, p)
+            p = dirlib.project_orthant(lbfgs.two_loop(history, d, red), d)
+            p_norm2, d_norm2 = self._global(lbfgs.vdot(p, p),
+                                            lbfgs.vdot(d, d))
             if not bool(p_norm2 > 0):  # the projection annihilated p
-                p, p_norm2 = d, lbfgs.vdot(d, d)
+                p, p_norm2 = d, d_norm2
 
             # (3) orthant xi (Eq. 10) + projected backtracking (Eq. 12)
             xi = dirlib.choose_orthant(theta, d)
-            d_norm = torch.sqrt(lbfgs.vdot(d, d))
+            d_norm = torch.sqrt(d_norm2)
             if state.step == 0:
                 alpha = float(1.0 / torch.clamp(torch.sqrt(p_norm2),
                                                 min=1e-12))
@@ -132,9 +161,10 @@ class OWLQNPlus:
                     alpha *= self.ls_shrink
                 theta_t = dirlib.project_orthant(
                     torch.add(theta, p, alpha=alpha), xi)
-                f_t = self.loss(theta_t) + reg_value(theta_t, lam, beta)
                 # OWLQN acceptance: f(x') <= f(x) + c1 * <-d, x' - x>
-                gain = -lbfgs.vdot(d, theta_t - theta)
+                reg_t, gain = self._global(reg_value(theta_t, lam, beta),
+                                           -lbfgs.vdot(d, theta_t - theta))
+                f_t = self.loss(theta_t) + reg_t
                 ok = bool(f_t <= f0 + self.c1 * gain)
                 ls_iters += 1
 
@@ -142,7 +172,7 @@ class OWLQNPlus:
                 theta_new, f_new = theta_t, f_t
             else:  # line-search failure: keep Theta
                 theta_new, f_new, alpha = theta, f0, 0.0
-            nnz = int(torch.count_nonzero(theta_new))
+            nnz = int(self._global(torch.count_nonzero(theta_new)))
 
         new_state = OWLQNState(theta=theta_new, history=history,
                                prev_theta=theta, prev_d=d,

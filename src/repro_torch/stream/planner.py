@@ -6,7 +6,9 @@ streaming trainer pays host-side costs before the device can step:
 
   1. slide the window (concatenate the last W days on the host);
   2. build the transpose plans (one argsort + linear passes per id
-     tensor, ``data/sparse.build_batch_plans``);
+     tensor, ``data/sparse.build_batch_plans``); on a mesh, route the
+     window and slice its plans per (data block, id range) and keep this
+     rank's cell (``repro_torch.shard``);
   3. pin the batch and its plans and copy them to the device.
 
 All three are independent of the CURRENT window's device work, so
@@ -54,7 +56,7 @@ class PreparedWindow(NamedTuple):
     """Everything the trainer needs to step a window."""
 
     day: int
-    batch: Any          # the planned SparseCTRBatch, on the device
+    batch: Any          # planned SparseCTRBatch | this rank's ShardCell
     step: Any           # callable(state) -> (state, stats), ready to run
     build_seconds: float = 0.0
     plan_seconds: float = 0.0     # slide + plan + pin + copy share
@@ -81,15 +83,22 @@ class PlannerStats(NamedTuple):
 
 
 def plan_window(batch, *, partition=None, data_shards: int = 1, mesh=None):
-    """Attach fresh transpose plans to one window's batch, on the batch's
-    device (the host, for a :class:`~repro_torch.stream.source.DayStream`
-    window). The sharded form (``partition``/``mesh``) waits for the
-    sharding port."""
-    if partition is not None or mesh is not None or data_shards != 1:
-        raise NotImplementedError(
-            "plan_window's partition/mesh routing waits for the sharding "
-            "port (ROADMAP A12)")
-    return build_batch_plans(batch)
+    """Prepare one window's batch, on the batch's device (the host, for a
+    :class:`~repro_torch.stream.source.DayStream` window): attach fresh
+    transpose plans; with a ``partition`` also route and slice them for a
+    (data x model) mesh (a ``repro_torch.shard.ShardedSparseBatch``), and
+    with a ``mesh`` keep this rank's cell of it (a ``ShardCell``)."""
+    if partition is None:
+        if mesh is not None:
+            raise ValueError("mesh given without a partition: the sharded "
+                             "stream routes by id range")
+        return build_batch_plans(batch)
+    sb = build_batch_plans(batch, shards=partition, data_shards=data_shards)
+    if mesh is not None:
+        from repro_torch.dist import shard_sparse_batch
+
+        sb = shard_sparse_batch(mesh, sb)
+    return sb
 
 
 def _map_tensors(obj, fn):

@@ -29,15 +29,24 @@ objective, which changes when the window slides:
 Exact zeros cross window boundaries untouched: the warm start keeps
 Theta's bits and OWLQN+'s orthant algebra is sign-exact.
 
-Departures from the reference: the sharded stream (``mesh=``,
-``partition=``) waits for the sharding port (ROADMAP A12) and raises;
-``jit_ahead`` and ``mode`` steer XLA's compilation, which the port does
-not have, so they are gone. A window's ``step_seconds`` is its wall time
-up to a ``torch.cuda.synchronize``.
+With a mesh (``mesh=``, a ``repro_torch.launch.mesh.Mesh``) every window
+runs the paper's worker/server split: the planner routes the window and
+slices its plans per (data block, id range) and keeps this rank's cell,
+the loss is ``shard.step``'s and OWLQN+ reduces over the mesh. The
+id-range partition is FIXED across windows (equal ranges by default), so
+a rank's rows never move at a boundary. :meth:`StreamTrainer.theta`,
+:meth:`~StreamTrainer.save` and :meth:`~StreamTrainer.load` see the
+global unpadded Theta; the first two are collectives (every rank calls
+them), and rank 0 alone writes the file.
+
+Departures from the reference: ``jit_ahead`` and ``mode`` steer XLA's
+compilation, which the port does not have, so they are gone. A window's
+``step_seconds`` is its wall time up to a ``torch.cuda.synchronize``.
 """
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import time
 from typing import Callable, NamedTuple
 
@@ -48,6 +57,8 @@ from repro_torch.core.objective import nll_sparse, smooth_loss_and_grad
 from repro_torch.device import resolve_device
 from repro_torch.optim import lbfgs
 from repro_torch.optim.owlqn_plus import OWLQNPlus, OWLQNState
+from repro_torch.shard.partition import make_partition
+from repro_torch.shard.step import make_sharded_sparse_loss
 from repro_torch.stream.planner import (
     PlannerStats,
     PreparedWindow,
@@ -95,6 +106,17 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _map_rows(opt: OWLQNState, fn) -> OWLQNState:
+    """``opt`` with ``fn`` applied to each row-indexed (d, 2m) leaf:
+    Theta, prev_theta, prev_d and every history slot."""
+    h = opt.history
+    hist = dataclasses.replace(
+        h, s=torch.stack([fn(x) for x in h.s]),
+        y=torch.stack([fn(x) for x in h.y]))
+    return opt._replace(theta=fn(opt.theta), history=hist,
+                        prev_theta=fn(opt.prev_theta), prev_d=fn(opt.prev_d))
+
+
 class StreamTrainer:
     """Minibatch OWLQN+ over a day stream with an overlapped re-planner.
 
@@ -110,8 +132,10 @@ class StreamTrainer:
       overlap: background re-planner on/off (off = synchronous builds).
       device: where Theta lives and the windows are copied to (default
         ``cuda``, raising without a card; pass ``"cpu"`` for the plain
-        versions).
-      mesh, partition: the sharded stream; not ported (raises).
+        versions); on a mesh, this rank's device.
+      mesh: optional (data x model) mesh; the stream then trains the
+        sharded path per window with a FIXED id-range partition.
+      partition: that partition (default: equal ranges over ``model``).
     """
 
     def __init__(self, stream: DayStream, *, lam: float, beta: float,
@@ -124,11 +148,29 @@ class StreamTrainer:
                              f"got {history!r}")
         if window < 1 or inner_iters < 1:
             raise ValueError("window and inner_iters must be >= 1")
-        if mesh is not None or partition is not None:
-            raise NotImplementedError(
-                "the sharded stream (mesh=, partition=) waits for the "
-                "sharding port (ROADMAP A12)")
         self.stream = stream
+        self.mesh = mesh
+        self.partition = partition
+        self.data_shards = 1
+        if mesh is not None:
+            if partition is None:
+                self.partition = make_partition(stream.num_features,
+                                                mesh.model)
+            if self.partition.num_rows != stream.num_features:
+                raise ValueError(
+                    f"partition covers {self.partition.num_rows} rows, "
+                    f"stream has {stream.num_features} features")
+            if self.partition.num_shards != mesh.model:
+                raise ValueError(
+                    f"partition has {self.partition.num_shards} shards, the "
+                    f"mesh's model extent is {mesh.model}")
+            self.data_shards = mesh.data
+            if stream.sessions_per_day % self.data_shards:
+                raise ValueError(
+                    f"sessions_per_day={stream.sessions_per_day} must divide "
+                    f"by the mesh's data extent {self.data_shards}")
+        elif partition is not None:
+            raise ValueError("partition given without a mesh")
         self.lam, self.beta = float(lam), float(beta)
         self.window = int(window)
         self.inner_iters = int(inner_iters)
@@ -145,30 +187,61 @@ class StreamTrainer:
         self._copy_stream = None
 
     # ------------------------------------------------------------ state mgmt
+    def _block(self, theta: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of a global (d, 2m) Theta in the padded
+        layout."""
+        part = self.partition
+        return part.shard_rows(part.pad_rows(theta), self.mesh.model_rank)
+
+    def _unblock(self, block: torch.Tensor) -> torch.Tensor:
+        """The global unpadded (d, 2m) tensor of every rank's block
+        (a collective over ``model``)."""
+        return self.partition.unpad_rows(self.mesh.gather_rows(block))
+
     def init(self, theta0) -> StreamState:
         """Fresh stream state at day 0 from a (d, 2m) Theta0 (a tensor or
-        an array), moved to the trainer's device."""
-        theta = torch.as_tensor(theta0).to(self.device)
-        return StreamState(opt=self._template.init(theta), day=0)
+        an array), moved to the trainer's device; on a mesh, this rank's
+        rows of it."""
+        theta = torch.as_tensor(theta0)
+        if self.mesh is not None:
+            theta = self._block(theta)
+        return StreamState(opt=self._template.init(theta.to(self.device)),
+                           day=0)
 
     def theta(self, state: StreamState) -> torch.Tensor:
-        """The (d, 2m) Theta of a stream state (on the trainer's device)."""
-        return state.opt.theta
+        """The (d, 2m) Theta of a stream state (on the trainer's device;
+        on a mesh gathered from every rank, pad rows dropped)."""
+        if self.mesh is None:
+            return state.opt.theta
+        return self._unblock(state.opt.theta)
 
     def save(self, path: str, state: StreamState) -> str:
         """Checkpoint the stream (Theta + OWLQN+ history + day cursor) in
-        the reference's layout; returns the real path written."""
+        the reference's layout; returns the real path written. On a mesh
+        the leaves are the global unpadded ones and rank 0 writes them."""
         from repro_torch.io import checkpoint
 
+        if self.mesh is not None:
+            state = state._replace(opt=_map_rows(state.opt, self._unblock))
+            if self.mesh.rank != 0:
+                return path if path.endswith(".npz") else path + ".npz"
         return checkpoint.save_stream(path, state)
 
     def load(self, path: str, theta_like) -> StreamState:
-        """Resume a checkpointed stream (written by either package)
-        exactly. ``theta_like`` gives Theta's shape and dtype (values
-        ignored)."""
+        """Resume a checkpointed stream (written by either package, on any
+        mesh) exactly. ``theta_like`` gives the global Theta's shape and
+        dtype (values ignored)."""
         from repro_torch.io import checkpoint
 
-        return checkpoint.load_stream(path, self.init(theta_like))
+        if self.mesh is None:
+            return checkpoint.load_stream(path, self.init(theta_like))
+        from repro_torch.dist import shard_state
+
+        like = torch.as_tensor(theta_like).cpu()
+        st = checkpoint.load_stream(
+            path, StreamState(opt=self._template.init(like), day=0))
+        padded = _map_rows(st.opt, self.partition.pad_rows)
+        return st._replace(opt=shard_state(padded, self.mesh, self.device))
 
     # ------------------------------------------------------------ per window
     def _prepare(self, day: int) -> PreparedWindow:
@@ -178,12 +251,20 @@ class StreamTrainer:
         t0 = time.perf_counter()
         with obs.get_tracer().span("stream/plan", day=day):
             raw = self.stream.window(day, self.window)
-            batch, ready = to_device(plan_window(raw), self.device,
-                                     self._copy_stream)
+            batch, ready = to_device(
+                plan_window(raw, partition=self.partition,
+                            data_shards=self.data_shards, mesh=self.mesh),
+                self.device, self._copy_stream)
         plan_s = time.perf_counter() - t0
-        opt = OWLQNPlus(lambda t: smooth_loss_and_grad(t, batch),
-                        lam=self.lam, beta=self.beta, memory=self.memory,
-                        loss=lambda t: nll_sparse(t, batch))
+        if self.mesh is None:
+            loss_and_grad, loss = ((lambda t: smooth_loss_and_grad(t, batch)),
+                                   (lambda t: nll_sparse(t, batch)))
+            reduce = None
+        else:
+            loss_and_grad, loss = make_sharded_sparse_loss(batch, self.mesh)
+            reduce = self.mesh.sum_model
+        opt = OWLQNPlus(loss_and_grad, lam=self.lam, beta=self.beta,
+                        memory=self.memory, loss=loss, reduce=reduce)
         return PreparedWindow(day=day, batch=batch, step=opt.step,
                               plan_seconds=plan_s, ready=ready)
 

@@ -14,9 +14,11 @@ Bars:
   * ``loss_fn`` rtol 1e-5 and every gradient leaf within 1e-4 max|g_ref|
     + 1e-7 (bf16: loss rtol 5e-2, leaves within 5e-2 max|g_ref|);
   * three AdamW steps: losses rtol 1e-4, every parameter within 2 lr n
-    of the reference's and within 1e-6 on 99.9% of the elements (a
-    gradient near 0 in both packages can take either sign, and step 1's
-    update is about -lr sign(g)), and the loss falls;
+    of the reference's and within AdamW's own sensitivity to the
+    gradient bar, 1e-6 + lr sum_t min(2, e_t / |g_t|) per element (its
+    update is scale-free in g, so elements with a gradient near 0 move
+    most: granite's experts); within 1e-6 on 99.9% of the elements whose
+    gradient keeps that sum under 1e-3; and the loss falls;
   * ``AdamW`` rtol 1e-6 / atol 1e-7; the scan backward bitwise; the
     chunked attention backward within 1e-6 max|g|; the head rtol 1e-6
     (its gradient, whose small elements are cancelling sums, within
@@ -257,7 +259,13 @@ def test_train_steps_match_reference(arch):
     opt, step = tmodels.make_train_step(model, lr=lr)
     state = opt.init(dict(model.named_parameters()))
     losses = []
+    sens = {}  # per element: sum over steps of AdamW's gradient sensitivity
     for _ in range(steps):
+        _, jg = _j_value_and_grad(jcfg)(jp, jbatch)
+        for name, g in _by_name(jax.tree.map(np.asarray, jg)).items():
+            err = 1e-4 * np.abs(g).max() + 1e-7  # the gradient leaves' bar
+            sens[name] = sens.get(name, 0.0) + np.minimum(
+                2.0, err / np.maximum(np.abs(g), 1e-30))
         jp, jstate, jm = jstep(jp, jstate, jbatch)
         state, m = step(state, batch)
         np.testing.assert_allclose(float(m["loss"]), float(jm["loss"]),
@@ -269,7 +277,15 @@ def test_train_steps_match_reference(arch):
     assert set(got) == set(want)
     diffs = np.concatenate([np.abs(got[n] - want[n]).ravel() for n in want])
     assert diffs.max() <= 2 * lr * steps
-    assert np.mean(diffs <= 1e-6) >= 0.999
+    # AdamW's update lr m^/(sqrt(v^) + eps) is scale-free in g, so a
+    # gradient error e moves it by up to ~lr e / |g| (2 lr once e >= |g|):
+    # each element within 1e-6 + lr sum_t min(2, e_t / |g_t|), e_t the
+    # gradient leaves' own bar at step t; and 99.9% of the elements whose
+    # gradient keeps that sum under 1e-3 within 1e-6.
+    bars = np.concatenate([(1e-6 + lr * sens[n]).ravel() for n in want])
+    sharp = np.concatenate([(sens[n] <= 1e-3).ravel() for n in want])
+    assert np.all(diffs <= bars), float(np.max(diffs / bars))
+    assert np.mean(diffs[sharp] <= 1e-6) >= 0.999
 
 
 def test_train_step_needs_a_trainable_model():

@@ -151,10 +151,20 @@ def test_plan_window_equals_reference_plans():
             np.testing.assert_array_equal(_np(getattr(g, f)),
                                           np.asarray(getattr(w, f)))
         assert g.class_width == tuple(w.class_width)
-    with pytest.raises(NotImplementedError, match="A12"):
+    # the sharded form routes like the reference's (ids and values bit
+    # for bit); a mesh without a partition raises as the reference's does
+    from repro.shard.partition import make_partition as jmake
+    from repro_torch.shard.partition import make_partition as tmake
+
+    jraw = jstream.DayStream(4, **kw).window(2, 2)
+    routed = plan_window(raw, partition=tmake(1500, 3), data_shards=2)
+    want = jstream.planner.plan_window(jraw, partition=jmake(1500, 3),
+                                       data_shards=2)
+    for f in ("user_ids", "user_vals", "ad_ids", "ad_vals", "session_id"):
+        np.testing.assert_array_equal(_np(getattr(routed, f)),
+                                      np.asarray(getattr(want, f)))
+    with pytest.raises(ValueError, match="partition"):
         plan_window(raw, mesh=object())
-    with pytest.raises(NotImplementedError, match="A12"):
-        plan_window(raw, partition=object(), data_shards=2)
 
 
 def _build(day: int) -> PreparedWindow:
@@ -366,8 +376,16 @@ def test_constructor_validation():
         StreamTrainer(s, lam=0.1, beta=0.1, window=0, device="cpu")
     with pytest.raises(ValueError, match=">= 1"):
         StreamTrainer(s, lam=0.1, beta=0.1, inner_iters=0, device="cpu")
-    for kw in ({"mesh": object()}, {"partition": object()}):
-        with pytest.raises(NotImplementedError, match="A12"):
+    # the sharded stream's checks, as the reference's
+    from types import SimpleNamespace
+
+    from repro_torch.shard.partition import make_partition
+
+    for kw, why in (({"partition": make_partition(1200, 2)}, "without a mesh"),
+                    ({"mesh": SimpleNamespace(data=1, model=2),
+                      "partition": make_partition(1000, 2)}, "covers"),
+                    ({"mesh": SimpleNamespace(data=3, model=1)}, "divide")):
+        with pytest.raises(ValueError, match=why):
             StreamTrainer(s, lam=0.1, beta=0.1, device="cpu", **kw)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):

@@ -294,12 +294,9 @@ def test_checkpoint_load_restores_structure_and_refuses_mismatches(tmp_path):
 
 
 def test_launch_train_refuses_what_is_not_ported():
-    base = ["--sparse", "--device", "cpu"]
     # --stream and --drift-ref are ported (tests/test_torch_stream.py)
     # --tune/--chunk are ported (tests/test_torch_tune.py)
-    for extra, why in ((["--mesh-data", "2"], "A12"),):
-        with pytest.raises(SystemExit, match=why):
-            ttrain.run(base + extra)
+    # --mesh-data/--mesh-model are ported (tests/test_torch_shard_step.py)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             ttrain.run(["--sparse", "--iters", "1"])

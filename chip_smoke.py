@@ -34,7 +34,13 @@ reference's sweep shapes, every config parity-gated, the committed
 training path (``repro_torch.launch.train --mesh-data --mesh-model``:
 the paper-width sparse problem on 2 x 2, 1 x 2 and 2 x 1 meshes of
 ranks sharing the one card, B1, B2 and B3 on each rank's rows, against
-the unsharded run; then the three drivers on a 2 x 2 mesh),
+the unsharded run; then the three drivers on a 2 x 2 mesh) and the
+sharded LM serving path (``repro_torch.models`` with ``mesh=``: llama3.2-1b
+and granite-moe-1b-a400m (both MoE plans) on 2 x 2, llama, granite and
+falcon-mamba-7b on 1 x 2, zamba2-2.7b on 2 x 1, at full width, prompts
+4 x 512 and 16 greedy tokens, B6 on each rank's heads and B7 on its
+d_inner channels, against one rank; then reduced models on a 2 x 2 mesh
+against the CPU's),
 shows that each path launched its kernels, holds the card's OWLQN+
 trajectories and a reduced LM of each family against the CPU's, times
 the kernels beside their plain versions, their bound and one library
@@ -107,7 +113,7 @@ SSM_PARAMS = 7_272_665_088
 SSM_SHORT = 512  # prompt length of the B7-vs-plain-scan model comparison
 B7_TOL = 2e-5  # y and hT, tests/test_kernels.py:175
 SFU_EXP_PER_S = 16 * 132 * 1.98e9  # 16 a clock per SM (CC 9.0) x 132 SMs
-B7_PLAIN_RUNS = 2  # timed runs of the plain scan at S >= 4,096
+B7_PLAIN_RUNS = 1  # timed runs of the plain scan at S >= 4,096
 # the hybrid path: zamba2-2.7b at full width and depth (54 Mamba2 layers,
 # d 2,560, d_inner 5,120 in 80 heads of 64, state 64, conv 4, in 9 groups
 # of 6, each followed by the one shared attention + MLP block: 32 heads
@@ -3692,13 +3698,18 @@ CARD_TESTS = ("tests/test_torch_stream_card.py",
               "tests/test_torch_flash_attention_card.py",
               "tests/test_torch_lm_train_card.py",
               "tests/test_torch_sparse_card.py",
-              "tests/test_torch_shard_card.py")
+              "tests/test_torch_shard_card.py",
+              "tests/test_torch_moe_card.py",
+              "tests/test_torch_mamba_scan_card.py",
+              "tests/test_torch_lm_shard_card.py")
 
 
 def phase_card_tests():
     """The jax-free ``cuda``-marked tests (the streaming slice's, B6's
     against its plain version, the training path's, B1/B4/B2's against
-    their plain versions and at every autotune config), in a pytest process
+    their plain versions and at every autotune config, the sharded
+    training path's, the MoE family's, B7's against its plain versions,
+    the sharded LM serving path's), in a pytest process
     of their own (they build nothing: the kernels phase 1 built load from
     ``build/``)."""
     env = dict(os.environ)
@@ -4987,6 +4998,672 @@ def phase_shard_drivers(torch, dev, tmp: Path):
           f"({time.perf_counter() - t0:.1f} s)")
 
 
+# ------------------------------------------------------------ phases 34-35
+# sharded LM serving at full width: the meshes on the one card, grouped by
+# world (a spawned world runs its meshes in turn), with the families each
+# runs and the MoE plan of each run
+SERVE_SHARD_CASES = {
+    (2, 2): ((LM_ARCH, "weight_gather"), (MOE_ARCH, "token_gather"),
+             (MOE_ARCH, "weight_gather")),
+    (1, 2): ((LM_ARCH, "weight_gather"), (MOE_ARCH, "weight_gather"),
+             (SSM_ARCH, "weight_gather")),
+    (2, 1): ((HYBRID_ARCH, "weight_gather"),)}
+SERVE_SHARD_WORLDS = {4: ((2, 2),), 2: ((1, 2), (2, 1))}
+SERVE_SHARD_BATCH, SERVE_SHARD_SEQ, SERVE_SHARD_NEW = 4, 512, 16
+# the fp32 gates against one rank: prefill logits and this many decode
+# steps fed one rank's tokens, at an fp32 bar (sound runs on the H100 read
+# at most ~8e-5 (1 + |logit|))
+SERVE_SHARD_TOL32, SERVE_SHARD_STEPS32 = 1e-3, 4
+SERVE_SHARD_REDUCED = (LM_ARCH, SSM_ARCH, MOE_ARCH)  # phase 35, fp32
+
+
+def _lm_counters():
+    """The launch counters of B6 and B7 in this process."""
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        LAUNCHES as B6,
+    )
+    from repro_torch.kernels.mamba_scan.mamba_scan import LAUNCHES as B7
+
+    return B6, B7
+
+
+def _plain_capture(fn):
+    """``fn()`` with B6's and B7's plain versions in place of the model's
+    attention and gated-scan hooks for this one call, and the arguments
+    of the first call of each ({"B6": (q, k, v), "B7": the scan's}, a
+    key absent where the model made no such call)."""
+    from repro_torch.kernels.flash_attention.ops import plain_attention
+    from repro_torch.kernels.mamba_scan.ops import plain_gated_scan
+    from repro_torch.models import ssm, transformer
+
+    seen = {}
+
+    def keeping(name, plain):
+        def call(*args, **kw):
+            seen.setdefault(name, args)
+            return plain(*args, **kw)
+        return call
+
+    hooks = ((transformer.attention_ops, "causal_attention", "B6",
+              plain_attention),
+             (ssm.ops, "gated_selective_scan", "B7", plain_gated_scan))
+    kernels = [getattr(mod, attr) for mod, attr, _, _ in hooks]
+    for mod, attr, name, plain in hooks:
+        setattr(mod, attr, keeping(name, plain))
+    try:
+        return fn(), seen
+    finally:
+        for (mod, attr, _, _), kernel in zip(hooks, kernels):
+            setattr(mod, attr, kernel)
+
+
+def _split_products(fn, parts: int, ff_parts: int = 1):
+    """``fn()`` with the model's row-parallel products (wo, w2, x_proj,
+    out_proj) and its MoE expert sum computed as a mesh of ``parts``
+    model ranks computes them: each rank's slice of the contracted axis
+    (of the MoE: its E / parts experts and, with ``ff_parts`` data ranks,
+    its slice of d_ff, token_gather's layout) a product of its own in the
+    activation dtype, the partials summed in fp32 in the mesh's order
+    (over model, then over data) and rounded once. On one process: the
+    witness that this rounding order is what parts a mesh's bf16 logits
+    from one rank's."""
+    from repro_torch.models import layers, moe, ssm
+
+    row, dispatch = layers.row_parallel, moe.dispatch_compute
+
+    def split_row(x, w, mesh=None):
+        k, acc = x.shape[-1] // parts, None
+        for i in range(parts):
+            y = (x[..., i * k:(i + 1) * k].contiguous()
+                 @ w[i * k:(i + 1) * k].to(x.dtype)).float()
+            acc = y if acc is None else acc + y
+        return acc.to(x.dtype)
+
+    def split_dispatch(x_flat, gate, idx, w1, w3, w2, capacity,
+                       expert_lo=0):
+        e, f, acc = w1.shape[0] // parts, w1.shape[2] // ff_parts, None
+        for j in range(ff_parts):
+            part = None
+            for i in range(parts):
+                ex, ff = slice(i * e, (i + 1) * e), slice(j * f, (j + 1) * f)
+                y = dispatch(x_flat, gate, idx,
+                             w1[ex, :, ff].contiguous(),
+                             w3[ex, :, ff].contiguous(),
+                             w2[ex, ff].contiguous(), capacity,
+                             expert_lo=expert_lo + i * e).float()
+                part = y if part is None else part + y
+            acc = part if acc is None else acc + part
+        return acc.to(x_flat.dtype)
+
+    layers.row_parallel = ssm.row_parallel = split_row
+    moe.dispatch_compute = split_dispatch
+    try:
+        return fn()
+    finally:
+        layers.row_parallel = ssm.row_parallel = row
+        moe.dispatch_compute = dispatch
+
+
+def _shard_kernel_checks(torch, model, rows, logits, caches, at, tag):
+    """B6 and B7 against their plain versions at the shapes this rank's
+    serving path gives them: the prefill of ``rows`` again with both
+    plain versions in the model (its logits held by the caller against
+    the kernels' ``logits``), B6 on
+    the first attention call's q, k, v (this rank's heads) at its bf16
+    bar and B7's gated mode on layer 0's scan inputs (this rank's
+    channels) bitwise; for the SSM family also one decode step from
+    ``caches`` (cloned) with the kernel and with the plain scan, and B7
+    bitwise on that step's layer-0 inputs. Returns ({"B6": max |err|,
+    "B7": 0.0 where held}, {"prefill": (max |err|, share of the bar),
+    "decode": likewise})."""
+    from repro_torch.models import decode_step, prefill
+
+    plain, seen = _plain_capture(lambda: prefill(model, tokens=rows,
+                                                 **at)[0])
+    errs, bars = {}, {"prefill": _within(torch, logits, plain, LM_TOL)}
+    if "B6" in seen:
+        errs["B6"] = _check_b6(torch, *seen["B6"], True, f"{tag}: the "
+                               "first attention call's q, k, v")
+    if "B7" in seen:
+        _check_b7_gated(torch, seen["B7"], f"{tag}: layer 0's scan")
+        errs["B7"] = 0.0
+        step = dict(token=logits.argmax(-1).to(torch.int32),
+                    pos=SERVE_SHARD_SEQ, **at)
+        got, _ = decode_step(model, {k: v.clone() for k, v in caches.items()},
+                             **step)
+        (want, _), seen = _plain_capture(lambda: decode_step(
+            model, {k: v.clone() for k, v in caches.items()}, **step))
+        bars["decode"] = _within(torch, got, want, LM_TOL)
+        _check_b7_gated(torch, seen["B7"], f"{tag}: layer 0's decode scan",
+                        chained=False)
+    return errs, bars
+
+
+def _fp32_run(torch, model32, rows, fed, at):
+    """The fp32 gates' run of ``model32``: the prefill of ``rows``, then
+    SERVE_SHARD_STEPS32 decode steps on fp32 caches fed ``fed``'s tokens
+    (one rank's greedy tokens: the same on both sides of a comparison).
+    Returns (prefill logits (B, V), decode logits (B, steps, V)) as
+    numpy."""
+    from repro_torch.models import decode_step, init_caches, prefill
+    from repro_torch.models.generate import fill_caches
+
+    logits, c0 = prefill(model32, tokens=rows, **at)
+    caches = fill_caches(init_caches(
+        model32.cfg, rows.shape[0] * at["mesh"].data,
+        SERVE_SHARD_SEQ + SERVE_SHARD_STEPS32, dtype=torch.float32,
+        device=rows.device, mesh=at["mesh"]), c0)
+    del c0
+    steps = []
+    for t in range(SERVE_SHARD_STEPS32):
+        lg, caches = decode_step(model32, caches, token=fed[:, t],
+                                 pos=SERVE_SHARD_SEQ + t, **at)
+        steps.append(lg)
+    return logits.cpu().numpy(), torch.stack(steps, 1).cpu().numpy()
+
+
+def _serve_shard_case(torch, dev, mesh, arch, mode, feed=None,
+                      checks=True):
+    """One family at full width on ``mesh`` (the 1 x 1 mesh: one rank):
+    bf16 weights from init_model(mesh=) on a seeded generator, the
+    prompts' rows of this rank, a first-use prefill, then the counted run
+    (B6, B7 and the mesh's all-reduces from 0): a timed prefill, then
+    (uncounted) B6 and B7 against their plain versions at this rank's
+    shapes (:func:`_shard_kernel_checks`; with ``checks``, which a
+    second MoE plan on the same mesh, with the same heads, leaves out),
+    then (counted) SERVE_SHARD_NEW
+    - 1 timed greedy decode steps; the tokens gathered over data and
+    each step's top two logits; a profiled prefill; the model split as a
+    mesh of two model ranks splits it (one rank only,
+    :func:`_split_products`); then the same weights widened to fp32
+    (:func:`_fp32_run`, fed ``feed``: one rank's greedy tokens, this
+    run's own when None) and, with ``checks`` and attention in the
+    model, its prefill with the plain versions. For
+    the MoE family on one rank also each half of the batch alone
+    (weight_gather's oracle on two data shards)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.models import Transformer, decode_step, init_caches
+    from repro_torch.models import init_model, prefill
+    from repro_torch.models.generate import fill_caches
+    from repro_torch.models.sharding import batch_rows
+
+    cfg = get_config(arch)
+    B6, B7 = _lm_counters()
+    tag = f"{arch} ({mode}) on {mesh.data} x {mesh.model} rank {mesh.rank}"
+    t0 = time.perf_counter()
+    model = init_model(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                       device=dev, mesh=mesh)
+    param_bytes = sum(p.numel() * p.element_size()
+                      for p in model.parameters())
+    prompts = torch.from_numpy(TokenStream(cfg.vocab_size, seed=SEED).batch(
+        SERVE_SHARD_BATCH, SERVE_SHARD_SEQ + 1)["tokens"]).to(dev)
+    rows = batch_rows(prompts, mesh)
+    at = dict(mesh=mesh, moe_serving_mode=mode)
+    prefill(model, tokens=rows, **at)  # first use
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    _reset((B6, B7))
+    mesh.reset_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    logits, c0 = prefill(model, tokens=rows, **at)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    out = {"setup_s": setup_s, "param_bytes": param_bytes,
+           "prefill_s": prefill_s,
+           "launches": {"prefill": (B6["flash_attention"],
+                                    B7["mamba1_scan_gated"])},
+           "counts": {"prefill": mesh.collective_counts()},
+           "logits": logits.float().cpu().numpy()}
+    caches = fill_caches(init_caches(cfg, SERVE_SHARD_BATCH,
+                                     SERVE_SHARD_SEQ + SERVE_SHARD_NEW,
+                                     device=dev, mesh=mesh), c0)
+    del c0
+    out["kernel_err"], out["plain"] = (_shard_kernel_checks(
+        torch, model, rows, logits, caches, at, tag) if checks else ({}, {}))
+    tok = logits.argmax(-1).to(torch.int32)
+    toks, lgs, steps = [tok], [logits], SERVE_SHARD_NEW - 1
+    _reset((B6, B7))
+    mesh.reset_counts()
+    t0 = time.perf_counter()
+    for i in range(steps):
+        lg, caches = decode_step(model, caches, token=tok,
+                                 pos=SERVE_SHARD_SEQ + i, **at)
+        tok = lg.argmax(-1).to(torch.int32)
+        toks.append(tok)
+        lgs.append(lg)
+    torch.cuda.synchronize()
+    out["decode_ms"] = (time.perf_counter() - t0) * 1e3 / steps
+    out["launches"]["decode"] = (B6["flash_attention"],
+                                 B7["mamba1_scan_gated"])
+    out["counts"]["decode"] = {
+        a: {k: v / steps for k, v in c.items()}
+        for a, c in mesh.collective_counts().items()}
+    out["tokens"] = mesh.gather(torch.stack(toks, 1), "data", 0).cpu().numpy()
+    out["top2"] = torch.stack(lgs, 1).float().topk(2, -1).values.cpu().numpy()
+    out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    del caches, lgs
+    _, wall_us, kernels = _device_profile(
+        torch, lambda: prefill(model, tokens=rows, **at))
+    out["profile"] = {"wall_us": wall_us,
+                      "device_us": sum(v[0] for v in kernels.values()),
+                      "launches": sum(v[1] for v in kernels.values())}
+    halves = prompts.chunk(2)
+    if mesh.size == 1 and cfg.family != "hybrid":  # zamba2 runs data-only
+        def split(toks, ff_parts=1):
+            return _split_products(lambda: prefill(model, tokens=toks, **at)[
+                0], 2, ff_parts).float().cpu().numpy()
+
+        out["logits_split"] = split(rows)
+        if cfg.num_experts:
+            out["logits_split_by_shard"] = np.concatenate(
+                [split(half) for half in halves])
+            out["logits_split_tokens"] = split(rows, ff_parts=2)
+    if cfg.num_experts and mesh.size == 1:
+        out["logits_by_shard"] = np.concatenate([
+            prefill(model, tokens=half, **at)[0].float().cpu().numpy()
+            for half in halves])
+    model32 = Transformer(dataclasses.replace(cfg, dtype="float32"),
+                          device=dev, mesh=mesh)
+    model32.load_state_dict(model.state_dict())
+    del model
+    fed = torch.as_tensor(out["tokens"] if feed is None else feed,
+                          device=dev)
+    out["logits32"], out["decode32"] = _fp32_run(
+        torch, model32, rows, batch_rows(fed, mesh), at)
+    if checks and cfg.family != "ssm":  # B7 is held bitwise in bf16
+        out["plain32"] = _plain_capture(lambda: prefill(
+            model32, tokens=rows, **at)[0])[0].cpu().numpy()
+    if cfg.num_experts and mesh.size == 1:
+        runs = [_fp32_run(torch, model32, half, f, at)
+                for half, f in zip(halves, fed.chunk(2))]
+        out["logits32_by_shard"], out["decode32_by_shard"] = (
+            np.concatenate(parts) for parts in zip(*runs))
+    del model32
+    torch.cuda.empty_cache()
+    return out
+
+
+def _serve_shard_world(rank, dev, shapes, feeds):
+    """One rank of phase 34 (module level: the spawned ranks import it):
+    each mesh of ``shapes`` in turn, its families in turn, each fed one
+    rank's greedy tokens ``feeds[arch]`` in its fp32 decode steps."""
+    import torch
+
+    from repro_torch.launch.mesh import Mesh
+
+    out = {}
+    for shape in shapes:
+        mesh = Mesh(*shape)
+        out[shape] = {"rank": rank, "data_rank": mesh.data_rank,
+                      "backend": mesh.backend}
+        checked = set()
+        for arch, mode in SERVE_SHARD_CASES[shape]:
+            t0 = time.perf_counter()
+            out[shape][arch, mode] = _serve_shard_case(
+                torch, dev, mesh, arch, mode, feeds[arch],
+                checks=arch not in checked)
+            checked.add(arch)
+            if rank == 0:
+                print(f"    [{shape[0]} x {shape[1]}] rank 0: {arch} "
+                      f"({mode}) in {time.perf_counter() - t0:.1f} s",
+                      flush=True)
+    return out
+
+
+def _logit_bar(got, want, tol=LM_TOL) -> float:
+    """The largest |got - want| as a share of rtol = atol = ``tol``."""
+    return float((np.abs(got - want) / (tol + tol * np.abs(want))).max())
+
+
+def _argmax_ties(got, want, tag, tol) -> int:
+    """Gate each row's argmax of ``got`` against ``want``'s: equal, or,
+    where ``want``'s top logits lie within the bar ``tol`` of each other
+    (a tie at that resolution), one of those. Returns the rows that were
+    such a tie and took another of its tokens."""
+    g, w = got.argmax(-1), want.argmax(-1)
+    top = want.max(-1)
+    near = want[np.arange(len(g)), g] >= top - (tol + tol * np.abs(top))
+    check(bool(((g == w) | near).all()),
+          f"{tag}: prefill argmax differs (rows {np.flatnonzero(g != w)}) "
+          f"outside a tie within the bar")
+    return int((g != w).sum())
+
+
+def _first_flips(got, want, top2):
+    """Each row whose greedy tokens ``got`` part from one rank's
+    ``want``: (the first step where they do, one rank's top-2 logit gap
+    there as a share of the LM_TOL bar). Up to that step both runs were
+    fed the same tokens."""
+    flips = []
+    for i in range(len(got)):
+        diff = np.flatnonzero(got[i] != want[i])
+        if diff.size:
+            top, second = top2[i, diff[0]]
+            flips.append((int(diff[0]), float(
+                (top - second) / (LM_TOL + LM_TOL * abs(top)))))
+    return flips
+
+
+def _gate_plain(r, family, who) -> tuple:
+    """Gate one run of :func:`_serve_shard_case` against the same run
+    with B6's and B7's plain versions, as phases 17, 21 and 23 do: with
+    attention in the model, the fp32 prefill logits within rtol = atol =
+    LM_TOL, argmax equal (or a tie within SERVE_SHARD_TOL32); in bf16
+    the SSM family's prefill and decode logits within LM_TOL (B7 is
+    bitwise its plain version), an attention family's printed (an order
+    of bf16 roundings as valid as another's carries full-width logits
+    past the bar, §6 of PERF.md). Returns (the fp32 share of the bar or
+    None, the bf16 shares by step, the argmax ties)."""
+    bar32, ties = None, 0
+    if "plain32" in r:
+        bar32 = _logit_bar(r["logits32"], r["plain32"])
+        check(bar32 <= 1.0, f"{who}: fp32 prefill logits with B6 vs plain "
+              f"attention {bar32:.2f} of the bar (rtol = atol = {LM_TOL})")
+        ties = _argmax_ties(r["logits32"], r["plain32"], f"{who} (kernels "
+                            "vs plain)", SERVE_SHARD_TOL32)
+    bars16 = {}
+    for step, (err, bar) in r["plain"].items():
+        check(family != "ssm" or bar <= 1.0, f"{who}: bf16 {step} logits "
+              f"with B7 vs the plain scan {bar:.2f} of the bar (rtol = atol"
+              f" = {LM_TOL}), max |err| {err:.3e}")
+        bars16[step] = bar
+    return bar32, bars16, ties
+
+
+def _plain_line(bar32, bars16) -> str:
+    """The kernels-vs-plain shares of :func:`_gate_plain` for a print."""
+    return ((f"fp32 prefill logits {bar32:.2e} of the bar, " if bar32
+             is not None else "") + "bf16 " + ", ".join(
+        f"{k} {b:.3f}" for k, b in bars16.items()))
+
+
+def _per_group(counts) -> str:
+    return ", ".join(f"{a} {c['all_reduce']:g} ({c['bytes'] / 1e6:.3f} MB, "
+                     f"{c['seconds'] * 1e3:.2f} ms host)"
+                     for a, c in counts.items())
+
+
+def phase_serve_shard(torch, dev):
+    """Sharded LM serving at full width and depth (bf16 weights from a
+    seeded generator): each family of SERVE_SHARD_CASES on one rank (the
+    1 x 1 mesh) in this process, then on its meshes as spawned ranks
+    sharing the one card over gloo (this process holds no model then).
+    Prompts 4 x 512, 16 greedy tokens. Gates, on every rank of every
+    mesh (in its first run of each family) and on one rank: B6 within
+    its bf16 bar on the rank's q, k, v,
+    B7 bitwise on the rank's scan inputs in prefill and in a decode
+    step, and the logits with both against the same run with their
+    plain versions (:func:`_gate_plain`). Against one rank, on the same weights widened
+    to fp32: every rank's prefill logits and SERVE_SHARD_STEPS32 decode
+    steps fed one rank's greedy tokens within rtol = atol =
+    SERVE_SHARD_TOL32 of one rank's rows (granite's weight_gather on two
+    data shards: of one rank's run of each half of the batch alone, the
+    plan's own semantics), the prefill argmax equal (or a tie within the
+    bar). In bf16, on a mesh with model > 1: every rank's prefill logits
+    within rtol = atol = LM_TOL of one rank's run with its row-parallel
+    products split as the mesh splits them (:func:`_split_products`).
+    Printed, not gated, in bf16: the bar's share against plain one rank,
+    and where the greedy tokens first part from one rank's and how near
+    a tie one rank's top two logits were there. Every rank of a data shard bitwise equal,
+    every rank's tokens equal; B6 once per layer (the hybrid: per group)
+    and prefill, B7's gated mode once per layer per prefill and per
+    decode step, on every rank. Returns the B6 and B7 launches of the
+    counted runs by path, and B6's and B7's max |err| against their
+    plain versions at the ranks' shapes."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import Mesh, run_ranks
+
+    t_phase = time.perf_counter()
+    one = {}
+    for arch in dict.fromkeys(a for cases in SERVE_SHARD_CASES.values()
+                              for a, _ in cases):
+        one[arch] = _serve_shard_case(torch, dev, Mesh(1, 1), arch,
+                                      "weight_gather")
+        r = one[arch]
+        bar32, bars16, _ = _gate_plain(r, get_config(arch).family,
+                                       f"{arch} on one rank")
+        split = (f"; split as two model ranks split it, vs one rank "
+                 f"{_logit_bar(r['logits_split'], r['logits']):.3f} of the "
+                 f"bar" if "logits_split" in r else "")
+        print(f"phase 34: {arch} on one rank: prefill "
+              f"{SERVE_SHARD_BATCH} x {SERVE_SHARD_SEQ} "
+              f"{SERVE_SHARD_BATCH * SERVE_SHARD_SEQ / r['prefill_s']:,.0f} "
+              f"tokens/s, decode {r['decode_ms']:.2f} ms/token, peak "
+              f"{r['peak_gb']:.2f} GB; kernels vs plain: "
+              + _plain_line(bar32, bars16) + split)
+    feeds = {arch: r["tokens"] for arch, r in one.items()}
+    runs = {}
+    for size, shapes in SERVE_SHARD_WORLDS.items():
+        t0 = time.perf_counter()
+        world = run_ranks(_serve_shard_world, size, shapes, feeds,
+                          device=dev)
+        print(f"  a world of {size} ranks on one card ran the meshes "
+              f"{list(shapes)} in {time.perf_counter() - t0:.1f} s, spawn "
+              f"and set-up included")
+        runs.update({shape: [r[shape] for r in world] for shape in shapes})
+    by_path = {"flash_attention": {}, "mamba1_scan": {}}
+    errs = {"flash_attention": 0.0, "mamba1_scan": 0.0}
+    for arch in one:
+        for name, k in (("flash_attention", "B6"), ("mamba1_scan", "B7")):
+            errs[name] = max(errs[name], one[arch]["kernel_err"].get(k, 0.0))
+    for shape, ranks in runs.items():
+        data, model = shape
+        for arch, mode in SERVE_SHARD_CASES[shape]:
+            cfg, tag = get_config(arch), f"{arch} ({mode}) on {data} x {model}"
+            ref = one[arch]
+            sfx = ("_by_shard" if cfg.num_experts and data > 1
+                   and mode == "weight_gather" else "")
+            wit = ("logits_split_tokens" if mode == "token_gather"
+                   else "logits_split" + sfx)
+            units = (0 if cfg.family == "ssm" else cfg.num_layers
+                     // (cfg.shared_attn_every or 1))
+            scans = cfg.num_layers if cfg.family == "ssm" else 0
+            first, bars, dbars, bars16, wits, arg16 = {}, [], [], [], [], []
+            plain, plain32, ties, pties = {}, None, 0, 0
+            for r in ranks:
+                got, who = r[arch, mode], f"{tag} rank {r['rank']}"
+                want = {k: np.split(ref[k + sfx], data)[r["data_rank"]]
+                        for k in ("logits32", "decode32", "logits")}
+                bar32, b16, n = _gate_plain(got, cfg.family, who)
+                if bar32 is not None:
+                    plain32 = max(plain32 or 0.0, bar32)
+                pties += n
+                for step, bar in b16.items():
+                    plain[step] = max(plain.get(step, 0.0), bar)
+                for name, k in (("flash_attention", "B6"),
+                                ("mamba1_scan", "B7")):
+                    errs[name] = max(errs[name],
+                                     got["kernel_err"].get(k, 0.0))
+                bar = _logit_bar(got["logits32"], want["logits32"],
+                                 SERVE_SHARD_TOL32)
+                check(bar <= 1.0, f"{who}: fp32 prefill logits {bar:.2f} of "
+                      f"the bar (rtol = atol = {SERVE_SHARD_TOL32})")
+                ties += _argmax_ties(got["logits32"], want["logits32"], who,
+                                     SERVE_SHARD_TOL32)
+                dbar = _logit_bar(got["decode32"], want["decode32"],
+                                  SERVE_SHARD_TOL32)
+                check(dbar <= 1.0, f"{who}: fp32 logits of "
+                      f"{SERVE_SHARD_STEPS32} decode steps fed one rank's "
+                      f"tokens {dbar:.2f} of the bar (rtol = atol = "
+                      f"{SERVE_SHARD_TOL32})")
+                bars16.append(_logit_bar(got["logits"], want["logits"]))
+                if model > 1:
+                    wits.append(_logit_bar(got["logits"], np.split(
+                        ref[wit], data)[r["data_rank"]]))
+                    check(wits[-1] <= 1.0, f"{who}: bf16 prefill logits "
+                          f"{wits[-1]:.2f} of the bar (rtol = atol = "
+                          f"{LM_TOL}) from one rank's with its products "
+                          "split as the mesh splits them")
+                arg16.append(float((got["logits"].argmax(-1)
+                                    == want["logits"].argmax(-1)).mean()))
+                seen = first.setdefault(r["data_rank"], got)
+                check(all(np.array_equal(got[k], seen[k]) for k in
+                          ("logits", "logits32", "decode32", "top2")),
+                      f"{tag}: the ranks of data shard {r['data_rank']} "
+                      "hold different logits")
+                check(np.array_equal(got["tokens"], ranks[0][arch, mode][
+                    "tokens"]), f"{tag}: the ranks' tokens differ")
+                lp, ld = got["launches"]["prefill"], got["launches"]["decode"]
+                check(lp == (units, scans) and ld == (
+                    0, scans * (SERVE_SHARD_NEW - 1)),
+                      f"{tag} rank {r['rank']}: (B6, B7) launches "
+                      f"{lp} per prefill and {ld} in "
+                      f"{SERVE_SHARD_NEW - 1} decode steps, not "
+                      f"({units}, {scans}) and (0, {scans} a step)")
+                bars.append(bar)
+                dbars.append(dbar)
+            key = f"serve_sharded/{data}x{model}/{arch}/{mode}"
+            for name, i in (("flash_attention", 0), ("mamba1_scan", 1)):
+                n = sum(r[arch, mode]["launches"][s][i] for r in ranks
+                        for s in ("prefill", "decode"))
+                if n:
+                    by_path[name][key] = n
+            r0 = ranks[0][arch, mode]
+            flips = _first_flips(r0["tokens"], ref["tokens"], ref["top2"])
+            p = r0["profile"]
+            idle = (1 - p["device_us"] / p["wall_us"] if p["device_us"]
+                    else float("nan"))
+            tok_s = SERVE_SHARD_BATCH * SERVE_SHARD_SEQ / r0["prefill_s"]
+            one_s = SERVE_SHARD_BATCH * SERVE_SHARD_SEQ / ref["prefill_s"]
+            print(f"  {tag} ({data * model} ranks, backend "
+                  f"{ranks[0]['backend']}): prefill {tok_s:,.0f} tokens/s "
+                  f"({tok_s / one_s:.2f}x one rank's {one_s:,.0f}), decode "
+                  f"{r0['decode_ms']:.2f} ms/token "
+                  f"({r0['decode_ms'] / ref['decode_ms']:.2f}x one rank's "
+                  f"{ref['decode_ms']:.2f}); ranks of a data shard bitwise "
+                  f"equal; (B6, B7) per prefill {r0['launches']['prefill']}"
+                  f", in {SERVE_SHARD_NEW - 1} decode steps "
+                  f"{r0['launches']['decode']}")
+            held = (f"kernels vs plain on every rank (rtol = atol = "
+                    f"{LM_TOL}, max): " + _plain_line(plain32, plain)
+                    + (f", argmax equal ({pties} rows a tie)"
+                       if plain32 is not None else "") if plain else
+                    "kernels vs plain: held in this mesh's first run of "
+                    "the family (the same heads and channels)")
+            print(f"    {held}; fp32 vs one rank (rtol = atol = {SERVE_SHARD_TOL32}"
+                  f"): prefill max {max(bars):.2e} of the bar, argmax equal "
+                  f"({ties} rows a tie within the bar), "
+                  f"{SERVE_SHARD_STEPS32} decode steps fed one rank's "
+                  f"tokens max {max(dbars):.2e}")
+            print(f"    bf16: prefill vs one rank {max(bars16):.3f} of the "
+                  f"bar (rtol = atol = {LM_TOL}; not gated), argmax "
+                  f"agreement {min(arg16):.0%}"
+                  + (f"; vs one rank with its products split as the mesh "
+                     f"splits them {max(wits):.3f} (gated)" if wits else "")
+                  + f"; greedy-token agreement with one rank "
+                  f"{float((r0['tokens'] == ref['tokens']).mean()):.0%}, "
+                  f"{len(flips)} of {SERVE_SHARD_BATCH} rows part"
+                  + (f", first at steps {[t for t, _ in flips]}, where one "
+                     f"rank's top two logits lie "
+                     f"{[round(g, 3) for _, g in flips]} bars apart"
+                     if flips else ""))
+            print(f"    all-reduces per prefill: "
+                  f"{_per_group(r0['counts']['prefill'])}; per decode step:"
+                  f" {_per_group(r0['counts']['decode'])}")
+            print(f"    rank 0: set-up {r0['setup_s']:.1f} s, parameters "
+                  f"{r0['param_bytes'] / 1e9:.3f} GB (one rank "
+                  f"{ref['param_bytes'] / 1e9:.3f}), peak "
+                  f"{r0['peak_gb']:.2f} GB; profiled prefill "
+                  f"{p['wall_us'] / 1e3:.2f} ms wall, "
+                  + (f"{p['device_us'] / 1e3:.2f} ms of device in "
+                     f"{p['launches']} launches (idle {idle:.1%})"
+                     if p["launches"] else "device time not measured"))
+    print(f"  B6 vs plain at the ranks' shapes max |err| "
+          f"{errs['flash_attention']:.3e} (bar {B6_TOL['bfloat16']}), B7's "
+          f"gated mode bitwise equal to its plain version on every rank")
+    print(f"phase 34 took {time.perf_counter() - t_phase:.1f} s")
+    return by_path, errs
+
+
+def _serve_shard_reduced(rank, dev, shape):
+    """Phase 35 on one rank (the card's or the CPU's): each reduced
+    family of SERVE_SHARD_REDUCED in fp32, drawn on the CPU from one seed
+    and moved to ``dev``, on the mesh ``shape``: prefill logits and 8
+    greedy tokens (granite's plan: token_gather)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import init_model, prefill
+    from repro_torch.models.generate import generate
+    from repro_torch.models.sharding import batch_rows
+
+    mesh = Mesh(*shape)
+    out = {"data_rank": mesh.data_rank}
+    for arch in SERVE_SHARD_REDUCED:
+        cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
+        model = init_model(cfg, torch.Generator().manual_seed(SEED),
+                           device="cpu", mesh=mesh).to(dev)
+        prompts = torch.from_numpy(TokenStream(cfg.vocab_size, seed=SEED)
+                                   .batch(4, 97)["tokens"]).to(dev)
+        logits, _ = prefill(model, tokens=batch_rows(prompts, mesh),
+                            mesh=mesh, moe_serving_mode="token_gather")
+        out[arch] = (logits.cpu().numpy(), generate(
+            model, prompts, 8, temperature=0.0, mesh=mesh,
+            moe_serving_mode="token_gather").cpu().numpy())
+    return out
+
+
+def phase_serve_shard_reduced(torch, dev):
+    """Reduced llama, falcon-mamba and granite in fp32 on a 2 x 2 mesh,
+    the card's ranks (B6, B7) against the CPU's (plain versions): prefill
+    logits within LM_CPU_TOL, greedy tokens equal; then on the card a
+    1 x 1 mesh bitwise the unsharded path in bf16."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.launch.mesh import Mesh, run_ranks
+    from repro_torch.models import init_model, prefill
+    from repro_torch.models.generate import generate
+
+    t0 = time.perf_counter()
+    card = run_ranks(_serve_shard_reduced, 4, (2, 2), device=dev)
+    cpu = run_ranks(_serve_shard_reduced, 4, (2, 2), device="cpu")
+    errs = {}
+    for arch in SERVE_SHARD_REDUCED:
+        for c, h in zip(card, cpu):
+            err = np.abs(c[arch][0] - h[arch][0])
+            check(bool((err <= LM_CPU_TOL + LM_CPU_TOL
+                        * np.abs(h[arch][0])).all()),
+                  f"reduced {arch} on 2 x 2: prefill logits card vs CPU "
+                  f"max |err| {float(err.max()):.3e} beyond {LM_CPU_TOL}")
+            check(np.array_equal(c[arch][1], h[arch][1]),
+                  f"reduced {arch} on 2 x 2: greedy tokens card vs CPU "
+                  "differ")
+            errs[arch] = max(errs.get(arch, 0.0), float(err.max()))
+    mesh = Mesh(1, 1)
+    for arch in SERVE_SHARD_REDUCED:
+        cfg = get_config(arch).reduced()
+        plain = init_model(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                           device=dev)
+        meshed = init_model(cfg, torch.Generator(device=dev).manual_seed(
+            SEED), device=dev, mesh=mesh)
+        prompts = torch.from_numpy(TokenStream(cfg.vocab_size, seed=SEED)
+                                   .batch(4, 97)["tokens"]).to(dev)
+        a, _ = prefill(plain, tokens=prompts)
+        b, _ = prefill(meshed, tokens=prompts, mesh=mesh)
+        check(torch.equal(a, b) and torch.equal(
+            generate(plain, prompts, 8, temperature=0.0),
+            generate(meshed, prompts, 8, temperature=0.0, mesh=mesh)),
+              f"reduced {arch}: the 1 x 1 mesh is not bitwise the "
+              "unsharded path on the card")
+    print(f"phase 35: reduced {', '.join(SERVE_SHARD_REDUCED)} in fp32 on a "
+          f"2 x 2 mesh, card ranks (B6/B7) vs CPU ranks (plain): prefill "
+          f"logits of 4 x 96 max |err| "
+          + ", ".join(f"{a} {e:.3e}" for a, e in errs.items())
+          + f" (bar {LM_CPU_TOL}), 8 greedy tokens equal on every rank; a "
+          f"1 x 1 mesh bitwise the unsharded path in bf16 (prefill and 8 "
+          f"greedy tokens); {time.perf_counter() - t0:.1f} s")
+
+
 SERVE_PHASES = (2, 3, 4)  # the serving path's phases, runnable alone
 TRAIN_PHASES = (5, 6, 7, 8)  # the sparse training path's, runnable alone
 SCAN_PHASES = (17, 18, 19, 20)  # the SSM path's phases, runnable alone
@@ -4995,6 +5672,7 @@ STREAM_PHASES = (25, 26, 27)  # the streaming path's, likewise
 LM_TRAIN_PHASES = (28, 29)  # the LM training path's, likewise
 TUNE_PHASES = (30, 31)  # the autotune sweep and the tuning flags, likewise
 SHARD_PHASES = (32, 33)  # sharded training at paper width, the drivers
+SHARD_SERVE_PHASES = (34, 35)  # sharded LM serving, full width and reduced
 
 
 def _serving_model(torch, dev):
@@ -5028,7 +5706,8 @@ def _sparse_problem(torch, dev):
 def _run_only(torch, dev, only, t_start) -> int:
     """Phase 1 and the given serving (2-4), sparse training (5-8), SSM
     (17-20), hybrid or MoE (21-24), streaming (25-27), LM training
-    (28-29), autotuning (30-31) or sharded training (32-33) phases alone
+    (28-29), autotuning (30-31), sharded training (32-33) or sharded LM
+    serving (34-35) phases alone
     (``--only``): a partial run, so it prints no kernels line and no
     result line."""
     if only & {2, 4}:
@@ -5088,9 +5767,13 @@ def _run_only(torch, dev, only, t_start) -> int:
                 phase_tune_drivers(torch, dev, Path(tmp))
         elif phase == 32:
             phase_shard(torch, dev)
-        else:
+        elif phase == 33:
             with tempfile.TemporaryDirectory() as tmp:
                 phase_shard_drivers(torch, dev, Path(tmp))
+        elif phase == 34:
+            phase_serve_shard(torch, dev)
+        else:
+            phase_serve_shard_reduced(torch, dev)
     print(f"phases 1 and {sorted(only)} passed in "
           f"{time.perf_counter() - t_start:.1f} s (partial run: no result)")
     return 0
@@ -5099,16 +5782,18 @@ def _run_only(torch, dev, only, t_start) -> int:
 def main(argv: list[str]) -> int:
     """``chip_smoke.py`` runs every phase; ``chip_smoke.py --only 2,3,4``
     (or ``5,6,8``, or ``17,20``, or ``21,22,23,24``, or ``25,26,27``, or
-    ``28,29``, or ``30,31``, or ``32,33``) runs phase 1 and the named
-    phases of the serving path (2-4), the sparse training path (5-8), the
-    SSM path (17-20), the hybrid and MoE paths (21-24), the streaming path
-    (25-27), the LM training path (28-29), the autotuning path (30-31) or
-    the sharded training path (32-33) alone."""
+    ``28,29``, or ``30,31``, or ``32,33``, or ``34,35``) runs phase 1 and
+    the named phases of the serving path (2-4), the sparse training path
+    (5-8), the SSM path (17-20), the hybrid and MoE paths (21-24), the
+    streaming path (25-27), the LM training path (28-29), the autotuning
+    path (30-31), the sharded training path (32-33) or the sharded LM
+    serving path (34-35) alone."""
     import torch
 
     only = set()
     alone = (SERVE_PHASES + TRAIN_PHASES + SCAN_PHASES + FAMILY_PHASES
-             + STREAM_PHASES + LM_TRAIN_PHASES + TUNE_PHASES + SHARD_PHASES)
+             + STREAM_PHASES + LM_TRAIN_PHASES + TUNE_PHASES + SHARD_PHASES
+             + SHARD_SERVE_PHASES)
     if argv:
         if len(argv) != 2 or argv[0] != "--only":
             raise SmokeFailure(f"usage: chip_smoke.py [--only "
@@ -5222,6 +5907,10 @@ def main(argv: list[str]) -> int:
         err[name] = max(err[name], e)
     with tempfile.TemporaryDirectory() as tmp:
         phase_shard_drivers(torch, dev, Path(tmp))
+    serve_sharded, serve_sharded_err = phase_serve_shard(torch, dev)
+    for name, e in serve_sharded_err.items():
+        err[name] = max(err[name], e)
+    phase_serve_shard_reduced(torch, dev)
 
     kernels = []
     for name in ("lsplm_sparse_fused_forward",
@@ -5252,6 +5941,8 @@ def main(argv: list[str]) -> int:
             by_path.update({f"lm_train_reduced/{arch}": n["B6"]
                             for arch, n in train_cpu_launches.items()
                             if n["B6"]})
+            by_path["serve_sharded"] = sum(serve_sharded[name].values())
+            by_path.update(serve_sharded[name])
         if name == "mamba1_scan":
             by_path = {"lm_serve_ssm": ssm_total, **{
                 f"lm_serve_ssm/{step}": n
@@ -5259,6 +5950,8 @@ def main(argv: list[str]) -> int:
             by_path.update({f"lm_train_reduced/{arch}": n["B7"]
                             for arch, n in train_cpu_launches.items()
                             if n["B7"]})
+            by_path["serve_sharded"] = sum(serve_sharded[name].values())
+            by_path.update(serve_sharded[name])
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name],

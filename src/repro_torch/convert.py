@@ -21,6 +21,11 @@ Both packages keep the same flat-npz layout, so the crossing is arrays:
     (``trainable=True``) training;
   * :func:`params_to_reference` — the other way: a model's leaves as
     numpy arrays in the reference's layout.
+
+On a mesh (``mesh=``) the model holds this rank's block of each leaf,
+cut from the reference's full leaf by ``models.param_specs`` in the
+serving layout (``models/sharding.py``), and :func:`params_to_reference`
+gathers the blocks back exactly (a collective: every rank calls it).
 """
 from __future__ import annotations
 
@@ -31,6 +36,7 @@ from repro_torch.core.objective import CommonFeatureBatch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.data.sparse import SparseCTRBatch, build_batch_plans
 from repro_torch.device import resolve_device
+from repro_torch.models import sharding as SH
 from repro_torch.models.transformer import Transformer
 from repro_torch.serve.compress import (  # noqa: F401
     QuantizedArtifact,
@@ -115,7 +121,8 @@ def _top_level(model: Transformer) -> dict:
 
 @torch.no_grad()
 def model_from_reference(params: dict, cfg: ArchConfig,
-                         device=None, trainable: bool = False) -> Transformer:
+                         device=None, trainable: bool = False,
+                         mesh=None) -> Transformer:
     """The port's model on ``device`` (``cuda`` unless ``"cpu"``),
     trainable or not (``Transformer``), from the reference's parameters
     as numpy arrays: ``layers`` (each leaf stacked
@@ -132,9 +139,15 @@ def model_from_reference(params: dict, cfg: ArchConfig,
     the reference rounds them at every use; A_log, dt_bias, D, norm_scale
     and the norm scales stay in ``cfg.param_dtype``; a trainable model
     keeps every leaf in ``cfg.param_dtype``, fp32 leaves unrounded).
-    Raises ``ValueError`` on a missing, surplus or misshapen leaf."""
+    With a ``mesh`` each parameter is this rank's block of the leaf
+    (``Transformer.leaf_specs``). Raises ``ValueError`` on a missing,
+    surplus or misshapen leaf."""
     model = Transformer(cfg, device=resolve_device(device),
-                        trainable=trainable)
+                        trainable=trainable, mesh=mesh)
+    cuts = model.leaf_specs() if SH.is_sharded(mesh) else None
+    names = {id(p): name for name, p in model.named_parameters()}
+    full = {name: tuple(p.shape) for name, p in Transformer(
+        cfg, device="meta", trainable=trainable).named_parameters()}
     want = _top_level(model)
     got = {k for k in params if k != "layers"}
     if got != set(want) | ({"shared"} if model.shared is not None else set()):
@@ -152,11 +165,15 @@ def model_from_reference(params: dict, cfg: ArchConfig,
         return out
 
     def copy(param, array):
-        array = np.asarray(array)
-        if tuple(array.shape) != tuple(param.shape):
+        array, name = np.asarray(array), names[id(param)]
+        if tuple(array.shape) != full[name]:
             raise ValueError(f"shape {array.shape} for a parameter of "
-                             f"shape {tuple(param.shape)}")
-        param.copy_(torch.from_numpy(np.array(array, dtype=np.float32)))
+                             f"shape {full[name]}")
+        value = torch.from_numpy(np.array(array, dtype=np.float32))
+        if cuts is not None:
+            spec, parts = cuts[name]
+            value = SH.local_block(value, spec, mesh, parts, name)
+        param.copy_(value)
 
     def match(where, expected, arrays):
         if set(arrays) != set(expected):
@@ -192,8 +209,17 @@ def params_to_reference(model: Transformer) -> dict:
     leading L axis, ``shared`` (the hybrid) unstacked, the top-level
     leaves as they are. The inverse of :func:`model_from_reference`: a
     trainable model's fp32 leaves come back bit for bit (bf16 serving
-    weights come back widened to fp32, which is exact)."""
+    weights come back widened to fp32, which is exact). A model cut for a
+    mesh has its blocks gathered exactly over the model's own mesh on
+    every rank, so every rank of the mesh must call it."""
+    mesh = model.mesh
+    cuts = model.leaf_specs() if SH.is_sharded(mesh) else None
+    names = {id(p): name for name, p in model.named_parameters()}
+
     def array(p):
+        if cuts is not None:
+            spec, parts = cuts[names[id(p)]]
+            p = SH.gather_block(p.detach(), spec, mesh, parts)
         return p.detach().to("cpu", torch.float32).numpy()
 
     def nest(flat: dict) -> dict:

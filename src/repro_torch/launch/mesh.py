@@ -21,7 +21,10 @@ on the CPU, or several ranks sharing one card; gloo all-reduces CUDA
 tensors by staging them through the host). Tensors and kernels stay on
 each rank's device either way. The mesh counts what it issues: the number
 of all-reduces, their bytes and the host time spent in them, per group
-(:meth:`Mesh.collective_counts`).
+(:meth:`Mesh.collective_counts`). Besides the in-place sum, the LM's
+tensor and expert parallelism uses two built on it: :meth:`Mesh.sum_fp32`,
+a bf16 partial summed in fp32 and rounded once, and :meth:`Mesh.gather`,
+an exact all-gather of any dtype's bits along any dimension.
 
 Process start. :func:`run_ranks` starts ``data * model`` ranks with the
 *spawn* start method (a card forbids fork after CUDA is initialised) and a
@@ -124,22 +127,46 @@ class Mesh:
         sum (the optimizer's reductions)."""
         return self.sum(t, "model")
 
+    def sum_fp32(self, t: torch.Tensor, *axes: str) -> torch.Tensor:
+        """The row-parallel sum: the partial ``t`` widened to fp32, summed
+        over each of ``axes`` in turn and rounded back to ``t``'s dtype
+        once (a new tensor; ``t`` itself when every axis has extent 1)."""
+        axes = [a for a in axes if self.shape[a] > 1]
+        if not axes:
+            return t
+        acc = t.to(torch.float32)
+        if acc is t:
+            acc = acc.clone()
+        for axis in axes:
+            self.all_reduce_(acc, axis)
+        return acc.to(t.dtype)
+
+    def gather(self, block: torch.Tensor, axis: str,
+               dim: int = 0) -> torch.Tensor:
+        """Every ``axis`` rank's equal block, concatenated along ``dim`` in
+        rank order, with the blocks' exact bits, whatever their dtype.
+        Built as one all-reduce of the blocks' bit patterns, viewed as
+        int32 words (bf16 pairs, or a zero pad byte at the end), into a
+        zero buffer (gloo has no all-gather of CUDA tensors)."""
+        n = self.shape[axis]
+        if n == 1:
+            return block
+        block = block.contiguous()
+        raw = block.reshape(-1).view(torch.uint8)
+        words = -(-raw.numel() // 4)
+        full = torch.zeros((n, words), dtype=torch.int32, device=block.device)
+        mine = full[self.data_rank if axis == "data" else self.model_rank]
+        mine.view(torch.uint8)[:raw.numel()] = raw
+        self.all_reduce_(full, axis)
+        parts = full.view(torch.uint8)[:, :raw.numel()].contiguous().view(
+            block.dtype).reshape((n,) + tuple(block.shape))
+        return torch.cat(parts.unbind(0), dim=dim)
+
     def gather_rows(self, block: torch.Tensor) -> torch.Tensor:
         """Every model rank's equal row block, concatenated in rank order
-        (the padded layout). Built as one all-reduce of the blocks' bit
-        patterns into a zero buffer over ``model`` (gloo has no all-gather
-        of CUDA tensors), so the result is the blocks' exact bits."""
-        if self.model == 1:
-            return block
-        if block.element_size() != 4:
-            raise ValueError(f"gather_rows moves 4-byte elements, got "
-                             f"{block.dtype}")
-        n = block.shape[0]
-        full = torch.zeros((self.model * n,) + tuple(block.shape[1:]),
-                           dtype=torch.int32, device=block.device)
-        full[self.model_rank * n:(self.model_rank + 1) * n] = \
-            block.contiguous().view(torch.int32)
-        return self.all_reduce_(full, "model").view(block.dtype)
+        (the padded layout), with the blocks' exact bits
+        (:meth:`gather` over ``model`` on dim 0)."""
+        return self.gather(block, "model", 0)
 
     def collective_counts(self) -> dict[str, dict[str, float]]:
         """``{axis: {"all_reduce": n, "bytes": b, "seconds": s}}`` issued

@@ -1,11 +1,13 @@
 """The LM backbone of the port (the counterpart of ``repro.models``): every
 family of the zoo (dense, vlm, audio, MoE, the Mamba1 ssm family and the
-Mamba2 + shared-attention hybrid), for serving and training. The
-reference's ``param_specs`` waits for sharding."""
+Mamba2 + shared-attention hybrid), for serving and training, and
+sharded serving over a (data, model) mesh with ``param_specs`` /
+``cache_specs`` (``models/sharding.py``)."""
 from repro_torch.models.transformer import (  # noqa: F401
     Block,
     MambaBlock,
     Transformer,
+    cache_specs,
     chunked_cross_entropy,
     cross_entropy,
     decode_step,
@@ -15,5 +17,6 @@ from repro_torch.models.transformer import (  # noqa: F401
     loss_fn,
     make_serve_step,
     make_train_step,
+    param_specs,
     prefill,
 )

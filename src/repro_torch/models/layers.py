@@ -22,6 +22,14 @@ use either way (``.to(x.dtype)`` is free on a weight already there).
 Full-sequence attention runs on ``kernels/flash_attention/ops`` (B6 on
 the card); :func:`chunked_causal_attention` here is its plain causal
 version. Decode attention is plain PyTorch, as in the reference.
+
+On a mesh (``models/sharding.py``) a rank's :class:`Attention` holds q
+heads [r H/m, (r+1) H/m) and KV heads [r KVH/m, (r+1) KVH/m) of model
+rank r (wq/wk/wv cut by columns, wo by rows), so GQA's head h -> KV head
+h // rep stays on the rank; an :class:`MLP` holds d_ff / m of w1/w3's
+columns and w2's rows. The head counts are read off the weights. wo's
+and w2's products are partial sums, added over ``model`` in fp32
+(:func:`row_parallel`).
 """
 from __future__ import annotations
 
@@ -153,16 +161,27 @@ def decode_attention(
     return o.reshape(B, 1, H, hd).to(q.dtype)
 
 
+def row_parallel(x: torch.Tensor, w: torch.Tensor, mesh=None) -> torch.Tensor:
+    """x @ w in x's dtype. On a mesh, x's last axis and w's rows are a
+    rank's slice of the contracted axis, and the partial product is
+    summed over ``model`` in fp32 and rounded once (the product itself
+    without a mesh or with model = 1)."""
+    y = x @ w.to(x.dtype)
+    return y if mesh is None else mesh.sum_fp32(y, "model")
+
+
 # --------------------------------------------------------------------- mlps
 def swiglu(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
-           w2: torch.Tensor) -> torch.Tensor:
+           w2: torch.Tensor, mesh=None) -> torch.Tensor:
     h = F.silu(x @ w1.to(x.dtype)) * (x @ w3.to(x.dtype))
-    return h @ w2.to(x.dtype)
+    return row_parallel(h, w2, mesh)
 
 
-def gelu_mlp(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
+def gelu_mlp(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
+             mesh=None) -> torch.Tensor:
     # jax.nn.gelu defaults to the tanh approximation
-    return F.gelu(x @ w1.to(x.dtype), approximate="tanh") @ w2.to(x.dtype)
+    return row_parallel(F.gelu(x @ w1.to(x.dtype), approximate="tanh"), w2,
+                        mesh)
 
 
 # ------------------------------------------------------------------ modules
@@ -217,7 +236,8 @@ class Attention(nn.Module):
             self.bq = self.bk = self.bv = None
 
     def qkv(self, x: torch.Tensor):
-        """x (B,S,d) -> q (B,S,H,hd), k/v (B,S,KVH,hd)."""
+        """x (B,S,d) -> q (B,S,H,hd), k/v (B,S,KVH,hd), H and KVH this
+        module's (a rank's share on a mesh)."""
         cfg = self.cfg
         B, S, _ = x.shape
         hd = cfg.resolved_head_dim
@@ -228,14 +248,13 @@ class Attention(nn.Module):
             q = q + self.bq.to(x.dtype)
             k = k + self.bk.to(x.dtype)
             v = v + self.bv.to(x.dtype)
-        return (q.reshape(B, S, cfg.num_heads, hd),
-                k.reshape(B, S, cfg.num_kv_heads, hd),
-                v.reshape(B, S, cfg.num_kv_heads, hd))
+        return (q.reshape(B, S, -1, hd), k.reshape(B, S, -1, hd),
+                v.reshape(B, S, -1, hd))
 
-    def out(self, o: torch.Tensor) -> torch.Tensor:
-        """o (B,S,H,hd) -> (B,S,d)."""
+    def out(self, o: torch.Tensor, mesh=None) -> torch.Tensor:
+        """o (B,S,H,hd) -> (B,S,d), summed over ``mesh``'s model axis."""
         B, S = o.shape[:2]
-        return o.reshape(B, S, -1) @ self.wo.to(o.dtype)
+        return row_parallel(o.reshape(B, S, -1), self.wo, mesh)
 
 
 class MLP(nn.Module):
@@ -254,7 +273,8 @@ class MLP(nn.Module):
                    if self.swiglu else None)
         self.w2 = new_weight((f, d), dtype, device, trainable)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mesh=None) -> torch.Tensor:
+        """x (..., d) -> (..., d), summed over ``mesh``'s model axis."""
         if self.swiglu:
-            return swiglu(x, self.w1, self.w3, self.w2)
-        return gelu_mlp(x, self.w1, self.w2)
+            return swiglu(x, self.w1, self.w3, self.w2, mesh)
+        return gelu_mlp(x, self.w1, self.w2, mesh)

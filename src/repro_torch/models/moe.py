@@ -1,9 +1,7 @@
 """Mixture-of-Experts FFN: the router, sort-based dispatch with capacity
 truncation, and the experts' SwiGLU.
 
-The port's counterpart of ``repro/models/moe.py`` without its mesh (the
-reference's ``mesh=None`` path, which it runs whatever ``serving_mode``
-is; the expert-parallel plans wait for sharding, ``ROADMAP.md`` A12):
+The port's counterpart of ``repro/models/moe.py``:
 
   * :func:`route`: softmax of the router logits in fp32, the top k, the
     gates renormalised to sum to 1;
@@ -25,6 +23,28 @@ repeatable on the card.
 
 The load-balance loss is Switch Transformer's,
 aux = E * sum_e(frac_tokens_e * mean_prob_e), over the top-1 choices.
+
+Expert parallelism (:func:`moe_ffn` with a mesh; ``models/sharding.py``
+holds the layout): model rank r holds experts [r E/m, (r+1) E/m), each
+with d_ff / data of its columns, and routes the tokens it sees to its own
+experts only (``expert_lo = r E/m``; the others' assignments are not
+kept here); the partial outputs are summed over ``model`` in fp32. The
+reference's two plans:
+
+  * ``weight_gather`` (the default): a rank routes its own rows, at the
+    capacity of its B_loc * S tokens, so with drops a sharded call is a
+    different function from the unsharded one (the reference's own
+    semantics); the d_ff slices are all-gathered over ``data`` at each
+    call; the aux loss is the shard's (the model takes the mean over
+    ``data``, the reference's pmean, of the layers' sum);
+  * ``token_gather``: the tokens are all-gathered over ``data`` and
+    routed at the capacity of the global B * S, each rank computes its
+    own d_ff slice of its experts, the partials are summed over ``model``
+    and ``data``, and a rank keeps its rows: the unsharded function.
+
+With ``batch_sharded=False`` every rank holds the whole batch, so both
+plans route it at the global capacity (what the reference's
+``moe_mesh=None`` computes there), ``token_gather`` without gathering.
 """
 from __future__ import annotations
 
@@ -102,29 +122,37 @@ class DispatchPlan(NamedTuple):
     assignment (token * k + choice) in each expert slot, 0 in an empty
     one; ``filled`` (E, capacity) bool; ``slot`` (T, k): each
     assignment's row of the (E * capacity + 1)-row expert output, the
-    last row (zeros) for a dropped one; ``keep`` (T, k) bool."""
+    last row (zeros) for one not kept; ``keep`` (T, k) bool; ``mine``
+    (T, k) bool: the assignments to these E experts (all of them
+    unsharded), so ``mine & ~keep`` are the dropped ones."""
     source: torch.Tensor
     filled: torch.Tensor
     slot: torch.Tensor
     keep: torch.Tensor
+    mine: torch.Tensor
 
 
-def dispatch_plan(idx: torch.Tensor, num_experts: int,
-                  capacity: int) -> DispatchPlan:
-    """The reference's dispatch for idx (T, k): the assignments sorted by
-    expert, stably (token order within an expert), each expert keeping
-    its first ``capacity``. Each expert's first rank and count come from
-    a search of the sorted ids (``bincount`` would read the ids' range
-    back to the host, a sync per layer on the card)."""
+def dispatch_plan(idx: torch.Tensor, num_experts: int, capacity: int,
+                  expert_lo: int = 0) -> DispatchPlan:
+    """The reference's dispatch for idx (T, k) to the ``num_experts``
+    experts from ``expert_lo`` on: the assignments sorted by expert,
+    stably (token order within an expert; another rank's assignments
+    sort last and are not kept), each expert keeping its first
+    ``capacity``. Each expert's first rank and count come from a search
+    of the sorted ids (``bincount`` would read the ids' range back to the
+    host, a sync per layer on the card)."""
     T, k = idx.shape
-    flat_e = idx.reshape(-1)
+    local = idx.reshape(-1) - expert_lo
+    mine = (local >= 0) & (local < num_experts)
+    flat_e = torch.where(mine, local, num_experts)
     sorted_e, order = torch.sort(flat_e, stable=True)
     experts = torch.arange(num_experts, device=idx.device,
                            dtype=sorted_e.dtype)
     starts = torch.searchsorted(sorted_e, experts)
     counts = torch.searchsorted(sorted_e, experts, right=True) - starts
-    pos = torch.arange(T * k, device=idx.device) - starts[sorted_e]
-    keep_sorted = pos < capacity
+    pos = (torch.arange(T * k, device=idx.device)
+           - starts[sorted_e.clamp(max=num_experts - 1)])
+    keep_sorted = (sorted_e < num_experts) & (pos < capacity)
     slot_sorted = torch.where(keep_sorted, sorted_e * capacity + pos,
                               num_experts * capacity)
     slot = torch.empty_like(slot_sorted)
@@ -136,21 +164,23 @@ def dispatch_plan(idx: torch.Tensor, num_experts: int,
     rank = torch.where(filled, starts[:, None] + p[None, :], 0)
     source = order[rank.clamp(max=T * k - 1)]
     return DispatchPlan(source, filled, slot.reshape(T, k),
-                        keep.reshape(T, k))
+                        keep.reshape(T, k), mine.reshape(T, k))
 
 
 def dispatch_compute(x_flat: torch.Tensor, gate: torch.Tensor,
                      idx: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
-                     w2: torch.Tensor, capacity: int) -> torch.Tensor:
+                     w2: torch.Tensor, capacity: int,
+                     expert_lo: int = 0) -> torch.Tensor:
     """Sort-based dispatch of x (T, d) to the E experts of w1/w3 (E, d, f)
-    and w2 (E, f, d) at ``capacity`` slots each; gate, idx (T, k) from
+    and w2 (E, f, d), experts ``expert_lo`` .. ``expert_lo + E - 1`` of
+    the router's, at ``capacity`` slots each; gate, idx (T, k) from
     :func:`route`. Returns (T, d) in x's dtype: each token's kept
     contributions eo * gate (gate rounded to x's dtype, as the
-    reference's), added in ascending expert id; a dropped assignment adds
-    zero."""
+    reference's), added in ascending expert id; a dropped assignment, or
+    one to another rank's expert, adds zero."""
     T, d = x_flat.shape
     E, k = w1.shape[0], idx.shape[1]
-    plan = dispatch_plan(idx, E, capacity)
+    plan = dispatch_plan(idx, E, capacity, expert_lo)
     dt = x_flat.dtype
     eb = x_flat[plan.source.reshape(-1) // k].reshape(E, capacity, d)
     eb = torch.where(plan.filled[..., None], eb, 0)
@@ -169,19 +199,39 @@ def dispatch_compute(x_flat: torch.Tensor, gate: torch.Tensor,
 
 def moe_ffn(x: torch.Tensor, mod: MoE, cfg: ArchConfig,
             capacity_factor: float = 1.25,
-            serving_mode: str = "weight_gather"):
-    """x (B, S, d) -> (out (B, S, d), aux loss fp32 scalar), the capacity
-    from the B * S tokens of this call. Without a mesh both serving modes
-    run the same local path, as the reference's does."""
+            serving_mode: str = "weight_gather", mesh=None,
+            batch_sharded: bool = True):
+    """x (B, S, d) -> (out (B, S, d), aux loss fp32 scalar). Without a
+    mesh (or on a 1 x 1 one) the capacity comes from the B * S tokens of
+    this call and both serving modes run the same local path, as the
+    reference's does. On a mesh, x is this rank's rows (its data shard's
+    when ``batch_sharded``) and ``mod`` holds its experts' blocks; the
+    plans are the module docstring's; ``weight_gather``'s aux is this
+    data shard's (``transformer.forward`` takes the reference's pmean
+    over ``data`` once, of the layers' sum)."""
     if serving_mode not in SERVING_MODES:
         raise ValueError(f"serving_mode must be one of {SERVING_MODES}, "
                          f"got {serving_mode!r}")
     B, S, d = x.shape
     E, k = cfg.num_experts, cfg.top_k
     x_flat = x.reshape(-1, d)
+    w1, w3, w2, lo = mod.w1, mod.w3, mod.w2, 0
+    sharded = mesh is not None and mesh.size > 1
+    tokens = sharded and serving_mode == "token_gather"
+    if sharded:
+        lo = mesh.model_rank * w1.shape[0]
+        if tokens and batch_sharded:  # the whole batch, its d_ff slice
+            x_flat = mesh.gather(x_flat, "data", 0)
+        elif not tokens:  # its own tokens, its experts' whole d_ff
+            w1, w3 = (mesh.gather(w, "data", 2) for w in (w1, w3))
+            w2 = mesh.gather(w2, "data", 1)
     gate, idx, probs = route(x_flat, mod.router, k)
     cap = capacity_for(x_flat.shape[0], E, k, capacity_factor)
-    out = dispatch_compute(x_flat, gate, idx, mod.w1, mod.w3, mod.w2, cap)
+    out = dispatch_compute(x_flat, gate, idx, w1, w3, w2, cap, expert_lo=lo)
+    if sharded:
+        out = mesh.sum_fp32(out, "model", *(("data",) if tokens else ()))
+    if tokens and batch_sharded:
+        out = out.reshape(mesh.data, B * S, d)[mesh.data_rank]
     return out.reshape(B, S, d), aux_loss(probs, idx, E)
 
 

@@ -34,6 +34,15 @@ it stays within the layer's 3e-5 bar of the reference's decode
 is below exp(-20) = 2.1e-9, under half an ulp of x there, so the fp32
 results agree; below 20 both are log1p(exp(x)) up to rounding.
 
+On a mesh (``models/sharding.py``) a rank's :class:`Mamba1` holds
+d_inner / m channels of model rank r: in_proj's x half and z half each
+cut by columns (the rank holds [x_r | z_r]), conv_w/conv_b/dt_proj/
+dt_bias/A_log/D by channel, x_proj and out_proj by rows. The scan (B7)
+runs on the rank's channels; x_proj's (B, S, R + 2N) and out_proj's
+(B, S, d) products are partial sums, added over ``model`` in fp32 before
+dt, B and C are read and before the residual. Mamba2 is not split over
+``model`` (``ROADMAP.md`` A12c).
+
 Mamba2's chunked SSD is jnp in the reference (no Pallas kernel), so
 :func:`ssd_chunked` is plain PyTorch on every device, all in fp32. The
 reference writes three of its contractions as three-operand einsums; here
@@ -53,7 +62,12 @@ from torch import nn
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.mamba_scan import ops
-from repro_torch.models.layers import module_device, new_weight, weight_dtype
+from repro_torch.models.layers import (
+    module_device,
+    new_weight,
+    row_parallel,
+    weight_dtype,
+)
 
 
 # ------------------------------------------------------------------ helpers
@@ -154,18 +168,22 @@ def init_mamba1(mod: Mamba1, cfg: ArchConfig,
 
 
 def _split_xz(x: torch.Tensor, mod: Mamba1, cfg: ArchConfig):
+    """x (..., d) -> the x and z halves (..., di) of this module's (a
+    rank's share of) channels."""
     xz = x @ mod.in_proj.to(x.dtype)
-    return xz[..., :cfg.d_inner], xz[..., cfg.d_inner:]
+    di = mod.in_proj.shape[1] // 2
+    return xz[..., :di], xz[..., di:]
 
 
 def _mamba1_inner(mod: Mamba1, cfg: ArchConfig, x_conv: torch.Tensor,
-                  z: torch.Tensor, h0: torch.Tensor | None = None):
+                  z: torch.Tensor, h0: torch.Tensor | None = None,
+                  mesh=None):
     """The SSM math after the conv. x_conv, z (B, S, di) -> (y (B, S, di)
     in x_conv's dtype, the final state (B, di, N) fp32), from h0 (zeros
     when None)."""
     N, R = cfg.ssm_state, cfg.resolved_dt_rank
     f32 = torch.float32
-    xdb = x_conv @ mod.x_proj.to(x_conv.dtype)  # (B, S, R + 2N)
+    xdb = row_parallel(x_conv, mod.x_proj, mesh)  # (B, S, R+2N)
     dt_in, B_ssm, C_ssm = xdb[..., :R], xdb[..., R:R + N], xdb[..., R + N:]
     dt_raw = dt_in @ mod.dt_proj.to(dt_in.dtype)  # (B, S, di)
     return ops.gated_selective_scan(
@@ -174,15 +192,16 @@ def _mamba1_inner(mod: Mamba1, cfg: ArchConfig, x_conv: torch.Tensor,
 
 
 def mamba1_forward(x: torch.Tensor, mod: Mamba1, cfg: ArchConfig,
-                   return_state: bool = False):
+                   return_state: bool = False, mesh=None):
     """Full-sequence selective scan. x (B, S, d) -> (B, S, d) [+ the
     decode state {"conv": (B, K-1, di) in x's dtype, zero-padded in front
-    when S < K-1, "ssm": (B, di, N) fp32}]."""
+    when S < K-1, "ssm": (B, di, N) fp32}], di the rank's channels on a
+    ``mesh``."""
     K = cfg.ssm_conv
     x_in, z = _split_xz(x, mod, cfg)
     x_conv = F.silu(causal_conv1d(x_in, mod.conv_w, mod.conv_b))
-    y, h = _mamba1_inner(mod, cfg, x_conv, z)
-    out = y @ mod.out_proj.to(y.dtype)
+    y, h = _mamba1_inner(mod, cfg, x_conv, z, mesh=mesh)
+    out = row_parallel(y, mod.out_proj, mesh)
     if not return_state:
         return out
     B, S, di = x_in.shape
@@ -192,17 +211,18 @@ def mamba1_forward(x: torch.Tensor, mod: Mamba1, cfg: ArchConfig,
 
 
 def mamba1_decode(x_t: torch.Tensor, state: dict, mod: Mamba1,
-                  cfg: ArchConfig):
+                  cfg: ArchConfig, mesh=None):
     """One token. x_t (B, d); state {"conv" (B, K-1, di), "ssm" (B, di,
     N)} -> (B, d), the new state (new tensors: the conv state in x_t's
-    dtype, the ssm state fp32)."""
+    dtype, the ssm state fp32); di the rank's channels on a ``mesh``."""
     x_in, z = _split_xz(x_t, mod, cfg)
     conv_state, x_c = conv_step(state["conv"], x_in, mod.conv_w, mod.conv_b)
     x_c = F.silu(x_c)
     y, h = _mamba1_inner(mod, cfg, x_c[:, None], z[:, None],
-                         h0=state["ssm"])
+                         h0=state["ssm"], mesh=mesh)
     y = y[:, 0]
-    return y @ mod.out_proj.to(y.dtype), {"conv": conv_state, "ssm": h}
+    return (row_parallel(y, mod.out_proj, mesh),
+            {"conv": conv_state, "ssm": h})
 
 
 # =============================================================== Mamba 2 ====

@@ -31,9 +31,7 @@ Entry points:
 
 The model is a :class:`Transformer` module that carries its config, so
 the functions take it in place of the reference's ``(params, cfg)``
-pair. There is no mesh: sharding is ``ROADMAP.md`` A12, and the MoE
-layers run the reference's unsharded path in both serving modes. The
-full-sequence attention goes through ``kernels/flash_attention/ops``
+pair. The full-sequence attention goes through ``kernels/flash_attention/ops``
 (B6 on the card, its plain version on the CPU), the Mamba1 selective
 scan of prefill and of every decode step through
 ``kernels/mamba_scan/ops`` (B7, likewise); Mamba2's SSD and the experts
@@ -45,10 +43,33 @@ Training differentiates through B6 and B7: their ``ops`` entries are
 ``torch.autograd.Function`` s on the card whose backward is the plain
 version's gradient, recomputed (the reference has no backward kernel).
 With remat, each B6 forward runs twice a step: once in the forward and
-once in its block's recompute. ``param_specs`` waits for sharding
-(A12).
+once in its block's recompute.
+
+Sharded serving (tensor and expert parallelism over a
+:class:`~repro_torch.launch.mesh.Mesh`, ``ROADMAP.md`` A12b). A model
+built with ``mesh=`` (``init_model``, ``convert.model_from_reference``)
+holds on each rank its block of every leaf, cut by :func:`param_specs`
+in the serving layout of ``models/sharding.py``; :func:`cache_specs`
+places the caches. ``prefill`` / ``decode_step`` / ``make_serve_step``
+/ ``forward`` take ``mesh=`` (the model's by default), ``batch_sharded=``
+and ``moe_serving_mode=`` with the reference's defaults, and run on this
+rank's rows: its data shard's B / data rows when ``batch_sharded``, the
+whole batch otherwise (``sharding.batch_rows`` cuts them from a global
+batch); ``init_caches`` takes the global B and returns the rank's
+caches. Attention runs B6 on the rank's q and KV heads, Mamba1 runs B7
+on its d_inner channels, the experts on its experts; the row-parallel
+products (wo, w2, x_proj, out_proj, the experts' outputs) are summed
+over ``model`` in fp32. The embedding and the head split the vocab over
+``model`` when it divides (a vocab-parallel lookup, then a sum; the
+logits gathered exactly over ``model`` before anything reads them, so
+every rank of a data shard sees the same bits). Everything else is
+computed alike on every rank of a data shard. The hybrid runs on
+data-only meshes; sharded training is A12c.
 """
 from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple
 
 import torch
 from torch import nn
@@ -59,6 +80,7 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels.flash_attention import ops as attention_ops
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
+from repro_torch.models import sharding as SH
 from repro_torch.models import ssm as SS
 from repro_torch.optim.adamw import AdamW
 
@@ -132,40 +154,154 @@ class Transformer(nn.Module):
     ``requires_grad`` (the forward rounds each weight to the activation
     dtype at each use, as the reference does). The parameters are left
     unset, on ``device`` (``cuda`` unless ``"cpu"`` is asked for;
-    ``"meta"`` allocates nothing)."""
+    ``"meta"`` allocates nothing). With a ``mesh`` of more than one rank
+    each leaf is this rank's block (:meth:`leaf_specs`); the mesh is
+    checked first (``sharding.check_mesh``)."""
 
-    def __init__(self, cfg: ArchConfig, device=None, trainable: bool = False):
+    def __init__(self, cfg: ArchConfig, device=None, trainable: bool = False,
+                 mesh=None):
         super().__init__()
         device = L.module_device(device)
-        self.cfg = cfg
+        self.cfg, self.mesh = cfg, mesh
+        sharded = SH.is_sharded(mesh)
+        if sharded:
+            SH.check_mesh(cfg, mesh.data, mesh.model)
         dt = L.weight_dtype(cfg, trainable)
+        build = torch.device("meta") if sharded else device
 
         def weight(dtype, *shape):
-            return L.new_weight(shape, dtype, device, trainable)
+            return L.new_weight(shape, dtype, build, trainable)
 
         block = MambaBlock if cfg.family in ("ssm", "hybrid") else Block
         self.embed = weight(dt, cfg.vocab_size, cfg.d_model)
-        self.layers = nn.ModuleList(block(cfg, device, trainable)
+        self.layers = nn.ModuleList(block(cfg, build, trainable)
                                     for _ in range(cfg.num_layers))
         if cfg.family == "hybrid":
             num_groups(cfg)
-            self.shared = Block(cfg, device, trainable)
+            self.shared = Block(cfg, build, trainable)
         else:
             self.shared = None
         self.final_norm = (weight(_pdt(cfg), cfg.d_model)
                            if cfg.norm_type == "rmsnorm" else None)
         self.lm_head = (None if cfg.tie_embeddings else
                         weight(dt, cfg.d_model, cfg.vocab_size))
+        if sharded:  # the full leaves were shapes only: allocate the blocks
+            for name, (spec, parts) in self.leaf_specs().items():
+                owner, _, leaf = name.rpartition(".")
+                p = self.get_parameter(name)
+                shape = SH.local_shape(p.shape, spec, mesh.shape, parts, name)
+                setattr(self.get_submodule(owner), leaf,
+                        L.new_weight(shape, p.dtype, device, trainable))
 
     @property
     def device(self) -> torch.device:
         return self.embed.device
 
+    def leaf_specs(self) -> dict:
+        """{parameter name: (spec, parts)} of every leaf in the serving
+        layout of this model's mesh (``sharding.serving_spec``)."""
+        specs = param_specs(self.cfg, self.mesh.model if self.mesh else 1)
+        return {name: SH.serving_spec(specs, name, self.cfg)
+                for name, _ in self.named_parameters()}
+
+
+# ============================================================ param specs
+def _block_specs(cfg: ArchConfig, stacked: bool) -> dict:
+    """The reference's ``_block_specs``: one tuple of axis names per leaf
+    of a layer (a leading None for the stacked L axis)."""
+    pre = (None,) if stacked else ()
+
+    def s(*axes):
+        return pre + axes
+
+    if cfg.family in ("ssm", "hybrid"):
+        if cfg.ssm_version == 1 or cfg.family == "ssm":
+            mamba = {"in_proj": s("data", "model"), "conv_w": s(None, "model"),
+                     "conv_b": s("model"), "x_proj": s("model", None),
+                     "dt_proj": s(None, "model"), "dt_bias": s("model"),
+                     "A_log": s("model", None), "D": s("model"),
+                     "out_proj": s("model", "data")}
+        else:
+            mamba = {"in_proj": s("data", "model"), "conv_w": s(None, "model"),
+                     "conv_b": s("model"), "dt_bias": s(None),
+                     "A_log": s(None), "D": s(None),
+                     "norm_scale": s("model"), "out_proj": s("model", "data")}
+        p = {"mamba": mamba}
+        if cfg.norm_type == "rmsnorm":
+            p["norm"] = s(None)
+        return p
+    attn = {"wq": s("data", "model"), "wk": s("data", "model"),
+            "wv": s("data", "model"), "wo": s("model", "data")}
+    if cfg.qkv_bias:
+        attn.update({"bq": s("model"), "bk": s("model"), "bv": s("model")})
+    p = {"attn": attn}
+    if cfg.num_experts:
+        p["ffn"] = {"router": s(None, None), "w1": s("model", None, "data"),
+                    "w3": s("model", None, "data"),
+                    "w2": s("model", "data", None)}
+    elif cfg.mlp_type == "swiglu":
+        p["ffn"] = {"w1": s("data", "model"), "w3": s("data", "model"),
+                    "w2": s("model", "data")}
+    else:
+        p["ffn"] = {"w1": s("data", "model"), "w2": s("model", "data")}
+    if cfg.norm_type == "rmsnorm":
+        p["norm1"] = s(None)
+        p["norm2"] = s(None)
+    return p
+
+
+def param_specs(cfg: ArchConfig, model_size: int = 16) -> dict:
+    """The reference's production layout of every leaf, as tuples of axis
+    names (``None``, ``"data"``, ``"model"``) in the reference's tree:
+    ``layers`` (stacked), ``embed``, ``final_norm``, ``lm_head`` and the
+    hybrid's ``shared`` (a transformer block, unstacked). A vocab that
+    does not divide by ``model_size`` (granite's 49,155) stays unsplit.
+    ``models/sharding.py`` reads it for serving, with its departures."""
+    specs: dict = {"layers": _block_specs(cfg, stacked=True)}
+    vocab_ok = cfg.vocab_size % model_size == 0
+    specs["embed"] = ("model", "data") if vocab_ok else (None, "data")
+    if cfg.norm_type == "rmsnorm":
+        specs["final_norm"] = (None,)
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = ("data", "model") if vocab_ok else ("data", None)
+    if cfg.shared_attn_every:
+        shared = _block_specs(dataclasses.replace(cfg, family="dense",
+                                                  num_experts=0),
+                              stacked=False)
+        specs["shared"] = shared
+    return specs
+
+
+def cache_specs(cfg: ArchConfig, batch_sharded: bool = True,
+                model_size: int = 16) -> dict:
+    """The reference's cache layout, as tuples of axis names: the batch
+    over ``data`` when ``batch_sharded``; KV heads over ``model`` when
+    they divide by ``model_size``, else head_dim (which the port refuses
+    on a mesh, ``sharding.check_mesh``); the ssm states' d_inner over
+    ``model``."""
+    b = "data" if batch_sharded else None
+    if cfg.family == "ssm":
+        return {"conv": (None, b, None, "model"),
+                "ssm": (None, b, "model", None)}
+    if cfg.num_kv_heads and cfg.num_kv_heads % model_size == 0:
+        kv = (None, b, None, "model", None)
+    else:
+        kv = (None, b, None, None, "model")
+    if cfg.family == "hybrid":
+        return {"conv": (None, b, None, "model"),
+                "ssm": (None, b, None, None, None), "k": kv, "v": kv}
+    if cfg.kv_cache_dtype == "int8":
+        # scales have a singleton last dim -> never shard it
+        sc = kv[:-1] + (None,) if kv[-1] == "model" else kv
+        return {"k": kv, "v": kv, "k_scale": sc, "v_scale": sc}
+    return {"k": kv, "v": kv}
+
 
 # ==================================================================== init
 @torch.no_grad()
 def init_model(cfg: ArchConfig, generator: torch.Generator,
-               device=None, trainable: bool = False) -> Transformer:
+               device=None, trainable: bool = False,
+               mesh=None) -> Transformer:
     """A model on ``device`` (``cuda`` unless ``"cpu"`` is asked for),
     trainable or not (:class:`Transformer`), with the reference's
     initialisation: N(0, 1) weights scaled by
@@ -179,17 +315,43 @@ def init_model(cfg: ArchConfig, generator: torch.Generator,
     :func:`~repro_torch.models.ssm.init_mamba2`'s order, with their
     distributions), then lm_head, then the hybrid's shared block, and
     rounded to the weights' dtype. The reference draws from
-    ``jax.random``: the numbers differ, the distribution is the same."""
+    ``jax.random``: the numbers differ, the distribution is the same.
+
+    With a ``mesh`` of more than one rank, every leaf is still drawn in
+    full, in the same order from the same generator, one top-level leaf
+    or one layer at a time (so a rank never holds the whole model), and
+    the rank keeps its block: the blocks are bitwise the unsharded
+    model's slices."""
     dev = resolve_device(device)
     if generator.device.type != dev.type:
         raise ValueError(f"the generator lives on {generator.device}, the "
                          f"model on {dev}")
-    model = Transformer(cfg, device=dev, trainable=trainable)
+    model = Transformer(cfg, device=dev, trainable=trainable, mesh=mesh)
+    cuts = model.leaf_specs() if SH.is_sharded(mesh) else None
 
-    def fill(param, fan_in):
-        param.copy_(fan_in ** -0.5 * torch.randn(
-            param.shape, generator=generator, device=dev,
-            dtype=torch.float32))
+    def keep(name, value):
+        spec, parts = cuts[name]
+        model.get_parameter(name).copy_(
+            SH.local_block(value, spec, mesh, parts, name))
+
+    def fill(param, fan_in, name=None, shape=None):
+        value = fan_in ** -0.5 * torch.randn(
+            param.shape if shape is None else shape, generator=generator,
+            device=dev, dtype=torch.float32)
+        if cuts is None or name is None:
+            param.copy_(value)
+        else:  # a top-level leaf of a sharded model: keep the block
+            keep(name, value)
+
+    def drawn(prefix, blk, init):
+        """``init`` on ``blk``, or on a full-size copy whose blocks
+        ``blk`` keeps."""
+        if cuts is None:
+            return init(blk)
+        whole = type(blk)(cfg, dev, trainable)
+        init(whole)
+        for name, p in whole.named_parameters():
+            keep(f"{prefix}.{name}", p)
 
     def init_block(blk: Block):
         a, f = blk.attn, blk.ffn
@@ -210,23 +372,26 @@ def init_model(cfg: ArchConfig, generator: torch.Generator,
             if n is not None:
                 n.fill_(1.0)
 
-    fill(model.embed, cfg.d_model)
-    for blk in model.layers:
-        if isinstance(blk, MambaBlock):
-            if isinstance(blk.mamba, SS.Mamba1):
-                SS.init_mamba1(blk.mamba, cfg, generator)
-            else:
-                SS.init_mamba2(blk.mamba, cfg, generator)
-            if blk.norm is not None:
-                blk.norm.fill_(1.0)
+    def init_layer(blk):
+        if not isinstance(blk, MambaBlock):
+            return init_block(blk)
+        if isinstance(blk.mamba, SS.Mamba1):
+            SS.init_mamba1(blk.mamba, cfg, generator)
         else:
-            init_block(blk)
+            SS.init_mamba2(blk.mamba, cfg, generator)
+        if blk.norm is not None:
+            blk.norm.fill_(1.0)
+
+    V, d = cfg.vocab_size, cfg.d_model
+    fill(model.embed, d, "embed", (V, d))
+    for i, blk in enumerate(model.layers):
+        drawn(f"layers.{i}", blk, init_layer)
     if model.final_norm is not None:
         model.final_norm.fill_(1.0)
     if model.lm_head is not None:
-        fill(model.lm_head, cfg.d_model)
+        fill(model.lm_head, d, "lm_head", (d, V))
     if model.shared is not None:
-        init_block(model.shared)
+        drawn("shared", model.shared, init_block)
     return model
 
 
@@ -237,87 +402,137 @@ def _rope(positions: torch.Tensor, cfg: ArchConfig):
     return cos[None, :, None, :], sin[None, :, None, :]
 
 
-def _attn_full(h, blk: Block, cfg: ArchConfig, rope):
+class Placement(NamedTuple):
+    """Where a serving call runs: on ``mesh`` (None: one process), with
+    the rows sharded over ``data`` or not, and the MoE's plan."""
+    mesh: object = None
+    batch_sharded: bool = True
+    moe_serving_mode: str = "weight_gather"
+
+
+LOCAL = Placement()
+
+
+def placement(model: Transformer, mesh, batch_sharded: bool = True,
+               moe_serving_mode: str = "weight_gather") -> Placement:
+    """The call's :class:`Placement`, on the model's own mesh. The
+    entry points' ``mesh=`` is the reference's argument: it may only
+    restate the model's mesh, since a model holds the blocks of the one
+    mesh it was cut for (a model without a mesh: the 1 x 1 mesh's), and
+    a mesh of another shape raises."""
+    held = (model.mesh.data, model.mesh.model) if model.mesh else (1, 1)
+    if mesh is None:
+        mesh = model.mesh
+    elif (mesh.data, mesh.model) != held:
+        raise ValueError(
+            f"a call on a ({mesh.data}, {mesh.model}) mesh needs a model "
+            f"cut for it (init_model or convert.model_from_reference with "
+            f"mesh=); this one holds the blocks of a {held} mesh")
+    return Placement(mesh, batch_sharded, moe_serving_mode)
+
+
+def _attn_full(h, blk: Block, cfg: ArchConfig, rope, mesh=None):
     """Full-sequence causal attention sub-block (pre-norm, residual).
-    Returns the new h and this layer's (k, v) after rope."""
+    Returns the new h and this layer's (k, v) after rope (the rank's
+    heads on a mesh)."""
     x = L.apply_norm(h, blk.norm1, cfg)
     q, k, v = blk.attn.qkv(x)
     q = L.apply_rope(q, *rope)
     k = L.apply_rope(k, *rope)
     o = attention_ops.causal_attention(q, k, v, chunk=cfg.attn_chunk)
-    return h + blk.attn.out(o), (k, v)
+    return h + blk.attn.out(o, mesh), (k, v)
 
 
-def _ffn_full(h, blk: Block, cfg: ArchConfig,
-              moe_serving_mode: str = "weight_gather"):
+def _ffn_full(h, blk: Block, cfg: ArchConfig, at: Placement = LOCAL):
     """The FFN sub-block (pre-norm, residual): the new h and the router's
     aux loss (None without experts)."""
     x = L.apply_norm(h, blk.norm2, cfg)
     if isinstance(blk.ffn, MOE.MoE):
         out, aux = MOE.moe_ffn(x, blk.ffn, cfg,
-                               serving_mode=moe_serving_mode)
+                               serving_mode=at.moe_serving_mode,
+                               mesh=at.mesh, batch_sharded=at.batch_sharded)
         return h + out, aux
-    return h + blk.ffn(x), None
+    return h + blk.ffn(x, at.mesh), None
 
 
-def _ssm_full(h, blk: MambaBlock, cfg: ArchConfig):
+def _ssm_full(h, blk: MambaBlock, cfg: ArchConfig, mesh=None):
     """Full-sequence Mamba sub-block (pre-norm, residual). Returns the new
     h and this layer's decode state {"conv", "ssm"}."""
     x = L.apply_norm(h, blk.norm, cfg)
     if cfg.family == "ssm":
-        y, state = SS.mamba1_forward(x, blk.mamba, cfg, return_state=True)
+        y, state = SS.mamba1_forward(x, blk.mamba, cfg, return_state=True,
+                                     mesh=mesh)
     else:
         y, state = SS.mamba2_forward(x, blk.mamba, cfg, return_state=True)
     return h + y, state
 
 
-def embed_tokens(model: Transformer, tokens) -> torch.Tensor:
-    tokens = torch.as_tensor(tokens, device=model.device)
-    return model.embed[tokens.long()].to(_dt(model.cfg))
+def embed_tokens(model: Transformer, tokens, mesh=None) -> torch.Tensor:
+    """The embedding rows of ``tokens``. With the vocab split over the
+    mesh's ``model`` axis (``mesh``, or the model's), each rank looks up
+    the tokens in its range, the others' rows are zeros, and the sum over
+    ``model`` (one nonzero term) gives the rows exactly."""
+    tokens = torch.as_tensor(tokens, device=model.device).long()
+    dt, V_loc = _dt(model.cfg), model.embed.shape[0]
+    if V_loc == model.cfg.vocab_size:
+        return model.embed[tokens].to(dt)
+    mesh = mesh or model.mesh
+    local = tokens - mesh.model_rank * V_loc
+    ours = (local >= 0) & (local < V_loc)
+    rows = model.embed[local.clamp(0, V_loc - 1)].to(dt)
+    return mesh.sum_fp32(torch.where(ours[..., None], rows, 0), "model")
 
 
-def lm_logits(model: Transformer, h: torch.Tensor) -> torch.Tensor:
+def lm_logits(model: Transformer, h: torch.Tensor, mesh=None) -> torch.Tensor:
+    """h (..., d) -> logits (..., V). With the vocab split over the mesh's
+    ``model`` axis, each rank's (..., V / m) are gathered exactly over
+    ``model``, so every rank holds the same bits."""
     if model.cfg.tie_embeddings:
-        return h @ model.embed.to(h.dtype).T
-    return h @ model.lm_head.to(h.dtype)
+        out = h @ model.embed.to(h.dtype).T
+    else:
+        out = h @ model.lm_head.to(h.dtype)
+    if out.shape[-1] != model.cfg.vocab_size:
+        out = (mesh or model.mesh).gather(out, "model", out.dim() - 1)
+    return out
 
 
 def final_norm(model: Transformer, h: torch.Tensor) -> torch.Tensor:
     return L.apply_norm(h, model.final_norm, model.cfg)
 
 
-def _inputs(model: Transformer, tokens, embeds, prefix_embeds):
+def _inputs(model: Transformer, tokens, embeds, prefix_embeds, mesh=None):
     dev, dt = model.device, _dt(model.cfg)
     if embeds is not None:
         h = torch.as_tensor(embeds, device=dev).to(dt)
     else:
-        h = embed_tokens(model, tokens)
+        h = embed_tokens(model, tokens, mesh)
     if prefix_embeds is not None:
         pre = torch.as_tensor(prefix_embeds, device=dev).to(h.dtype)
         h = torch.cat([pre, h], dim=1)
     return h
 
 
-def _units(model: Transformer, rope, caches=None) -> list:
+def _units(model: Transformer, rope, caches=None, at: Placement = LOCAL
+           ) -> list:
     """The layers as the reference checkpoints them: a list of functions
     h -> (h, the router's aux loss or None), one per block, or for the
     hybrid one per group of ``shared_attn_every`` Mamba2 layers followed
-    by the shared block. With ``caches`` (prefill's buffers), each
-    layer's (k, v) or Mamba state is written into its slot: the shared
-    block's of group j into slot j."""
+    by the shared block, run as ``at`` places them. With ``caches``
+    (prefill's buffers), each layer's (k, v) or Mamba state is written
+    into its slot: the shared block's of group j into slot j."""
     cfg = model.cfg
 
     def attention(blk: Block, i: int):
         def unit(h):
-            h, (kk, vv) = _attn_full(h, blk, cfg, rope)
+            h, (kk, vv) = _attn_full(h, blk, cfg, rope, at.mesh)
             if caches is not None:
                 caches["k"][i], caches["v"][i] = kk, vv
-            return _ffn_full(h, blk, cfg)
+            return _ffn_full(h, blk, cfg, at)
         return unit
 
     def mamba(blk: MambaBlock, i: int):
         def unit(h):
-            h, state = _ssm_full(h, blk, cfg)
+            h, state = _ssm_full(h, blk, cfg, at.mesh)
             if caches is not None:
                 caches["conv"][i], caches["ssm"][i] = (state["conv"],
                                                        state["ssm"])
@@ -344,7 +559,7 @@ def _units(model: Transformer, rope, caches=None) -> list:
 
 
 def _run_layers(model: Transformer, h: torch.Tensor, caches=None,
-                remat: bool = False):
+                remat: bool = False, at: Placement = LOCAL):
     """Every layer's full-sequence pass in order (:func:`_units`), each
     unit through ``torch.utils.checkpoint`` with ``remat``. Returns (h,
     aux), aux the sum of the MoE layers' router losses (fp32, 0 without
@@ -353,7 +568,7 @@ def _run_layers(model: Transformer, h: torch.Tensor, caches=None,
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     rope = (None if cfg.family == "ssm" else
             _rope(torch.arange(h.shape[1], device=h.device), cfg))
-    for unit in _units(model, rope, caches):
+    for unit in _units(model, rope, caches, at):
         if remat:
             h, layer_aux = checkpoint(unit, h, use_reentrant=False)
         else:
@@ -372,7 +587,8 @@ def _differentiated(model: Transformer) -> bool:
 
 # ============================================================ full forward
 def forward(model: Transformer, tokens=None, embeds=None, prefix_embeds=None,
-            return_hidden: bool = False, remat: bool = True):
+            return_hidden: bool = False, remat: bool = True, mesh=None,
+            batch_sharded: bool = True):
     """Full-sequence forward: tokens (B, S_text) or embeds (B, S, d), with
     optional prefix_embeds (B, P, d) in front. Returns (logits (B, S, V),
     aux) -- or (final-norm hidden states (B, S, d), aux) with
@@ -382,13 +598,27 @@ def forward(model: Transformer, tokens=None, embeds=None, prefix_embeds=None,
     block -- for the hybrid each group -- through
     ``torch.utils.checkpoint``: its activations are recomputed in the
     backward instead of kept, as the reference's ``jax.checkpoint``;
-    the numbers are the same either way."""
-    h = _inputs(model, tokens, embeds, prefix_embeds)
-    h, aux = _run_layers(model, h, remat=remat and _differentiated(model))
+    the numbers are the same either way. On a mesh (the model's own;
+    ``mesh=`` may only restate it, :func:`placement`) the inputs are this
+    rank's rows and the MoE runs its ``weight_gather`` plan (aux: the
+    mean over ``data`` of the shards' sums when ``batch_sharded``, one
+    all-reduce); only for inference: a sharded model's gradient is A12c
+    (``NotImplementedError``)."""
+    at = placement(model, mesh, batch_sharded)
+    if SH.is_sharded(at.mesh) and _differentiated(model):
+        raise NotImplementedError(f"a sharded model's gradient: see "
+                                  f"{SH.A12C}")
+    h = _inputs(model, tokens, embeds, prefix_embeds, at.mesh)
+    h, aux = _run_layers(model, h, remat=remat and _differentiated(model),
+                         at=at)
+    mesh = at.mesh
+    if model.cfg.num_experts and batch_sharded and SH.is_sharded(mesh) \
+            and mesh.data > 1:  # weight_gather's pmean, once for the sum
+        aux = mesh.sum(aux, "data") / mesh.data
     h = final_norm(model, h)
     if return_hidden:
         return h, aux
-    return lm_logits(model, h), aux
+    return lm_logits(model, h, at.mesh), aux
 
 
 # =============================================================== loss/train
@@ -517,8 +747,28 @@ def _kv_layers(cfg: ArchConfig) -> int:
     return num_groups(cfg) if cfg.family == "hybrid" else cfg.num_layers
 
 
+def _cache_shapes(cfg: ArchConfig, B: int, S_max: int, mesh=None,
+                  batch_sharded: bool = True) -> dict:
+    """{name: shape} of :func:`init_caches`' caches for a global batch of
+    B, cut to this rank's blocks by :func:`cache_specs` on a mesh."""
+    shapes = {}
+    if cfg.family in ("ssm", "hybrid"):
+        shapes["conv"], shapes["ssm"] = _state_shapes(cfg, B)
+    if cfg.family != "ssm":
+        kv = (_kv_layers(cfg),) + attn_cache_shape(cfg, B, S_max)
+        shapes["k"] = shapes["v"] = kv
+        if cfg.kv_cache_dtype == "int8" and cfg.family != "hybrid":
+            shapes["k_scale"] = shapes["v_scale"] = kv[:-1] + (1,)
+    if not SH.is_sharded(mesh):
+        return shapes
+    specs = cache_specs(cfg, batch_sharded, mesh.model)
+    return {n: SH.local_shape(shp, specs[n], mesh.shape, name=f"cache {n}")
+            for n, shp in shapes.items()}
+
+
 def init_caches(cfg: ArchConfig, B: int, S_max: int,
-                dtype: torch.dtype = torch.bfloat16, device=None) -> dict:
+                dtype: torch.dtype = torch.bfloat16, device=None, mesh=None,
+                batch_sharded: bool = True) -> dict:
     """Zero decode caches on ``device`` (``cuda`` unless ``"cpu"``).
     S_max = window size for sliding-window decode. ``dtype`` is the KV
     dtype (bf16, as the reference, whatever ``cfg.dtype``); with
@@ -528,56 +778,47 @@ def init_caches(cfg: ArchConfig, B: int, S_max: int,
     in fp32, whatever S_max. The hybrid's are conv (L, B, K-1, di+2N) in
     ``dtype``, ssm (L, B, nh, p, N) fp32 and k/v (J, B, S_max, KVH, hd)
     in ``dtype`` (the reference's are bf16 whatever ``kv_cache_dtype``:
-    an int8 cache is refused with ``ValueError``)."""
+    an int8 cache is refused with ``ValueError``). On a ``mesh``, B is
+    the global batch and the caches are this rank's blocks
+    (:func:`cache_specs`): B / data rows when ``batch_sharded``, KVH /
+    model heads, d_inner / model channels."""
     dev = resolve_device(device)
-    caches = {}
-    if cfg.family in ("ssm", "hybrid"):
-        conv, ssm = _state_shapes(cfg, B)
-        caches["conv"] = torch.zeros(conv, dtype=dtype, device=dev)
-        caches["ssm"] = torch.zeros(ssm, dtype=torch.float32, device=dev)
-        if cfg.family == "ssm":
-            return caches
-        if cfg.kv_cache_dtype == "int8":
-            raise ValueError(f"{cfg.name}: the hybrid's KV caches are bf16 "
-                             "(the reference has no int8 hybrid cache)")
-    shp = (_kv_layers(cfg),) + attn_cache_shape(cfg, B, S_max)
-    if cfg.kv_cache_dtype == "int8":
-        return {"k": torch.zeros(shp, dtype=torch.int8, device=dev),
-                "v": torch.zeros(shp, dtype=torch.int8, device=dev),
-                "k_scale": torch.zeros(shp[:-1] + (1,), dtype=torch.bfloat16,
-                                       device=dev),
-                "v_scale": torch.zeros(shp[:-1] + (1,), dtype=torch.bfloat16,
-                                       device=dev)}
-    caches["k"] = torch.zeros(shp, dtype=dtype, device=dev)
-    caches["v"] = torch.zeros(shp, dtype=dtype, device=dev)
-    return caches
+    if cfg.family == "hybrid" and cfg.kv_cache_dtype == "int8":
+        raise ValueError(f"{cfg.name}: the hybrid's KV caches are bf16 "
+                         "(the reference has no int8 hybrid cache)")
+    kv = torch.int8 if cfg.kv_cache_dtype == "int8" else dtype
+    dtypes = {"conv": dtype, "ssm": torch.float32, "k": kv, "v": kv,
+              "k_scale": torch.bfloat16, "v_scale": torch.bfloat16}
+    return {n: torch.zeros(shp, dtype=dtypes[n], device=dev) for n, shp in
+            _cache_shapes(cfg, B, S_max, mesh, batch_sharded).items()}
 
 
 # ================================================================== prefill
 @torch.no_grad()
-def prefill(model: Transformer, tokens=None, embeds=None, prefix_embeds=None):
+def prefill(model: Transformer, tokens=None, embeds=None, prefix_embeds=None,
+            mesh=None, batch_sharded: bool = True,
+            moe_serving_mode: str = "weight_gather"):
     """Run the full prompt; return (last-token logits (B, V), caches
     {"k", "v"} of shape (L, B, S, KVH, hd) in the activation dtype,
     filled with the S positions). The ssm family's caches are the states
     after the prompt: {"conv": (L, B, K-1, di) in the activation dtype,
     "ssm": (L, B, di, N) fp32}; the hybrid's are {"conv": (L, B, K-1,
-    di+2N), "ssm": (L, B, nh, p, N) fp32, "k", "v": (J, B, S, KVH, hd)}."""
+    di+2N), "ssm": (L, B, nh, p, N) fp32, "k", "v": (J, B, S, KVH, hd)}.
+    On a mesh (the model's own; ``mesh=`` may only restate it,
+    :func:`placement`) the inputs are this rank's B rows (the module
+    docstring), the logits are every rank's exact gather, and the caches
+    hold the rank's heads or channels."""
     cfg = model.cfg
-    h = _inputs(model, tokens, embeds, prefix_embeds)
+    at = placement(model, mesh, batch_sharded, moe_serving_mode)
+    h = _inputs(model, tokens, embeds, prefix_embeds, at.mesh)
     B, S, _ = h.shape
-    caches = {}
-    if cfg.family in ("ssm", "hybrid"):
-        conv, ssm = _state_shapes(cfg, B)
-        caches["conv"] = torch.empty(conv, dtype=h.dtype, device=h.device)
-        caches["ssm"] = torch.empty(ssm, dtype=torch.float32,
-                                    device=h.device)
-    if cfg.family != "ssm":
-        shp = (_kv_layers(cfg),) + attn_cache_shape(cfg, B, S)
-        caches["k"] = torch.empty(shp, dtype=h.dtype, device=h.device)
-        caches["v"] = torch.empty(shp, dtype=h.dtype, device=h.device)
-    h, _ = _run_layers(model, h, caches)
+    shapes = _cache_shapes(cfg, B, S, at.mesh, batch_sharded=False)
+    caches = {n: torch.empty(shapes[n], dtype=torch.float32 if n == "ssm"
+                             else h.dtype, device=h.device)
+              for n in ("conv", "ssm", "k", "v") if n in shapes}
+    h, _ = _run_layers(model, h, caches, at=at)
     h = final_norm(model, h[:, -1:])
-    return lm_logits(model, h)[:, 0], caches
+    return lm_logits(model, h, at.mesh)[:, 0], caches
 
 
 # ================================================================== decode
@@ -590,7 +831,7 @@ def _quant(x: torch.Tensor):
 
 
 def _attn_decode(h, blk: Block, cfg: ArchConfig, caches: dict, i: int,
-                 pos: int, window: bool, rope):
+                 pos: int, window: bool, rope, mesh=None):
     """h (B,1,d) against cache slot i's positions (layer i, or the
     hybrid's group i); writes this token's k, v (int8 codes and scales
     with ``kv_cache_dtype="int8"``) into position ``pos`` (``pos % S_c``
@@ -623,41 +864,48 @@ def _attn_decode(h, blk: Block, cfg: ArchConfig, caches: dict, i: int,
         k_deq = k_cache[:, :valid].to(dt)
         v_deq = v_cache[:, :valid].to(dt)
     o = L.decode_attention(q, k_deq, v_deq, valid)
-    return h + blk.attn.out(o)
+    return h + blk.attn.out(o, mesh)
 
 
-def _ssm_decode(h, blk: MambaBlock, cfg: ArchConfig, caches: dict, i: int):
+def _ssm_decode(h, blk: MambaBlock, cfg: ArchConfig, caches: dict, i: int,
+                mesh=None):
     """h (B, 1, d) through Mamba layer i from its states, which are
     overwritten with the new ones."""
     x = L.apply_norm(h[:, 0], blk.norm, cfg)
-    step = SS.mamba1_decode if cfg.family == "ssm" else SS.mamba2_decode
-    y, state = step(x, {"conv": caches["conv"][i], "ssm": caches["ssm"][i]},
-                    blk.mamba, cfg)
+    state = {"conv": caches["conv"][i], "ssm": caches["ssm"][i]}
+    if cfg.family == "ssm":
+        y, state = SS.mamba1_decode(x, state, blk.mamba, cfg, mesh)
+    else:
+        y, state = SS.mamba2_decode(x, state, blk.mamba, cfg)
     caches["conv"][i], caches["ssm"][i] = state["conv"], state["ssm"]
     return h + y[:, None]
 
 
 @torch.no_grad()
 def decode_step(model: Transformer, caches: dict, token=None, embed=None,
-                pos=None, window: bool = False,
+                pos=None, window: bool = False, mesh=None,
+                batch_sharded: bool = True,
                 moe_serving_mode: str = "weight_gather"):
     """One serving step: next-token logits (B, V) given the caches at
     position ``pos`` (an int). token (B,) or embed (B, d). The caches are
     updated in place and returned. The ssm family reads no position: its
     caches are the states after the tokens so far. ``moe_serving_mode``
     is the reference's knob; without a mesh both modes run the same
-    local MoE path.
+    local MoE path. On a mesh (the model's own; ``mesh=`` may only
+    restate it, :func:`placement`) token or embed are this rank's rows
+    and the caches its blocks (:func:`init_caches`).
 
     The reference's decode returns the conv states in the activation
     dtype, so a conv cache in another dtype (bf16 caches under an fp32
     model) takes the activation dtype here, once; in bf16 serving the two
     agree and nothing is copied."""
     cfg = model.cfg
+    at = placement(model, mesh, batch_sharded, moe_serving_mode)
     if embed is not None:
         h = torch.as_tensor(embed, device=model.device)[:, None, :].to(
             _dt(cfg))
     else:
-        h = embed_tokens(model, torch.as_tensor(token)[:, None])
+        h = embed_tokens(model, torch.as_tensor(token)[:, None], at.mesh)
     if "conv" in caches and caches["conv"].dtype != h.dtype:
         caches["conv"] = caches["conv"].to(h.dtype)
     rope = (None if cfg.family == "ssm" else
@@ -665,22 +913,28 @@ def decode_step(model: Transformer, caches: dict, token=None, embed=None,
     k = cfg.shared_attn_every
     for i, blk in enumerate(model.layers):
         if isinstance(blk, MambaBlock):
-            h = _ssm_decode(h, blk, cfg, caches, i)
+            h = _ssm_decode(h, blk, cfg, caches, i, at.mesh)
             if model.shared is None or (i + 1) % k:
                 continue
             blk, i = model.shared, i // k
-        h = _attn_decode(h, blk, cfg, caches, i, int(pos), window, rope)
-        h, _ = _ffn_full(h, blk, cfg, moe_serving_mode)
+        h = _attn_decode(h, blk, cfg, caches, i, int(pos), window, rope,
+                         at.mesh)
+        h, _ = _ffn_full(h, blk, cfg, at)
     h = final_norm(model, h)
-    return lm_logits(model, h[:, 0]), caches
+    return lm_logits(model, h[:, 0], at.mesh), caches
 
 
-def make_serve_step(model: Transformer, window: bool = False,
+def make_serve_step(model: Transformer, window: bool = False, mesh=None,
+                    batch_sharded: bool = True,
                     moe_serving_mode: str = "weight_gather"):
+    """The decode step as a closure ``serve_step(caches, token_or_embed,
+    pos)`` (an embedding for a model that takes embeddings). ``mesh``
+    may only restate the model's own (:func:`placement`)."""
     def serve_step(caches, token_or_embed, pos):
         kw = ({"embed": token_or_embed} if model.cfg.embeds_in
               else {"token": token_or_embed})
-        return decode_step(model, caches, pos=pos, window=window,
+        return decode_step(model, caches, pos=pos, window=window, mesh=mesh,
+                           batch_sharded=batch_sharded,
                            moe_serving_mode=moe_serving_mode, **kw)
 
     return serve_step

@@ -10,9 +10,9 @@ bf16 outputs (the reference contract returns y in x's dtype) are held
 within 8e-3, two bf16 ulps at |y| ~ 1. The gated mode's plain version
 (``ops.plain_gated_scan``: softplus of dt, -exp(A_log), the scan, the
 silu(z) gate) is held against the reference model's composition
-(``repro/models/ssm.py::_mamba1_inner``) at the same bars. The
-``cuda``-marked tests hold the CUDA kernel against the plain versions on
-a card, bit for bit, and skip without one.
+(``repro/models/ssm.py::_mamba1_inner``) at the same bars. The CUDA
+kernel's tests on a card are in ``tests/test_torch_mamba_scan_card.py``
+(no JAX there, so the card's machine collects them).
 """
 import jax
 import jax.numpy as jnp
@@ -316,130 +316,3 @@ def test_threads_per_channel(rows, steps, N, G):
     """G for falcon-mamba's prefill shapes (1 and 4), its decode step (2),
     and small grids (the most lanes, at most N)."""
     assert tk.threads_per_channel(rows, steps, 132, N) == G
-
-
-# ------------------------------------------------------------ on the card
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
-    return torch.device("cuda")
-
-
-def _strided_bc(arrays, dtype, device):
-    """B and C as column slices of one (B, S, R + 2N) tensor, R = 5."""
-    Bsz, S, N = arrays[2].shape
-    fused = torch.zeros((Bsz, S, 5 + 2 * N), dtype=dtype, device=device)
-    fused[..., 5:5 + N] = torch.from_numpy(arrays[2]).to(device, dtype)
-    fused[..., 5 + N:] = torch.from_numpy(arrays[3]).to(device, dtype)
-    return fused[..., 5:5 + N], fused[..., 5 + N:]
-
-
-CARD_SHAPES = [(2, 16, 32, 8, False), (2, 32, 64, 16, True),
-               (2, 8, 16, 4, False), (3, 37, 100, 16, True),
-               (1, 70, 40, 32, True), (4, 1, 520, 16, True),
-               (2, 300, 257, 4, False)]
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("B,S,di,N,h0", CARD_SHAPES)
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_kernel_matches_plain_on_card(cuda, B, S, di, N, h0, dtype):
-    arrays = _inputs(7, B, S, di, N, h0)
-    t = _torch(arrays, getattr(torch, dtype), cuda)
-    t[2], t[3] = _strided_bc(arrays, getattr(torch, dtype), cuda)
-    before = tk.LAUNCHES["mamba1_scan"]
-    y, h = ops.selective_scan(*t)
-    y2, h2 = ops.selective_scan(*t)
-    py, ph = ops.plain_scan(*t)
-    torch.cuda.synchronize()
-    assert tk.LAUNCHES["mamba1_scan"] == before + 2
-    assert y.dtype == h.dtype == torch.float32
-    assert torch.equal(y, y2) and torch.equal(h, h2)
-    torch.testing.assert_close(y, py, rtol=TOL, atol=TOL)
-    torch.testing.assert_close(h, ph, rtol=TOL, atol=TOL)
-
-
-@pytest.mark.cuda
-def test_kernel_chained_halves_bitwise(cuda):
-    t = _torch(_inputs(8, 2, 96, 64, 16), torch.bfloat16, cuda)
-    y, h = tk.mamba1_scan(*t)
-    ya, ha = tk.mamba1_scan(*(a[:, :41] for a in t[:4]), t[4], t[5])
-    yb, hb = tk.mamba1_scan(*(a[:, 41:] for a in t[:4]), t[4], t[5], ha)
-    torch.cuda.synchronize()
-    assert torch.equal(torch.cat([ya, yb], dim=1), y) and torch.equal(hb, h)
-
-
-@pytest.mark.cuda
-def test_kernel_refuses_other_state_sizes(cuda):
-    t = _torch(_inputs(9, 1, 4, 8, 6), torch.float32, cuda)
-    with pytest.raises(ValueError, match="state size"):
-        tk.mamba1_scan(*t)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("B,S,di,N,h0", CARD_SHAPES)
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_kernel_equals_plain_bitwise_on_card(cuda, B, S, di, N, h0, dtype):
-    """The contract mode at every G equals plain_scan bit for bit (the
-    same fp32 operations in the same order)."""
-    arrays = _inputs(7, B, S, di, N, h0)
-    t = _torch(arrays, getattr(torch, dtype), cuda)
-    t[2], t[3] = _strided_bc(arrays, getattr(torch, dtype), cuda)
-    py, ph = ops.plain_scan(*t)
-    for g in (g for g in tk.GROUPS if g <= N):
-        y, h = tk.mamba1_scan(*t, group=g)
-        torch.cuda.synchronize()
-        assert torch.equal(y, py) and torch.equal(h, ph), g
-
-
-def _gated_on_card(arrays, dtype, device, R=5):
-    """The gated inputs on the card, with B and C column slices of one
-    (B, S, R + 2N) tensor and z the second half of one (B, S, 2 di)."""
-    t = _gated_torch(arrays, dtype, device)
-    Bsz, S, N = arrays[3].shape
-    di = arrays[2].shape[2]
-    fused = torch.zeros((Bsz, S, R + 2 * N), dtype=dtype, device=device)
-    fused[..., R:R + N], fused[..., R + N:] = t[3], t[4]
-    xz = torch.zeros((Bsz, S, 2 * di), dtype=dtype, device=device)
-    xz[..., di:] = t[7]
-    t[3], t[4], t[7] = fused[..., R:R + N], fused[..., R + N:], xz[..., di:]
-    return t
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("B,S,di,N,h0", CARD_SHAPES)
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_gated_kernel_equals_composition_on_card(cuda, B, S, di, N, h0,
-                                                 dtype):
-    """The gated mode at every G equals the unfused composition (torch's
-    softplus, the plain scan, torch's silu gate) on the card bit for bit,
-    repeatably, through the entry the model calls."""
-    t = _gated_on_card(_gated_inputs(15, B, S, di, N, h0),
-                       getattr(torch, dtype), cuda)
-    wy, wh = _composition(t)
-    before = tk.LAUNCHES["mamba1_scan_gated"]
-    y, h = ops.gated_selective_scan(*t)
-    torch.cuda.synchronize()
-    assert tk.LAUNCHES["mamba1_scan_gated"] == before + 1
-    assert y.dtype == getattr(torch, dtype) and h.dtype == torch.float32
-    assert torch.equal(y, wy) and torch.equal(h, wh)
-    for g in (g for g in tk.GROUPS if g <= N):
-        gy, gh = tk.mamba1_scan_gated(*t, group=g)
-        torch.cuda.synchronize()
-        assert torch.equal(gy, wy) and torch.equal(gh, wh), g
-
-
-@pytest.mark.cuda
-def test_gated_kernel_chained_halves_bitwise(cuda):
-    t = _gated_on_card(_gated_inputs(16, 2, 96, 64, 16), torch.bfloat16,
-                       cuda)
-    y, h = tk.mamba1_scan_gated(*t)
-    first, second = list(t), list(t)
-    for i in (0, 2, 3, 4, 7):
-        first[i], second[i] = t[i][:, :41], t[i][:, 41:]
-    ya, ha = tk.mamba1_scan_gated(*first)
-    second[8] = ha
-    yb, hb = tk.mamba1_scan_gated(*second)
-    torch.cuda.synchronize()
-    assert torch.equal(torch.cat([ya, yb], dim=1), y) and torch.equal(hb, h)

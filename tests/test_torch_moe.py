@@ -390,32 +390,3 @@ def test_converter_rejects_mismatched_moe_trees():
         k: v for k, v in ffn.items() if k != "w3"}}}
     with pytest.raises(ValueError, match="layer leaves"):
         convert.model_from_reference(bad, pair.tcfg, device="cpu")
-
-
-# ------------------------------------------------------------ on the card
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
-    return torch.device("cuda")
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_moe_logits_bitwise_repeatable_on_card(cuda, dtype):
-    """The combine has one writer per token and no atomics: two prefills
-    of the same tokens give the same bits, and the card's fp32 logits are
-    within 1e-4 of the CPU's."""
-    cfg = dataclasses.replace(
-        tconfigs.get_config("granite-moe-1b-a400m").reduced(), dtype=dtype)
-    cpu = tmodels.init_model(cfg, torch.Generator().manual_seed(0),
-                             device="cpu")
-    card = tmodels.Transformer(cfg, device=cuda)
-    card.load_state_dict(cpu.state_dict())
-    toks = torch.from_numpy(_tokens(cfg, 9, (4, 96)))
-    a, _ = tmodels.prefill(card, tokens=toks.to(cuda))
-    b, _ = tmodels.prefill(card, tokens=toks.to(cuda))
-    assert torch.equal(a, b)
-    if dtype == "float32":
-        want, _ = tmodels.prefill(cpu, tokens=toks)
-        torch.testing.assert_close(a.cpu(), want, rtol=1e-4, atol=1e-4)

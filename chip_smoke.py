@@ -38,9 +38,12 @@ the unsharded run; then the three drivers on a 2 x 2 mesh) and the
 sharded LM serving path (``repro_torch.models`` with ``mesh=``: llama3.2-1b
 and granite-moe-1b-a400m (both MoE plans) on 2 x 2, llama, granite and
 falcon-mamba-7b on 1 x 2, zamba2-2.7b on 2 x 1, at full width, prompts
-4 x 512 and 16 greedy tokens, B6 on each rank's heads and B7 on its
+4 x 512 and 3 greedy tokens, B6 on each rank's heads and B7 on its
 d_inner channels, against one rank; then reduced models on a 2 x 2 mesh
-against the CPU's),
+against the CPU's) and the sharded LM training path (``make_train_step``
+with ``mesh=``: llama3.2-1b trainable at full width on 2 x 2, FSDP over
+data, 4 x 512, against one rank; then reduced llama, granite and
+falcon-mamba on 2 x 2 and zamba2 on 2 x 1 against the CPU's ranks),
 shows that each path launched its kernels, holds the card's OWLQN+
 trajectories and a reduced LM of each family against the CPU's, times
 the kernels beside their plain versions, their bound and one library
@@ -61,6 +64,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -2697,10 +2701,12 @@ def phase_scan_times(torch, dev):
             (True, mamba1_scan_gated, plain_gated_scan, _b7_gated_inputs),
             (False, mamba1_scan, plain_scan, _b7_inputs)):
         mode = "gated" if gated else "contract"
-        for B, S, h0, runs, plain_runs in (
-                (LM_BATCH, LM_SEQ, False, TIMED_RUNS, B7_PLAIN_RUNS),
-                (1, LM_LONG, False, LONG_RUNS, B7_PLAIN_RUNS),
-                (LM_BATCH, 1, True, TIMED_RUNS, TIMED_RUNS)):
+        # the plain scan at S >= 4,096 is a host loop of S steps: timed
+        # once, without a warm-up run (its first call is no faster)
+        for B, S, h0, runs, plain_runs, plain_warm in (
+                (LM_BATCH, LM_SEQ, False, TIMED_RUNS, B7_PLAIN_RUNS, 0),
+                (1, LM_LONG, False, LONG_RUNS, B7_PLAIN_RUNS, 0),
+                (LM_BATCH, 1, True, TIMED_RUNS, TIMED_RUNS, 1)):
             args = inputs(torch, dev, gen, B, S, di, N, torch.bfloat16, h0,
                           R=256)
             bound_ms, bound_by, nbytes, ops = _scan_bound(torch, args, gated)
@@ -2712,7 +2718,7 @@ def phase_scan_times(torch, dev):
                    "ms": _time_ms(torch, lambda: kernel(*args), flush, runs),
                    "ms_by_group": by_group,
                    "plain_ms": _time_ms(torch, lambda: plain(*args), flush,
-                                        plain_runs, 1),
+                                        plain_runs, plain_warm),
                    "library_ms": None, "bound_ms": bound_ms,
                    "bound_by": bound_by}
             rows[gated].append(row)
@@ -3701,7 +3707,8 @@ CARD_TESTS = ("tests/test_torch_stream_card.py",
               "tests/test_torch_shard_card.py",
               "tests/test_torch_moe_card.py",
               "tests/test_torch_mamba_scan_card.py",
-              "tests/test_torch_lm_shard_card.py")
+              "tests/test_torch_lm_shard_card.py",
+              "tests/test_torch_lm_train_shard_card.py")
 
 
 def phase_card_tests():
@@ -3709,7 +3716,7 @@ def phase_card_tests():
     against its plain version, the training path's, B1/B4/B2's against
     their plain versions and at every autotune config, the sharded
     training path's, the MoE family's, B7's against its plain versions,
-    the sharded LM serving path's), in a pytest process
+    the sharded LM serving and training paths'), in a pytest process
     of their own (they build nothing: the kernels phase 1 built load from
     ``build/``)."""
     env = dict(os.environ)
@@ -4908,7 +4915,8 @@ def phase_shard_drivers(torch, dev, tmp: Path):
     sparse run's checkpoint (the unpadded Theta) loads unsharded and gives
     its final objective; then the stream's full window under reset against
     the sharded full batch and a mid-stream checkpoint's resume, both
-    bitwise, on the same mesh."""
+    bitwise, on the same mesh. Its walls are not metrics: in the whole
+    script it runs beside phases 27, 35 and 37."""
     from repro_torch.io import checkpoint
     from repro_torch.launch import train as train_driver
     from repro_torch.launch.mesh import run_ranks
@@ -5009,11 +5017,13 @@ SERVE_SHARD_CASES = {
              (SSM_ARCH, "weight_gather")),
     (2, 1): ((HYBRID_ARCH, "weight_gather"),)}
 SERVE_SHARD_WORLDS = {4: ((2, 2),), 2: ((1, 2), (2, 1))}
-SERVE_SHARD_BATCH, SERVE_SHARD_SEQ, SERVE_SHARD_NEW = 4, 512, 16
+# 3 greedy tokens (2 decode steps, the fp32 gate's count; cut from 16:
+# a weight_gather decode step gathers the experts' 1.2 GB over gloo)
+SERVE_SHARD_BATCH, SERVE_SHARD_SEQ, SERVE_SHARD_NEW = 4, 512, 3
 # the fp32 gates against one rank: prefill logits and this many decode
 # steps fed one rank's tokens, at an fp32 bar (sound runs on the H100 read
 # at most ~8e-5 (1 + |logit|))
-SERVE_SHARD_TOL32, SERVE_SHARD_STEPS32 = 1e-3, 4
+SERVE_SHARD_TOL32, SERVE_SHARD_STEPS32 = 1e-3, 2  # steps cut from 4
 SERVE_SHARD_REDUCED = (LM_ARCH, SSM_ARCH, MOE_ARCH)  # phase 35, fp32
 
 
@@ -5168,12 +5178,14 @@ def _serve_shard_case(torch, dev, mesh, arch, mode, feed=None,
     bf16 weights from init_model(mesh=) on a seeded generator, the
     prompts' rows of this rank, a first-use prefill, then the counted run
     (B6, B7 and the mesh's all-reduces from 0): a timed prefill, then
+    (uncounted) the same prefill under the profiler (its wall and device
+    time; the logits the checks read), then
     (uncounted) B6 and B7 against their plain versions at this rank's
     shapes (:func:`_shard_kernel_checks`; with ``checks``, which a
     second MoE plan on the same mesh, with the same heads, leaves out),
     then (counted) SERVE_SHARD_NEW
     - 1 timed greedy decode steps; the tokens gathered over data and
-    each step's top two logits; a profiled prefill; the model split as a
+    each step's top two logits; the model split as a
     mesh of two model ranks splits it (one rank only,
     :func:`_split_products`); then the same weights widened to fp32
     (:func:`_fp32_run`, fed ``feed``: one rank's greedy tokens, this
@@ -5209,14 +5221,19 @@ def _serve_shard_case(torch, dev, mesh, arch, mode, feed=None,
     mesh.reset_counts()
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
-    logits, c0 = prefill(model, tokens=rows, **at)
+    prefill(model, tokens=rows, **at)
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
+    launches = (B6["flash_attention"], B7["mamba1_scan_gated"])
+    counts = mesh.collective_counts()
+    (logits, c0), wall_us, kernels = _device_profile(
+        torch, lambda: prefill(model, tokens=rows, **at))
     out = {"setup_s": setup_s, "param_bytes": param_bytes,
            "prefill_s": prefill_s,
-           "launches": {"prefill": (B6["flash_attention"],
-                                    B7["mamba1_scan_gated"])},
-           "counts": {"prefill": mesh.collective_counts()},
+           "profile": {"wall_us": wall_us,
+                       "device_us": sum(v[0] for v in kernels.values()),
+                       "launches": sum(v[1] for v in kernels.values())},
+           "launches": {"prefill": launches}, "counts": {"prefill": counts},
            "logits": logits.float().cpu().numpy()}
     caches = fill_caches(init_caches(cfg, SERVE_SHARD_BATCH,
                                      SERVE_SHARD_SEQ + SERVE_SHARD_NEW,
@@ -5246,11 +5263,6 @@ def _serve_shard_case(torch, dev, mesh, arch, mode, feed=None,
     out["top2"] = torch.stack(lgs, 1).float().topk(2, -1).values.cpu().numpy()
     out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
     del caches, lgs
-    _, wall_us, kernels = _device_profile(
-        torch, lambda: prefill(model, tokens=rows, **at))
-    out["profile"] = {"wall_us": wall_us,
-                      "device_us": sum(v[0] for v in kernels.values()),
-                      "launches": sum(v[1] for v in kernels.values())}
     halves = prompts.chunk(2)
     if mesh.size == 1 and cfg.family != "hybrid":  # zamba2 runs data-only
         def split(toks, ff_parts=1):
@@ -5392,7 +5404,8 @@ def phase_serve_shard(torch, dev):
     seeded generator): each family of SERVE_SHARD_CASES on one rank (the
     1 x 1 mesh) in this process, then on its meshes as spawned ranks
     sharing the one card over gloo (this process holds no model then).
-    Prompts 4 x 512, 16 greedy tokens. Gates, on every rank of every
+    Prompts 4 x 512, SERVE_SHARD_NEW greedy tokens. Gates, on every rank
+    of every
     mesh (in its first run of each family) and on one rank: B6 within
     its bf16 bar on the rank's q, k, v,
     B7 bitwise on the rank's scan inputs in prefill and in a decode
@@ -5567,8 +5580,9 @@ def phase_serve_shard(torch, dev):
             print(f"    rank 0: set-up {r0['setup_s']:.1f} s, parameters "
                   f"{r0['param_bytes'] / 1e9:.3f} GB (one rank "
                   f"{ref['param_bytes'] / 1e9:.3f}), peak "
-                  f"{r0['peak_gb']:.2f} GB; profiled prefill "
-                  f"{p['wall_us'] / 1e3:.2f} ms wall, "
+                  f"{r0['peak_gb']:.2f} GB; the timed prefill "
+                  f"{r0['prefill_s'] * 1e3:.2f} ms, one more under the "
+                  f"profiler {p['wall_us'] / 1e3:.2f} ms wall, "
                   + (f"{p['device_us'] / 1e3:.2f} ms of device in "
                      f"{p['launches']} launches (idle {idle:.1%})"
                      if p["launches"] else "device time not measured"))
@@ -5614,19 +5628,16 @@ def _serve_shard_reduced(rank, dev, shape):
 def phase_serve_shard_reduced(torch, dev):
     """Reduced llama, falcon-mamba and granite in fp32 on a 2 x 2 mesh,
     the card's ranks (B6, B7) against the CPU's (plain versions): prefill
-    logits within LM_CPU_TOL, greedy tokens equal; then on the card a
-    1 x 1 mesh bitwise the unsharded path in bf16."""
-    import dataclasses
-
-    from repro_torch.configs import get_config
-    from repro_torch.data.tokens import TokenStream
-    from repro_torch.launch.mesh import Mesh, run_ranks
-    from repro_torch.models import init_model, prefill
-    from repro_torch.models.generate import generate
+    logits within LM_CPU_TOL, greedy tokens equal. (The 1 x 1 mesh
+    bitwise the unsharded path in bf16 on the card is phase 27's
+    ``tests/test_torch_lm_shard_card.py``.)"""
+    from repro_torch.launch.mesh import run_ranks
 
     t0 = time.perf_counter()
-    card = run_ranks(_serve_shard_reduced, 4, (2, 2), device=dev)
-    cpu = run_ranks(_serve_shard_reduced, 4, (2, 2), device="cpu")
+    with ThreadPoolExecutor(2) as pool:  # the card's and the CPU's at once
+        card, cpu = (pool.submit(run_ranks, _serve_shard_reduced, 4, (2, 2),
+                                 device=d) for d in (dev, "cpu"))
+        card, cpu = card.result(), cpu.result()
     errs = {}
     for arch in SERVE_SHARD_REDUCED:
         for c, h in zip(card, cpu):
@@ -5639,29 +5650,555 @@ def phase_serve_shard_reduced(torch, dev):
                   f"reduced {arch} on 2 x 2: greedy tokens card vs CPU "
                   "differ")
             errs[arch] = max(errs.get(arch, 0.0), float(err.max()))
-    mesh = Mesh(1, 1)
-    for arch in SERVE_SHARD_REDUCED:
-        cfg = get_config(arch).reduced()
-        plain = init_model(cfg, torch.Generator(device=dev).manual_seed(SEED),
-                           device=dev)
-        meshed = init_model(cfg, torch.Generator(device=dev).manual_seed(
-            SEED), device=dev, mesh=mesh)
-        prompts = torch.from_numpy(TokenStream(cfg.vocab_size, seed=SEED)
-                                   .batch(4, 97)["tokens"]).to(dev)
-        a, _ = prefill(plain, tokens=prompts)
-        b, _ = prefill(meshed, tokens=prompts, mesh=mesh)
-        check(torch.equal(a, b) and torch.equal(
-            generate(plain, prompts, 8, temperature=0.0),
-            generate(meshed, prompts, 8, temperature=0.0, mesh=mesh)),
-              f"reduced {arch}: the 1 x 1 mesh is not bitwise the "
-              "unsharded path on the card")
     print(f"phase 35: reduced {', '.join(SERVE_SHARD_REDUCED)} in fp32 on a "
           f"2 x 2 mesh, card ranks (B6/B7) vs CPU ranks (plain): prefill "
           f"logits of 4 x 96 max |err| "
           + ", ".join(f"{a} {e:.3e}" for a, e in errs.items())
-          + f" (bar {LM_CPU_TOL}), 8 greedy tokens equal on every rank; a "
-          f"1 x 1 mesh bitwise the unsharded path in bf16 (prefill and 8 "
-          f"greedy tokens); {time.perf_counter() - t0:.1f} s")
+          + f" (bar {LM_CPU_TOL}), 8 greedy tokens equal on every rank; "
+          f"{time.perf_counter() - t0:.1f} s")
+
+
+# ------------------------------------------------------------ phases 36-37
+# sharded LM training: llama3.2-1b at full width on 2 x 2 (ranks sharing
+# the card over gloo), batch 4 x 512 (cut from phase 28's 4 x 4,096 for
+# phase 34's reason: gloo stages every all-reduce through the host), two
+# fp32 updates gated against one rank, one bf16 step printed
+TRAIN_SHARD_MESH = (2, 2)
+TRAIN_SHARD_BATCH, TRAIN_SHARD_SEQ = 4, 512
+TRAIN_SHARD_LR = TRAIN_LR
+TRAIN_SHARD_REDUCED = {(2, 2): (LM_ARCH, MOE_ARCH, SSM_ARCH),
+                       (2, 1): (HYBRID_ARCH,)}  # phase 37, fp32
+
+
+def _grad_share(got, want) -> float:
+    """max |got - want| over the leaf bar GRAD_REL max |want| + GRAD_ABS
+    (``want``'s maximum the whole leaf's, passed as a tensor pair)."""
+    ref, top = want
+    return float((got - ref).abs().max()) / (GRAD_REL * top + GRAD_ABS)
+
+
+def _train_shard_reference(torch, dev, cfg, batch, mesh, cuts, sharded):
+    """One rank's unsharded model from the same seed on the full batch,
+    held against this rank's ``sharded`` results (its blocks, cut by
+    ``cuts``): fp32 loss and gradients (gated), two updates (gated), then
+    the bf16 step (printed as multiples of the bar). Returns the
+    readings."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_model, loss_and_grads
+    from repro_torch.models import make_train_step
+    from repro_torch.models.sharding import local_block
+
+    def blocks(tensors):
+        return {n: (local_block(t, cuts[n][0], mesh, cuts[n][1], n),
+                    float(t.abs().max())) for n, t in tensors.items()}
+
+    out = {}
+    full = init_model(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                      device=dev, trainable=True)
+    loss, _, grads = loss_and_grads(full, batch)
+    out["loss_rel"] = abs(float(loss) - sharded["losses"][0]) / abs(
+        float(loss))
+    shares = {n: _grad_share(sharded["grads"][n], w)
+              for n, w in blocks(grads).items()}
+    out["grad_worst"] = max(shares.items(), key=lambda kv: kv[1])
+    opt, step = make_train_step(full, lr=TRAIN_SHARD_LR)
+    params = dict(full.named_parameters())
+    params, state = opt.apply(grads, opt.init(params), params)
+    del grads
+    state, m = step(state, batch)
+    out["loss2_rel"] = abs(float(m["loss"]) - sharded["losses"][1]) / abs(
+        float(m["loss"]))
+    diffs = torch.cat([(sharded["after"][n] - local_block(
+        p.detach(), cuts[n][0], mesh, cuts[n][1], n)).abs().ravel()
+        for n, p in params.items()])
+    out["param_max"] = float(diffs.max())
+    out["param_share"] = float((diffs <= PARAM_BAR).float().mean())
+    del full, opt, step, state, params, m, diffs
+    torch.cuda.empty_cache()
+    full = init_model(get_config(LM_ARCH), torch.Generator(
+        device=dev).manual_seed(SEED), device=dev, trainable=True)
+    loss16, _, grads16 = loss_and_grads(full, batch)
+    out["bf16_loss_bars"] = abs(float(loss16) - sharded["loss16"]) / abs(
+        float(loss16)) / LOSS_RTOL
+    out["bf16_grad_bars"] = max(_grad_share(sharded["grads16"][n], w)
+                                for n, w in blocks(grads16).items())
+    del full, grads16
+    torch.cuda.empty_cache()
+    return out
+
+
+def _b6_function_vs_plain(torch, q, k, v, tag):
+    """B6's Function against autograd of plain_attention at this q, k, v
+    on one seeded ``do``: every input gradient within one bf16 ulp of its
+    max |g| in bf16, 1e-6 max |g| in fp32 (phase 29's bars,
+    :func:`_ulp_bar`). Returns the worst share of the bar."""
+    from repro_torch.kernels.flash_attention import ops as attn_ops
+
+    gen = torch.Generator(device=q.device).manual_seed(SEED + 36)
+    do = torch.randn(q.shape, generator=gen, device=q.device).to(q.dtype)
+    grads = []
+    for fn in (attn_ops.causal_attention, attn_ops.plain_attention):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        grads.append(torch.autograd.grad(fn(*leaves), leaves, do))
+    worst = 0.0
+    for name, g, w in zip("qkv", *grads):
+        err = float((g.float() - w.float()).abs().max())
+        bar = _ulp_bar(torch, w.float(), q.dtype)
+        check(g.dtype == w.dtype and err <= bar, f"{tag}: B6 Function d{name}"
+              f" vs autograd of plain_attention max |err| {err:.3e} > the "
+              f"{q.dtype} bar of max |g|, {bar:.3e}")
+        worst = max(worst, err / bar)
+    return worst
+
+
+def _train_shard_rank(rank, dev):
+    """Phase 36 on one rank (module level: the spawned ranks import it):
+    llama3.2-1b at full width, trainable, on the TRAIN_SHARD_MESH in
+    fp32: the gradient (B6 launches counted; layer 0's q, k, v of this
+    rank's heads kept), an update from it, a timed train step (B6 and the
+    mesh's all-reduces counted), a third step under the profiler (B6
+    counted); the same weights in bf16, one gradient; B6 and its Function
+    against plain at this rank's shapes, in fp32 (the body the run took)
+    and in bf16 (the tensor-core body); then, one rank at a time, that
+    rank's unsharded reference (:func:`_train_shard_reference`)."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import init_model, loss_and_grads
+    from repro_torch.models import make_train_step, transformer
+    from repro_torch.models.sharding import batch_rows
+
+    mesh = Mesh(*TRAIN_SHARD_MESH)
+    B6, _ = _lm_counters()
+    cfg = dataclasses.replace(get_config(LM_ARCH), dtype="float32")
+    raw = TokenStream(cfg.vocab_size, seed=SEED).batch(TRAIN_SHARD_BATCH,
+                                                        TRAIN_SHARD_SEQ + 1)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in raw.items()}
+    rows = {k: batch_rows(v, mesh) for k, v in batch.items()}
+    t0 = time.perf_counter()
+    model = init_model(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                       device=dev, trainable=True, mesh=mesh)
+    torch.cuda.synchronize()
+    out = {"rank": rank, "data_rank": mesh.data_rank,
+           "model_rank": mesh.model_rank, "backend": mesh.backend,
+           "setup_s": time.perf_counter() - t0,
+           "param_bytes": sum(p.numel() * p.element_size()
+                              for p in model.parameters())}
+    cuts = model.leaf_specs()
+    kernel, seen = transformer.attention_ops.causal_attention, {}
+
+    def keeping(q, k, v, **kw):
+        seen.setdefault("qkv", tuple(t.detach().clone() for t in (q, k, v)))
+        return kernel(q, k, v, **kw)
+
+    transformer.attention_ops.causal_attention = keeping
+    try:
+        _reset((B6,))
+        mesh.reset_counts()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        loss, _, grads = loss_and_grads(model, rows)
+        torch.cuda.synchronize()
+        out["grad_s"] = time.perf_counter() - t0
+    finally:
+        transformer.attention_ops.causal_attention = kernel
+    launches = [B6["flash_attention"]]
+    opt, step = make_train_step(model, lr=TRAIN_SHARD_LR)
+    params = dict(model.named_parameters())
+    params, state = opt.apply(grads, opt.init(params), params)
+    grads = {n: g.detach() for n, g in grads.items()}
+    _reset((B6,))
+    mesh.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, m = step(state, rows)
+    torch.cuda.synchronize()
+    out["step_s"] = time.perf_counter() - t0
+    out["counts"] = mesh.collective_counts()
+    out["split"] = mesh.split_counts()
+    launches.append(B6["flash_attention"])
+    out["losses"] = [float(loss), float(m["loss"])]
+    after = {n: p.detach().clone() for n, p in params.items()}
+    _reset((B6,))
+    (state, m), wall_us, kernels = _device_profile(
+        torch, lambda: step(state, rows))
+    launches.append(B6["flash_attention"])
+    out["launches"] = launches
+    out["profile"] = {"wall_us": wall_us,
+                      "device_us": sum(v[0] for v in kernels.values()),
+                      "launches": sum(v[1] for v in kernels.values())}
+    out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    del model, opt, step, state, params, m
+    torch.cuda.empty_cache()
+    model = init_model(get_config(LM_ARCH), torch.Generator(
+        device=dev).manual_seed(SEED), device=dev, trainable=True, mesh=mesh)
+    loss16, _, grads16 = loss_and_grads(model, rows)
+    grads16 = {n: g.detach() for n, g in grads16.items()}
+    del model
+    torch.cuda.empty_cache()
+    tag = f"{LM_ARCH} on 2 x 2 rank {rank}"
+    q, k, v = seen["qkv"]  # fp32: the body this run's B6 launches took
+    out["qkv_shape"] = (tuple(q.shape), tuple(k.shape))
+    out["b6_err32"] = _check_b6(torch, q, k, v, True, f"{tag}: layer 0's "
+                                "q, k, v in fp32")
+    out["b6_grad32"] = _b6_function_vs_plain(torch, q, k, v, f"{tag} fp32")
+    q, k, v = (t.to(torch.bfloat16) for t in seen["qkv"])
+    out["b6_err"] = _check_b6(torch, q, k, v, True, f"{tag}: layer 0's "
+                              "q, k, v in bf16")
+    out["b6_grad_ulps"] = _b6_function_vs_plain(torch, q, k, v, tag)
+    sharded = {"losses": out["losses"], "grads": grads, "after": after,
+               "loss16": float(loss16), "grads16": grads16}
+    for turn in range(mesh.size):  # one unsharded model on the card at a time
+        if turn == rank:
+            t0 = time.perf_counter()
+            out["ref"] = _train_shard_reference(torch, dev, cfg, batch, mesh,
+                                                cuts, sharded)
+            torch.cuda.empty_cache()
+            out["ref_s"] = time.perf_counter() - t0
+        dist.barrier()
+    return out
+
+
+def phase_train_shard(torch, dev):
+    """Sharded LM training at full width: llama3.2-1b trainable on the
+    2 x 2 mesh (FSDP over data, heads, d_ff and vocab over model), ranks
+    sharing the one card over gloo, batch 4 x 512 from the token stream.
+    Gates, on every rank: the fp32 loss within LOSS_RTOL of one rank's on
+    the full batch (the second step's within CE_RTOL), every gradient
+    block within GRAD_REL max |g| + GRAD_ABS of one rank's (the whole
+    leaf's maximum), the parameters after two updates within 2 lr n and
+    within PARAM_BAR on PARAM_SHARE of the elements (phase 29's bars);
+    B6 on layer 0's q, k, v of the rank's heads within its fp32 bar (the
+    body the fp32 steps launch) and, cast, its bf16 bar (the tensor-core
+    body), and its Function against autograd of plain_attention there in
+    both dtypes (:func:`_b6_function_vs_plain`); B6 launched 2 L a step
+    (forward and recompute); the ranks' losses bitwise equal. Printed:
+    the bf16 step as multiples of the bars, ms a step (unprofiled),
+    tokens/s, the all-reduces a step per group with the FSDP gathers and
+    reduce-scatters among them, each rank's peak and their sum, a third
+    step's profile. Returns B6's launches (every rank's gradient and two
+    steps) and its max |err| at the ranks' shapes over both dtypes."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import run_ranks
+
+    t_phase = time.perf_counter()
+    ranks = run_ranks(_train_shard_rank, TRAIN_SHARD_MESH[0]
+                      * TRAIN_SHARD_MESH[1], device=dev)
+    layers = get_config(LM_ARCH).num_layers
+    for r in ranks:
+        who, ref = f"{LM_ARCH} on 2 x 2 rank {r['rank']}", r["ref"]
+        check(ref["loss_rel"] <= LOSS_RTOL and ref["loss2_rel"] <= CE_RTOL,
+              f"{who}: fp32 losses {r['losses']} against one rank's, "
+              f"relative {ref['loss_rel']:.2e} (bar {LOSS_RTOL}) and "
+              f"{ref['loss2_rel']:.2e} (bar {CE_RTOL})")
+        name, share = ref["grad_worst"]
+        check(share <= 1.0, f"{who}: gradient leaf {name} {share:.3f} of the "
+              f"bar ({GRAD_REL} max |g| + {GRAD_ABS}) from one rank's")
+        limit = 2 * TRAIN_SHARD_LR * 2
+        check(ref["param_max"] <= limit and ref["param_share"]
+              >= PARAM_SHARE, f"{who}: parameters after two updates max "
+              f"|err| {ref['param_max']:.3e} (bar {limit}), "
+              f"{ref['param_share']:.5f} within {PARAM_BAR} (bar "
+              f"{PARAM_SHARE})")
+        check(r["launches"] == [2 * layers] * 3, f"{who}: B6 launches "
+              f"{r['launches']} in the gradient and the two steps, not "
+              f"{2 * layers} each ({layers} forward, {layers} recompute)")
+        check(r["losses"] == ranks[0]["losses"], f"{who}: losses "
+              f"{r['losses']} differ from rank 0's {ranks[0]['losses']}")
+    r0 = ranks[0]
+    tokens = TRAIN_SHARD_BATCH * TRAIN_SHARD_SEQ
+    p = r0["profile"]
+    idle = (1 - p["device_us"] / p["wall_us"] if p["device_us"]
+            else float("nan"))
+    split = r0["split"]
+    print(f"phase 36: {LM_ARCH} trainable at full width on 2 x 2 ({len(ranks)}"
+          f" ranks, backend {r0['backend']}, one card), batch "
+          f"{TRAIN_SHARD_BATCH} x {TRAIN_SHARD_SEQ}, fp32, lr "
+          f"{TRAIN_SHARD_LR}: losses " + " -> ".join(
+              f"{x:.6f}" for x in r0["losses"])
+          + "; every rank vs one rank: loss rel max "
+          f"{max(r['ref']['loss_rel'] for r in ranks):.2e} (bar {LOSS_RTOL}),"
+          f" step 2 {max(r['ref']['loss2_rel'] for r in ranks):.2e} (bar "
+          f"{CE_RTOL}), worst gradient leaf "
+          f"{max(r['ref']['grad_worst'][1] for r in ranks):.3f} of its bar "
+          f"({max(ranks, key=lambda r: r['ref']['grad_worst'][1])['ref']['grad_worst'][0]}),"
+          f" parameters after two updates max |err| "
+          f"{max(r['ref']['param_max'] for r in ranks):.3e}, "
+          f"{min(r['ref']['param_share'] for r in ranks):.6f} within "
+          f"{PARAM_BAR}; ranks' losses bitwise equal")
+    print(f"  B6 at the ranks' shapes (q {r0['qkv_shape'][0]}, k/v "
+          f"{r0['qkv_shape'][1]}): fp32 (the body the steps ran) vs plain "
+          f"max |err| {max(r['b6_err32'] for r in ranks):.3e} (bar "
+          f"{B6_TOL['float32']}), its Function vs autograd of "
+          f"plain_attention {max(r['b6_grad32'] for r in ranks):.3f} of "
+          f"1e-6 max |g|; bf16 (the tensor-core body) vs plain "
+          f"{max(r['b6_err'] for r in ranks):.3e} (bar "
+          f"{B6_TOL['bfloat16']}), its Function "
+          f"{max(r['b6_grad_ulps'] for r in ranks):.3f} of one bf16 ulp of "
+          f"max |g|; B6 {r0['launches'][1]} launches a step on every rank")
+    print(f"  bf16 (not gated): loss vs one rank's "
+          f"{max(r['ref']['bf16_loss_bars'] for r in ranks):.2f} x the bar "
+          f"({LOSS_RTOL}), worst gradient leaf "
+          f"{max(r['ref']['bf16_grad_bars'] for r in ranks):.2f} x its bar")
+    print(f"  a step {r0['step_s'] * 1e3:.1f} ms "
+          f"({tokens / r0['step_s']:,.0f} tokens/s; the first gradient "
+          f"{r0['grad_s'] * 1e3:.1f} ms); "
+          f"all-reduces a step: {_per_group(r0['counts'])}; of them FSDP "
+          f"gathers {split['gather']['calls']} "
+          f"({split['gather']['bytes'] / 1e9:.3f} GB) and reduce-scatters "
+          f"{split['reduce_scatter']['calls']} "
+          f"({split['reduce_scatter']['bytes'] / 1e9:.3f} GB)")
+    print("  per rank: " + ", ".join(
+        f"rank {r['rank']} {r['param_bytes'] / 1e9:.3f} GB of parameters, "
+        f"peak {r['peak_gb']:.2f} GB" for r in ranks)
+          + f"; peaks summed {sum(r['peak_gb'] for r in ranks):.2f} GB; "
+          f"rank 0 set-up {r0['setup_s']:.1f} s, its one-rank reference "
+          f"{r0['ref_s']:.1f} s; a third step under the "
+          f"profiler {p['wall_us'] / 1e3:.1f} ms wall, "
+          + (f"{p['device_us'] / 1e3:.1f} ms of device in {p['launches']} "
+             f"launches (idle {idle:.1%})" if p["launches"] else
+             "device time not measured"))
+    print(f"phase 36 took {time.perf_counter() - t_phase:.1f} s")
+    return (sum(sum(r["launches"]) for r in ranks),
+            max(max(r["b6_err"], r["b6_err32"]) for r in ranks))
+
+
+def _train_shard_reduced(rank, dev, shape):
+    """Phase 37 on one rank (the card's or the CPU's): each reduced family
+    of TRAIN_SHARD_REDUCED[shape] in fp32, drawn on the CPU from one seed
+    and moved to ``dev``, trainable on the mesh ``shape``: the loss and
+    every gradient block gathered (rank 0 keeps them), B6 and B7 counted,
+    then TRAIN_CPU_STEPS updates (losses, the parameters gathered). On
+    the card, falcon-mamba's gated scans are captured: layer 0's forward
+    call and its recompute."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import Transformer, init_model, loss_and_grads
+    from repro_torch.models import make_train_step, ssm
+    from repro_torch.models.sharding import batch_rows, gather_block
+
+    mesh = Mesh(*shape)
+    B6, B7 = _lm_counters()
+    out = {"data_rank": mesh.data_rank}
+    for arch in TRAIN_SHARD_REDUCED[shape]:
+        cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
+        model = Transformer(cfg, device=dev, trainable=True, mesh=mesh)
+        model.load_state_dict(init_model(
+            cfg, torch.Generator().manual_seed(SEED), device="cpu",
+            trainable=True, mesh=mesh).state_dict())
+        raw = TokenStream(cfg.vocab_size, seed=SEED).batch(4, 33)
+        rows = {k: batch_rows(torch.from_numpy(v), mesh).to(dev)
+                for k, v in raw.items()}
+        scans, kernel = [], ssm.ops.gated_selective_scan
+
+        def keeping(*args):
+            scans.append(tuple(None if a is None else a.detach().clone()
+                               for a in args))
+            return kernel(*args)
+
+        if dev.type == "cuda" and cfg.family == "ssm":
+            ssm.ops.gated_selective_scan = keeping
+        try:
+            _reset((B6, B7))
+            loss, _, grads = loss_and_grads(model, rows)
+            launches = {"B6": B6["flash_attention"],
+                        "B7": B7["mamba1_scan_gated"]}
+        finally:
+            ssm.ops.gated_selective_scan = kernel
+        cuts = model.leaf_specs()
+        gathered = {n: gather_block(g.detach(), cuts[n][0], mesh,
+                                    cuts[n][1]).cpu() for n, g in grads.items()}
+        opt, step = make_train_step(model, lr=TRAIN_CPU_LR)
+        state, losses = opt.init(dict(model.named_parameters())), []
+        for _ in range(TRAIN_CPU_STEPS):
+            state, m = step(state, rows)
+            losses.append(float(m["loss"]))
+        params = {n: gather_block(p.detach(), cuts[n][0], mesh,
+                                  cuts[n][1]).cpu()
+                  for n, p in model.named_parameters()}
+        out[arch] = {"loss": float(loss), "launches": launches,
+                     "losses": losses,
+                     "grads": gathered if mesh.rank == 0 else None,
+                     "params": params if mesh.rank == 0 else None}
+        if scans:  # layer 0's forward call and its recompute (the last)
+            out[arch]["scans"] = {"forward": _scan_to_cpu(scans[0]),
+                                  "recompute": _scan_to_cpu(scans[-1])}
+            out[arch]["scan_calls"] = len(scans)
+        del model, opt, step, state
+    return out
+
+
+def _train_shard_one_by_one(rank, dev):
+    """Phase 37's 1 x 1 mesh on the card (module level: a spawned rank of
+    its own, so torch's deterministic mode holds in this process alone):
+    reduced llama and falcon-mamba in fp32, the unsharded step and the
+    1 x 1 mesh's, both under torch's deterministic implementations (the
+    embedding's backward adds repeated ids' rows in no fixed order
+    otherwise): loss, every gradient, the parameters after two updates.
+    Returns the archs whose two runs are not bitwise equal."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import init_model, loss_and_grads
+    from repro_torch.models import make_train_step
+
+    was = (torch.are_deterministic_algorithms_enabled(),
+           torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    differ = []
+    try:
+        for arch in (LM_ARCH, SSM_ARCH):
+            cfg = dataclasses.replace(get_config(arch).reduced(),
+                                      dtype="float32")
+            raw = _train_batch(cfg, seq=64)
+            batch = {k: torch.from_numpy(v).to(dev) for k, v in raw.items()}
+            runs = []
+            for mesh in (None, Mesh(1, 1)):
+                model = init_model(cfg, torch.Generator(
+                    device=dev).manual_seed(SEED), device=dev,
+                    trainable=True, mesh=mesh)
+                loss, _, grads = loss_and_grads(model, batch)
+                opt, step = make_train_step(model, lr=TRAIN_CPU_LR, mesh=mesh)
+                state, losses = opt.init(dict(model.named_parameters())), []
+                for _ in range(2):
+                    state, m = step(state, batch)
+                    losses.append(float(m["loss"]))
+                runs.append((loss, grads, losses,
+                             dict(model.named_parameters())))
+            (l0, g0, s0, p0), (l1, g1, s1, p1) = runs
+            if not (torch.equal(l0, l1) and s0 == s1 and all(
+                    torch.equal(g0[n], g1[n]) and torch.equal(p0[n], p1[n])
+                    for n in g0)):
+                differ.append(arch)
+    finally:
+        torch.use_deterministic_algorithms(was[0], warn_only=was[1])
+    return differ
+
+
+def _scan_to_cpu(args):
+    return tuple(None if a is None else a.cpu() for a in args)
+
+
+def phase_train_shard_reduced(torch, dev):
+    """Reduced llama, granite and falcon-mamba on 2 x 2 and zamba2 on
+    2 x 1, in fp32, trainable: the card's ranks (B6, B7) against the
+    CPU's (plain versions; the four worlds run at once) on the same
+    weights and batch, at phase 29's
+    bars (loss LOSS_RTOL, every gathered gradient leaf GRAD_REL max |g| +
+    GRAD_ABS, TRAIN_CPU_STEPS updates' losses CE_RTOL and parameters 2 lr
+    n and PARAM_BAR on PARAM_SHARE of the elements); B6 launched twice per
+    attention unit and B7 twice per Mamba1 layer (forward, recompute) on
+    every card rank; B7's gated mode on a rank's channels bitwise its
+    plain version in layer 0's forward call and in its recompute, and the
+    gradient through its Function bitwise autograd of plain_gated_scan
+    there; then on the card the 1 x 1 mesh bitwise the unsharded step
+    (loss, every gradient, the parameters after two updates). Returns the
+    card ranks' B6 and B7 launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.mamba_scan import ops as scan_ops
+    from repro_torch.launch.mesh import run_ranks
+
+    t0 = time.perf_counter()
+    launches = {"B6": 0, "B7": 0}
+    lines = []
+    with ThreadPoolExecutor(2 * len(TRAIN_SHARD_REDUCED) + 1) as pool:
+        worlds = {(shape, d): pool.submit(
+            run_ranks, _train_shard_reduced, shape[0] * shape[1], shape,
+            device=d) for shape in TRAIN_SHARD_REDUCED for d in (dev, "cpu")}
+        one = pool.submit(run_ranks, _train_shard_one_by_one, 1, device=dev)
+        worlds = {k: f.result() for k, f in worlds.items()}  # every world at once
+        one_by_one = one.result()[0]
+    for shape in TRAIN_SHARD_REDUCED:
+        card, cpu = worlds[shape, dev], worlds[shape, "cpu"]
+        for arch in TRAIN_SHARD_REDUCED[shape]:
+            cfg = get_config(arch).reduced()
+            tag = f"reduced {arch} on {shape[0]} x {shape[1]}"
+            c0, h0 = card[0][arch], cpu[0][arch]
+            for c, h in zip(card, cpu):
+                rel = abs(c[arch]["loss"] - h[arch]["loss"]) / abs(
+                    h[arch]["loss"])
+                check(rel <= LOSS_RTOL, f"{tag}: loss card vs CPU relative "
+                      f"{rel:.2e} > {LOSS_RTOL}")
+                rel_l = max(abs(a - b) / abs(b) for a, b in zip(
+                    c[arch]["losses"], h[arch]["losses"]))
+                check(rel_l <= CE_RTOL, f"{tag}: training losses card "
+                      f"{c[arch]['losses']} vs CPU {h[arch]['losses']}")
+                attention = (0 if cfg.family == "ssm" else cfg.num_layers
+                             // (cfg.shared_attn_every or 1))
+                want = {"B6": 2 * attention,
+                        "B7": 2 * cfg.num_layers * (cfg.family == "ssm")}
+                check(c[arch]["launches"] == want, f"{tag}: launches "
+                      f"{c[arch]['launches']} in a gradient, not {want}")
+                for k in launches:
+                    launches[k] += c[arch]["launches"][k]
+            errs = _leaf_errors(c0["grads"], h0["grads"])
+            bad = {m: e for m, e in errs.items()
+                   if not e[0] <= GRAD_REL * e[1] + GRAD_ABS or e[1] == 0.0}
+            check(not bad, f"{tag}: gathered gradient leaves card vs CPU "
+                  f"beyond {GRAD_REL} max|g| + {GRAD_ABS}: "
+                  f"{dict(list(bad.items())[:6])}")
+            diffs = torch.cat([(c0["params"][m] - p).abs().ravel()
+                               for m, p in h0["params"].items()])
+            limit = 2 * TRAIN_CPU_LR * TRAIN_CPU_STEPS
+            share = float((diffs <= PARAM_BAR).float().mean())
+            check(float(diffs.max()) <= limit and share >= PARAM_SHARE,
+                  f"{tag}: parameters card vs CPU max |err| "
+                  f"{float(diffs.max()):.3e} (bar {limit}), {share:.5f} "
+                  f"within {PARAM_BAR}")
+            worst = max(e[0] / (GRAD_REL * e[1] + GRAD_ABS)
+                        for e in errs.values())
+            line = (f"{arch} on {shape[0]} x {shape[1]}: worst gradient leaf "
+                    f"{worst:.3f} of its bar, parameters max |err| "
+                    f"{float(diffs.max()):.2e}")
+            if "scans" in c0:
+                for when, args in c0["scans"].items():
+                    args = tuple(None if a is None else a.to(dev)
+                                 for a in args)
+                    _check_b7_gated(torch, args, f"{tag} rank 0: layer 0's "
+                                    f"gated scan ({when})", chained=False)
+                    grads = []
+                    for fn in (scan_ops.gated_selective_scan,
+                               scan_ops.plain_gated_scan):
+                        leaves = [None if a is None else
+                                  a.clone().requires_grad_() for a in args]
+                        y, hT = fn(*leaves)
+                        wrt = [t for t in leaves if t is not None]
+                        grads.append(torch.autograd.grad(
+                            [y, hT], wrt, [torch.ones_like(y),
+                                           torch.ones_like(hT)]))
+                    check(all(torch.equal(a, b) for a, b in zip(*grads)),
+                          f"{tag}: the gradient through B7's Function "
+                          f"differs from autograd of plain_gated_scan "
+                          f"({when})")
+                check(c0["scan_calls"] == 2 * cfg.num_layers,
+                      f"{tag}: {c0['scan_calls']} gated scans, not "
+                      f"{2 * cfg.num_layers}")
+                line += ("; B7 gated on rank 0's channels bitwise plain in "
+                         "layer 0's forward and recompute, its Function's "
+                         "gradient bitwise autograd of plain")
+            lines.append(line)
+    check(not one_by_one, "the 1 x 1 mesh's step is not bitwise the unsharded"
+          f" step on the card: {one_by_one}")
+    print(f"phase 37: reduced fp32 training, card ranks (B6/B7) vs CPU ranks"
+          f" (plain) at phase 29's bars: " + "; ".join(lines)
+          + f"; the 1 x 1 mesh bitwise the unsharded step on the card "
+          f"({LM_ARCH}, {SSM_ARCH}: loss, gradients, two updates); "
+          f"card launches B6 {launches['B6']}, B7 {launches['B7']}; "
+          f"{time.perf_counter() - t0:.1f} s")
+    return launches
 
 
 SERVE_PHASES = (2, 3, 4)  # the serving path's phases, runnable alone
@@ -5673,6 +6210,7 @@ LM_TRAIN_PHASES = (28, 29)  # the LM training path's, likewise
 TUNE_PHASES = (30, 31)  # the autotune sweep and the tuning flags, likewise
 SHARD_PHASES = (32, 33)  # sharded training at paper width, the drivers
 SHARD_SERVE_PHASES = (34, 35)  # sharded LM serving, full width and reduced
+SHARD_TRAIN_PHASES = (36, 37)  # sharded LM training, full width and reduced
 
 
 def _serving_model(torch, dev):
@@ -5703,11 +6241,17 @@ def _sparse_problem(torch, dev):
     return problem, test, time.perf_counter() - t0
 
 
+def _in_tmp(phase, torch, dev):
+    """``phase(torch, dev, tmp)`` with a temporary directory of its own."""
+    with tempfile.TemporaryDirectory() as tmp:
+        return phase(torch, dev, Path(tmp))
+
+
 def _run_only(torch, dev, only, t_start) -> int:
     """Phase 1 and the given serving (2-4), sparse training (5-8), SSM
     (17-20), hybrid or MoE (21-24), streaming (25-27), LM training
-    (28-29), autotuning (30-31), sharded training (32-33) or sharded LM
-    serving (34-35) phases alone
+    (28-29), autotuning (30-31), sharded training (32-33), sharded LM
+    serving (34-35) or sharded LM training (36-37) phases alone
     (``--only``): a partial run, so it prints no kernels line and no
     result line."""
     if only & {2, 4}:
@@ -5772,8 +6316,12 @@ def _run_only(torch, dev, only, t_start) -> int:
                 phase_shard_drivers(torch, dev, Path(tmp))
         elif phase == 34:
             phase_serve_shard(torch, dev)
-        else:
+        elif phase == 35:
             phase_serve_shard_reduced(torch, dev)
+        elif phase == 36:
+            phase_train_shard(torch, dev)
+        else:
+            phase_train_shard_reduced(torch, dev)
     print(f"phases 1 and {sorted(only)} passed in "
           f"{time.perf_counter() - t_start:.1f} s (partial run: no result)")
     return 0
@@ -5782,18 +6330,19 @@ def _run_only(torch, dev, only, t_start) -> int:
 def main(argv: list[str]) -> int:
     """``chip_smoke.py`` runs every phase; ``chip_smoke.py --only 2,3,4``
     (or ``5,6,8``, or ``17,20``, or ``21,22,23,24``, or ``25,26,27``, or
-    ``28,29``, or ``30,31``, or ``32,33``, or ``34,35``) runs phase 1 and
+    ``28,29``, or ``30,31``, or ``32,33``, or ``34,35``, or ``36,37``)
+    runs phase 1 and
     the named phases of the serving path (2-4), the sparse training path
     (5-8), the SSM path (17-20), the hybrid and MoE paths (21-24), the
     streaming path (25-27), the LM training path (28-29), the autotuning
-    path (30-31), the sharded training path (32-33) or the sharded LM
-    serving path (34-35) alone."""
+    path (30-31), the sharded training path (32-33), the sharded LM
+    serving path (34-35) or the sharded LM training path (36-37) alone."""
     import torch
 
     only = set()
     alone = (SERVE_PHASES + TRAIN_PHASES + SCAN_PHASES + FAMILY_PHASES
              + STREAM_PHASES + LM_TRAIN_PHASES + TUNE_PHASES + SHARD_PHASES
-             + SHARD_SERVE_PHASES)
+             + SHARD_SERVE_PHASES + SHARD_TRAIN_PHASES)
     if argv:
         if len(argv) != 2 or argv[0] != "--only":
             raise SmokeFailure(f"usage: chip_smoke.py [--only "
@@ -5896,7 +6445,6 @@ def main(argv: list[str]) -> int:
         err[name] = max(err[name], e)
     with tempfile.TemporaryDirectory() as tmp:
         monitored_launches = phase_stream_gates(torch, dev, Path(tmp))
-    phase_card_tests()
     train_b6, train_metrics = phase_lm_train(torch, dev)
     train_cpu_launches = phase_lm_train_card_vs_cpu(torch, dev)
     phase_tune_sweep(torch, dev)
@@ -5905,12 +6453,21 @@ def main(argv: list[str]) -> int:
     sharded_launches, shard_err = phase_shard(torch, dev)
     for name, e in shard_err.items():
         err[name] = max(err[name], e)
-    with tempfile.TemporaryDirectory() as tmp:
-        phase_shard_drivers(torch, dev, Path(tmp))
     serve_sharded, serve_sharded_err = phase_serve_shard(torch, dev)
     for name, e in serve_sharded_err.items():
         err[name] = max(err[name], e)
-    phase_serve_shard_reduced(torch, dev)
+    train_shard_b6, train_shard_err = phase_train_shard(torch, dev)
+    err["flash_attention"] = max(err["flash_attention"], train_shard_err)
+    # the phases whose numbers are gates, not times, run at once after
+    # every timed one: the card tests (phase 27, a pytest process of their
+    # own), the sharded drivers against their unsharded runs (phase 33)
+    # and the reduced sharded serving and training checks (phases 35, 37)
+    with ThreadPoolExecutor(4) as pool:
+        jobs = [pool.submit(phase_card_tests),
+                pool.submit(_in_tmp, phase_shard_drivers, torch, dev),
+                pool.submit(phase_serve_shard_reduced, torch, dev),
+                pool.submit(phase_train_shard_reduced, torch, dev)]
+        train_shard_reduced = [job.result() for job in jobs][-1]
 
     kernels = []
     for name in ("lsplm_sparse_fused_forward",
@@ -5943,6 +6500,8 @@ def main(argv: list[str]) -> int:
                             if n["B6"]})
             by_path["serve_sharded"] = sum(serve_sharded[name].values())
             by_path.update(serve_sharded[name])
+            by_path["train_shard"] = train_shard_b6
+            by_path["train_shard_reduced"] = train_shard_reduced["B6"]
         if name == "mamba1_scan":
             by_path = {"lm_serve_ssm": ssm_total, **{
                 f"lm_serve_ssm/{step}": n
@@ -5952,6 +6511,9 @@ def main(argv: list[str]) -> int:
                             if n["B7"]})
             by_path["serve_sharded"] = sum(serve_sharded[name].values())
             by_path.update(serve_sharded[name])
+            # B7 trains sharded at reduced width only (phase 37):
+            # falcon-mamba's full width needs ~116 GB on one card
+            by_path["train_shard_reduced"] = train_shard_reduced["B7"]
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name],

@@ -24,8 +24,11 @@ Both packages keep the same flat-npz layout, so the crossing is arrays:
 
 On a mesh (``mesh=``) the model holds this rank's block of each leaf,
 cut from the reference's full leaf by ``models.param_specs`` in the
-serving layout (``models/sharding.py``), and :func:`params_to_reference`
-gathers the blocks back exactly (a collective: every rank calls it).
+layout of ``models/sharding.py``: the training layout (FSDP over
+``data`` included) for a trainable model, the serving layout otherwise;
+:func:`params_to_reference` gathers the blocks back exactly (a
+collective: every rank calls it), so a model trained on one mesh
+becomes a serving model on another by way of the reference's layout.
 """
 from __future__ import annotations
 
@@ -140,7 +143,8 @@ def model_from_reference(params: dict, cfg: ArchConfig,
     and the norm scales stay in ``cfg.param_dtype``; a trainable model
     keeps every leaf in ``cfg.param_dtype``, fp32 leaves unrounded).
     With a ``mesh`` each parameter is this rank's block of the leaf
-    (``Transformer.leaf_specs``). Raises ``ValueError`` on a missing,
+    (``Transformer.leaf_specs``: the training layout when ``trainable``,
+    else the serving one). Raises ``ValueError`` on a missing,
     surplus or misshapen leaf."""
     model = Transformer(cfg, device=resolve_device(device),
                         trainable=trainable, mesh=mesh)

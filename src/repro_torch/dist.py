@@ -33,7 +33,7 @@ from repro_torch.core.objective import (
     _nll_from_logps,
 )
 from repro_torch.kernels.lsplm_sparse_fused.ops import logps_from_z
-from repro_torch.launch.mesh import sum_over
+from repro_torch.launch.mesh import sum_fp32
 from repro_torch.optim.owlqn_plus import OWLQNPlus, OWLQNState
 from repro_torch.shard.partition import Partition, make_partition
 from repro_torch.shard.step import loss_fns
@@ -115,11 +115,11 @@ def sharded_nll(theta: torch.Tensor, batch, mesh, *,
         z = z_c[batch.session_id.long()] + batch.x_noncommon @ theta[d_c:]
     else:
         z = batch.x @ theta
-    z = sum_over(z, mesh, "model")
+    z = sum_fp32(z, mesh, "model")
     log_p1, log_p0 = logps_from_z(z)
     loss = _nll_from_logps(log_p1, log_p0, batch.y.to(log_p1.dtype),
                            batch.weight)
-    return sum_over(loss, mesh, "data")
+    return sum_fp32(loss, mesh, "data")
 
 
 def make_sharded_dense_loss(batch, mesh, *, common_feature: bool = False):

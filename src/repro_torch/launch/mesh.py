@@ -24,7 +24,12 @@ of all-reduces, their bytes and the host time spent in them, per group
 (:meth:`Mesh.collective_counts`). Besides the in-place sum, the LM's
 tensor and expert parallelism uses two built on it: :meth:`Mesh.sum_fp32`,
 a bf16 partial summed in fp32 and rounded once, and :meth:`Mesh.gather`,
-an exact all-gather of any dtype's bits along any dimension.
+an exact all-gather of any dtype's bits along any dimension. Training
+differentiates through them: :func:`copy_to` (the identity, its backward
+a sum), :func:`sum_fp32` (its backward the identity),
+:func:`gather_replicated` (its backward a slice) and :func:`gather_split`
+(its backward a reduce-scatter) are ``autograd.Function`` s whose
+forwards are those calls' own bits.
 
 Process start. :func:`run_ranks` starts ``data * model`` ranks with the
 *spawn* start method (a card forbids fork after CUDA is initialised) and a
@@ -168,6 +173,16 @@ class Mesh:
         (:meth:`gather` over ``model`` on dim 0)."""
         return self.gather(block, "model", 0)
 
+    def split_counts(self) -> dict[str, dict[str, int]]:
+        """``{"gather": {"calls": n, "bytes": b}, "reduce_scatter": ...}``
+        of :func:`gather_split` so far (FSDP's weight gathers and the
+        experts' d_ff gathers, and their backwards): the bytes of the
+        all-reduced buffers (a gather's int32 words of every rank's
+        block, a reduce-scatter's fp32 whole). They are part of
+        :meth:`collective_counts`' ``data`` numbers."""
+        return {k: {"calls": c[0], "bytes": c[1]}
+                for k, c in self._split.items()}
+
     def collective_counts(self) -> dict[str, dict[str, float]]:
         """``{axis: {"all_reduce": n, "bytes": b, "seconds": s}}`` issued
         so far; ``s`` is the host's wall time inside the calls (the wait
@@ -178,29 +193,129 @@ class Mesh:
 
     def reset_counts(self) -> None:
         self._counts = {a: [0, 0, 0.0] for a in AXES}
+        self._split = {"gather": [0, 0], "reduce_scatter": [0, 0]}
+
+    def _tally(self, kind: str, nbytes: int) -> None:
+        self._split[kind][0] += 1
+        self._split[kind][1] += nbytes
 
 
-class _SumOver(torch.autograd.Function):
-    """All-reduce over one mesh axis whose backward passes the cotangent
-    through unchanged: everything downstream of the sum is replicated over
-    the axis, so each rank's share of the gradient is the cotangent
-    itself."""
+# The differentiable collectives of the LM's tensor, expert and FSDP
+# parallelism. Each forward is the non-differentiable call's own bits
+# (serving runs them too); each backward depends on whether what follows
+# is the same on every rank of the axis, hence one Function per case.
+class _CopyTo(torch.autograd.Function):
+    """The identity, whose backward sums the cotangent over ``axis`` in
+    fp32 (rounded once to its dtype): in front of a column-parallel
+    input, each rank's branch gives only its share of the gradient."""
 
     @staticmethod
     def forward(ctx, x, mesh, axis):
-        return mesh.sum(x, axis)
+        ctx.mesh, ctx.axis = mesh, axis
+        return x.view_as(x)
 
     @staticmethod
     def backward(ctx, g):
-        return g, None, None
+        return ctx.mesh.sum_fp32(g.contiguous(), ctx.axis), None, None
 
 
-def sum_over(x: torch.Tensor, mesh: Mesh | None, axis: str) -> torch.Tensor:
-    """Differentiable sum of ``x`` over ``axis`` (identity without a mesh
-    or on an axis of extent 1)."""
+def copy_to(x: torch.Tensor, mesh: Mesh | None, axis: str) -> torch.Tensor:
+    """``x`` itself, entering a region split over ``axis``: the backward
+    sums the ranks' cotangents (identity without a mesh or on an axis of
+    extent 1)."""
     if mesh is None or mesh.shape[axis] == 1:
         return x
-    return _SumOver.apply(x, mesh, axis)
+    return _CopyTo.apply(x, mesh, axis)
+
+
+class _SumFp32(torch.autograd.Function):
+    """:meth:`Mesh.sum_fp32` (the row-parallel sum, and the sharded
+    LS-PLM steps' sums of fp32 partials), whose backward passes the
+    cotangent through: what follows is replicated over the axes."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, *axes):
+        ctx.axes = len(axes)
+        return mesh.sum_fp32(x, *axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g, None) + (None,) * ctx.axes
+
+
+def sum_fp32(x: torch.Tensor, mesh: Mesh | None, *axes: str) -> torch.Tensor:
+    """Differentiable :meth:`Mesh.sum_fp32` over ``axes`` (``x`` itself
+    without a mesh or where every axis has extent 1)."""
+    if mesh is None or all(mesh.shape[a] == 1 for a in axes):
+        return x
+    return _SumFp32.apply(x, mesh, *axes)
+
+
+def _block_of(g: torch.Tensor, mesh: Mesh, axis: str,
+              dim: int) -> torch.Tensor:
+    r = mesh.data_rank if axis == "data" else mesh.model_rank
+    return g.chunk(mesh.shape[axis], dim)[r].contiguous()
+
+
+class _GatherReplicated(torch.autograd.Function):
+    """:meth:`Mesh.gather` into a result that everything downstream uses
+    alike on every rank of ``axis``: each rank's cotangent of the whole is
+    already the gradient, so the backward slices this rank's block (a
+    sum would scale it by the axis' extent)."""
+
+    @staticmethod
+    def forward(ctx, block, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        return mesh.gather(block, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _block_of(g, ctx.mesh, ctx.axis, ctx.dim), None, None, None
+
+
+class _GatherSplit(torch.autograd.Function):
+    """:meth:`Mesh.gather` into a result that the ranks of ``axis`` use
+    on different data (FSDP's weight gather over ``data``): the backward
+    is a reduce-scatter, built as an fp32 all-reduce of the cotangents
+    followed by this rank's block (gloo has no reduce-scatter of CUDA
+    tensors), rounded once to the block's dtype."""
+
+    @staticmethod
+    def forward(ctx, block, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        ctx.dtype = block.dtype
+        words = -(-block.numel() * block.element_size() // 4)
+        mesh._tally("gather", 4 * words * mesh.shape[axis])
+        return mesh.gather(block, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        total = ctx.mesh.all_reduce_(g.to(torch.float32, copy=True)
+                                     .contiguous(), ctx.axis)
+        ctx.mesh._tally("reduce_scatter", total.numel() * 4)
+        return (_block_of(total, ctx.mesh, ctx.axis, ctx.dim).to(ctx.dtype),
+                None, None, None)
+
+
+def gather_replicated(block: torch.Tensor, mesh: Mesh | None, axis: str,
+                      dim: int) -> torch.Tensor:
+    """Differentiable :meth:`Mesh.gather` whose result is used alike on
+    every rank of ``axis`` (the LM head's vocab blocks over ``model``):
+    the backward keeps this rank's block of the cotangent."""
+    if mesh is None or mesh.shape[axis] == 1:
+        return block
+    return _GatherReplicated.apply(block, mesh, axis, dim % block.dim())
+
+
+def gather_split(block: torch.Tensor, mesh: Mesh | None, axis: str,
+                 dim: int) -> torch.Tensor:
+    """Differentiable :meth:`Mesh.gather` whose result the ranks of
+    ``axis`` apply to different data (FSDP's weights over ``data``, the
+    experts' d_ff halves): the backward sums the cotangents over ``axis``
+    and keeps this rank's block (a reduce-scatter)."""
+    if mesh is None or mesh.shape[axis] == 1:
+        return block
+    return _GatherSplit.apply(block, mesh, axis, dim % block.dim())
 
 
 def make_debug_mesh(data: int = 2, model: int = 2) -> Mesh:

@@ -1,8 +1,8 @@
 """The LM backbone of the port (the counterpart of ``repro.models``): every
 family of the zoo (dense, vlm, audio, MoE, the Mamba1 ssm family and the
 Mamba2 + shared-attention hybrid), for serving and training, and
-sharded serving over a (data, model) mesh with ``param_specs`` /
-``cache_specs`` (``models/sharding.py``)."""
+sharded serving and training over a (data, model) mesh with
+``param_specs`` / ``cache_specs`` (``models/sharding.py``)."""
 from repro_torch.models.transformer import (  # noqa: F401
     Block,
     MambaBlock,
@@ -14,6 +14,7 @@ from repro_torch.models.transformer import (  # noqa: F401
     forward,
     init_caches,
     init_model,
+    loss_and_grads,
     loss_fn,
     make_serve_step,
     make_train_step,

@@ -29,7 +29,11 @@ rank r (wq/wk/wv cut by columns, wo by rows), so GQA's head h -> KV head
 h // rep stays on the rank; an :class:`MLP` holds d_ff / m of w1/w3's
 columns and w2's rows. The head counts are read off the weights. wo's
 and w2's products are partial sums, added over ``model`` in fp32
-(:func:`row_parallel`).
+(:func:`row_parallel`). For training the collectives are differentiable
+(``launch/mesh.py``): the column-parallel input x enters through
+``copy_to`` (its gradient summed over ``model``), the row-parallel sum
+passes its cotangent through, and a trainable model's FSDP leaves are
+gathered over ``data`` at each use (``sharding.at_use``).
 """
 from __future__ import annotations
 
@@ -39,6 +43,8 @@ from torch import nn
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import copy_to, sum_fp32
+from repro_torch.models.sharding import at_use
 
 NEG_INF = -1e30
 
@@ -165,14 +171,15 @@ def row_parallel(x: torch.Tensor, w: torch.Tensor, mesh=None) -> torch.Tensor:
     """x @ w in x's dtype. On a mesh, x's last axis and w's rows are a
     rank's slice of the contracted axis, and the partial product is
     summed over ``model`` in fp32 and rounded once (the product itself
-    without a mesh or with model = 1)."""
-    y = x @ w.to(x.dtype)
-    return y if mesh is None else mesh.sum_fp32(y, "model")
+    without a mesh or with model = 1); the sum's backward passes the
+    cotangent through. ``w`` is whole over ``data``."""
+    return sum_fp32(x @ w.to(x.dtype), mesh, "model")
 
 
 # --------------------------------------------------------------------- mlps
 def swiglu(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
            w2: torch.Tensor, mesh=None) -> torch.Tensor:
+    x = copy_to(x, mesh, "model")
     h = F.silu(x @ w1.to(x.dtype)) * (x @ w3.to(x.dtype))
     return row_parallel(h, w2, mesh)
 
@@ -180,6 +187,7 @@ def swiglu(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
 def gelu_mlp(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
              mesh=None) -> torch.Tensor:
     # jax.nn.gelu defaults to the tanh approximation
+    x = copy_to(x, mesh, "model")
     return row_parallel(F.gelu(x @ w1.to(x.dtype), approximate="tanh"), w2,
                         mesh)
 
@@ -235,15 +243,16 @@ class Attention(nn.Module):
         else:
             self.bq = self.bk = self.bv = None
 
-    def qkv(self, x: torch.Tensor):
+    def qkv(self, x: torch.Tensor, mesh=None):
         """x (B,S,d) -> q (B,S,H,hd), k/v (B,S,KVH,hd), H and KVH this
-        module's (a rank's share on a mesh)."""
+        module's (a rank's share on a ``mesh``)."""
         cfg = self.cfg
         B, S, _ = x.shape
         hd = cfg.resolved_head_dim
-        q = x @ self.wq.to(x.dtype)
-        k = x @ self.wk.to(x.dtype)
-        v = x @ self.wv.to(x.dtype)
+        x = copy_to(x, mesh, "model")
+        q = x @ at_use(self.wq, mesh).to(x.dtype)
+        k = x @ at_use(self.wk, mesh).to(x.dtype)
+        v = x @ at_use(self.wv, mesh).to(x.dtype)
         if self.bq is not None:
             q = q + self.bq.to(x.dtype)
             k = k + self.bk.to(x.dtype)
@@ -254,7 +263,7 @@ class Attention(nn.Module):
     def out(self, o: torch.Tensor, mesh=None) -> torch.Tensor:
         """o (B,S,H,hd) -> (B,S,d), summed over ``mesh``'s model axis."""
         B, S = o.shape[:2]
-        return row_parallel(o.reshape(B, S, -1), self.wo, mesh)
+        return row_parallel(o.reshape(B, S, -1), at_use(self.wo, mesh), mesh)
 
 
 class MLP(nn.Module):
@@ -275,6 +284,7 @@ class MLP(nn.Module):
 
     def forward(self, x: torch.Tensor, mesh=None) -> torch.Tensor:
         """x (..., d) -> (..., d), summed over ``mesh``'s model axis."""
+        w1, w2 = at_use(self.w1, mesh), at_use(self.w2, mesh)
         if self.swiglu:
-            return swiglu(x, self.w1, self.w3, self.w2, mesh)
-        return gelu_mlp(x, self.w1, self.w2, mesh)
+            return swiglu(x, w1, at_use(self.w3, mesh), w2, mesh)
+        return gelu_mlp(x, w1, w2, mesh)

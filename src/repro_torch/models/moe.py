@@ -45,6 +45,14 @@ reference's two plans:
 With ``batch_sharded=False`` every rank holds the whole batch, so both
 plans route it at the global capacity (what the reference's
 ``moe_mesh=None`` computes there), ``token_gather`` without gathering.
+
+Training runs ``weight_gather``, as the reference's training does. Its
+collectives are differentiable (``launch/mesh.py``): the d_ff halves are
+gathered with a reduce-scatter backward over ``data``; the tokens the
+experts read and the gates that scale their outputs enter through
+``copy_to("model")``, since each rank's experts give only their share of
+those gradients; the router itself reads the tokens directly (it is
+computed alike on every rank, so its gradient is whole on each).
 """
 from __future__ import annotations
 
@@ -55,6 +63,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.launch.mesh import copy_to, gather_split, sum_fp32
 from repro_torch.models.layers import module_device, new_weight, weight_dtype
 
 SERVING_MODES = ("weight_gather", "token_gather")
@@ -223,13 +232,16 @@ def moe_ffn(x: torch.Tensor, mod: MoE, cfg: ArchConfig,
         if tokens and batch_sharded:  # the whole batch, its d_ff slice
             x_flat = mesh.gather(x_flat, "data", 0)
         elif not tokens:  # its own tokens, its experts' whole d_ff
-            w1, w3 = (mesh.gather(w, "data", 2) for w in (w1, w3))
-            w2 = mesh.gather(w2, "data", 1)
+            w1, w3 = (gather_split(w, mesh, "data", 2) for w in (w1, w3))
+            w2 = gather_split(w2, mesh, "data", 1)
     gate, idx, probs = route(x_flat, mod.router, k)
     cap = capacity_for(x_flat.shape[0], E, k, capacity_factor)
+    if sharded:  # the experts' share of the tokens' and gates' gradients
+        x_flat, gate = copy_to(x_flat, mesh, "model"), copy_to(gate, mesh,
+                                                               "model")
     out = dispatch_compute(x_flat, gate, idx, w1, w3, w2, cap, expert_lo=lo)
     if sharded:
-        out = mesh.sum_fp32(out, "model", *(("data",) if tokens else ()))
+        out = sum_fp32(out, mesh, "model", *(("data",) if tokens else ()))
     if tokens and batch_sharded:
         out = out.reshape(mesh.data, B * S, d)[mesh.data_rank]
     return out.reshape(B, S, d), aux_loss(probs, idx, E)

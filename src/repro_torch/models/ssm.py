@@ -40,8 +40,13 @@ cut by columns (the rank holds [x_r | z_r]), conv_w/conv_b/dt_proj/
 dt_bias/A_log/D by channel, x_proj and out_proj by rows. The scan (B7)
 runs on the rank's channels; x_proj's (B, S, R + 2N) and out_proj's
 (B, S, d) products are partial sums, added over ``model`` in fp32 before
-dt, B and C are read and before the residual. Mamba2 is not split over
-``model`` (``ROADMAP.md`` A12c).
+dt, B and C are read and before the residual. Under training the
+normed input enters in_proj through ``copy_to`` and the summed x_proj
+output enters dt_proj and every rank's channels (B, C) through it too,
+so their gradients are summed over ``model``; a trainable model's FSDP
+leaves (in_proj, out_proj) are gathered over ``data`` at each use
+(``sharding.at_use``), Mamba2's as well. Mamba2 is not split over
+``model`` (``ROADMAP.md`` A12e).
 
 Mamba2's chunked SSD is jnp in the reference (no Pallas kernel), so
 :func:`ssd_chunked` is plain PyTorch on every device, all in fp32. The
@@ -62,12 +67,14 @@ from torch import nn
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.mamba_scan import ops
+from repro_torch.launch.mesh import copy_to
 from repro_torch.models.layers import (
     module_device,
     new_weight,
     row_parallel,
     weight_dtype,
 )
+from repro_torch.models.sharding import at_use
 
 
 # ------------------------------------------------------------------ helpers
@@ -167,10 +174,11 @@ def init_mamba1(mod: Mamba1, cfg: ArchConfig,
     mod.conv_b.zero_()
 
 
-def _split_xz(x: torch.Tensor, mod: Mamba1, cfg: ArchConfig):
+def _split_xz(x: torch.Tensor, mod: Mamba1, cfg: ArchConfig, mesh=None):
     """x (..., d) -> the x and z halves (..., di) of this module's (a
     rank's share of) channels."""
-    xz = x @ mod.in_proj.to(x.dtype)
+    x = copy_to(x, mesh, "model")
+    xz = x @ at_use(mod.in_proj, mesh).to(x.dtype)
     di = mod.in_proj.shape[1] // 2
     return xz[..., :di], xz[..., di:]
 
@@ -183,7 +191,8 @@ def _mamba1_inner(mod: Mamba1, cfg: ArchConfig, x_conv: torch.Tensor,
     when None)."""
     N, R = cfg.ssm_state, cfg.resolved_dt_rank
     f32 = torch.float32
-    xdb = row_parallel(x_conv, mod.x_proj, mesh)  # (B, S, R+2N)
+    # (B, S, R+2N), whole on every rank, read by each rank's channels
+    xdb = copy_to(row_parallel(x_conv, mod.x_proj, mesh), mesh, "model")
     dt_in, B_ssm, C_ssm = xdb[..., :R], xdb[..., R:R + N], xdb[..., R + N:]
     dt_raw = dt_in @ mod.dt_proj.to(dt_in.dtype)  # (B, S, di)
     return ops.gated_selective_scan(
@@ -198,10 +207,10 @@ def mamba1_forward(x: torch.Tensor, mod: Mamba1, cfg: ArchConfig,
     when S < K-1, "ssm": (B, di, N) fp32}], di the rank's channels on a
     ``mesh``."""
     K = cfg.ssm_conv
-    x_in, z = _split_xz(x, mod, cfg)
+    x_in, z = _split_xz(x, mod, cfg, mesh)
     x_conv = F.silu(causal_conv1d(x_in, mod.conv_w, mod.conv_b))
     y, h = _mamba1_inner(mod, cfg, x_conv, z, mesh=mesh)
-    out = row_parallel(y, mod.out_proj, mesh)
+    out = row_parallel(y, at_use(mod.out_proj, mesh), mesh)
     if not return_state:
         return out
     B, S, di = x_in.shape
@@ -215,13 +224,13 @@ def mamba1_decode(x_t: torch.Tensor, state: dict, mod: Mamba1,
     """One token. x_t (B, d); state {"conv" (B, K-1, di), "ssm" (B, di,
     N)} -> (B, d), the new state (new tensors: the conv state in x_t's
     dtype, the ssm state fp32); di the rank's channels on a ``mesh``."""
-    x_in, z = _split_xz(x_t, mod, cfg)
+    x_in, z = _split_xz(x_t, mod, cfg, mesh)
     conv_state, x_c = conv_step(state["conv"], x_in, mod.conv_w, mod.conv_b)
     x_c = F.silu(x_c)
     y, h = _mamba1_inner(mod, cfg, x_c[:, None], z[:, None],
                          h0=state["ssm"], mesh=mesh)
     y = y[:, 0]
-    return (row_parallel(y, mod.out_proj, mesh),
+    return (row_parallel(y, at_use(mod.out_proj, mesh), mesh),
             {"conv": conv_state, "ssm": h})
 
 
@@ -346,25 +355,27 @@ def _mamba2_split(zxbcdt: torch.Tensor, cfg: ArchConfig):
 
 
 def _gated_rmsnorm_out(y: torch.Tensor, z: torch.Tensor, mod: Mamba2,
-                       dtype: torch.dtype) -> torch.Tensor:
+                       dtype: torch.dtype, mesh=None) -> torch.Tensor:
     """y * silu(z), RMS-normalised and scaled by norm_scale, all in fp32,
     then cast to ``dtype`` and projected by out_proj."""
     y = y * F.silu(z.to(torch.float32))
     y = y * torch.rsqrt(torch.mean(y * y, dim=-1, keepdim=True) + 1e-6)
     y = (y * mod.norm_scale.to(torch.float32)).to(dtype)
-    return y @ mod.out_proj.to(dtype)
+    return y @ at_use(mod.out_proj, mesh).to(dtype)
 
 
 def mamba2_forward(x: torch.Tensor, mod: Mamba2, cfg: ArchConfig,
-                   return_state: bool = False):
+                   return_state: bool = False, mesh=None):
     """Full-sequence SSD. x (B, S, d) -> (B, S, d) [+ the decode state
     {"conv": (B, K-1, di+2N) in x's dtype, zero-padded in front when S <
     K-1, "ssm": (B, nh, p, N) fp32}], with chunk ``min(cfg.ssd_chunk,
-    S)``, which must divide S."""
+    S)``, which must divide S. ``mesh`` is data-only (FSDP leaves
+    gathered at use)."""
     di, N, K = cfg.d_inner, cfg.ssm_state, cfg.ssm_conv
     p = cfg.ssm_headdim
     nh, f32 = di // p, torch.float32
-    z, xbc_raw, dt_in = _mamba2_split(x @ mod.in_proj.to(x.dtype), cfg)
+    z, xbc_raw, dt_in = _mamba2_split(
+        x @ at_use(mod.in_proj, mesh).to(x.dtype), cfg)
     xbc = F.silu(causal_conv1d(xbc_raw, mod.conv_w, mod.conv_b))
     xs, B_ssm, C_ssm = xbc[..., :di], xbc[..., di:di + N], xbc[..., di + N:]
     dt = F.softplus(dt_in.to(f32) + mod.dt_bias.to(f32))
@@ -372,7 +383,8 @@ def mamba2_forward(x: torch.Tensor, mod: Mamba2, cfg: ArchConfig,
     xh = xs.reshape(*xs.shape[:-1], nh, p)
     y, h = ssd_chunked(xh, dt, A, B_ssm, C_ssm, cfg.ssd_chunk)
     y = y + mod.D.to(f32)[:, None] * xh.to(f32)
-    out = _gated_rmsnorm_out(y.reshape(*x.shape[:-1], di), z, mod, x.dtype)
+    out = _gated_rmsnorm_out(y.reshape(*x.shape[:-1], di), z, mod, x.dtype,
+                             mesh)
     if not return_state:
         return out
     Bsz, S, C = xbc_raw.shape

@@ -23,6 +23,7 @@ Entry points:
   cross_entropy / chunked_cross_entropy / loss_fn
                                 the LM loss, the chunked CE never
                                 holding the (B, S, V) logits
+  loss_and_grads                the loss and every block's gradient
   make_train_step               one backward and one AdamW update
   prefill                       last-token logits + filled caches (KV,
                                 the ssm states, or the hybrid's both)
@@ -64,7 +65,26 @@ over ``model`` in fp32. The embedding and the head split the vocab over
 logits gathered exactly over ``model`` before anything reads them, so
 every rank of a data shard sees the same bits). Everything else is
 computed alike on every rank of a data shard. The hybrid runs on
-data-only meshes; sharded training is A12c.
+data-only meshes.
+
+Sharded training (``ROADMAP.md`` A12c). A trainable model built with
+``mesh=`` holds its blocks in the training layout: ``param_specs`` whole,
+so the ``"data"`` entries are FSDP (a rank holds 1 / data of such a
+leaf, gathered over ``data`` at each use, the gradient reduce-scattered
+back), on top of the same tensor and expert parallelism over ``model``.
+``loss_fn`` / ``make_train_step`` take ``mesh=``; each rank feeds its
+data shard's rows. The collectives are differentiable
+(``launch/mesh.py``): ``copy_to`` in front of every column-parallel
+input, the row-parallel and vocab-parallel sums with an identity
+backward, the logits' vocab gather with a slicing backward. The CE is
+the global one, sum(s) / sum(n) over every data shard (each rank's term
+its s over the global count, the terms summed over ``data``), and the
+MoE's aux the mean over ``data``. After the backward, the leaves
+replicated over ``data`` have their gradient summed over ``data`` (one
+all-reduce); the FSDP leaves already hold theirs. AdamW then updates
+each rank's blocks, unchanged: its update is elementwise. Under remat
+each block's recompute re-issues its gathers and sums, in the same
+order on every rank.
 """
 from __future__ import annotations
 
@@ -78,6 +98,11 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels.flash_attention import ops as attention_ops
+from repro_torch.launch.mesh import (
+    copy_to,
+    gather_replicated,
+    sum_fp32,
+)
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models import sharding as SH
@@ -155,14 +180,17 @@ class Transformer(nn.Module):
     dtype at each use, as the reference does). The parameters are left
     unset, on ``device`` (``cuda`` unless ``"cpu"`` is asked for;
     ``"meta"`` allocates nothing). With a ``mesh`` of more than one rank
-    each leaf is this rank's block (:meth:`leaf_specs`); the mesh is
-    checked first (``sharding.check_mesh``)."""
+    each leaf is this rank's block (:meth:`leaf_specs`: the training
+    layout when ``trainable``, else the serving one), and each FSDP
+    block (cut over ``data``, experts aside) carries its ``fsdp_dim`` for
+    ``sharding.at_use``; the mesh is checked first
+    (``sharding.check_mesh``)."""
 
     def __init__(self, cfg: ArchConfig, device=None, trainable: bool = False,
                  mesh=None):
         super().__init__()
         device = L.module_device(device)
-        self.cfg, self.mesh = cfg, mesh
+        self.cfg, self.mesh, self.trainable = cfg, mesh, trainable
         sharded = SH.is_sharded(mesh)
         if sharded:
             SH.check_mesh(cfg, mesh.data, mesh.model)
@@ -190,18 +218,24 @@ class Transformer(nn.Module):
                 owner, _, leaf = name.rpartition(".")
                 p = self.get_parameter(name)
                 shape = SH.local_shape(p.shape, spec, mesh.shape, parts, name)
-                setattr(self.get_submodule(owner), leaf,
-                        L.new_weight(shape, p.dtype, device, trainable))
+                block = L.new_weight(shape, p.dtype, device, trainable)
+                if mesh.data > 1 and "data" in spec \
+                        and not SH.is_expert(cfg, name):
+                    block.fsdp_dim = spec.index("data")
+                setattr(self.get_submodule(owner), leaf, block)
 
     @property
     def device(self) -> torch.device:
         return self.embed.device
 
     def leaf_specs(self) -> dict:
-        """{parameter name: (spec, parts)} of every leaf in the serving
-        layout of this model's mesh (``sharding.serving_spec``)."""
+        """{parameter name: (spec, parts)} of every leaf on this model's
+        mesh: the training layout (``sharding.training_spec``) for a
+        trainable model, else the serving one
+        (``sharding.serving_spec``)."""
         specs = param_specs(self.cfg, self.mesh.model if self.mesh else 1)
-        return {name: SH.serving_spec(specs, name, self.cfg)
+        spec_of = SH.training_spec if self.trainable else SH.serving_spec
+        return {name: spec_of(specs, name, self.cfg)
                 for name, _ in self.named_parameters()}
 
 
@@ -256,7 +290,8 @@ def param_specs(cfg: ArchConfig, model_size: int = 16) -> dict:
     ``layers`` (stacked), ``embed``, ``final_norm``, ``lm_head`` and the
     hybrid's ``shared`` (a transformer block, unstacked). A vocab that
     does not divide by ``model_size`` (granite's 49,155) stays unsplit.
-    ``models/sharding.py`` reads it for serving, with its departures."""
+    ``models/sharding.py`` reads it whole for training and, with its
+    departures, for serving."""
     specs: dict = {"layers": _block_specs(cfg, stacked=True)}
     vocab_ok = cfg.vocab_size % model_size == 0
     specs["embed"] = ("model", "data") if vocab_ok else (None, "data")
@@ -436,7 +471,7 @@ def _attn_full(h, blk: Block, cfg: ArchConfig, rope, mesh=None):
     Returns the new h and this layer's (k, v) after rope (the rank's
     heads on a mesh)."""
     x = L.apply_norm(h, blk.norm1, cfg)
-    q, k, v = blk.attn.qkv(x)
+    q, k, v = blk.attn.qkv(x, mesh)
     q = L.apply_rope(q, *rope)
     k = L.apply_rope(k, *rope)
     o = attention_ops.causal_attention(q, k, v, chunk=cfg.attn_chunk)
@@ -463,7 +498,8 @@ def _ssm_full(h, blk: MambaBlock, cfg: ArchConfig, mesh=None):
         y, state = SS.mamba1_forward(x, blk.mamba, cfg, return_state=True,
                                      mesh=mesh)
     else:
-        y, state = SS.mamba2_forward(x, blk.mamba, cfg, return_state=True)
+        y, state = SS.mamba2_forward(x, blk.mamba, cfg, return_state=True,
+                                     mesh=mesh)
     return h + y, state
 
 
@@ -471,28 +507,37 @@ def embed_tokens(model: Transformer, tokens, mesh=None) -> torch.Tensor:
     """The embedding rows of ``tokens``. With the vocab split over the
     mesh's ``model`` axis (``mesh``, or the model's), each rank looks up
     the tokens in its range, the others' rows are zeros, and the sum over
-    ``model`` (one nonzero term) gives the rows exactly."""
+    ``model`` (one nonzero term) gives the rows exactly; its backward
+    passes the cotangent through (what follows is replicated over
+    ``model``). An FSDP embedding is gathered over ``data`` first."""
     tokens = torch.as_tensor(tokens, device=model.device).long()
-    dt, V_loc = _dt(model.cfg), model.embed.shape[0]
-    if V_loc == model.cfg.vocab_size:
-        return model.embed[tokens].to(dt)
     mesh = mesh or model.mesh
+    dt, V_loc = _dt(model.cfg), model.embed.shape[0]
+    embed = SH.at_use(model.embed, mesh)
+    if V_loc == model.cfg.vocab_size:
+        return embed[tokens].to(dt)
     local = tokens - mesh.model_rank * V_loc
     ours = (local >= 0) & (local < V_loc)
-    rows = model.embed[local.clamp(0, V_loc - 1)].to(dt)
-    return mesh.sum_fp32(torch.where(ours[..., None], rows, 0), "model")
+    rows = embed[local.clamp(0, V_loc - 1)].to(dt)
+    return sum_fp32(torch.where(ours[..., None], rows, 0), mesh, "model")
 
 
 def lm_logits(model: Transformer, h: torch.Tensor, mesh=None) -> torch.Tensor:
     """h (..., d) -> logits (..., V). With the vocab split over the mesh's
-    ``model`` axis, each rank's (..., V / m) are gathered exactly over
-    ``model``, so every rank holds the same bits."""
-    if model.cfg.tie_embeddings:
-        out = h @ model.embed.to(h.dtype).T
-    else:
-        out = h @ model.lm_head.to(h.dtype)
-    if out.shape[-1] != model.cfg.vocab_size:
-        out = (mesh or model.mesh).gather(out, "model", out.dim() - 1)
+    ``model`` axis, h enters through ``copy_to`` and each rank's (..., V /
+    m) are gathered exactly over ``model`` (the gather's backward keeps
+    the rank's block), so every rank holds the same bits. An FSDP head
+    (or tied embedding) is gathered over ``data`` first."""
+    mesh = mesh or model.mesh
+    w = model.embed if model.cfg.tie_embeddings else model.lm_head
+    split = w.shape[0 if model.cfg.tie_embeddings else 1] \
+        != model.cfg.vocab_size
+    if split:
+        h = copy_to(h, mesh, "model")
+    w = SH.at_use(w, mesh).to(h.dtype)
+    out = h @ (w.T if model.cfg.tie_embeddings else w)
+    if split:
+        out = gather_replicated(out, mesh, "model", -1)
     return out
 
 
@@ -602,19 +647,17 @@ def forward(model: Transformer, tokens=None, embeds=None, prefix_embeds=None,
     ``mesh=`` may only restate it, :func:`placement`) the inputs are this
     rank's rows and the MoE runs its ``weight_gather`` plan (aux: the
     mean over ``data`` of the shards' sums when ``batch_sharded``, one
-    all-reduce); only for inference: a sharded model's gradient is A12c
-    (``NotImplementedError``)."""
+    all-reduce whose backward passes the cotangent through); a trainable
+    model's gradient flows through the mesh's collectives (the module
+    docstring)."""
     at = placement(model, mesh, batch_sharded)
-    if SH.is_sharded(at.mesh) and _differentiated(model):
-        raise NotImplementedError(f"a sharded model's gradient: see "
-                                  f"{SH.A12C}")
     h = _inputs(model, tokens, embeds, prefix_embeds, at.mesh)
     h, aux = _run_layers(model, h, remat=remat and _differentiated(model),
                          at=at)
     mesh = at.mesh
     if model.cfg.num_experts and batch_sharded and SH.is_sharded(mesh) \
             and mesh.data > 1:  # weight_gather's pmean, once for the sum
-        aux = mesh.sum(aux, "data") / mesh.data
+        aux = sum_fp32(aux, mesh, "data") / mesh.data
     h = final_norm(model, h)
     if return_hidden:
         return h, aux
@@ -622,40 +665,67 @@ def forward(model: Transformer, tokens=None, embeds=None, prefix_embeds=None,
 
 
 # =============================================================== loss/train
-def cross_entropy(logits: torch.Tensor, labels, weights=None) -> torch.Tensor:
+def _data_split(mesh) -> bool:
+    """Whether ``mesh`` splits the batch: more than one data shard."""
+    return mesh is not None and mesh.data > 1
+
+
+def _global_mean(s: torch.Tensor, n: torch.Tensor, mesh) -> torch.Tensor:
+    """sum(s) / max(sum(n), 1) over the data shards, on every rank: the
+    count summed over ``data`` first (no gradient), each rank's term its s
+    over that count, the terms summed over ``data`` (backward: the
+    cotangent itself, so a shard's s gets 1 / the global count)."""
+    n = mesh.sum(n.detach(), "data")
+    return sum_fp32(s / torch.clamp(n, min=1.0), mesh, "data")
+
+
+def cross_entropy(logits: torch.Tensor, labels, weights=None,
+                  mesh=None) -> torch.Tensor:
     """Mean token CE of logits (..., V) at labels (...), the log-softmax
     in fp32; with ``weights`` (...), the weighted sum over max(sum(w),
-    1)."""
+    1). With a ``mesh`` of more than one data shard, the logits are this
+    shard's rows and the CE is the global batch's: the sums over every
+    shard divided by the global count (or sum(w))."""
     logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
     labels = torch.as_tensor(labels, device=logits.device).long()
     ll = torch.gather(logp, -1, labels[..., None])[..., 0]
+    if weights is not None:
+        w = torch.as_tensor(weights, device=logits.device).to(torch.float32)
+    if _data_split(mesh):
+        if weights is None:
+            return _global_mean(-torch.sum(ll), torch.tensor(
+                float(ll.numel()), device=ll.device), mesh)
+        return _global_mean(-torch.sum(ll * w), torch.sum(w), mesh)
     if weights is None:
         return -torch.mean(ll)
-    w = torch.as_tensor(weights, device=logits.device).to(torch.float32)
     return -torch.sum(ll * w) / torch.clamp(torch.sum(w), min=1.0)
 
 
 def chunked_cross_entropy(model: Transformer, h: torch.Tensor, labels,
-                          weights, chunk: int) -> torch.Tensor:
+                          weights, chunk: int, mesh=None) -> torch.Tensor:
     """The CE of the logits of hidden states h (B, S, d), one sequence
     chunk at a time: the (B, S, V) logits are never held (the peak is
     (B, chunk, V)), and under autograd each chunk goes through
     ``torch.utils.checkpoint``, so the backward recomputes its logits
     instead of keeping them. ``min(chunk, S)`` must divide S (the
-    reference asserts it; here ``ValueError``)."""
+    reference asserts it; here ``ValueError``). On a ``mesh`` (the
+    model's by default) the logits are the vocab-gathered ones and, with
+    more than one data shard, the CE is the global batch's
+    (:func:`cross_entropy`)."""
     B, S, _ = h.shape
     chunk = min(chunk, S)
     if S % chunk:
         raise ValueError(f"chunked_cross_entropy: the sequence length {S} "
                          f"is not a multiple of the chunk {chunk}")
     dev = h.device
+    mesh = mesh or model.mesh
     labels = torch.as_tensor(labels, device=dev).long()
     if weights is not None:
         weights = torch.as_tensor(weights, device=dev).to(torch.float32)
 
     def body(hc, lc, wc):
-        logp = torch.log_softmax(lm_logits(model, hc).to(torch.float32),
-                                 dim=-1)
+        logp = torch.log_softmax(lm_logits(model, hc, mesh).to(
+            torch.float32), dim=-1)
         ll = torch.gather(logp, -1, lc[..., None])[..., 0]
         if wc is None:
             return -torch.sum(ll), torch.tensor(float(ll.numel()),
@@ -672,40 +742,85 @@ def chunked_cross_entropy(model: Transformer, h: torch.Tensor, labels,
         s, n = (checkpoint(body, *args, use_reentrant=False) if remat
                 else body(*args))
         tot, cnt = tot + s, cnt + n
+    if _data_split(mesh):
+        return _global_mean(tot, cnt, mesh)
     return tot / torch.clamp(cnt, min=1.0)
 
 
-def loss_fn(model: Transformer, batch: dict):
+def loss_fn(model: Transformer, batch: dict, mesh=None):
     """(loss, (ce, aux)) of a batch {"labels" (B, S_text), and "tokens"
     (B, S_text) or "embeds" (B, S, d), optionally "prefix_embeds" (B, P,
     d) and "loss_weights" (B, S_text)}: loss = ce + router_aux_coef *
     aux. The prefix positions (vlm) carry no LM loss. With
-    ``cfg.ce_chunk`` the CE is :func:`chunked_cross_entropy`'s."""
+    ``cfg.ce_chunk`` the CE is :func:`chunked_cross_entropy`'s. On a mesh
+    (the model's own; ``mesh=`` may only restate it, :func:`placement`)
+    the batch is this rank's data shard's rows, and the loss is the
+    global batch's on every rank: the CE over every shard's tokens and
+    the aux the mean over ``data``."""
     cfg = model.cfg
+    mesh = placement(model, mesh).mesh
     labels = batch["labels"]
     out, aux = forward(model, tokens=batch.get("tokens"),
                        embeds=batch.get("embeds"),
                        prefix_embeds=batch.get("prefix_embeds"),
-                       return_hidden=bool(cfg.ce_chunk))
+                       return_hidden=bool(cfg.ce_chunk), mesh=mesh)
     pad = out.shape[1] - labels.shape[1]
     if pad:  # prefix positions (vlm) carry no LM loss
         out = out[:, pad:]
     if cfg.ce_chunk:
         ce = chunked_cross_entropy(model, out, labels,
-                                   batch.get("loss_weights"), cfg.ce_chunk)
+                                   batch.get("loss_weights"), cfg.ce_chunk,
+                                   mesh)
     else:
-        ce = cross_entropy(out, labels, batch.get("loss_weights"))
+        ce = cross_entropy(out, labels, batch.get("loss_weights"), mesh)
     return ce + cfg.router_aux_coef * aux, (ce, aux)
 
 
-def make_train_step(model: Transformer, lr: float = 3e-4):
+def data_replicated(model: Transformer) -> list:
+    """The names of the parameters whole on every data shard (no
+    ``"data"`` entry in their spec): the norms, the router, Mamba1's
+    conv, dt and A/D leaves, an unsplit vocab's; on a mesh with more than
+    one data shard their gradients are summed over ``data``."""
+    if not _data_split(model.mesh):
+        return []
+    return [name for name, (spec, _) in model.leaf_specs().items()
+            if "data" not in spec]
+
+
+def loss_and_grads(model: Transformer, batch: dict, mesh=None):
+    """(loss, (ce, aux), {parameter name: gradient}) of :func:`loss_fn`
+    on ``batch``, the gradient of each of this rank's blocks: zeros for a
+    parameter the loss does not reach (the untied embedding of an
+    ``embeds`` model), as the reference's; on a mesh with more than one
+    data shard the :func:`data_replicated` leaves' gradients summed over
+    ``data`` in one all-reduce (the FSDP blocks hold theirs already)."""
+    mesh = placement(model, mesh).mesh
+    params = dict(model.named_parameters())
+    loss, (ce, aux) = loss_fn(model, batch, mesh)
+    grads = torch.autograd.grad(loss, list(params.values()),
+                                allow_unused=True)
+    grads = {name: torch.zeros_like(p) if g is None else g
+             for (name, p), g in zip(params.items(), grads)}
+    summed = data_replicated(model)
+    if summed:
+        flat = mesh.all_reduce_(torch.cat(
+            [grads[n].reshape(-1) for n in summed]), "data")
+        for n, g in zip(summed, flat.split([grads[n].numel()
+                                            for n in summed])):
+            grads[n] = g.view_as(grads[n])
+    return loss, (ce, aux), grads
+
+
+def make_train_step(model: Transformer, lr: float = 3e-4, mesh=None):
     """(opt, train_step): AdamW(lr, weight_decay=0.01) and a step
     ``train_step(opt_state, batch) -> (opt_state, {"loss", "ce",
-    "aux"})`` that takes one backward of :func:`loss_fn` and updates the
-    model's parameters in place. The model must be trainable; the state
-    is ``opt.init(dict(model.named_parameters()))``. A parameter the
-    loss does not reach (the untied embedding of an ``embeds`` model)
-    gets a zero gradient, as in the reference."""
+    "aux"})`` that takes one backward of :func:`loss_fn`
+    (:func:`loss_and_grads`) and updates the model's parameters in
+    place. The model must be trainable; the state is
+    ``opt.init(dict(model.named_parameters()))``. On a mesh (the model's
+    own; ``mesh=`` may only restate it) ``batch`` is this rank's rows and
+    AdamW updates each rank's blocks."""
+    mesh = placement(model, mesh).mesh
     params = dict(model.named_parameters())
     if not all(p.requires_grad for p in params.values()):
         raise ValueError("make_train_step needs a trainable model "
@@ -713,11 +828,7 @@ def make_train_step(model: Transformer, lr: float = 3e-4):
     opt = AdamW(lr=lr, weight_decay=0.01)
 
     def train_step(opt_state, batch):
-        loss, (ce, aux) = loss_fn(model, batch)
-        grads = torch.autograd.grad(loss, list(params.values()),
-                                    allow_unused=True)
-        grads = {name: torch.zeros_like(p) if g is None else g
-                 for (name, p), g in zip(params.items(), grads)}
+        loss, (ce, aux), grads = loss_and_grads(model, batch, mesh)
         _, opt_state = opt.apply(grads, opt_state, params)
         return opt_state, {"loss": loss.detach(), "ce": ce.detach(),
                            "aux": aux.detach()}
@@ -838,7 +949,7 @@ def _attn_decode(h, blk: Block, cfg: ArchConfig, caches: dict, i: int,
     with ``window``, a ring buffer)."""
     dt = _dt(cfg)
     x = L.apply_norm(h, blk.norm1, cfg)
-    q, k, v = blk.attn.qkv(x)
+    q, k, v = blk.attn.qkv(x, mesh)
     q = L.apply_rope(q, *rope)
     k = L.apply_rope(k, *rope)
     k_cache, v_cache = caches["k"][i], caches["v"][i]

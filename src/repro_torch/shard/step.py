@@ -15,7 +15,7 @@ path's own, called on local ids. The cross-rank traffic is
   * in the gradient, one all-reduce of this rank's dTheta block over
     ``data``: every worker's block contributes to the rows it touches.
 
-Both forward all-reduces go through ``launch.mesh.sum_over``, whose
+Both forward all-reduces go through ``launch.mesh.sum_fp32``, whose
 backward passes the cotangent through unchanged, because everything after
 each sum is replicated over its axis. The data-axis dTheta sum is then
 explicit (:func:`loss_fns`); without it each rank would keep only its own
@@ -31,7 +31,7 @@ from repro_torch.kernels.lsplm_sparse_fused.ops import (
     pad_theta,
     sparse_gather_matmul,
 )
-from repro_torch.launch.mesh import sum_over
+from repro_torch.launch.mesh import sum_fp32
 from repro_torch.shard.partition import ShardCell, ShardedSparseBatch
 
 
@@ -79,10 +79,10 @@ def sharded_sparse_nll(theta: torch.Tensor, sbatch, mesh) -> torch.Tensor:
                                   plan=b.user_plan)
     z_ad = sparse_gather_matmul(b.ad_ids, b.ad_vals, tp, plan=b.ad_plan)
     # one reduction: every server shard's partial logits of the block
-    z = sum_over(z_user[b.session_id.long()] + z_ad, mesh, "model")
+    z = sum_fp32(z_user[b.session_id.long()] + z_ad, mesh, "model")
     log_p1, log_p0 = logps_from_z(z)
     nll = _nll_from_logps(log_p1, log_p0, b.y.to(log_p1.dtype))
-    return sum_over(nll, mesh, "data")
+    return sum_fp32(nll, mesh, "data")
 
 
 def loss_fns(nll, mesh):

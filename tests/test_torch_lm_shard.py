@@ -446,7 +446,7 @@ def test_a_count_that_does_not_divide_raises(what, over):
     (LLAMA, dict(seq_parallel=True))])
 def test_what_waits_for_a12c_raises(arch, over):
     cfg = dataclasses.replace(_cfg(arch), **over)
-    with pytest.raises(NotImplementedError, match="A12c"):
+    with pytest.raises(NotImplementedError, match="A12e"):
         SH.check_mesh(cfg, 2, 2)
     SH.check_mesh(cfg, 2, 1)
 

@@ -35,15 +35,19 @@ training path (``repro_torch.launch.train --mesh-data --mesh-model``:
 the paper-width sparse problem on 2 x 2, 1 x 2 and 2 x 1 meshes of
 ranks sharing the one card, B1, B2 and B3 on each rank's rows, against
 the unsharded run; then the three drivers on a 2 x 2 mesh) and the
-sharded LM serving path (``repro_torch.models`` with ``mesh=``: llama3.2-1b
-and granite-moe-1b-a400m (both MoE plans) on 2 x 2, llama, granite and
-falcon-mamba-7b on 1 x 2, zamba2-2.7b on 2 x 1, at full width, prompts
-4 x 512 and 3 greedy tokens, B6 on each rank's heads and B7 on its
-d_inner channels, against one rank; then reduced models on a 2 x 2 mesh
+sharded LM serving path (``repro_torch.models`` with ``mesh=``: llama3.2-1b,
+granite-moe-1b-a400m (both MoE plans) and zamba2-2.7b on 2 x 2, llama,
+granite, falcon-mamba-7b and zamba2 on 1 x 2, at full width, prompts 4 x
+512 and 3 greedy tokens, B6 on each rank's heads and B7 on its d_inner
+channels, against one rank, and llama on 1 x 2 under ``seq_parallel``
+and ``attn_shard="head_dim"``; then reduced models on a 2 x 2 mesh
 against the CPU's) and the sharded LM training path (``make_train_step``
 with ``mesh=``: llama3.2-1b trainable at full width on 2 x 2, FSDP over
-data, 4 x 512, against one rank; then reduced llama, granite and
-falcon-mamba on 2 x 2 and zamba2 on 2 x 1 against the CPU's ranks),
+data, 4 x 512, and zamba2-2.7b on 1 x 2, 4 x 256, against one rank, with
+the roofline of a rank's step; then reduced llama, granite,
+falcon-mamba and zamba2 on 2 x 2, llama and falcon-mamba under
+``seq_parallel`` and llama under ``attn_shard="head_dim"`` on 1 x 2,
+and zamba2 on 2 x 1, against the CPU's ranks),
 shows that each path launched its kernels, holds the card's OWLQN+
 trajectories and a reduced LM of each family against the CPU's, times
 the kernels beside their plain versions, their bound and one library
@@ -74,9 +78,16 @@ SEED = 0
 D_FEATURES = 1_000_000  # paper width (examples/train_sparse_production.py)
 REGIONS = 12  # m: 2m = 24 columns
 ALIVE_FRACTION = 0.02  # rows surviving L2,1 pruning (paper Table 2 regime)
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_OPS_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores
-BF16_OPS_PER_S = 989e12  # H100 SXM bf16 on the tensor cores, fp32 sums
+# the card's device memory rate and dense bf16 peak (fp32 sums): the
+# port's roofline constants (repro_torch/launch/mesh.py), where it is
+# beside this script (main() refuses to run without it)
+sys.path.insert(0, str(ROOT / "src"))
+try:
+    from repro_torch.launch.mesh import HBM_BW as HBM_BYTES_PER_S
+    from repro_torch.launch.mesh import PEAK_FLOPS_BF16 as BF16_OPS_PER_S
+except ImportError:
+    HBM_BYTES_PER_S = BF16_OPS_PER_S = None
 Z_RTOL, Z_ATOL, P_ATOL = 1e-5, 1e-6, 1e-6
 TIMED_RUNS, WARM_RUNS = 30, 3
 SPIN_CYCLES = 10_000_000  # ~5 ms of device spin ahead of each timed run
@@ -3700,15 +3711,17 @@ def phase_stream_gates(torch, dev, tmp: Path):
 
 
 # ------------------------------------------------------------ phase 27
-CARD_TESTS = ("tests/test_torch_stream_card.py",
-              "tests/test_torch_flash_attention_card.py",
-              "tests/test_torch_lm_train_card.py",
-              "tests/test_torch_sparse_card.py",
-              "tests/test_torch_shard_card.py",
-              "tests/test_torch_moe_card.py",
-              "tests/test_torch_mamba_scan_card.py",
-              "tests/test_torch_lm_shard_card.py",
-              "tests/test_torch_lm_train_shard_card.py")
+# two pytest processes at once, the card's sharded paths' files (each
+# test spawns its ranks) beside the rest
+CARD_TESTS = (("tests/test_torch_stream_card.py",
+               "tests/test_torch_flash_attention_card.py",
+               "tests/test_torch_lm_train_card.py",
+               "tests/test_torch_sparse_card.py",
+               "tests/test_torch_moe_card.py",
+               "tests/test_torch_mamba_scan_card.py"),
+              ("tests/test_torch_shard_card.py",
+               "tests/test_torch_lm_shard_card.py",
+               "tests/test_torch_lm_train_shard_card.py"))
 
 
 def phase_card_tests():
@@ -3716,26 +3729,42 @@ def phase_card_tests():
     against its plain version, the training path's, B1/B4/B2's against
     their plain versions and at every autotune config, the sharded
     training path's, the MoE family's, B7's against its plain versions,
-    the sharded LM serving and training paths'), in a pytest process
-    of their own (they build nothing: the kernels phase 1 built load from
-    ``build/``)."""
+    the sharded LM serving and training paths'), in two pytest processes
+    of their own, run at once (CARD_TESTS; they build nothing: the
+    kernels phase 1 built load from ``build/``)."""
     env = dict(os.environ)
     env["PYTHONPATH"] = str(ROOT / "src") + (
         os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
     t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-m", "pytest", "-q", "-m", "cuda",
-         "-p", "no:cacheprovider", *CARD_TESTS],
-        cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
-    tail = proc.stdout.strip().splitlines()[-1] if proc.stdout.strip() else ""
-    passed = re.search(r"(\d+) passed", tail)
-    files = " ".join(CARD_TESTS)
-    check(proc.returncode == 0 and passed and int(passed.group(1)) > 0
-          and "skipped" not in tail,
-          f"pytest -m cuda {files} exited "
-          f"{proc.returncode}: {proc.stdout[-2000:]} {proc.stderr[-2000:]}")
-    print(f"phase 27: pytest -m cuda {files}: "
-          f"{tail} ({time.perf_counter() - t0:.1f} s)")
+    with tempfile.TemporaryDirectory() as tmp:
+        logs = [Path(tmp, f"pytest{i}.log") for i in range(len(CARD_TESTS))]
+        procs = []
+        try:
+            for files, log in zip(CARD_TESTS, logs):
+                with open(log, "w") as f:
+                    procs.append(subprocess.Popen(
+                        [sys.executable, "-m", "pytest", "-q", "-m", "cuda",
+                         "-p", "no:cacheprovider", *files], cwd=ROOT,
+                        env=env, stdout=f, stderr=subprocess.STDOUT))
+            codes = [p.wait(timeout=600) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        outs = [log.read_text() for log in logs]
+    tails = []
+    for files, code, out in zip(CARD_TESTS, codes, outs):
+        lines = out.strip().splitlines()
+        tail = lines[-1] if lines else ""
+        passed = re.search(r"(\d+) passed", tail)
+        check(code == 0 and passed and int(passed.group(1)) > 0
+              and "skipped" not in tail,
+              f"pytest -m cuda {' '.join(files)} exited {code}: "
+              f"{out[-4000:]}")
+        tails.append(f"{' '.join(files)}: {tail}")
+    print("phase 27: pytest -m cuda in two processes at once: "
+          + "; ".join(tails) + f" ({time.perf_counter() - t0:.1f} s)")
 
 
 # ------------------------------------------------------------ phase 28
@@ -3915,6 +3944,7 @@ def phase_lm_train(torch, dev):
     step_s = float(np.mean(secs))
     flops = 6 * n_params * tokens
     mfu = flops / step_s / BF16_OPS_PER_S
+    roof = _train_roofline(cfg, TRAIN_BATCH, LM_SEQ, n_params, 0.0)
     bwd_ms = float(np.mean([s["attention_backward"][0] for s in span_ms]))
     opt_ms = float(np.mean([s["adamw"][0] for s in span_ms]))
     print(f"  train step (make_train_step, lr {TRAIN_LR}): loss "
@@ -3930,6 +3960,10 @@ def phase_lm_train(torch, dev):
           f"{bwd_ms:.1f} ms in {span_ms[0]['attention_backward'][1]} calls "
           f"({bwd_ms / (step_s * 1e3):.1%} of the step), AdamW "
           f"{opt_ms:.1f} ms ({opt_ms / (step_s * 1e3):.1%})")
+    print(f"  roofline (repro_torch.utils.roofline, the port's H100 "
+          f"constants): {json.dumps(roof)}; the measured step "
+          f"{step_s / roof['t_bound_s']:.2f} x its bound, MFU "
+          f"{mfu:.2%} beside the bound's {roof['mfu_bound']:.2%}")
 
     # (d) where a step's device time goes, by op
     attn_ops.attention_backward_plain = spans.wrap("attention_backward",
@@ -3978,11 +4012,51 @@ def phase_lm_train(torch, dev):
     return counts[0], {
         "ms_per_step": step_s * 1e3, "tokens_per_s": tokens / step_s,
         "mfu": mfu, "flop_per_step": flops, "peak_gb": peak_train,
+        "roofline": roof,
         "peak_gb_full_ce": peak_full, "peak_gb_ce_chunk": peak_chunk,
         "losses": [warm_loss] + losses, "probe_losses": probe,
         "attention_backward_ms": bwd_ms,
         "adamw_ms": opt_ms, "device_split_ms": {
             k: v / 1e3 for k, v in split.items()}}
+
+
+def _train_roofline(cfg, batch, seq, params, coll_bytes, data=1,
+                    model=1) -> dict:
+    """``Roofline(...).to_dict()`` of one training step with remat on the
+    global ``batch`` x ``seq`` tokens, for a rank of a (data, model) mesh
+    holding ``params`` parameters and moving ``coll_bytes`` of
+    collectives a step, as if each rank had a card of its own: the
+    step's FLOPs counted from the shapes over the ranks, the memory lower
+    bound on the rank's batch / data rows, the model FLOPs per rank (the
+    reference's, 6 N_active T); with ``t_bound_s`` added, and beside the
+    Roofline's terms: the model FLOPs of the weights a token meets
+    (``model_flops_matmul_per_chip``, 6 T (matmul_params + d V): the
+    reference's N_active for every family but the hybrid, whose N_active
+    counts an MLP in each Mamba2 layer) and their ``mfu_bound_matmul``,
+    and the bound with the compute term at the fp32 peak
+    (``t_bound_fp32_s``, FP32_OPS_PER_S: where an fp32 step's products
+    run; the Roofline's compute term is at the bf16 tensor-core peak)."""
+    from repro_torch.utils.roofline import (
+        Roofline,
+        lm_step_flops,
+        lm_train_hbm_bytes,
+        matmul_params,
+        model_flops_per_chip,
+    )
+
+    ranks = data * model
+    units = cfg.num_layers // (cfg.shared_attn_every or 1)
+    roof = Roofline(lm_step_flops(cfg, batch, seq) / ranks,
+                    lm_train_hbm_bytes(cfg, params, batch // data, seq,
+                                       units), coll_bytes,
+                    model_flops_per_chip(cfg, "train", batch * seq, ranks))
+    matmul = 6 * (matmul_params(cfg) + cfg.d_model * cfg.vocab_size) \
+        * batch * seq / ranks
+    return {**roof.to_dict(), "t_bound_s": roof.t_bound,
+            "model_flops_matmul_per_chip": matmul,
+            "mfu_bound_matmul": matmul / BF16_OPS_PER_S / roof.t_bound,
+            "t_bound_fp32_s": max(roof.flops / FP32_OPS_PER_S,
+                                  roof.t_memory, roof.t_collective)}
 
 
 # ------------------------------------------------------------ phase 29
@@ -5012,11 +5086,15 @@ def phase_shard_drivers(torch, dev, tmp: Path):
 # runs and the MoE plan of each run
 SERVE_SHARD_CASES = {
     (2, 2): ((LM_ARCH, "weight_gather"), (MOE_ARCH, "token_gather"),
-             (MOE_ARCH, "weight_gather")),
+             (MOE_ARCH, "weight_gather"), (HYBRID_ARCH, "weight_gather")),
     (1, 2): ((LM_ARCH, "weight_gather"), (MOE_ARCH, "weight_gather"),
-             (SSM_ARCH, "weight_gather")),
-    (2, 1): ((HYBRID_ARCH, "weight_gather"),)}
-SERVE_SHARD_WORLDS = {4: ((2, 2),), 2: ((1, 2), (2, 1))}
+             (SSM_ARCH, "weight_gather"), (HYBRID_ARCH, "weight_gather"))}
+# the sharding knobs by name, as config overrides: full-width llama runs
+# one fp32 prefill under each on 1 x 2 (phase 34), reduced models train
+# under them (phase 37)
+KNOBS = {"seq_parallel": {"seq_parallel": True},
+         "head_dim": {"attn_shard": "head_dim"}}
+SERVE_SHARD_WORLDS = {4: ((2, 2),), 2: ((1, 2),)}
 # 3 greedy tokens (2 decode steps, the fp32 gate's count; cut from 16:
 # a weight_gather decode step gathers the experts' 1.2 GB over gloo)
 SERVE_SHARD_BATCH, SERVE_SHARD_SEQ, SERVE_SHARD_NEW = 4, 512, 3
@@ -5024,7 +5102,8 @@ SERVE_SHARD_BATCH, SERVE_SHARD_SEQ, SERVE_SHARD_NEW = 4, 512, 3
 # steps fed one rank's tokens, at an fp32 bar (sound runs on the H100 read
 # at most ~8e-5 (1 + |logit|))
 SERVE_SHARD_TOL32, SERVE_SHARD_STEPS32 = 1e-3, 2  # steps cut from 4
-SERVE_SHARD_REDUCED = (LM_ARCH, SSM_ARCH, MOE_ARCH)  # phase 35, fp32
+SERVE_SHARD_REDUCED = (LM_ARCH, SSM_ARCH, MOE_ARCH,
+                       HYBRID_ARCH)  # phase 35, fp32
 
 
 def _lm_counters():
@@ -5074,12 +5153,25 @@ def _split_products(fn, parts: int, ff_parts: int = 1):
     (of the MoE: its E / parts experts and, with ``ff_parts`` data ranks,
     its slice of d_ff, token_gather's layout) a product of its own in the
     activation dtype, the partials summed in fp32 in the mesh's order
-    (over model, then over data) and rounded once. On one process: the
+    (over model, then over data) and rounded once; and Mamba2's gated
+    norm's mean of squares as each rank's sum over its d_inner / parts
+    channels, summed in fp32 and divided by d_inner. On one process: the
     witness that this rounding order is what parts a mesh's bf16 logits
     from one rank's."""
+    import torch
+
     from repro_torch.models import layers, moe, ssm
 
     row, dispatch = layers.row_parallel, moe.dispatch_compute
+    mean_sq = ssm._mean_sq
+
+    def split_mean_sq(y, cfg, mesh=None):
+        acc = None
+        for part in y.chunk(parts, -1):
+            part = part.contiguous()
+            ss = torch.sum(part * part, dim=-1, keepdim=True)
+            acc = ss if acc is None else acc + ss
+        return acc / cfg.d_inner
 
     def split_row(x, w, mesh=None):
         k, acc = x.shape[-1] // parts, None
@@ -5107,11 +5199,13 @@ def _split_products(fn, parts: int, ff_parts: int = 1):
 
     layers.row_parallel = ssm.row_parallel = split_row
     moe.dispatch_compute = split_dispatch
+    ssm._mean_sq = split_mean_sq
     try:
         return fn()
     finally:
         layers.row_parallel = ssm.row_parallel = row
         moe.dispatch_compute = dispatch
+        ssm._mean_sq = mean_sq
 
 
 def _shard_kernel_checks(torch, model, rows, logits, caches, at, tag):
@@ -5173,7 +5267,7 @@ def _fp32_run(torch, model32, rows, fed, at):
 
 
 def _serve_shard_case(torch, dev, mesh, arch, mode, feed=None,
-                      checks=True):
+                      checks=True, knobs=False):
     """One family at full width on ``mesh`` (the 1 x 1 mesh: one rank):
     bf16 weights from init_model(mesh=) on a seeded generator, the
     prompts' rows of this rank, a first-use prefill, then the counted run
@@ -5190,7 +5284,9 @@ def _serve_shard_case(torch, dev, mesh, arch, mode, feed=None,
     :func:`_split_products`); then the same weights widened to fp32
     (:func:`_fp32_run`, fed ``feed``: one rank's greedy tokens, this
     run's own when None) and, with ``checks`` and attention in the
-    model, its prefill with the plain versions. For
+    model, its prefill with the plain versions; with ``knobs``, one fp32
+    prefill under each of KNOBS (and B6 against its plain
+    version in fp32 at the q, k, v that knob gives it). For
     the MoE family on one rank also each half of the batch alone
     (weight_gather's oracle on two data shards)."""
     import dataclasses
@@ -5264,7 +5360,7 @@ def _serve_shard_case(torch, dev, mesh, arch, mode, feed=None,
     out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
     del caches, lgs
     halves = prompts.chunk(2)
-    if mesh.size == 1 and cfg.family != "hybrid":  # zamba2 runs data-only
+    if mesh.size == 1:
         def split(toks, ff_parts=1):
             return _split_products(lambda: prefill(model, tokens=toks, **at)[
                 0], 2, ff_parts).float().cpu().numpy()
@@ -5289,6 +5385,8 @@ def _serve_shard_case(torch, dev, mesh, arch, mode, feed=None,
     if checks and cfg.family != "ssm":  # B7 is held bitwise in bf16
         out["plain32"] = _plain_capture(lambda: prefill(
             model32, tokens=rows, **at)[0])[0].cpu().numpy()
+    if knobs:
+        out["knobs"] = _knob_prefills(torch, dev, model32, rows, at, tag)
     if cfg.num_experts and mesh.size == 1:
         runs = [_fp32_run(torch, model32, half, f, at)
                 for half, f in zip(halves, fed.chunk(2))]
@@ -5296,6 +5394,39 @@ def _serve_shard_case(torch, dev, mesh, arch, mode, feed=None,
             np.concatenate(parts) for parts in zip(*runs))
     del model32
     torch.cuda.empty_cache()
+    return out
+
+
+def _knob_prefills(torch, dev, model32, rows, at, tag) -> dict:
+    """{knob: (fp32 prefill logits, B6's max |err| against its plain
+    version in fp32 at the first attention call's q, k, v, q's shape)}
+    of ``model32``'s weights under each of KNOBS."""
+    import dataclasses
+
+    from repro_torch.models import Transformer, prefill, transformer
+
+    out, kernel = {}, transformer.attention_ops.causal_attention
+    for knob, over in KNOBS.items():
+        model = Transformer(dataclasses.replace(model32.cfg, **over),
+                            device=dev, mesh=at["mesh"])
+        model.load_state_dict(model32.state_dict())
+        seen = {}
+
+        def keeping(q, k, v, **kw):
+            seen.setdefault("qkv", (q, k, v))
+            return kernel(q, k, v, **kw)
+
+        transformer.attention_ops.causal_attention = keeping
+        try:
+            logits = prefill(model, tokens=rows, **at)[0].cpu().numpy()
+        finally:
+            transformer.attention_ops.causal_attention = kernel
+        q = seen["qkv"][0]
+        out[knob] = (logits, _check_b6(torch, *seen["qkv"], True,
+                                       f"{tag} under {knob}: "
+                                       "the first attention call's q, k, "
+                                       "v in fp32"), tuple(q.shape))
+        del model, seen
     return out
 
 
@@ -5317,7 +5448,8 @@ def _serve_shard_world(rank, dev, shapes, feeds):
             t0 = time.perf_counter()
             out[shape][arch, mode] = _serve_shard_case(
                 torch, dev, mesh, arch, mode, feeds[arch],
-                checks=arch not in checked)
+                checks=arch not in checked,
+                knobs=shape == (1, 2) and arch == LM_ARCH)
             checked.add(arch)
             if rank == 0:
                 print(f"    [{shape[0]} x {shape[1]}] rank 0: {arch} "
@@ -5476,6 +5608,7 @@ def phase_serve_shard(torch, dev):
                      // (cfg.shared_attn_every or 1))
             scans = cfg.num_layers if cfg.family == "ssm" else 0
             first, bars, dbars, bars16, wits, arg16 = {}, [], [], [], [], []
+            knob_bars = {}
             plain, plain32, ties, pties = {}, None, 0, 0
             for r in ranks:
                 got, who = r[arch, mode], f"{tag} rank {r['rank']}"
@@ -5529,6 +5662,19 @@ def phase_serve_shard(torch, dev):
                       f"({units}, {scans}) and (0, {scans} a step)")
                 bars.append(bar)
                 dbars.append(dbar)
+                for knob, (lg, b6, qshape) in got.get("knobs", {}).items():
+                    kbar = _logit_bar(lg, want["logits32"],
+                                      SERVE_SHARD_TOL32)
+                    check(kbar <= 1.0, f"{who}: fp32 prefill logits under "
+                          f"{knob} {kbar:.2f} of"
+                          f" the bar (rtol = atol = {SERVE_SHARD_TOL32}) "
+                          "from one rank's")
+                    _argmax_ties(lg, want["logits32"], f"{who} under {knob}",
+                                 SERVE_SHARD_TOL32)
+                    knob_bars[knob] = (max(knob_bars.get(knob, (0.0,))[0],
+                                           kbar), b6, qshape)
+                    errs["flash_attention"] = max(errs["flash_attention"],
+                                                  b6)
             key = f"serve_sharded/{data}x{model}/{arch}/{mode}"
             for name, i in (("flash_attention", 0), ("mamba1_scan", 1)):
                 n = sum(r[arch, mode]["launches"][s][i] for r in ranks
@@ -5577,6 +5723,13 @@ def phase_serve_shard(torch, dev):
             print(f"    all-reduces per prefill: "
                   f"{_per_group(r0['counts']['prefill'])}; per decode step:"
                   f" {_per_group(r0['counts']['decode'])}")
+            if knob_bars:
+                print("    one fp32 prefill under each knob vs one rank "
+                      f"(rtol = atol = {SERVE_SHARD_TOL32}): " + "; ".join(
+                          f"{k} {b:.2e} of the bar,"
+                          f" argmax equal, B6 (fp32) at q {q} vs plain max "
+                          f"|err| {e:.3e}" for k, (b, e, q) in
+                          knob_bars.items()))
             print(f"    rank 0: set-up {r0['setup_s']:.1f} s, parameters "
                   f"{r0['param_bytes'] / 1e9:.3f} GB (one rank "
                   f"{ref['param_bytes'] / 1e9:.3f}), peak "
@@ -5596,8 +5749,9 @@ def phase_serve_shard(torch, dev):
 def _serve_shard_reduced(rank, dev, shape):
     """Phase 35 on one rank (the card's or the CPU's): each reduced
     family of SERVE_SHARD_REDUCED in fp32, drawn on the CPU from one seed
-    and moved to ``dev``, on the mesh ``shape``: prefill logits and 8
-    greedy tokens (granite's plan: token_gather)."""
+    and moved to ``dev``, on the mesh ``shape``: prefill logits of 4 x 96
+    (the hybrid's 4 x 128, a multiple of its SSD chunk) and 8 greedy
+    tokens (granite's plan: token_gather)."""
     import dataclasses
 
     import torch
@@ -5615,8 +5769,9 @@ def _serve_shard_reduced(rank, dev, shape):
         cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
         model = init_model(cfg, torch.Generator().manual_seed(SEED),
                            device="cpu", mesh=mesh).to(dev)
+        seq = HYBRID_CPU["prompt_len"] if cfg.family == "hybrid" else 96
         prompts = torch.from_numpy(TokenStream(cfg.vocab_size, seed=SEED)
-                                   .batch(4, 97)["tokens"]).to(dev)
+                                   .batch(4, seq + 1)["tokens"]).to(dev)
         logits, _ = prefill(model, tokens=batch_rows(prompts, mesh),
                             mesh=mesh, moe_serving_mode="token_gather")
         out[arch] = (logits.cpu().numpy(), generate(
@@ -5626,9 +5781,9 @@ def _serve_shard_reduced(rank, dev, shape):
 
 
 def phase_serve_shard_reduced(torch, dev):
-    """Reduced llama, falcon-mamba and granite in fp32 on a 2 x 2 mesh,
-    the card's ranks (B6, B7) against the CPU's (plain versions): prefill
-    logits within LM_CPU_TOL, greedy tokens equal. (The 1 x 1 mesh
+    """Reduced llama, falcon-mamba, granite and zamba2 in fp32 on a 2 x 2
+    mesh, the card's ranks (B6, B7) against the CPU's (plain versions):
+    prefill logits within LM_CPU_TOL, greedy tokens equal. (The 1 x 1 mesh
     bitwise the unsharded path in bf16 on the card is phase 27's
     ``tests/test_torch_lm_shard_card.py``.)"""
     from repro_torch.launch.mesh import run_ranks
@@ -5652,22 +5807,39 @@ def phase_serve_shard_reduced(torch, dev):
             errs[arch] = max(errs.get(arch, 0.0), float(err.max()))
     print(f"phase 35: reduced {', '.join(SERVE_SHARD_REDUCED)} in fp32 on a "
           f"2 x 2 mesh, card ranks (B6/B7) vs CPU ranks (plain): prefill "
-          f"logits of 4 x 96 max |err| "
+          f"logits of 4 x 96 (zamba2 4 x {HYBRID_CPU['prompt_len']}) max "
+          f"|err| "
           + ", ".join(f"{a} {e:.3e}" for a, e in errs.items())
           + f" (bar {LM_CPU_TOL}), 8 greedy tokens equal on every rank; "
           f"{time.perf_counter() - t0:.1f} s")
 
 
 # ------------------------------------------------------------ phases 36-37
-# sharded LM training: llama3.2-1b at full width on 2 x 2 (ranks sharing
-# the card over gloo), batch 4 x 512 (cut from phase 28's 4 x 4,096 for
-# phase 34's reason: gloo stages every all-reduce through the host), two
-# fp32 updates gated against one rank, one bf16 step printed
-TRAIN_SHARD_MESH = (2, 2)
-TRAIN_SHARD_BATCH, TRAIN_SHARD_SEQ = 4, 512
+# sharded LM training: (arch, mesh, batch, sequence): llama3.2-1b at full
+# width on 2 x 2, batch 4 x 512 (cut from phase 28's 4 x 4,096 for phase
+# 34's reason: gloo stages every all-reduce through the host), and
+# zamba2-2.7b on 1 x 2 at 4 x 256 (cut from 4 x 512 for the script's
+# time: ~530 model all-reduces a step); ranks sharing the card over gloo,
+# two fp32 updates gated against one rank
+TRAIN_SHARD_CASES = ((LM_ARCH, (2, 2), 4, 512), (HYBRID_ARCH, (1, 2), 4, 256))
 TRAIN_SHARD_LR = TRAIN_LR
-TRAIN_SHARD_REDUCED = {(2, 2): (LM_ARCH, MOE_ARCH, SSM_ARCH),
-                       (2, 1): (HYBRID_ARCH,)}  # phase 37, fp32
+# the second update's bars beside PARAM_BAR on PARAM_SHARE: every element
+# within SENS_C x (PARAM_BAR + lr x AdamW's sensitivity to the gradient
+# bar; the worst element read 0.467 for llama, 1.134-1.217 for zamba2 on
+# an NVIDIA H100 80GB HBM3 at 700 W), and, where one rank's own parameters drift past PARAM_SHARE
+# under rounding (weights one ulp away: zamba2's 0.76%, the mesh's 0.48%,
+# in the same in_proj leaves and columns), the mesh's share past
+# PARAM_BAR within WITNESS_C x theirs
+SENS_C, WITNESS_C = 2.0, 1.0
+# phase 37, fp32: (mesh, arch, the sharding knob it runs under, if any) by
+# world size, a world's cases in turn; zamba2 on 2 x 1 is the script's one
+# LM mesh with data > 1 and model = 1 (Mamba2 on a mesh but whole, the
+# head without a model gather)
+TRAIN_SHARD_REDUCED = {
+    4: (((2, 2), LM_ARCH, None), ((2, 2), MOE_ARCH, None),
+        ((2, 2), SSM_ARCH, None), ((2, 2), HYBRID_ARCH, None)),
+    2: (((1, 2), LM_ARCH, "seq_parallel"), ((1, 2), SSM_ARCH, "seq_parallel"),
+        ((1, 2), LM_ARCH, "head_dim"), ((2, 1), HYBRID_ARCH, None))}
 
 
 def _grad_share(got, want) -> float:
@@ -5677,52 +5849,166 @@ def _grad_share(got, want) -> float:
     return float((got - ref).abs().max()) / (GRAD_REL * top + GRAD_ABS)
 
 
-def _train_shard_reference(torch, dev, cfg, batch, mesh, cuts, sharded):
+MAMBA2_SEGMENTS = ("z", "x", "B", "C", "dt")  # in_proj's columns, in order
+
+
+def _drift(torch, pairs, cfg, m, sens=None) -> dict:
+    """Two sets of parameters, leaf by leaf: ``pairs`` yields (name, got,
+    want), blocks cut over ``m`` model ranks (1: whole leaves). Returns
+    max |err|, ``share`` within PARAM_BAR of ``n`` elements, ``leaves``
+    (the three with the most elements past it: name, count, size),
+    ``layers`` (the layers holding such elements) and, for the hybrid,
+    ``segments`` (its Mamba2 in_proj elements past PARAM_BAR by column
+    segment, MAMBA2_SEGMENTS). With ``sens`` (AdamW's sensitivity to the
+    gradient bar by leaf, :func:`_train_shard_reference`) also
+    ``sens_worst``, the worst |err| over PARAM_BAR + lr sens, and
+    ``keen`` / ``keen_within``: the elements whose sens stays under 1e-3
+    and how many of them are within PARAM_BAR."""
+    out = {"max": 0.0, "n": 0, "past": 0, "sens_worst": 0.0, "keen": 0,
+           "keen_within": 0}
+    leaves, layers = [], set()
+    segments = dict.fromkeys(MAMBA2_SEGMENTS, 0)
+    if cfg.family == "hybrid":
+        di, N = cfg.d_inner // m, cfg.ssm_state
+        widths = (di, di, N, N, cfg.d_inner // cfg.ssm_headdim // m)
+    for name, got, want in pairs:
+        diff = (got - want).abs()
+        past = diff > PARAM_BAR
+        count = int(past.sum())
+        out["max"] = max(out["max"], float(diff.max()))
+        out["n"] += diff.numel()
+        out["past"] += count
+        if sens is not None:
+            out["sens_worst"] = max(out["sens_worst"], float((diff / (
+                PARAM_BAR + TRAIN_SHARD_LR * sens[name])).max()))
+            keen = sens[name] <= 1e-3
+            out["keen"] += int(keen.sum())
+            out["keen_within"] += int((keen & ~past).sum())
+        if not count:
+            continue
+        leaves.append((name, count, diff.numel()))
+        if name.startswith("layers."):
+            layers.add(int(name.split(".")[1]))
+        if cfg.family == "hybrid" and name.endswith("mamba.in_proj"):
+            for seg, n in zip(MAMBA2_SEGMENTS,
+                              past.sum(0).split(widths)):
+                segments[seg] += int(n.sum())
+    out["share"] = 1 - out["past"] / out["n"]
+    out["leaves"] = sorted(leaves, key=lambda t: -t[1])[:3]
+    out["layers"] = sorted(layers)
+    if cfg.family == "hybrid":
+        out["segments"] = segments
+    return out
+
+
+def _rounding_witness(torch, dev, cfg, batch, after) -> dict:
+    """The one-rank reference's own drift under rounding: the same model
+    from weights one ulp away (each element stepped up or down at random,
+    from a seed), two AdamW updates on the same batch, against ``after``
+    (the reference's parameters after its two updates, whole leaves):
+    :func:`_drift`'s reading."""
+    from repro_torch.models import init_model, loss_and_grads
+    from repro_torch.optim import AdamW
+
+    model = init_model(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                       device=dev, trainable=True)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 27)
+    with torch.no_grad():
+        for p in model.parameters():
+            up = torch.rand(p.shape, generator=gen, device=dev) < 0.5
+            p.copy_(torch.nextafter(p, torch.full_like(p, float(
+                "inf")).where(up, float("-inf"))))
+    opt = AdamW(lr=TRAIN_SHARD_LR, weight_decay=0.01)
+    params = dict(model.named_parameters())
+    state = opt.init(params)
+    for _ in range(2):
+        _, _, grads = loss_and_grads(model, batch)
+        params, state = opt.apply(grads, state, params)
+        del grads
+    del state
+    return _drift(torch, ((n, p.detach(), after[n])
+                          for n, p in params.items()), cfg, 1)
+
+
+def _train_shard_reference(torch, dev, cfg, batch, mesh, cuts, sharded,
+                           witness: bool):
     """One rank's unsharded model from the same seed on the full batch,
     held against this rank's ``sharded`` results (its blocks, cut by
-    ``cuts``): fp32 loss and gradients (gated), two updates (gated), then
-    the bf16 step (printed as multiples of the bar). Returns the
-    readings."""
-    from repro_torch.configs import get_config
+    ``cuts``, in host memory): the rank's second parameters replayed from
+    its first by AdamW on its own two gradients (max |err|: 0 when the
+    mesh applied AdamW to the gradients it took); the fp32 loss and
+    gradients of both steps against one rank's; the parameters after one
+    and after two updates (:func:`_drift`, against AdamW's own
+    sensitivity to the gradient bar, ``tests/test_torch_lm_train_
+    shard.py``'s: lr sum_t min(2, e_t / |g_t|) over the steps' one-rank
+    gradients g_t, e_t = GRAD_REL max |g_t| + GRAD_ABS of the leaf); with
+    ``witness`` the one-rank reference's own drift under rounding
+    (:func:`_rounding_witness`). Returns the readings."""
     from repro_torch.models import init_model, loss_and_grads
-    from repro_torch.models import make_train_step
     from repro_torch.models.sharding import local_block
+    from repro_torch.optim import AdamW
+
+    def block(n, t):
+        return local_block(t, cuts[n][0], mesh, cuts[n][1], n)
 
     def blocks(tensors):
-        return {n: (local_block(t, cuts[n][0], mesh, cuts[n][1], n),
-                    float(t.abs().max())) for n, t in tensors.items()}
+        return {n: (block(n, t), float(t.abs().max()))
+                for n, t in tensors.items()}
 
-    out = {}
+    def grad_worst(got, grads):
+        shares = {n: _grad_share(got[n].to(dev), w)
+                  for n, w in blocks(grads).items()}
+        return max(shares.items(), key=lambda kv: kv[1])
+
+    def drift(params):
+        return _drift(torch, ((n, after[n].to(dev), block(n, p.detach()))
+                              for n, p in params.items()), cfg, mesh.model,
+                      sens)
+
+    out, sens = {}, {}
+
+    def sensitivity(grads):  # AdamW's, summed over the steps, on the block
+        for n, (g, top) in blocks(grads).items():
+            step = torch.clamp((GRAD_REL * top + GRAD_ABS) / g.abs(),
+                               max=2.0)
+            sens[n] = step if n not in sens else sens[n] + step
+
     full = init_model(cfg, torch.Generator(device=dev).manual_seed(SEED),
                       device=dev, trainable=True)
+    opt = AdamW(lr=TRAIN_SHARD_LR, weight_decay=0.01)
+    out["replay"] = 0.0
+    for n, p in full.named_parameters():  # leaf by leaf, from one rank's
+        mine = {n: block(n, p.detach()).clone()}
+        state = opt.init(mine)
+        for got in (sharded["grads"], sharded["grads2"]):
+            mine, state = opt.apply({n: got[n].to(dev)}, state, mine)
+        out["replay"] = max(out["replay"], float(
+            (mine[n] - sharded["after"][n].to(dev)).abs().max()))
+    del mine, state
     loss, _, grads = loss_and_grads(full, batch)
     out["loss_rel"] = abs(float(loss) - sharded["losses"][0]) / abs(
         float(loss))
-    shares = {n: _grad_share(sharded["grads"][n], w)
-              for n, w in blocks(grads).items()}
-    out["grad_worst"] = max(shares.items(), key=lambda kv: kv[1])
-    opt, step = make_train_step(full, lr=TRAIN_SHARD_LR)
+    out["grad_worst"] = grad_worst(sharded["grads"], grads)
+    sensitivity(grads)
     params = dict(full.named_parameters())
     params, state = opt.apply(grads, opt.init(params), params)
     del grads
-    state, m = step(state, batch)
-    out["loss2_rel"] = abs(float(m["loss"]) - sharded["losses"][1]) / abs(
-        float(m["loss"]))
-    diffs = torch.cat([(sharded["after"][n] - local_block(
-        p.detach(), cuts[n][0], mesh, cuts[n][1], n)).abs().ravel()
-        for n, p in params.items()])
-    out["param_max"] = float(diffs.max())
-    out["param_share"] = float((diffs <= PARAM_BAR).float().mean())
-    del full, opt, step, state, params, m, diffs
-    torch.cuda.empty_cache()
-    full = init_model(get_config(LM_ARCH), torch.Generator(
-        device=dev).manual_seed(SEED), device=dev, trainable=True)
-    loss16, _, grads16 = loss_and_grads(full, batch)
-    out["bf16_loss_bars"] = abs(float(loss16) - sharded["loss16"]) / abs(
-        float(loss16)) / LOSS_RTOL
-    out["bf16_grad_bars"] = max(_grad_share(sharded["grads16"][n], w)
-                                for n, w in blocks(grads16).items())
-    del full, grads16
+    after = sharded["after1"]
+    out["update1"] = drift(params)
+    loss2, _, grads = loss_and_grads(full, batch)  # make_train_step's step
+    out["grad2_worst"] = grad_worst(sharded["grads2"], grads)
+    sensitivity(grads)
+    params, state = opt.apply(grads, state, params)
+    del grads, state
+    out["loss2_rel"] = abs(float(loss2) - sharded["losses"][1]) / abs(
+        float(loss2))
+    after = sharded["after"]
+    out["update2"] = drift(params)
+    del sens
+    if witness and out["update2"]["share"] < PARAM_SHARE:
+        torch.cuda.empty_cache()
+        out["witness"] = _rounding_witness(torch, dev, cfg, batch, params)
+    del full, opt, params, loss2
     torch.cuda.empty_cache()
     return out
 
@@ -5751,16 +6037,17 @@ def _b6_function_vs_plain(torch, q, k, v, tag):
     return worst
 
 
-def _train_shard_rank(rank, dev):
+def _train_shard_rank(rank, dev, arch, shape, batch_size, seq):
     """Phase 36 on one rank (module level: the spawned ranks import it):
-    llama3.2-1b at full width, trainable, on the TRAIN_SHARD_MESH in
-    fp32: the gradient (B6 launches counted; layer 0's q, k, v of this
-    rank's heads kept), an update from it, a timed train step (B6 and the
-    mesh's all-reduces counted), a third step under the profiler (B6
-    counted); the same weights in bf16, one gradient; B6 and its Function
+    ``arch`` at full width, trainable, on the mesh ``shape`` in fp32: the
+    gradient (B6 launches counted; the first attention call's q, k, v of
+    this rank's heads kept), an update from it, a timed train step (B6
+    and the mesh's all-reduces counted, the gradient it applied kept), a
+    third step under the profiler (B6 counted); B6 and its Function
     against plain at this rank's shapes, in fp32 (the body the run took)
-    and in bf16 (the tensor-core body); then, one rank at a time, that
-    rank's unsharded reference (:func:`_train_shard_reference`)."""
+    and in bf16 (the tensor-core body); then, one rank
+    at a time, that rank's unsharded reference
+    (:func:`_train_shard_reference`)."""
     import dataclasses
 
     import torch
@@ -5772,12 +6059,12 @@ def _train_shard_rank(rank, dev):
     from repro_torch.models import init_model, loss_and_grads
     from repro_torch.models import make_train_step, transformer
     from repro_torch.models.sharding import batch_rows
+    from repro_torch.optim import AdamW
 
-    mesh = Mesh(*TRAIN_SHARD_MESH)
+    mesh = Mesh(*shape)
     B6, _ = _lm_counters()
-    cfg = dataclasses.replace(get_config(LM_ARCH), dtype="float32")
-    raw = TokenStream(cfg.vocab_size, seed=SEED).batch(TRAIN_SHARD_BATCH,
-                                                        TRAIN_SHARD_SEQ + 1)
+    cfg = dataclasses.replace(get_config(arch), dtype="float32")
+    raw = TokenStream(cfg.vocab_size, seed=SEED).batch(batch_size, seq + 1)
     batch = {k: torch.from_numpy(v).to(dev) for k, v in raw.items()}
     rows = {k: batch_rows(v, mesh) for k, v in batch.items()}
     t0 = time.perf_counter()
@@ -5788,7 +6075,8 @@ def _train_shard_rank(rank, dev):
            "model_rank": mesh.model_rank, "backend": mesh.backend,
            "setup_s": time.perf_counter() - t0,
            "param_bytes": sum(p.numel() * p.element_size()
-                              for p in model.parameters())}
+                              for p in model.parameters()),
+           "param_count": sum(p.numel() for p in model.parameters())}
     cuts = model.leaf_specs()
     kernel, seen = transformer.attention_ops.causal_attention, {}
 
@@ -5811,19 +6099,33 @@ def _train_shard_rank(rank, dev):
     opt, step = make_train_step(model, lr=TRAIN_SHARD_LR)
     params = dict(model.named_parameters())
     params, state = opt.apply(grads, opt.init(params), params)
-    grads = {n: g.detach() for n, g in grads.items()}
+    # what the one-rank references read waits in host memory, so the card
+    # holds one model at a time
+    grads = {n: g.detach().cpu() for n, g in grads.items()}
+    after1 = {n: p.detach().cpu() for n, p in params.items()}
     _reset((B6,))
     mesh.reset_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    state, m = step(state, rows)
-    torch.cuda.synchronize()
-    out["step_s"] = time.perf_counter() - t0
+    kept, apply = {}, AdamW.apply
+
+    def keeping(self, grads, state, params):  # the step's own gradient
+        kept.setdefault("grads", grads)
+        return apply(self, grads, state, params)
+
+    AdamW.apply = keeping
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, rows)
+        torch.cuda.synchronize()
+        out["step_s"] = time.perf_counter() - t0
+    finally:
+        AdamW.apply = apply
+    grads2 = {n: g.detach().cpu() for n, g in kept.pop("grads").items()}
     out["counts"] = mesh.collective_counts()
     out["split"] = mesh.split_counts()
     launches.append(B6["flash_attention"])
     out["losses"] = [float(loss), float(m["loss"])]
-    after = {n: p.detach().clone() for n, p in params.items()}
+    after = {n: p.detach().cpu() for n, p in params.items()}
     _reset((B6,))
     (state, m), wall_us, kernels = _device_profile(
         torch, lambda: step(state, rows))
@@ -5835,13 +6137,9 @@ def _train_shard_rank(rank, dev):
     out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
     del model, opt, step, state, params, m
     torch.cuda.empty_cache()
-    model = init_model(get_config(LM_ARCH), torch.Generator(
-        device=dev).manual_seed(SEED), device=dev, trainable=True, mesh=mesh)
-    loss16, _, grads16 = loss_and_grads(model, rows)
-    grads16 = {n: g.detach() for n, g in grads16.items()}
-    del model
-    torch.cuda.empty_cache()
-    tag = f"{LM_ARCH} on 2 x 2 rank {rank}"
+    sharded = {"losses": out["losses"], "grads": grads, "grads2": grads2,
+               "after1": after1, "after": after}
+    tag = f"{arch} on {shape[0]} x {shape[1]} rank {rank}"
     q, k, v = seen["qkv"]  # fp32: the body this run's B6 launches took
     out["qkv_shape"] = (tuple(q.shape), tuple(k.shape))
     out["b6_err32"] = _check_b6(torch, q, k, v, True, f"{tag}: layer 0's "
@@ -5851,13 +6149,12 @@ def _train_shard_rank(rank, dev):
     out["b6_err"] = _check_b6(torch, q, k, v, True, f"{tag}: layer 0's "
                               "q, k, v in bf16")
     out["b6_grad_ulps"] = _b6_function_vs_plain(torch, q, k, v, tag)
-    sharded = {"losses": out["losses"], "grads": grads, "after": after,
-               "loss16": float(loss16), "grads16": grads16}
+    del q, k, v, seen
     for turn in range(mesh.size):  # one unsharded model on the card at a time
         if turn == rank:
             t0 = time.perf_counter()
             out["ref"] = _train_shard_reference(torch, dev, cfg, batch, mesh,
-                                                cuts, sharded)
+                                                cuts, sharded, rank == 0)
             torch.cuda.empty_cache()
             out["ref_s"] = time.perf_counter() - t0
         dist.barrier()
@@ -5865,117 +6162,204 @@ def _train_shard_rank(rank, dev):
 
 
 def phase_train_shard(torch, dev):
-    """Sharded LM training at full width: llama3.2-1b trainable on the
-    2 x 2 mesh (FSDP over data, heads, d_ff and vocab over model), ranks
-    sharing the one card over gloo, batch 4 x 512 from the token stream.
-    Gates, on every rank: the fp32 loss within LOSS_RTOL of one rank's on
-    the full batch (the second step's within CE_RTOL), every gradient
-    block within GRAD_REL max |g| + GRAD_ABS of one rank's (the whole
-    leaf's maximum), the parameters after two updates within 2 lr n and
-    within PARAM_BAR on PARAM_SHARE of the elements (phase 29's bars);
-    B6 on layer 0's q, k, v of the rank's heads within its fp32 bar (the
-    body the fp32 steps launch) and, cast, its bf16 bar (the tensor-core
-    body), and its Function against autograd of plain_attention there in
-    both dtypes (:func:`_b6_function_vs_plain`); B6 launched 2 L a step
-    (forward and recompute); the ranks' losses bitwise equal. Printed:
-    the bf16 step as multiples of the bars, ms a step (unprofiled),
-    tokens/s, the all-reduces a step per group with the FSDP gathers and
+    """Sharded LM training at full width: each (arch, mesh) of
+    TRAIN_SHARD_CASES in turn, trainable (llama3.2-1b on 2 x 2: FSDP over
+    data, heads, d_ff and vocab over model; zamba2-2.7b on 1 x 2: the
+    Mamba2 heads and the shared block's heads and d_ff over model), ranks
+    sharing the one card over gloo, the batch of TRAIN_SHARD_CASES from
+    the token stream. Gates, on every rank: the fp32 loss within
+    LOSS_RTOL of one rank's on the full batch (the second step's within
+    CE_RTOL), every gradient block within GRAD_REL max |g| + GRAD_ABS of
+    one rank's (the whole leaf's maximum), the parameters after one
+    update within 2 lr and within PARAM_BAR on PARAM_SHARE of the
+    elements (phase 29's bars); the parameters after two updates
+    bitwise AdamW replayed on the rank's own two gradients, within 4 lr,
+    every element within SENS_C x (PARAM_BAR + lr x AdamW's sensitivity
+    to the gradient bar), and within PARAM_BAR on PARAM_SHARE of the
+    elements, or, where one rank from weights one ulp away drifts past
+    that share itself (rank 0's witness), on all but WITNESS_C x its
+    share (:func:`_train_shard_reference`); B6 on the first attention call's q, k, v of the rank's heads within
+    its fp32 bar (the body the fp32 steps launch) and, cast, its bf16 bar
+    (the tensor-core body), and its Function against autograd of
+    plain_attention there in both dtypes (:func:`_b6_function_vs_plain`);
+    B6 launched twice per attention unit a step (forward and recompute);
+    the ranks' losses bitwise equal. Printed: ms a step (unprofiled),
+    tokens/s, the
+    all-reduces a step per group with the FSDP gathers and
     reduce-scatters among them, each rank's peak and their sum, a third
-    step's profile. Returns B6's launches (every rank's gradient and two
-    steps) and its max |err| at the ranks' shapes over both dtypes."""
+    step's profile, and the roofline of a rank's step
+    (:func:`_train_roofline`, as if each rank had a card of its own)
+    beside its measured MFU. Returns B6's launches (every rank's gradient
+    and two steps) and its max |err| at the ranks' shapes over both
+    dtypes."""
     from repro_torch.configs import get_config
     from repro_torch.launch.mesh import run_ranks
 
-    t_phase = time.perf_counter()
-    ranks = run_ranks(_train_shard_rank, TRAIN_SHARD_MESH[0]
-                      * TRAIN_SHARD_MESH[1], device=dev)
-    layers = get_config(LM_ARCH).num_layers
-    for r in ranks:
-        who, ref = f"{LM_ARCH} on 2 x 2 rank {r['rank']}", r["ref"]
-        check(ref["loss_rel"] <= LOSS_RTOL and ref["loss2_rel"] <= CE_RTOL,
-              f"{who}: fp32 losses {r['losses']} against one rank's, "
-              f"relative {ref['loss_rel']:.2e} (bar {LOSS_RTOL}) and "
-              f"{ref['loss2_rel']:.2e} (bar {CE_RTOL})")
-        name, share = ref["grad_worst"]
-        check(share <= 1.0, f"{who}: gradient leaf {name} {share:.3f} of the "
-              f"bar ({GRAD_REL} max |g| + {GRAD_ABS}) from one rank's")
-        limit = 2 * TRAIN_SHARD_LR * 2
-        check(ref["param_max"] <= limit and ref["param_share"]
-              >= PARAM_SHARE, f"{who}: parameters after two updates max "
-              f"|err| {ref['param_max']:.3e} (bar {limit}), "
-              f"{ref['param_share']:.5f} within {PARAM_BAR} (bar "
-              f"{PARAM_SHARE})")
-        check(r["launches"] == [2 * layers] * 3, f"{who}: B6 launches "
-              f"{r['launches']} in the gradient and the two steps, not "
-              f"{2 * layers} each ({layers} forward, {layers} recompute)")
-        check(r["losses"] == ranks[0]["losses"], f"{who}: losses "
-              f"{r['losses']} differ from rank 0's {ranks[0]['losses']}")
-    r0 = ranks[0]
-    tokens = TRAIN_SHARD_BATCH * TRAIN_SHARD_SEQ
-    p = r0["profile"]
-    idle = (1 - p["device_us"] / p["wall_us"] if p["device_us"]
-            else float("nan"))
-    split = r0["split"]
-    print(f"phase 36: {LM_ARCH} trainable at full width on 2 x 2 ({len(ranks)}"
-          f" ranks, backend {r0['backend']}, one card), batch "
-          f"{TRAIN_SHARD_BATCH} x {TRAIN_SHARD_SEQ}, fp32, lr "
-          f"{TRAIN_SHARD_LR}: losses " + " -> ".join(
-              f"{x:.6f}" for x in r0["losses"])
-          + "; every rank vs one rank: loss rel max "
-          f"{max(r['ref']['loss_rel'] for r in ranks):.2e} (bar {LOSS_RTOL}),"
-          f" step 2 {max(r['ref']['loss2_rel'] for r in ranks):.2e} (bar "
-          f"{CE_RTOL}), worst gradient leaf "
-          f"{max(r['ref']['grad_worst'][1] for r in ranks):.3f} of its bar "
-          f"({max(ranks, key=lambda r: r['ref']['grad_worst'][1])['ref']['grad_worst'][0]}),"
-          f" parameters after two updates max |err| "
-          f"{max(r['ref']['param_max'] for r in ranks):.3e}, "
-          f"{min(r['ref']['param_share'] for r in ranks):.6f} within "
-          f"{PARAM_BAR}; ranks' losses bitwise equal")
-    print(f"  B6 at the ranks' shapes (q {r0['qkv_shape'][0]}, k/v "
-          f"{r0['qkv_shape'][1]}): fp32 (the body the steps ran) vs plain "
-          f"max |err| {max(r['b6_err32'] for r in ranks):.3e} (bar "
-          f"{B6_TOL['float32']}), its Function vs autograd of "
-          f"plain_attention {max(r['b6_grad32'] for r in ranks):.3f} of "
-          f"1e-6 max |g|; bf16 (the tensor-core body) vs plain "
-          f"{max(r['b6_err'] for r in ranks):.3e} (bar "
-          f"{B6_TOL['bfloat16']}), its Function "
-          f"{max(r['b6_grad_ulps'] for r in ranks):.3f} of one bf16 ulp of "
-          f"max |g|; B6 {r0['launches'][1]} launches a step on every rank")
-    print(f"  bf16 (not gated): loss vs one rank's "
-          f"{max(r['ref']['bf16_loss_bars'] for r in ranks):.2f} x the bar "
-          f"({LOSS_RTOL}), worst gradient leaf "
-          f"{max(r['ref']['bf16_grad_bars'] for r in ranks):.2f} x its bar")
-    print(f"  a step {r0['step_s'] * 1e3:.1f} ms "
-          f"({tokens / r0['step_s']:,.0f} tokens/s; the first gradient "
-          f"{r0['grad_s'] * 1e3:.1f} ms); "
-          f"all-reduces a step: {_per_group(r0['counts'])}; of them FSDP "
-          f"gathers {split['gather']['calls']} "
-          f"({split['gather']['bytes'] / 1e9:.3f} GB) and reduce-scatters "
-          f"{split['reduce_scatter']['calls']} "
-          f"({split['reduce_scatter']['bytes'] / 1e9:.3f} GB)")
-    print("  per rank: " + ", ".join(
-        f"rank {r['rank']} {r['param_bytes'] / 1e9:.3f} GB of parameters, "
-        f"peak {r['peak_gb']:.2f} GB" for r in ranks)
-          + f"; peaks summed {sum(r['peak_gb'] for r in ranks):.2f} GB; "
-          f"rank 0 set-up {r0['setup_s']:.1f} s, its one-rank reference "
-          f"{r0['ref_s']:.1f} s; a third step under the "
-          f"profiler {p['wall_us'] / 1e3:.1f} ms wall, "
-          + (f"{p['device_us'] / 1e3:.1f} ms of device in {p['launches']} "
-             f"launches (idle {idle:.1%})" if p["launches"] else
-             "device time not measured"))
+    t_phase, launches, worst = time.perf_counter(), 0, 0.0
+    for arch, shape, batch_size, seq in TRAIN_SHARD_CASES:
+        t_case = time.perf_counter()
+        ranks = run_ranks(_train_shard_rank, shape[0] * shape[1], arch,
+                          shape, batch_size, seq, device=dev)
+        cfg = get_config(arch)
+        units = cfg.num_layers // (cfg.shared_attn_every or 1)
+        mesh = f"{shape[0]} x {shape[1]}"
+        witness = ranks[0]["ref"].get("witness")
+        for r in ranks:
+            who, ref = f"{arch} on {mesh} rank {r['rank']}", r["ref"]
+            check(ref["loss_rel"] <= LOSS_RTOL and ref["loss2_rel"]
+                  <= CE_RTOL, f"{who}: fp32 losses {r['losses']} against "
+                  f"one rank's, relative {ref['loss_rel']:.2e} (bar "
+                  f"{LOSS_RTOL}) and {ref['loss2_rel']:.2e} (bar {CE_RTOL})")
+            name, share = ref["grad_worst"]
+            check(share <= 1.0, f"{who}: gradient leaf {name} {share:.3f} of"
+                  f" the bar ({GRAD_REL} max |g| + {GRAD_ABS}) from one "
+                  "rank's")
+            limit = 2 * TRAIN_SHARD_LR
+            u1, u2, w = ref["update1"], ref["update2"], witness
+            check(u1["max"] <= limit and u1["share"] >= PARAM_SHARE,
+                  f"{who}: parameters after one update max |err| "
+                  f"{u1['max']:.3e} (bar {limit}), {u1['share']:.5f} within "
+                  f"{PARAM_BAR} (bar {PARAM_SHARE}); the leaves with the "
+                  f"most elements past it (name, count, size): "
+                  f"{u1['leaves']}")
+            check(ref["replay"] == 0.0, f"{who}: the parameters after two "
+                  "updates differ from AdamW replayed on the rank's own two "
+                  f"gradients by {ref['replay']:.3e}")
+            check(u2["max"] <= 2 * limit and u2["sens_worst"] <= SENS_C,
+                  f"{who}: parameters after two updates max |err| "
+                  f"{u2['max']:.3e} (bar {2 * limit}), the worst element "
+                  f"{u2['sens_worst']:.3f} of PARAM_BAR + lr x AdamW's "
+                  f"sensitivity to the gradient bar (bar {SENS_C})")
+            check(u2["share"] >= PARAM_SHARE or (
+                w is not None and 1 - u2["share"]
+                <= WITNESS_C * (1 - w["share"])),
+                f"{who}: parameters after two updates {u2['share']:.5f} "
+                f"within {PARAM_BAR} (bar {PARAM_SHARE}, or {WITNESS_C} x "
+                "the share past it of one rank from weights one ulp away: "
+                + (f"{1 - w['share']:.5f}" if w else "not run") + "); the "
+                f"leaves with the most elements past {PARAM_BAR} (name, "
+                f"count, size): {u2['leaves']}")
+            check(r["launches"] == [2 * units] * 3, f"{who}: B6 launches "
+                  f"{r['launches']} in the gradient and the two steps, not "
+                  f"{2 * units} each ({units} forward, {units} recompute)")
+            check(r["losses"] == ranks[0]["losses"], f"{who}: losses "
+                  f"{r['losses']} differ from rank 0's {ranks[0]['losses']}")
+        r0 = ranks[0]
+        tokens = batch_size * seq
+        p = r0["profile"]
+        idle = (1 - p["device_us"] / p["wall_us"] if p["device_us"]
+                else float("nan"))
+        split = r0["split"]
+        refs = [r["ref"] for r in ranks]
+        grad1 = max((r["grad_worst"] for r in refs), key=lambda t: t[1])
+        grad2 = max((r["grad2_worst"] for r in refs), key=lambda t: t[1])
+        u2 = r0["ref"]["update2"]
+        print(f"phase 36: {arch} trainable at full width on {mesh} "
+              f"({len(ranks)} ranks, backend {r0['backend']}, one card), "
+              f"batch {batch_size} x {seq}, fp32, lr "
+              f"{TRAIN_SHARD_LR}: losses " + " -> ".join(
+                  f"{x:.6f}" for x in r0["losses"])
+              + "; every rank vs one rank: loss rel max "
+              f"{max(r['loss_rel'] for r in refs):.2e} (bar {LOSS_RTOL}), "
+              f"step 2 {max(r['loss2_rel'] for r in refs):.2e} (bar "
+              f"{CE_RTOL}), worst gradient leaf {grad1[1]:.3f} of its bar "
+              f"({grad1[0]}), in the second step {grad2[1]:.3f} ({grad2[0]};"
+              " not gated: taken at parameters that already differ); the "
+              "second update AdamW's on the rank's own "
+              f"gradients, max |err| {max(r['replay'] for r in refs):.1e}; "
+              f"parameters after one update max |err| "
+              f"{max(r['update1']['max'] for r in refs):.3e}, "
+              f"{min(r['update1']['share'] for r in refs):.6f} within "
+              f"{PARAM_BAR}; after two max |err| "
+              f"{max(r['update2']['max'] for r in refs):.3e}, "
+              f"{min(r['update2']['share'] for r in refs):.6f} within "
+              f"{PARAM_BAR}, the worst element "
+              f"{max(r['update2']['sens_worst'] for r in refs):.3f} of "
+              f"PARAM_BAR + lr x AdamW's sensitivity (bar {SENS_C}); rank "
+              f"0: {u2['past']} of {u2['n']} elements past {PARAM_BAR}, in "
+              f"layers {u2['layers']}, leaves {u2['leaves']}"
+              + (f", its in_proj's by segment {u2['segments']}"
+                 if "segments" in u2 else "")
+              + f", {u2['keen_within']} of the {u2['keen']} whose "
+              "sensitivity stays under 1e-3 within it; ranks' losses "
+              "bitwise equal")
+        if witness is not None:
+            print(f"  one rank from weights one ulp away, two updates "
+                  f"against one rank's: {witness['share']:.6f} within "
+                  f"{PARAM_BAR} ({witness['past']} of {witness['n']} "
+                  f"past it), max |err| {witness['max']:.3e}, in layers "
+                  f"{witness['layers']}, leaves {witness['leaves']}"
+                  + (f", in_proj's by segment {witness['segments']}"
+                     if "segments" in witness else ""))
+        print(f"  B6 at the ranks' shapes (q {r0['qkv_shape'][0]}, k/v "
+              f"{r0['qkv_shape'][1]}): fp32 (the body the steps ran) vs "
+              f"plain max |err| {max(r['b6_err32'] for r in ranks):.3e} "
+              f"(bar {B6_TOL['float32']}), its Function vs autograd of "
+              f"plain_attention {max(r['b6_grad32'] for r in ranks):.3f} of "
+              f"1e-6 max |g|; bf16 (the tensor-core body) vs plain "
+              f"{max(r['b6_err'] for r in ranks):.3e} (bar "
+              f"{B6_TOL['bfloat16']}), its Function "
+              f"{max(r['b6_grad_ulps'] for r in ranks):.3f} of one bf16 ulp"
+              f" of max |g|; B6 {r0['launches'][1]} launches a step on every"
+              " rank")
+        coll = sum(c["bytes"] for c in r0["counts"].values())
+        roof = _train_roofline(get_config(arch), batch_size, seq,
+                               r0["param_count"], coll,
+                               *shape)
+        mfu = {k: roof[k] / r0["step_s"] / BF16_OPS_PER_S for k in (
+            "model_flops_per_chip", "model_flops_matmul_per_chip")}
+        print(f"  a step {r0['step_s'] * 1e3:.1f} ms "
+              f"({tokens / r0['step_s']:,.0f} tokens/s; the first gradient "
+              f"{r0['grad_s'] * 1e3:.1f} ms); "
+              f"all-reduces a step: {_per_group(r0['counts'])}; of them FSDP"
+              f" gathers {split['gather']['calls']} "
+              f"({split['gather']['bytes'] / 1e9:.3f} GB) and reduce-"
+              f"scatters {split['reduce_scatter']['calls']} "
+              f"({split['reduce_scatter']['bytes'] / 1e9:.3f} GB)")
+        inflated = (roof["model_flops_per_chip"]
+                    / roof["model_flops_matmul_per_chip"])
+        mfu32 = (roof["model_flops_matmul_per_chip"] / r0["step_s"]
+                 / FP32_OPS_PER_S)
+        print(f"  roofline of a rank's step (as if each rank had a card of "
+              f"its own): {json.dumps(roof)}; measured MFU a rank (the "
+              f"{len(ranks)} ranks share one card), over the bf16 peak "
+              f"(the Roofline's): {mfu['model_flops_per_chip']:.2%} by the "
+              f"reference's N_active ({inflated:.3f} x the weights a token "
+              f"meets), {mfu['model_flops_matmul_per_chip']:.2%} by those "
+              f"weights, beside the bounds' {roof['mfu_bound']:.2%} and "
+              f"{roof['mfu_bound_matmul']:.2%}; over the fp32 peak "
+              f"({FP32_OPS_PER_S:.3g} FLOP/s, where an fp32 step's products "
+              f"run) {mfu32:.2%} by those weights; the step "
+              f"{r0['step_s'] / roof['t_bound_fp32_s']:.1f} x the bound at "
+              f"that peak ({roof['t_bound_fp32_s'] * 1e3:.1f} ms)")
+        print("  per rank: " + ", ".join(
+            f"rank {r['rank']} {r['param_bytes'] / 1e9:.3f} GB of "
+            f"parameters, peak {r['peak_gb']:.2f} GB" for r in ranks)
+              + f"; peaks summed {sum(r['peak_gb'] for r in ranks):.2f} GB;"
+              f" rank 0 set-up {r0['setup_s']:.1f} s, its one-rank "
+              f"reference {r0['ref_s']:.1f} s; a third step under the "
+              f"profiler {p['wall_us'] / 1e3:.1f} ms wall, "
+              + (f"{p['device_us'] / 1e3:.1f} ms of device in "
+                 f"{p['launches']} launches (idle {idle:.1%})"
+                 if p["launches"] else "device time not measured")
+              + f"; {arch} on {mesh} took "
+              f"{time.perf_counter() - t_case:.1f} s")
+        launches += sum(sum(r["launches"]) for r in ranks)
+        worst = max(worst, *(max(r["b6_err"], r["b6_err32"])
+                             for r in ranks))
     print(f"phase 36 took {time.perf_counter() - t_phase:.1f} s")
-    return (sum(sum(r["launches"]) for r in ranks),
-            max(max(r["b6_err"], r["b6_err32"]) for r in ranks))
+    return launches, worst
 
 
-def _train_shard_reduced(rank, dev, shape):
-    """Phase 37 on one rank (the card's or the CPU's): each reduced family
-    of TRAIN_SHARD_REDUCED[shape] in fp32, drawn on the CPU from one seed
-    and moved to ``dev``, trainable on the mesh ``shape``: the loss and
-    every gradient block gathered (rank 0 keeps them), B6 and B7 counted,
-    then TRAIN_CPU_STEPS updates (losses, the parameters gathered). On
-    the card, falcon-mamba's gated scans are captured: layer 0's forward
-    call and its recompute."""
+def _train_shard_reduced(rank, dev, world):
+    """Phase 37 on one rank of a ``world``-rank group (the card's or the
+    CPU's): each case of TRAIN_SHARD_REDUCED[world], a reduced family
+    under its sharding knob, in fp32, drawn on the CPU from one seed and
+    moved to ``dev``, trainable on its mesh: the loss and every gradient
+    block gathered (rank 0 keeps them), B6 and B7 counted, then
+    TRAIN_CPU_STEPS updates (losses, the parameters gathered). On the
+    card, falcon-mamba's gated scans are captured: layer 0's forward call
+    and its recompute. Results by :func:`_reduced_case`."""
     import dataclasses
 
     import torch
@@ -5987,11 +6371,14 @@ def _train_shard_reduced(rank, dev, shape):
     from repro_torch.models import make_train_step, ssm
     from repro_torch.models.sharding import batch_rows, gather_block
 
-    mesh = Mesh(*shape)
     B6, B7 = _lm_counters()
-    out = {"data_rank": mesh.data_rank}
-    for arch in TRAIN_SHARD_REDUCED[shape]:
-        cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
+    out, meshes = {}, {}
+    for shape, arch, knob in TRAIN_SHARD_REDUCED[world]:
+        if shape not in meshes:
+            meshes[shape] = Mesh(*shape)
+        mesh = meshes[shape]
+        cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32",
+                                  **KNOBS.get(knob, {}))
         model = Transformer(cfg, device=dev, trainable=True, mesh=mesh)
         model.load_state_dict(init_model(
             cfg, torch.Generator().manual_seed(SEED), device="cpu",
@@ -6026,14 +6413,15 @@ def _train_shard_reduced(rank, dev, shape):
         params = {n: gather_block(p.detach(), cuts[n][0], mesh,
                                   cuts[n][1]).cpu()
                   for n, p in model.named_parameters()}
-        out[arch] = {"loss": float(loss), "launches": launches,
+        case = _reduced_case(shape, arch, knob)
+        out[case] = {"loss": float(loss), "launches": launches,
                      "losses": losses,
                      "grads": gathered if mesh.rank == 0 else None,
                      "params": params if mesh.rank == 0 else None}
         if scans:  # layer 0's forward call and its recompute (the last)
-            out[arch]["scans"] = {"forward": _scan_to_cpu(scans[0]),
+            out[case]["scans"] = {"forward": _scan_to_cpu(scans[0]),
                                   "recompute": _scan_to_cpu(scans[-1])}
-            out[arch]["scan_calls"] = len(scans)
+            out[case]["scan_calls"] = len(scans)
         del model, opt, step, state
     return out
 
@@ -6092,12 +6480,20 @@ def _scan_to_cpu(args):
     return tuple(None if a is None else a.cpu() for a in args)
 
 
+def _reduced_case(shape, arch, knob) -> str:
+    """A phase-37 case's name: the arch, with ``+knob`` under one, and the
+    mesh."""
+    return (arch + (f"+{knob}" if knob else "")
+            + f" on {shape[0]} x {shape[1]}")
+
+
 def phase_train_shard_reduced(torch, dev):
-    """Reduced llama, granite and falcon-mamba on 2 x 2 and zamba2 on
-    2 x 1, in fp32, trainable: the card's ranks (B6, B7) against the
-    CPU's (plain versions; the four worlds run at once) on the same
-    weights and batch, at phase 29's
-    bars (loss LOSS_RTOL, every gathered gradient leaf GRAD_REL max |g| +
+    """Reduced llama, granite, falcon-mamba and zamba2 on 2 x 2, llama
+    and falcon-mamba under seq_parallel and llama under
+    attn_shard="head_dim" on 1 x 2, and zamba2 on 2 x 1, in fp32,
+    trainable: the card's ranks (B6, B7) against the CPU's (plain
+    versions; the four worlds run at once) on the same weights and batch,
+    at phase 29's bars (loss LOSS_RTOL, every gathered gradient leaf GRAD_REL max |g| +
     GRAD_ABS, TRAIN_CPU_STEPS updates' losses CE_RTOL and parameters 2 lr
     n and PARAM_BAR on PARAM_SHARE of the elements); B6 launched twice per
     attention unit and B7 twice per Mamba1 layer (forward, recompute) on
@@ -6115,35 +6511,36 @@ def phase_train_shard_reduced(torch, dev):
     launches = {"B6": 0, "B7": 0}
     lines = []
     with ThreadPoolExecutor(2 * len(TRAIN_SHARD_REDUCED) + 1) as pool:
-        worlds = {(shape, d): pool.submit(
-            run_ranks, _train_shard_reduced, shape[0] * shape[1], shape,
-            device=d) for shape in TRAIN_SHARD_REDUCED for d in (dev, "cpu")}
+        worlds = {(world, d): pool.submit(
+            run_ranks, _train_shard_reduced, world, world, device=d)
+            for world in TRAIN_SHARD_REDUCED for d in (dev, "cpu")}
         one = pool.submit(run_ranks, _train_shard_one_by_one, 1, device=dev)
         worlds = {k: f.result() for k, f in worlds.items()}  # every world at once
         one_by_one = one.result()[0]
-    for shape in TRAIN_SHARD_REDUCED:
-        card, cpu = worlds[shape, dev], worlds[shape, "cpu"]
-        for arch in TRAIN_SHARD_REDUCED[shape]:
+    for world in TRAIN_SHARD_REDUCED:
+        card, cpu = worlds[world, dev], worlds[world, "cpu"]
+        for shape, arch, knob in TRAIN_SHARD_REDUCED[world]:
             cfg = get_config(arch).reduced()
-            tag = f"reduced {arch} on {shape[0]} x {shape[1]}"
-            c0, h0 = card[0][arch], cpu[0][arch]
+            case = _reduced_case(shape, arch, knob)
+            tag = f"reduced {case}"
+            c0, h0 = card[0][case], cpu[0][case]
             for c, h in zip(card, cpu):
-                rel = abs(c[arch]["loss"] - h[arch]["loss"]) / abs(
-                    h[arch]["loss"])
+                rel = abs(c[case]["loss"] - h[case]["loss"]) / abs(
+                    h[case]["loss"])
                 check(rel <= LOSS_RTOL, f"{tag}: loss card vs CPU relative "
                       f"{rel:.2e} > {LOSS_RTOL}")
                 rel_l = max(abs(a - b) / abs(b) for a, b in zip(
-                    c[arch]["losses"], h[arch]["losses"]))
+                    c[case]["losses"], h[case]["losses"]))
                 check(rel_l <= CE_RTOL, f"{tag}: training losses card "
-                      f"{c[arch]['losses']} vs CPU {h[arch]['losses']}")
+                      f"{c[case]['losses']} vs CPU {h[case]['losses']}")
                 attention = (0 if cfg.family == "ssm" else cfg.num_layers
                              // (cfg.shared_attn_every or 1))
                 want = {"B6": 2 * attention,
                         "B7": 2 * cfg.num_layers * (cfg.family == "ssm")}
-                check(c[arch]["launches"] == want, f"{tag}: launches "
-                      f"{c[arch]['launches']} in a gradient, not {want}")
+                check(c[case]["launches"] == want, f"{tag}: launches "
+                      f"{c[case]['launches']} in a gradient, not {want}")
                 for k in launches:
-                    launches[k] += c[arch]["launches"][k]
+                    launches[k] += c[case]["launches"][k]
             errs = _leaf_errors(c0["grads"], h0["grads"])
             bad = {m: e for m, e in errs.items()
                    if not e[0] <= GRAD_REL * e[1] + GRAD_ABS or e[1] == 0.0}
@@ -6160,8 +6557,8 @@ def phase_train_shard_reduced(torch, dev):
                   f"within {PARAM_BAR}")
             worst = max(e[0] / (GRAD_REL * e[1] + GRAD_ABS)
                         for e in errs.values())
-            line = (f"{arch} on {shape[0]} x {shape[1]}: worst gradient leaf "
-                    f"{worst:.3f} of its bar, parameters max |err| "
+            line = (f"{case}: worst gradient leaf {worst:.3f} of its bar, "
+                    f"parameters max |err| "
                     f"{float(diffs.max()):.2e}")
             if "scans" in c0:
                 for when, args in c0["scans"].items():

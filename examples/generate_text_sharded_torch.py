@@ -10,17 +10,22 @@ parallelism over a (data, model) mesh, end to end.
 Starts ``data * model`` ranks (``repro_torch.launch.mesh.run_ranks``; on
 one card they share it, over gloo), or joins the world ``torchrun``
 started. Each rank draws the model from one seed and keeps its block of
-every leaf (``models.init_model(mesh=)``): q/KV heads, d_ff columns and
-Mamba1's d_inner channels over ``model``, experts over ``model`` with
-their d_ff over ``data``. Each data shard prefills its rows of the prompt
+every leaf (``models.init_model(mesh=)``): q/KV heads, d_ff columns,
+Mamba1's d_inner channels and Mamba2's heads over ``model``, experts
+over ``model`` with their d_ff over ``data``. ``--seq-parallel`` holds
+the residual stream between blocks as S slices over ``model`` in
+prefill, and ``--attn-shard head_dim`` cuts attention's projections by
+columns, every rank attending over every head. Each data shard prefills its rows of the prompt
 and decodes greedily; the logits are gathered exactly over ``model``, so
 every rank of a shard picks the same token, and the tokens are gathered
 over ``data`` at the end. Full width on the card, the reduced config on
 the CPU (``--size`` overrides). Rank 0 prints the mesh, each rank's
 parameter bytes, prefill tokens/s, decode ms/token, the all-reduces per
-group and the tokens.
+group and the tokens. Without a card, ``--device cuda`` (the default)
+raises.
 """
 import argparse
+import dataclasses
 import os
 import time
 
@@ -40,11 +45,19 @@ def _sync(dev):
         torch.cuda.synchronize(dev)
 
 
-def rank_main(rank: int, dev: torch.device, args) -> dict:
-    mesh = Mesh(args.mesh_data, args.mesh_model)
+def _config(args):
+    """The config the flags ask for: the arch (reduced with ``--size
+    reduced``) under the two sharding knobs."""
     cfg = get_config(args.arch)
     if args.size == "reduced":
         cfg = cfg.reduced()
+    return dataclasses.replace(cfg, seq_parallel=args.seq_parallel,
+                               attn_shard=args.attn_shard)
+
+
+def rank_main(rank: int, dev: torch.device, args) -> dict:
+    mesh = Mesh(args.mesh_data, args.mesh_model)
+    cfg = _config(args)
     model = init_model(cfg, torch.Generator(device=dev).manual_seed(0),
                        device=dev, mesh=mesh)
     param_bytes = sum(p.numel() * p.element_size()
@@ -106,17 +119,22 @@ def main() -> None:
     ap.add_argument("--size", choices=("full", "reduced"), default=None,
                     help="full width (the card's default) or the reduced "
                          "config (the CPU's)")
+    ap.add_argument("--seq-parallel", action="store_true",
+                    help="the residual stream as S slices over model")
+    ap.add_argument("--attn-shard", choices=("heads", "head_dim"),
+                    default="heads", help="how attention's projections are "
+                    "cut over model")
     ap.add_argument("--device", default="cuda", help="'cuda' or 'cpu'")
     args = ap.parse_args()
     device = resolve_device(args.device)
     if args.size is None:
         args.size = "full" if device.type == "cuda" else "reduced"
-    cfg = get_config(args.arch)
+    cfg = _config(args)
     if cfg.embeds_in:
         raise SystemExit(f"{cfg.name} consumes embeddings, not token ids")
     try:
         SH.check_mesh(cfg, args.mesh_data, args.mesh_model)
-    except (ValueError, NotImplementedError) as e:
+    except ValueError as e:
         raise SystemExit(str(e)) from e
     world = args.mesh_data * args.mesh_model
     if "RANK" in os.environ:  # a torchrun world
@@ -136,6 +154,8 @@ def main() -> None:
     r0 = results[0]
     print(f"mesh: data={args.mesh_data} x model={args.mesh_model}, {world} "
           f"rank(s) on {device} (backend {r0['backend']}); {r0['cfg']} "
+          f"(seq_parallel={args.seq_parallel}, attn_shard="
+          f"{args.attn_shard}) "
           f"({args.size}), batch {args.batch} x prompt {args.prompt_len}, "
           f"MoE plan {args.moe_serving_mode}")
     print("parameter bytes per rank: " + ", ".join(

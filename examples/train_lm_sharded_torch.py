@@ -11,8 +11,11 @@ one card they share it, over gloo), or joins the world ``torchrun``
 started. Each rank draws the model from one seed and keeps its block of
 every leaf in the training layout (``models.init_model(mesh=,
 trainable=True)``): the ``param_specs`` "data" entries as FSDP, q/KV
-heads, d_ff columns and Mamba1's d_inner channels over ``model``,
-experts over ``model`` with their d_ff over ``data``. Each data shard
+heads, d_ff columns, Mamba1's d_inner channels and Mamba2's heads over
+``model``, experts over ``model`` with their d_ff over ``data``.
+``--seq-parallel`` holds the residual stream between blocks as S slices
+over ``model``, and ``--attn-shard head_dim`` cuts attention's
+projections by columns, every rank attending over every head. Each data shard
 trains on its rows of one token batch (``make_train_step(mesh=)``); the
 loss is the global batch's on every rank. Full width on the card, the
 reduced config on the CPU (``--size`` overrides). Rank 0 prints the
@@ -41,11 +44,19 @@ def _sync(dev):
         torch.cuda.synchronize(dev)
 
 
-def rank_main(rank: int, dev: torch.device, args) -> dict:
-    mesh = Mesh(args.mesh_data, args.mesh_model)
+def _config(args):
+    """The config the flags ask for: the arch (reduced with ``--size
+    reduced``) under the two sharding knobs."""
     cfg = get_config(args.arch)
     if args.size == "reduced":
         cfg = cfg.reduced()
+    return dataclasses.replace(cfg, seq_parallel=args.seq_parallel,
+                               attn_shard=args.attn_shard)
+
+
+def rank_main(rank: int, dev: torch.device, args) -> dict:
+    mesh = Mesh(args.mesh_data, args.mesh_model)
+    cfg = _config(args)
     if args.dtype:
         cfg = dataclasses.replace(cfg, dtype=args.dtype)
     model = init_model(cfg, torch.Generator(device=dev).manual_seed(0),
@@ -102,17 +113,22 @@ def main() -> None:
     ap.add_argument("--size", choices=("full", "reduced"), default=None,
                     help="full width (the card's default) or the reduced "
                          "config (the CPU's)")
+    ap.add_argument("--seq-parallel", action="store_true",
+                    help="the residual stream as S slices over model")
+    ap.add_argument("--attn-shard", choices=("heads", "head_dim"),
+                    default="heads", help="how attention's projections are "
+                    "cut over model")
     ap.add_argument("--device", default="cuda", help="'cuda' or 'cpu'")
     args = ap.parse_args()
     device = resolve_device(args.device)
     if args.size is None:
         args.size = "full" if device.type == "cuda" else "reduced"
-    cfg = get_config(args.arch)
+    cfg = _config(args)
     if cfg.embeds_in:
         raise SystemExit(f"{cfg.name} consumes embeddings, not token ids")
     try:
         SH.check_mesh(cfg, args.mesh_data, args.mesh_model)
-    except (ValueError, NotImplementedError) as e:
+    except ValueError as e:
         raise SystemExit(str(e)) from e
     if args.batch % args.mesh_data:
         raise SystemExit(f"--batch {args.batch} does not divide by "
@@ -135,6 +151,8 @@ def main() -> None:
     r0 = results[0]
     print(f"mesh: data={args.mesh_data} x model={args.mesh_model}, {world} "
           f"rank(s) on {device} (backend {r0['backend']}); {r0['cfg']} "
+          f"(seq_parallel={args.seq_parallel}, attn_shard="
+          f"{args.attn_shard}) "
           f"({args.size}, {r0['dtype']}), batch {args.batch} x seq "
           f"{args.seq}, lr {args.lr}")
     print("per rank: " + ", ".join(

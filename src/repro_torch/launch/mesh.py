@@ -27,9 +27,13 @@ a bf16 partial summed in fp32 and rounded once, and :meth:`Mesh.gather`,
 an exact all-gather of any dtype's bits along any dimension. Training
 differentiates through them: :func:`copy_to` (the identity, its backward
 a sum), :func:`sum_fp32` (its backward the identity),
-:func:`gather_replicated` (its backward a slice) and :func:`gather_split`
-(its backward a reduce-scatter) are ``autograd.Function`` s whose
-forwards are those calls' own bits.
+:func:`gather_replicated` (its backward a slice), :func:`gather_split`
+(its backward a reduce-scatter) and :func:`split_to` (a slice, its
+backward a gather: sequence parallelism's scatter) are
+``autograd.Function`` s whose forwards are those calls' own bits.
+
+The roofline's hardware constants (``utils/roofline.py``) sit here under
+the reference's names, for the card the port runs on.
 
 Process start. :func:`run_ranks` starts ``data * model`` ranks with the
 *spawn* start method (a card forbids fork after CUDA is initialised) and a
@@ -50,6 +54,15 @@ import torch
 import torch.distributed as dist
 
 AXES = ("data", "model")
+
+# NVIDIA H100 80GB HBM3, 700 W (SXM): dense bf16 on the tensor cores,
+# fp32 accumulate, FLOP/s
+PEAK_FLOPS_BF16 = 989e12
+# NVIDIA H100 80GB HBM3, 700 W (SXM): device memory, bytes/s
+HBM_BW = 3.35e12
+# NVIDIA H100 80GB HBM3, 700 W (SXM): NVLink 4, 18 links of 25 GB/s, bytes/s
+# a direction (the reference's ICI_BW)
+LINK_BW = 18 * 25e9
 
 
 class Mesh:
@@ -295,6 +308,38 @@ class _GatherSplit(torch.autograd.Function):
         ctx.mesh._tally("reduce_scatter", total.numel() * 4)
         return (_block_of(total, ctx.mesh, ctx.axis, ctx.dim).to(ctx.dtype),
                 None, None, None)
+
+
+class _SplitTo(torch.autograd.Function):
+    """This rank's block of ``x`` (the same on every rank of ``axis``)
+    along ``dim``, entering a region where each rank holds its own block:
+    the backward gathers the ranks' cotangent blocks exactly, so the
+    whole is the cotangent of ``x`` on every rank."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        return _block_of(x, mesh, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (ctx.mesh.gather(g.contiguous(), ctx.axis, ctx.dim), None,
+                None, None)
+
+
+def split_to(x: torch.Tensor, mesh: Mesh | None, axis: str,
+             dim: int) -> torch.Tensor:
+    """Differentiable slice of this rank's block of ``x`` along ``dim``
+    over ``axis`` (``x`` itself without a mesh or on an axis of extent
+    1); ``ValueError`` when the dimension does not divide. The backward
+    is an exact gather."""
+    if mesh is None or mesh.shape[axis] == 1:
+        return x
+    if x.shape[dim] % mesh.shape[axis]:
+        raise ValueError(f"split_to: dimension {dim} of {tuple(x.shape)} "
+                         f"does not divide by the mesh's {axis} = "
+                         f"{mesh.shape[axis]}")
+    return _SplitTo.apply(x, mesh, axis, dim % x.dim())
 
 
 def gather_replicated(block: torch.Tensor, mesh: Mesh | None, axis: str,

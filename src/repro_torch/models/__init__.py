@@ -2,11 +2,14 @@
 family of the zoo (dense, vlm, audio, MoE, the Mamba1 ssm family and the
 Mamba2 + shared-attention hybrid), for serving and training, and
 sharded serving and training over a (data, model) mesh with
-``param_specs`` / ``cache_specs`` (``models/sharding.py``)."""
+``param_specs`` / ``cache_specs`` and the port's ``cache_layout``
+(``models/sharding.py``), with or without sequence parallelism and under
+either ``attn_shard``."""
 from repro_torch.models.transformer import (  # noqa: F401
     Block,
     MambaBlock,
     Transformer,
+    cache_layout,
     cache_specs,
     chunked_cross_entropy,
     cross_entropy,

@@ -34,6 +34,16 @@ and w2's products are partial sums, added over ``model`` in fp32
 ``copy_to`` (its gradient summed over ``model``), the row-parallel sum
 passes its cotangent through, and a trainable model's FSDP leaves are
 gathered over ``data`` at each use (``sharding.at_use``).
+
+Under ``attn_shard="head_dim"`` the cut of wq/wk/wv (columns) and wo
+(rows) is the same contiguous one, but need not fall between heads: a
+rank's products are its H hd / m and KVH hd / m columns, gathered
+exactly over ``model`` into every head (:func:`~repro_torch.launch.mesh.
+gather_replicated`), so every rank runs RoPE and attention (B6) over all
+H heads, and takes its contiguous H hd / m columns of the output into
+wo's rows (:func:`~repro_torch.launch.mesh.split_to`, whose backward
+gathers the ranks' cotangents). Only H hd and KVH hd need divide by
+``model``; the attention is computed m times (``ROADMAP.md`` C).
 """
 from __future__ import annotations
 
@@ -43,7 +53,12 @@ from torch import nn
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
-from repro_torch.launch.mesh import copy_to, sum_fp32
+from repro_torch.launch.mesh import (
+    copy_to,
+    gather_replicated,
+    split_to,
+    sum_fp32,
+)
 from repro_torch.models.sharding import at_use
 
 NEG_INF = -1e30
@@ -245,7 +260,8 @@ class Attention(nn.Module):
 
     def qkv(self, x: torch.Tensor, mesh=None):
         """x (B,S,d) -> q (B,S,H,hd), k/v (B,S,KVH,hd), H and KVH this
-        module's (a rank's share on a ``mesh``)."""
+        module's (a rank's share on a ``mesh``; every head under
+        ``attn_shard="head_dim"``)."""
         cfg = self.cfg
         B, S, _ = x.shape
         hd = cfg.resolved_head_dim
@@ -257,13 +273,21 @@ class Attention(nn.Module):
             q = q + self.bq.to(x.dtype)
             k = k + self.bk.to(x.dtype)
             v = v + self.bv.to(x.dtype)
+        if cfg.attn_shard == "head_dim":
+            q, k, v = (gather_replicated(t, mesh, "model", -1)
+                       for t in (q, k, v))
         return (q.reshape(B, S, -1, hd), k.reshape(B, S, -1, hd),
                 v.reshape(B, S, -1, hd))
 
     def out(self, o: torch.Tensor, mesh=None) -> torch.Tensor:
-        """o (B,S,H,hd) -> (B,S,d), summed over ``mesh``'s model axis."""
+        """o (B,S,H,hd) -> (B,S,d), summed over ``mesh``'s model axis
+        (under ``attn_shard="head_dim"`` o holds every head, of which the
+        rank's columns are taken)."""
         B, S = o.shape[:2]
-        return row_parallel(o.reshape(B, S, -1), at_use(self.wo, mesh), mesh)
+        o = o.reshape(B, S, -1)
+        if self.cfg.attn_shard == "head_dim":
+            o = split_to(o, mesh, "model", -1)
+        return row_parallel(o, at_use(self.wo, mesh), mesh)
 
 
 class MLP(nn.Module):

@@ -45,8 +45,21 @@ normed input enters in_proj through ``copy_to`` and the summed x_proj
 output enters dt_proj and every rank's channels (B, C) through it too,
 so their gradients are summed over ``model``; a trainable model's FSDP
 leaves (in_proj, out_proj) are gathered over ``data`` at each use
-(``sharding.at_use``), Mamba2's as well. Mamba2 is not split over
-``model`` (``ROADMAP.md`` A12e).
+(``sharding.at_use``), Mamba2's as well.
+
+A rank's :class:`Mamba2` holds nh / m heads of model rank r and their
+di / m channels (``models/sharding.py``): in_proj's columns [z_r | x_r |
+B | C | dt_r], conv_w/conv_b's [x_r | B | C], dt_bias/A_log/D its heads,
+norm_scale its channels and out_proj their rows. The SSD runs on the
+rank's heads (states (B, nh / m, p, N)). Three sums over ``model`` make
+the layer the unsharded one: out_proj's partial product (row-parallel);
+the gated RMSNorm's sum of y^2 over all di channels (fp32), whose result
+feeds each rank's own channels, so its backward sums over ``model`` as
+well; and, under training, the gradients of the B and C columns of
+in_proj and of the B and C channels of conv_w/conv_b, which are whole on
+every rank while each rank's heads give only their share (a ``copy_to``
+on those weight slices at use). The normed input enters in_proj through
+``copy_to`` once, so the activations' path is summed once.
 
 Mamba2's chunked SSD is jnp in the reference (no Pallas kernel), so
 :func:`ssd_chunked` is plain PyTorch on every device, all in fp32. The
@@ -67,7 +80,7 @@ from torch import nn
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.mamba_scan import ops
-from repro_torch.launch.mesh import copy_to
+from repro_torch.launch.mesh import copy_to, sum_fp32
 from repro_torch.models.layers import (
     module_device,
     new_weight,
@@ -348,20 +361,63 @@ def ssd_chunked(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     return y.permute(0, 1, 3, 2, 4).reshape(b, s, nh, p), h
 
 
-def _mamba2_split(zxbcdt: torch.Tensor, cfg: ArchConfig):
-    di, N = cfg.d_inner, cfg.ssm_state
+def _split(mesh) -> bool:
+    return mesh is not None and mesh.shape["model"] > 1
+
+
+def _whole_cols(w: torch.Tensor, lo: int, hi: int, mesh) -> torch.Tensor:
+    """``w`` whose last-axis columns [lo, hi) are whole on every model
+    rank (Mamba2's B and C), entering through ``copy_to`` when their
+    gradient is taken on a mesh split over ``model``: each rank's heads
+    give only their share of it. ``w`` itself otherwise (the same
+    values either way)."""
+    if not (_split(mesh) and torch.is_grad_enabled() and w.requires_grad):
+        return w
+    return torch.cat([w[..., :lo], copy_to(w[..., lo:hi], mesh, "model"),
+                      w[..., hi:]], dim=-1)
+
+
+def _mamba2_in(x: torch.Tensor, mod: Mamba2, cfg: ArchConfig, mesh=None):
+    """x (..., d) -> z (..., di), xbc_raw (..., di+2N) and dt_in (...,
+    nh) of this module's (a rank's) heads: x enters through ``copy_to``
+    and in_proj's B and C columns through :func:`_whole_cols`."""
+    di, N = mod.norm_scale.shape[0], cfg.ssm_state
+    x = copy_to(x, mesh, "model")
+    w = _whole_cols(at_use(mod.in_proj, mesh), 2 * di, 2 * di + 2 * N, mesh)
+    zxbcdt = x @ w.to(x.dtype)
     return (zxbcdt[..., :di], zxbcdt[..., di:2 * di + 2 * N],
             zxbcdt[..., 2 * di + 2 * N:])
 
 
+def _mamba2_conv(mod: Mamba2, cfg: ArchConfig, mesh=None):
+    """conv_w and conv_b with their B and C channels through
+    :func:`_whole_cols`."""
+    di, N = mod.norm_scale.shape[0], cfg.ssm_state
+    return (_whole_cols(mod.conv_w, di, di + 2 * N, mesh),
+            _whole_cols(mod.conv_b, di, di + 2 * N, mesh))
+
+
+def _mean_sq(y: torch.Tensor, cfg: ArchConfig, mesh=None) -> torch.Tensor:
+    """The mean of y^2 over all d_inner channels (fp32, keepdim). On a mesh
+    split over ``model``: each rank's sum over its channels, summed over
+    ``model`` and divided by d_inner; the backward sums over ``model``
+    too, since each rank's channels read the result."""
+    if not _split(mesh):
+        return torch.mean(y * y, dim=-1, keepdim=True)
+    ss = sum_fp32(torch.sum(y * y, dim=-1, keepdim=True), mesh, "model")
+    return copy_to(ss, mesh, "model") / cfg.d_inner
+
+
 def _gated_rmsnorm_out(y: torch.Tensor, z: torch.Tensor, mod: Mamba2,
-                       dtype: torch.dtype, mesh=None) -> torch.Tensor:
-    """y * silu(z), RMS-normalised and scaled by norm_scale, all in fp32,
-    then cast to ``dtype`` and projected by out_proj."""
+                       cfg: ArchConfig, dtype: torch.dtype,
+                       mesh=None) -> torch.Tensor:
+    """y * silu(z), RMS-normalised over all d_inner channels
+    (:func:`_mean_sq`) and scaled by norm_scale, all in fp32, then cast
+    to ``dtype`` and projected by out_proj (row-parallel)."""
     y = y * F.silu(z.to(torch.float32))
-    y = y * torch.rsqrt(torch.mean(y * y, dim=-1, keepdim=True) + 1e-6)
+    y = y * torch.rsqrt(_mean_sq(y, cfg, mesh) + 1e-6)
     y = (y * mod.norm_scale.to(torch.float32)).to(dtype)
-    return y @ at_use(mod.out_proj, mesh).to(dtype)
+    return row_parallel(y, at_use(mod.out_proj, mesh), mesh)
 
 
 def mamba2_forward(x: torch.Tensor, mod: Mamba2, cfg: ArchConfig,
@@ -369,22 +425,20 @@ def mamba2_forward(x: torch.Tensor, mod: Mamba2, cfg: ArchConfig,
     """Full-sequence SSD. x (B, S, d) -> (B, S, d) [+ the decode state
     {"conv": (B, K-1, di+2N) in x's dtype, zero-padded in front when S <
     K-1, "ssm": (B, nh, p, N) fp32}], with chunk ``min(cfg.ssd_chunk,
-    S)``, which must divide S. ``mesh`` is data-only (FSDP leaves
-    gathered at use)."""
-    di, N, K = cfg.d_inner, cfg.ssm_state, cfg.ssm_conv
-    p = cfg.ssm_headdim
-    nh, f32 = di // p, torch.float32
-    z, xbc_raw, dt_in = _mamba2_split(
-        x @ at_use(mod.in_proj, mesh).to(x.dtype), cfg)
-    xbc = F.silu(causal_conv1d(xbc_raw, mod.conv_w, mod.conv_b))
+    S)``, which must divide S; di and nh the rank's (the module
+    docstring) on a ``mesh``."""
+    K, p, f32 = cfg.ssm_conv, cfg.ssm_headdim, torch.float32
+    di, N = mod.norm_scale.shape[0], cfg.ssm_state
+    z, xbc_raw, dt_in = _mamba2_in(x, mod, cfg, mesh)
+    xbc = F.silu(causal_conv1d(xbc_raw, *_mamba2_conv(mod, cfg, mesh)))
     xs, B_ssm, C_ssm = xbc[..., :di], xbc[..., di:di + N], xbc[..., di + N:]
     dt = F.softplus(dt_in.to(f32) + mod.dt_bias.to(f32))
     A = -torch.exp(mod.A_log.to(f32))
-    xh = xs.reshape(*xs.shape[:-1], nh, p)
+    xh = xs.reshape(*xs.shape[:-1], di // p, p)
     y, h = ssd_chunked(xh, dt, A, B_ssm, C_ssm, cfg.ssd_chunk)
     y = y + mod.D.to(f32)[:, None] * xh.to(f32)
-    out = _gated_rmsnorm_out(y.reshape(*x.shape[:-1], di), z, mod, x.dtype,
-                             mesh)
+    out = _gated_rmsnorm_out(y.reshape(*x.shape[:-1], di), z, mod, cfg,
+                             x.dtype, mesh)
     if not return_state:
         return out
     Bsz, S, C = xbc_raw.shape
@@ -394,26 +448,27 @@ def mamba2_forward(x: torch.Tensor, mod: Mamba2, cfg: ArchConfig,
 
 
 def mamba2_decode(x_t: torch.Tensor, state: dict, mod: Mamba2,
-                  cfg: ArchConfig):
+                  cfg: ArchConfig, mesh=None):
     """One token. x_t (B, d); state {"conv" (B, K-1, di+2N), "ssm" (B, nh,
     p, N)} -> (B, d), the new state (new tensors: the conv state in x_t's
-    dtype, the ssm state fp32)."""
-    di, N = cfg.d_inner, cfg.ssm_state
-    p = cfg.ssm_headdim
-    nh, f32 = di // p, torch.float32
-    z, xbc, dt_in = _mamba2_split(x_t @ mod.in_proj.to(x_t.dtype), cfg)
-    conv_state, xbc = conv_step(state["conv"], xbc, mod.conv_w, mod.conv_b)
+    dtype, the ssm state fp32); di and nh the rank's on a ``mesh``."""
+    p, f32 = cfg.ssm_headdim, torch.float32
+    di, N = mod.norm_scale.shape[0], cfg.ssm_state
+    z, xbc, dt_in = _mamba2_in(x_t, mod, cfg, mesh)
+    conv_state, xbc = conv_step(state["conv"], xbc,
+                                *_mamba2_conv(mod, cfg, mesh))
     xbc = F.silu(xbc)
     xs, B_ssm, C_ssm = xbc[:, :di], xbc[:, di:di + N], xbc[:, di + N:]
     dt = F.softplus(dt_in.to(f32) + mod.dt_bias.to(f32))  # (B, nh)
     A = -torch.exp(mod.A_log.to(f32))
-    xh = xs.reshape(-1, nh, p).to(f32)
+    xh = xs.reshape(-1, di // p, p).to(f32)
     da = torch.exp(dt * A)
     h = (da[..., None, None] * state["ssm"]
          + (dt[..., None] * xh)[..., None] * B_ssm.to(f32)[:, None, None, :])
     y = torch.matmul(h, C_ssm.to(f32)[:, None, :, None])[..., 0]  # (B,nh,p)
     y = y + mod.D.to(f32)[:, None] * xh
-    out = _gated_rmsnorm_out(y.reshape(-1, di), z, mod, x_t.dtype)
+    out = _gated_rmsnorm_out(y.reshape(-1, di), z, mod, cfg, x_t.dtype,
+                             mesh)
     return out, {"conv": conv_state, "ssm": h}
 
 

@@ -64,8 +64,28 @@ over ``model`` in fp32. The embedding and the head split the vocab over
 ``model`` when it divides (a vocab-parallel lookup, then a sum; the
 logits gathered exactly over ``model`` before anything reads them, so
 every rank of a data shard sees the same bits). Everything else is
-computed alike on every rank of a data shard. The hybrid runs on
-data-only meshes.
+computed alike on every rank of a data shard. The hybrid's Mamba2
+layers run on the rank's heads (``models/ssm.py``). Under
+``cfg.attn_shard="head_dim"`` every rank attends over every head, its
+columns of q, k and v gathered over ``model`` (``models/layers.py``), and
+the KV caches are whole on every rank (:func:`cache_layout`).
+
+Sequence parallelism (``cfg.seq_parallel``, the reference's ``_hspec``:
+Megatron-SP). On a mesh with ``model`` > 1, prefill and the training
+forward hold the residual stream between blocks as this rank's S / m
+positions: the input enters as the rank's slice (``split_to``, whose
+backward gathers), each sub-block normalises its slice, gathers it
+whole over ``model`` (``gather_replicated``; with the ``copy_to`` that
+follows in every sub-block its backward sums over ``model`` and keeps
+the slice) and leaves its row-parallel sum as the rank's slice again
+(``split_to``); the final norm runs on the slice, which is gathered
+before the head. The norm scales then see only the rank's positions, so
+they enter through ``copy_to`` (their gradient summed over ``model``).
+Every product and sum sees the same numbers as without the knob, so the
+logits, the loss and every gradient but the norm scales' are bitwise
+those of ``seq_parallel=False`` on the same mesh; a norm scale's
+gradient is the same sum in another order. Decode (S = 1) ignores it, as
+the reference's does; an S that does not divide by ``model`` raises.
 
 Sharded training (``ROADMAP.md`` A12c). A trainable model built with
 ``mesh=`` holds its blocks in the training layout: ``param_specs`` whole,
@@ -101,6 +121,7 @@ from repro_torch.kernels.flash_attention import ops as attention_ops
 from repro_torch.launch.mesh import (
     copy_to,
     gather_replicated,
+    split_to,
     sum_fp32,
 )
 from repro_torch.models import layers as L
@@ -311,9 +332,8 @@ def cache_specs(cfg: ArchConfig, batch_sharded: bool = True,
                 model_size: int = 16) -> dict:
     """The reference's cache layout, as tuples of axis names: the batch
     over ``data`` when ``batch_sharded``; KV heads over ``model`` when
-    they divide by ``model_size``, else head_dim (which the port refuses
-    on a mesh, ``sharding.check_mesh``); the ssm states' d_inner over
-    ``model``."""
+    they divide by ``model_size``, else head_dim; the ssm states' d_inner
+    over ``model``. The port's caches follow :func:`cache_layout`."""
     b = "data" if batch_sharded else None
     if cfg.family == "ssm":
         return {"conv": (None, b, None, "model"),
@@ -330,6 +350,18 @@ def cache_specs(cfg: ArchConfig, batch_sharded: bool = True,
         sc = kv[:-1] + (None,) if kv[-1] == "model" else kv
         return {"k": kv, "v": kv, "k_scale": sc, "v_scale": sc}
     return {"k": kv, "v": kv}
+
+
+def cache_layout(cfg: ArchConfig, batch_sharded: bool = True,
+                 model_size: int = 16) -> dict:
+    """{cache name: (spec, parts)}: where the port's caches lie on a mesh,
+    :func:`cache_specs` with the port's departures
+    (``sharding.cache_spec``: the hybrid's conv states cut as conv_w, its
+    ssm states by heads, and whole KV caches under
+    ``attn_shard="head_dim"``). ``sharding.gather_block`` puts a cache
+    back together from its ``(spec, parts)``."""
+    return {n: SH.cache_spec(cfg, n, spec)
+            for n, spec in cache_specs(cfg, batch_sharded, model_size).items()}
 
 
 # ==================================================================== init
@@ -466,41 +498,86 @@ def placement(model: Transformer, mesh, batch_sharded: bool = True,
     return Placement(mesh, batch_sharded, moe_serving_mode)
 
 
-def _attn_full(h, blk: Block, cfg: ArchConfig, rope, mesh=None):
+def seq_parallel(cfg: ArchConfig, mesh) -> bool:
+    """Whether prefill and the training forward hold the residual stream
+    as S slices over ``model``: ``cfg.seq_parallel`` on a mesh with
+    ``model`` > 1."""
+    return bool(cfg.seq_parallel) and mesh is not None \
+        and mesh.shape["model"] > 1
+
+
+def _to_slices(h: torch.Tensor, cfg: ArchConfig, mesh) -> torch.Tensor:
+    """h (B, S, d), the same on every model rank -> this rank's (B, S / m,
+    d) (``ValueError`` naming S when it does not divide)."""
+    if h.shape[1] % mesh.model:
+        raise ValueError(f"{cfg.name}: seq_parallel needs the sequence "
+                         f"length S = {h.shape[1]} to divide by the mesh's "
+                         f"model = {mesh.model}")
+    return split_to(h, mesh, "model", 1)
+
+
+def _norm(h, scale, cfg: ArchConfig, mesh, seq: bool):
+    """The norm of h; with ``seq`` (h this rank's S slice) its scale
+    enters through ``copy_to``, since it sees only the rank's
+    positions."""
+    if seq and scale is not None:
+        scale = copy_to(scale, mesh, "model")
+    return L.apply_norm(h, scale, cfg)
+
+
+def _pre_norm(h, scale, cfg: ArchConfig, mesh, seq: bool):
+    """A sub-block's normed input, whole over S: with ``seq`` the norm of
+    this rank's slice, gathered over ``model``."""
+    x = _norm(h, scale, cfg, mesh, seq)
+    return gather_replicated(x, mesh, "model", 1) if seq else x
+
+
+def _residual(h, y, mesh, seq: bool):
+    """h + the sub-block's (summed) output y: with ``seq``, y's slice."""
+    return h + (split_to(y, mesh, "model", 1) if seq else y)
+
+
+def _attn_full(h, blk: Block, cfg: ArchConfig, rope, mesh=None,
+               seq: bool = False):
     """Full-sequence causal attention sub-block (pre-norm, residual).
     Returns the new h and this layer's (k, v) after rope (the rank's
-    heads on a mesh)."""
-    x = L.apply_norm(h, blk.norm1, cfg)
+    heads on a mesh; every head under ``attn_shard="head_dim"``); with
+    ``seq``, h is this rank's S slice and k, v are whole over S."""
+    x = _pre_norm(h, blk.norm1, cfg, mesh, seq)
     q, k, v = blk.attn.qkv(x, mesh)
     q = L.apply_rope(q, *rope)
     k = L.apply_rope(k, *rope)
     o = attention_ops.causal_attention(q, k, v, chunk=cfg.attn_chunk)
-    return h + blk.attn.out(o, mesh), (k, v)
+    return _residual(h, blk.attn.out(o, mesh), mesh, seq), (k, v)
 
 
-def _ffn_full(h, blk: Block, cfg: ArchConfig, at: Placement = LOCAL):
+def _ffn_full(h, blk: Block, cfg: ArchConfig, at: Placement = LOCAL,
+              seq: bool = False):
     """The FFN sub-block (pre-norm, residual): the new h and the router's
-    aux loss (None without experts)."""
-    x = L.apply_norm(h, blk.norm2, cfg)
+    aux loss (None without experts); with ``seq``, h is this rank's S
+    slice."""
+    x = _pre_norm(h, blk.norm2, cfg, at.mesh, seq)
     if isinstance(blk.ffn, MOE.MoE):
         out, aux = MOE.moe_ffn(x, blk.ffn, cfg,
                                serving_mode=at.moe_serving_mode,
                                mesh=at.mesh, batch_sharded=at.batch_sharded)
-        return h + out, aux
-    return h + blk.ffn(x, at.mesh), None
+        return _residual(h, out, at.mesh, seq), aux
+    return _residual(h, blk.ffn(x, at.mesh), at.mesh, seq), None
 
 
-def _ssm_full(h, blk: MambaBlock, cfg: ArchConfig, mesh=None):
+def _ssm_full(h, blk: MambaBlock, cfg: ArchConfig, mesh=None,
+              seq: bool = False):
     """Full-sequence Mamba sub-block (pre-norm, residual). Returns the new
-    h and this layer's decode state {"conv", "ssm"}."""
-    x = L.apply_norm(h, blk.norm, cfg)
+    h and this layer's decode state {"conv", "ssm"}; with ``seq``, h is
+    this rank's S slice."""
+    x = _pre_norm(h, blk.norm, cfg, mesh, seq)
     if cfg.family == "ssm":
         y, state = SS.mamba1_forward(x, blk.mamba, cfg, return_state=True,
                                      mesh=mesh)
     else:
         y, state = SS.mamba2_forward(x, blk.mamba, cfg, return_state=True,
                                      mesh=mesh)
-    return h + y, state
+    return _residual(h, y, mesh, seq), state
 
 
 def embed_tokens(model: Transformer, tokens, mesh=None) -> torch.Tensor:
@@ -541,8 +618,10 @@ def lm_logits(model: Transformer, h: torch.Tensor, mesh=None) -> torch.Tensor:
     return out
 
 
-def final_norm(model: Transformer, h: torch.Tensor) -> torch.Tensor:
-    return L.apply_norm(h, model.final_norm, model.cfg)
+def final_norm(model: Transformer, h: torch.Tensor,
+               seq: bool = False) -> torch.Tensor:
+    """The final norm of h (with ``seq``, this rank's S slice)."""
+    return _norm(h, model.final_norm, model.cfg, model.mesh, seq)
 
 
 def _inputs(model: Transformer, tokens, embeds, prefix_embeds, mesh=None):
@@ -557,27 +636,28 @@ def _inputs(model: Transformer, tokens, embeds, prefix_embeds, mesh=None):
     return h
 
 
-def _units(model: Transformer, rope, caches=None, at: Placement = LOCAL
-           ) -> list:
+def _units(model: Transformer, rope, caches=None, at: Placement = LOCAL,
+           seq: bool = False) -> list:
     """The layers as the reference checkpoints them: a list of functions
     h -> (h, the router's aux loss or None), one per block, or for the
     hybrid one per group of ``shared_attn_every`` Mamba2 layers followed
-    by the shared block, run as ``at`` places them. With ``caches``
-    (prefill's buffers), each layer's (k, v) or Mamba state is written
-    into its slot: the shared block's of group j into slot j."""
+    by the shared block, run as ``at`` places them (with ``seq``, on S
+    slices). With ``caches`` (prefill's buffers), each layer's (k, v) or
+    Mamba state is written into its slot: the shared block's of group j
+    into slot j."""
     cfg = model.cfg
 
     def attention(blk: Block, i: int):
         def unit(h):
-            h, (kk, vv) = _attn_full(h, blk, cfg, rope, at.mesh)
+            h, (kk, vv) = _attn_full(h, blk, cfg, rope, at.mesh, seq)
             if caches is not None:
                 caches["k"][i], caches["v"][i] = kk, vv
-            return _ffn_full(h, blk, cfg, at)
+            return _ffn_full(h, blk, cfg, at, seq)
         return unit
 
     def mamba(blk: MambaBlock, i: int):
         def unit(h):
-            h, state = _ssm_full(h, blk, cfg, at.mesh)
+            h, state = _ssm_full(h, blk, cfg, at.mesh, seq)
             if caches is not None:
                 caches["conv"][i], caches["ssm"][i] = (state["conv"],
                                                        state["ssm"])
@@ -606,14 +686,17 @@ def _units(model: Transformer, rope, caches=None, at: Placement = LOCAL
 def _run_layers(model: Transformer, h: torch.Tensor, caches=None,
                 remat: bool = False, at: Placement = LOCAL):
     """Every layer's full-sequence pass in order (:func:`_units`), each
-    unit through ``torch.utils.checkpoint`` with ``remat``. Returns (h,
-    aux), aux the sum of the MoE layers' router losses (fp32, 0 without
-    experts)."""
+    unit through ``torch.utils.checkpoint`` with ``remat``; under
+    :func:`seq_parallel` h is this rank's S slice, in and out. Returns
+    (h, aux), aux the sum of the MoE layers' router losses (fp32, 0
+    without experts)."""
     cfg = model.cfg
+    seq = seq_parallel(cfg, at.mesh)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    S = h.shape[1] * (at.mesh.model if seq else 1)
     rope = (None if cfg.family == "ssm" else
-            _rope(torch.arange(h.shape[1], device=h.device), cfg))
-    for unit in _units(model, rope, caches, at):
+            _rope(torch.arange(S, device=h.device), cfg))
+    for unit in _units(model, rope, caches, at, seq):
         if remat:
             h, layer_aux = checkpoint(unit, h, use_reentrant=False)
         else:
@@ -649,16 +732,22 @@ def forward(model: Transformer, tokens=None, embeds=None, prefix_embeds=None,
     mean over ``data`` of the shards' sums when ``batch_sharded``, one
     all-reduce whose backward passes the cotangent through); a trainable
     model's gradient flows through the mesh's collectives (the module
-    docstring)."""
+    docstring; under ``cfg.seq_parallel`` the residual stream between
+    blocks is the rank's S slice, the module docstring's
+    sequence parallelism)."""
     at = placement(model, mesh, batch_sharded)
-    h = _inputs(model, tokens, embeds, prefix_embeds, at.mesh)
+    mesh, seq = at.mesh, seq_parallel(model.cfg, at.mesh)
+    h = _inputs(model, tokens, embeds, prefix_embeds, mesh)
+    if seq:
+        h = _to_slices(h, model.cfg, mesh)
     h, aux = _run_layers(model, h, remat=remat and _differentiated(model),
                          at=at)
-    mesh = at.mesh
     if model.cfg.num_experts and batch_sharded and SH.is_sharded(mesh) \
             and mesh.data > 1:  # weight_gather's pmean, once for the sum
         aux = sum_fp32(aux, mesh, "data") / mesh.data
-    h = final_norm(model, h)
+    h = final_norm(model, h, seq)
+    if seq:
+        h = gather_replicated(h, mesh, "model", 1)
     if return_hidden:
         return h, aux
     return lm_logits(model, h, at.mesh), aux
@@ -861,7 +950,7 @@ def _kv_layers(cfg: ArchConfig) -> int:
 def _cache_shapes(cfg: ArchConfig, B: int, S_max: int, mesh=None,
                   batch_sharded: bool = True) -> dict:
     """{name: shape} of :func:`init_caches`' caches for a global batch of
-    B, cut to this rank's blocks by :func:`cache_specs` on a mesh."""
+    B, cut to this rank's blocks by :func:`cache_layout` on a mesh."""
     shapes = {}
     if cfg.family in ("ssm", "hybrid"):
         shapes["conv"], shapes["ssm"] = _state_shapes(cfg, B)
@@ -872,8 +961,9 @@ def _cache_shapes(cfg: ArchConfig, B: int, S_max: int, mesh=None,
             shapes["k_scale"] = shapes["v_scale"] = kv[:-1] + (1,)
     if not SH.is_sharded(mesh):
         return shapes
-    specs = cache_specs(cfg, batch_sharded, mesh.model)
-    return {n: SH.local_shape(shp, specs[n], mesh.shape, name=f"cache {n}")
+    layout = cache_layout(cfg, batch_sharded, mesh.model)
+    return {n: SH.local_shape(shp, layout[n][0], mesh.shape, layout[n][1],
+                              name=f"cache {n}")
             for n, shp in shapes.items()}
 
 
@@ -891,8 +981,9 @@ def init_caches(cfg: ArchConfig, B: int, S_max: int,
     in ``dtype`` (the reference's are bf16 whatever ``kv_cache_dtype``:
     an int8 cache is refused with ``ValueError``). On a ``mesh``, B is
     the global batch and the caches are this rank's blocks
-    (:func:`cache_specs`): B / data rows when ``batch_sharded``, KVH /
-    model heads, d_inner / model channels."""
+    (:func:`cache_layout`): B / data rows when ``batch_sharded``, KVH /
+    model heads (every head under ``attn_shard="head_dim"``), d_inner /
+    model channels (the hybrid's: its heads' channels and B, C)."""
     dev = resolve_device(device)
     if cfg.family == "hybrid" and cfg.kv_cache_dtype == "int8":
         raise ValueError(f"{cfg.name}: the hybrid's KV caches are bf16 "
@@ -918,16 +1009,23 @@ def prefill(model: Transformer, tokens=None, embeds=None, prefix_embeds=None,
     On a mesh (the model's own; ``mesh=`` may only restate it,
     :func:`placement`) the inputs are this rank's B rows (the module
     docstring), the logits are every rank's exact gather, and the caches
-    hold the rank's heads or channels."""
+    hold the rank's heads or channels (:func:`cache_layout`). Under
+    ``cfg.seq_parallel`` the layers run on S slices (the module
+    docstring); the caches are whole over S."""
     cfg = model.cfg
     at = placement(model, mesh, batch_sharded, moe_serving_mode)
+    seq = seq_parallel(cfg, at.mesh)
     h = _inputs(model, tokens, embeds, prefix_embeds, at.mesh)
     B, S, _ = h.shape
     shapes = _cache_shapes(cfg, B, S, at.mesh, batch_sharded=False)
     caches = {n: torch.empty(shapes[n], dtype=torch.float32 if n == "ssm"
                              else h.dtype, device=h.device)
               for n in ("conv", "ssm", "k", "v") if n in shapes}
+    if seq:
+        h = _to_slices(h, cfg, at.mesh)
     h, _ = _run_layers(model, h, caches, at=at)
+    if seq:
+        h = gather_replicated(h, at.mesh, "model", 1)
     h = final_norm(model, h[:, -1:])
     return lm_logits(model, h, at.mesh)[:, 0], caches
 
@@ -987,7 +1085,7 @@ def _ssm_decode(h, blk: MambaBlock, cfg: ArchConfig, caches: dict, i: int,
     if cfg.family == "ssm":
         y, state = SS.mamba1_decode(x, state, blk.mamba, cfg, mesh)
     else:
-        y, state = SS.mamba2_decode(x, state, blk.mamba, cfg)
+        y, state = SS.mamba2_decode(x, state, blk.mamba, cfg, mesh)
     caches["conv"][i], caches["ssm"][i] = state["conv"], state["ssm"]
     return h + y[:, None]
 

@@ -444,11 +444,36 @@ def test_a_count_that_does_not_divide_raises(what, over):
 @pytest.mark.parametrize("arch,over", [
     (HYBRID, {}), (LLAMA, dict(attn_shard="head_dim")),
     (LLAMA, dict(seq_parallel=True))])
-def test_what_waits_for_a12c_raises(arch, over):
+def test_what_a12e_added_is_accepted(arch, over):
+    """The hybrid's Mamba2, ``attn_shard="head_dim"`` and ``seq_parallel``
+    on a mesh with model > 1: the mesh is accepted and a model's blocks
+    are cut for it (on ``meta``)."""
     cfg = dataclasses.replace(_cfg(arch), **over)
-    with pytest.raises(NotImplementedError, match="A12e"):
-        SH.check_mesh(cfg, 2, 2)
+    SH.check_mesh(cfg, 2, 2)
     SH.check_mesh(cfg, 2, 1)
+    mesh = types.SimpleNamespace(data=2, model=2, size=4, rank=0,
+                                 data_rank=0, model_rank=1,
+                                 shape={"data": 2, "model": 2})
+    for trainable in (False, True):
+        model = tmodels.Transformer(cfg, device="meta", trainable=trainable,
+                                    mesh=mesh)
+        assert model.embed.shape[0] == cfg.vocab_size // 2
+
+
+@pytest.mark.parametrize("what,arch,over", [
+    ("nh", HYBRID, dict(d_model=96)),  # d_inner 192: 3 heads of 64
+    ("KVH hd", LLAMA, dict(attn_shard="head_dim", num_kv_heads=1,
+                           head_dim=3))])
+def test_an_a12e_count_that_does_not_divide_raises(what, arch, over):
+    """The Mamba2 heads, and under ``attn_shard="head_dim"`` the KV
+    heads' width, must divide by ``model`` (a KV head count need not)."""
+    cfg = dataclasses.replace(_cfg(arch), ssm_headdim=64, **over) \
+        if arch == HYBRID else dataclasses.replace(_cfg(arch), **over)
+    with pytest.raises(ValueError, match=what):
+        SH.check_mesh(cfg, 1, 2)
+    SH.check_mesh(cfg, 2, 1)
+    SH.check_mesh(dataclasses.replace(_cfg(LLAMA), attn_shard="head_dim",
+                                      num_kv_heads=1), 1, 2)
 
 
 @pytest.mark.parametrize("model_size", [2, 16])
@@ -483,15 +508,15 @@ def test_specs_follow_the_reference_rules():
     assert specs["embed"] == (None, "data")
     assert specs["lm_head"] == ("data", None)
     assert SH.serving_spec(specs, "layers.0.ffn.w2", granite) == (
-        ("model", "data", None), 1)
+        ("model", "data", None), SH.CONTIGUOUS)
     assert SH.serving_spec(specs, "layers.0.attn.wq", granite) == (
-        (None, "model"), 1)
+        (None, "model"), SH.CONTIGUOUS)
     llama = tconfigs.get_config(LLAMA)
     assert tmodels.param_specs(llama, 2)["embed"] == ("model", "data")
     ssm = tconfigs.get_config(SSM)
     assert SH.serving_spec(tmodels.param_specs(ssm, 2),
                            "layers.5.mamba.in_proj", ssm) == (
-        (None, "model"), 2)
+        (None, "model"), ((ssm.d_inner, True), (ssm.d_inner, True)))
     assert tmodels.cache_specs(llama, False, 2)["k"] == (
         None, None, None, "model", None)
     assert tmodels.cache_specs(ssm, True, 2)["ssm"] == (
@@ -504,7 +529,8 @@ def test_in_proj_halves_are_cut_apart():
     leaf = torch.arange(24.0).reshape(2, 12)  # x = cols 0-5, z = 6-11
     mesh = types.SimpleNamespace(shape={"data": 1, "model": 3}, model=3,
                                  data=1, model_rank=1, data_rank=0)
-    block = SH.local_block(leaf, (None, "model"), mesh, parts=2)
+    block = SH.local_block(leaf, (None, "model"), mesh,
+                           parts=((6, True), (6, True)))
     assert torch.equal(block, leaf[:, [2, 3, 8, 9]])
 
 

@@ -531,10 +531,10 @@ def test_training_layout_is_param_specs_whole():
                                 mesh=mesh)
     serve = tmodels.Transformer(granite, device="meta", mesh=mesh)
     t, s = train.leaf_specs(), serve.leaf_specs()
-    assert t["layers.0.attn.wq"] == (("data", "model"), 1)
-    assert s["layers.0.attn.wq"] == ((None, "model"), 1)
+    assert t["layers.0.attn.wq"] == (("data", "model"), SH.CONTIGUOUS)
+    assert s["layers.0.attn.wq"] == ((None, "model"), SH.CONTIGUOUS)
     assert t["layers.0.ffn.w1"] == s["layers.0.ffn.w1"] == (
-        ("model", None, "data"), 1)
+        ("model", None, "data"), SH.CONTIGUOUS)
     assert train.layers[0].attn.wq.fsdp_dim == 0
     assert train.layers[0].attn.wo.fsdp_dim == 1
     assert train.embed.fsdp_dim == 1
@@ -548,12 +548,14 @@ def test_training_layout_is_param_specs_whole():
     ssm = _cfg(SSM)
     spec = SH.training_spec(tmodels.param_specs(ssm, 2),
                             "layers.0.mamba.in_proj", ssm)
-    assert spec == (("data", "model"), 2)
+    assert spec == (("data", "model"), ((ssm.d_inner, True),
+                                        (ssm.d_inner, True)))
     # the x/z halves are cut over model only; d is cut over data in one
     # contiguous block
     leaf = torch.arange(4 * 8.0).reshape(4, 8)
     block = SH.local_block(leaf, spec[0], types.SimpleNamespace(
-        shape={"data": 2, "model": 2}, data_rank=1, model_rank=1), 2)
+        shape={"data": 2, "model": 2}, data_rank=1, model_rank=1),
+        ((4, True), (4, True)))
     assert torch.equal(block, leaf[2:, [2, 3, 6, 7]])
 
 

@@ -47,8 +47,12 @@ data, 4 x 512, and zamba2-2.7b on 1 x 2, 4 x 256, against one rank, with
 the roofline of a rank's step; then reduced llama, granite,
 falcon-mamba and zamba2 on 2 x 2, llama and falcon-mamba under
 ``seq_parallel`` and llama under ``attn_shard="head_dim"`` on 1 x 2,
-and zamba2 on 2 x 1, against the CPU's ranks),
-shows that each path launched its kernels, holds the card's OWLQN+
+and zamba2 on 2 x 1, against the CPU's ranks) and the dry run
+(``repro_torch.launch.dryrun``, in a process of its own: llama3.2-1b's
+train step, falcon-mamba-7b's prefill and llama's fp32 step on a fake 2 x
+2 mesh, traced on fake tensors and held against the peaks, launches and
+collectives those steps measured on the card), shows that each path
+launched its kernels, holds the card's OWLQN+
 trajectories and a reduced LM of each family against the CPU's, times
 the kernels beside their plain versions, their bound and one library
 call where there is one, and ends with one JSON line::
@@ -2443,6 +2447,7 @@ def phase_ssm_lm(torch, dev):
     logits, caches = prefill(model, tokens=prompts)
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
+    prefill_peak_gb = torch.cuda.max_memory_allocated() / 1e9
     launches["prefill"] = B7["mamba1_scan_gated"]
     t0 = time.perf_counter()
     out = generate(model, prompts, LM_NEW, temperature=0.0)
@@ -2584,9 +2589,10 @@ def phase_ssm_lm(torch, dev):
           f"tokens/s; (b) greedy generate of {LM_NEW} tokens after it in "
           f"{generate_s:.2f} s (its prefill included), tokens in range; (c) "
           f"prefill 1 x {LM_LONG:,} in {long_s:.2f} s = "
-          f"{LM_LONG / long_s:,.0f} tokens/s; peak memory {peak_gb:.2f} GB; "
-          f"B7 launches {launches} ({total} in the three runs: one per "
-          "layer per prefill and per decode step)")
+          f"{LM_LONG / long_s:,.0f} tokens/s; peak memory {peak_gb:.2f} GB "
+          f"({prefill_peak_gb:.2f} GB in (a)); B7 launches {launches} "
+          f"({total} in the three runs: one per layer per prefill and per "
+          "decode step)")
     print(f"  B7 vs plain on layer 0's scan inputs at G = 1, 2 and 4: gated "
           f"mode bitwise equal to the unfused composition; contract mode "
           f"bitwise equal to plain (max |err| {layer0['a']:.3e} at "
@@ -2620,7 +2626,7 @@ def phase_ssm_lm(torch, dev):
     return total, launches, max(layer0.values()), {
         "prefill_tokens_per_s": LM_BATCH * LM_SEQ / prefill_s,
         "prefill_32k_tokens_per_s": LM_LONG / long_s,
-        "decode_ms_per_token": decode_ms}
+        "decode_ms_per_token": decode_ms, "prefill_peak_gb": prefill_peak_gb}
 
 
 # ------------------------------------------------------------ phase 20
@@ -3718,7 +3724,13 @@ CARD_TESTS = (("tests/test_torch_stream_card.py",
                "tests/test_torch_lm_train_card.py",
                "tests/test_torch_sparse_card.py",
                "tests/test_torch_moe_card.py",
-               "tests/test_torch_mamba_scan_card.py"),
+               "tests/test_torch_mamba_scan_card.py",
+               "tests/test_torch_lsplm_fused_card.py",
+               "tests/test_torch_direction_card.py",
+               "tests/test_torch_hybrid_card.py",
+               "tests/test_torch_dense_card.py",
+               "tests/test_torch_serve_card.py",
+               "tests/test_torch_train_card.py"),
               ("tests/test_torch_shard_card.py",
                "tests/test_torch_lm_shard_card.py",
                "tests/test_torch_lm_train_shard_card.py"))
@@ -3729,7 +3741,9 @@ def phase_card_tests():
     against its plain version, the training path's, B1/B4/B2's against
     their plain versions and at every autotune config, the sharded
     training path's, the MoE family's, B7's against its plain versions,
-    the sharded LM serving and training paths'), in two pytest processes
+    the sharded LM serving and training paths', and B5's, B3's, the
+    hybrid's B6, the dense and sparse training paths' and planned scoring's
+    against their plain versions or the CPU), in two pytest processes
     of their own, run at once (CARD_TESTS; they build nothing: the
     kernels phase 1 built load from ``build/``)."""
     env = dict(os.environ)
@@ -6190,12 +6204,13 @@ def phase_train_shard(torch, dev):
     step's profile, and the roofline of a rank's step
     (:func:`_train_roofline`, as if each rank had a card of its own)
     beside its measured MFU. Returns B6's launches (every rank's gradient
-    and two steps) and its max |err| at the ranks' shapes over both
-    dtypes."""
+    and two steps), its max |err| at the ranks' shapes over both dtypes,
+    and per (arch, mesh) rank 0's timed step: its all-reduces per group,
+    its FSDP gathers and reduce-scatters and its B6 launches."""
     from repro_torch.configs import get_config
     from repro_torch.launch.mesh import run_ranks
 
-    t_phase, launches, worst = time.perf_counter(), 0, 0.0
+    t_phase, launches, worst, steps = time.perf_counter(), 0, 0.0, {}
     for arch, shape, batch_size, seq in TRAIN_SHARD_CASES:
         t_case = time.perf_counter()
         ranks = run_ranks(_train_shard_rank, shape[0] * shape[1], arch,
@@ -6347,8 +6362,10 @@ def phase_train_shard(torch, dev):
         launches += sum(sum(r["launches"]) for r in ranks)
         worst = max(worst, *(max(r["b6_err"], r["b6_err32"])
                              for r in ranks))
+        steps[arch, shape] = {"counts": r0["counts"], "split": r0["split"],
+                              "launches": r0["launches"][1]}
     print(f"phase 36 took {time.perf_counter() - t_phase:.1f} s")
-    return launches, worst
+    return launches, worst, steps
 
 
 def _train_shard_reduced(rank, dev, world):
@@ -6598,6 +6615,268 @@ def phase_train_shard_reduced(torch, dev):
     return launches
 
 
+# ------------------------------------------------------------ phase 38
+# the dry run (repro_torch.launch.dryrun: the step traced on tensors
+# without storage) held against this run's own measurements. It runs in a
+# process of its own, so that its fake process group touches no other
+# phase, beside the untimed gates after phase 36, and it uses the host
+# alone: ``torch.tensor`` of a Python number on the card allocates it
+# for real before FakeTensorMode takes it (a scalar a call), and nothing
+# else may reach the card (gated: at most DRYRUN_CARD_BYTES at a time).
+DRYRUN_CASES = {
+    # phase 28's step: llama3.2-1b trainable, 4 x 4,096, one card
+    "train": (LM_ARCH, "train", TRAIN_BATCH, LM_SEQ, (1, 1), {}),
+    # phase 18's (a): falcon-mamba-7b's 4 x 4,096 prefill, one card
+    "prefill": (SSM_ARCH, "prefill", LM_BATCH, LM_SEQ, (1, 1), {}),
+    # phase 36's llama step: fp32, 4 x 512, on a (fake) 2 x 2 mesh
+    "shard": (LM_ARCH, "train", 4, 512, (2, 2), {"dtype": "float32"}),
+}
+DRYRUN_BAND = 0.25  # a predicted peak within +-25% of the measured one
+DRYRUN_FLOP_TOL = 0.01  # the traced FLOPs against the shapes' count
+DRYRUN_TIMEOUT = 900  # s, from the process's start
+DRYRUN_CARD_BYTES = 2**20  # the most the trace may hold on the card
+OP_CALLS = 2000  # calls a path of the rebinding's overhead is timed over
+_DRYRUN = r"""
+import dataclasses, json, sys, time
+import repro_torch.configs as C
+from repro_torch.launch import dryrun
+out = {}
+for name, (arch, kind, B, S, mesh, over) in json.loads(sys.argv[1]).items():
+    shape = "chip_smoke_" + name
+    C.INPUT_SHAPES[shape] = dict(kind=kind, seq_len=S, global_batch=B)
+    cfg = dataclasses.replace(C.get_config(arch), **over)
+    with dryrun.fake_world(*mesh) as m:
+        trace = dryrun.trace_combo(cfg, shape, m, device="cuda")
+        out[name] = dryrun.analyse(arch, shape, "x".join(map(str, mesh)),
+                                   trace, cfg, m)
+import torch
+out["card_bytes"] = (torch.cuda.max_memory_allocated()
+                     if torch.cuda.is_initialized() else 0)
+print(json.dumps(out))
+"""
+
+
+_CHILDREN: list = []  # processes still to stop when the script ends
+
+
+def start_dryrun():
+    """Phase 38's trace, started in a process of its own (read by
+    :func:`phase_dryrun`; stopped at the script's end if still running)."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src") + (
+        os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+    proc = subprocess.Popen(
+        [sys.executable, "-c", _DRYRUN, json.dumps(DRYRUN_CASES)], cwd=ROOT,
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    proc.started = time.perf_counter()
+    _CHILDREN.append(proc)
+    return proc
+
+
+def _stop_children() -> None:
+    for proc in _CHILDREN:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def _attention_excess(cfg, B, S) -> int:
+    """What a card step's attention computes beyond ``lm_step_flops``'
+    four causal forwards of 2 B H hd S (S + 1) a unit (the forward counted
+    three times, its recompute once): B6 twice (the forward and the
+    recompute), 2 B H hd S^2 each by its formula, and
+    ``attention_backward_plain``, whose query chunks of c rows each run
+    the recomputed forward's two products and the backward's four over
+    the keys up to the chunk's end, c1: 2 B H hd c c1 each."""
+    H, hd, ch = cfg.num_heads, cfg.resolved_head_dim, min(cfg.attn_chunk, S)
+    units = cfg.num_layers // (cfg.shared_attn_every or 1)
+    tri = sum((min(c0 + ch, S) - c0) * min(c0 + ch, S)
+              for c0 in range(0, S, ch))
+    return units * 2 * B * H * hd * (2 * S * S + 6 * tri - 4 * S * (S + 1))
+
+
+def _op_overhead(torch, dev) -> dict:
+    """The operator binding's host cost a call: B7's gated mode at the
+    decode step's shape, B6 at 4 x 16 tokens and B3 at D 1,000, each
+    called OP_CALLS times through its wrapper (the checks and the
+    ``torch.ops.repro_torch`` operator) and as the bare launch (the
+    operator's CUDA kernel, called directly), host wall to a
+    synchronisation, in turns (op, bare, op, bare; the lower of each
+    path's two). Returns {kernel: (op us, bare us)}."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.mamba_scan import mamba_scan as ms
+    from repro_torch.kernels.owlqn_direction import owlqn_direction as od
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    f32, bf16 = torch.float32, torch.bfloat16
+
+    def r(*shape, dt=bf16):
+        return torch.randn(shape, generator=gen, device=dev).to(dt)
+
+    B, di, N = LM_BATCH, 8192, 16
+    scan = (r(B, 1, di), r(di, dt=f32), r(B, 1, di), r(B, 1, N), r(B, 1, N),
+            -r(di, N, dt=f32).abs(), r(di, dt=f32), r(B, 1, di),
+            r(B, di, N, dt=f32))
+    q, k = r(LM_BATCH, 16, 32, 64), r(LM_BATCH, 16, 8, 64)
+    th, gr = r(1000, 24, dt=f32), r(1000, 24, dt=f32)
+    cases = {
+        "B7 gated (4, 1, 8192, 16)": (
+            lambda: ms.mamba1_scan_gated(*scan),
+            lambda: ms._launch_gated(*scan, 0)),
+        "B6 (4, 16, 32 / 8, 64) bf16": (
+            lambda: fa.flash_attention(q, k, k),
+            lambda: fa._launch(q, k, k, True)),
+        "B3 (1000, 24)": (lambda: od.owlqn_direction(th, gr, 0.1, 0.1),
+                          lambda: od._launch(th, gr, 0.1, 0.1)),
+    }
+    out = {}
+    with torch.no_grad():
+        for name, (op, bare) in cases.items():
+            best = [float("inf"), float("inf")]
+            for turn in (0, 1, 0, 1):
+                fn = (op, bare)[turn]
+                fn()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(OP_CALLS):
+                    fn()
+                torch.cuda.synchronize()
+                best[turn] = min(best[turn], (time.perf_counter() - t0)
+                                 / OP_CALLS * 1e6)
+            out[name] = tuple(best)
+    return out
+
+
+def phase_dryrun(torch, dev, proc, train_metrics, train_b6, ssm_metrics,
+                 ssm_launches, shard_steps):
+    """The dry run against this run's measurements (DRYRUN_CASES, traced
+    by :func:`start_dryrun` 's process on fake CUDA tensors, the card's
+    paths: B6 and B7 as the operators whose fakes give their shapes).
+    Gates: phase 28's step: the predicted peak within DRYRUN_BAND of its
+    measured ``max_memory_allocated``, B6 traced as often as it launched
+    (2 x layers), the traced FLOPs within DRYRUN_FLOP_TOL of
+    ``lm_step_flops`` (phase 28's roofline) plus the attention the card
+    runs beyond that count (:func:`_attention_excess`); phase 18's 4 x
+    4,096 prefill: B7 traced as often as it launched (64), the peak
+    within the band; phase 36's llama step on the fake 2 x 2 mesh: the
+    all-reduces and their bytes per group, and the FSDP gathers and
+    reduce-scatters among them, equal to the ranks' measured counts
+    exactly; the trace's process held at most DRYRUN_CARD_BYTES on the
+    card. Printed first: each case's record (memory by category, FLOPs,
+    HBM bytes, the roofline), and the operator binding's host cost a
+    call (:func:`_op_overhead`) beside phase 18's decode ms/token."""
+    from repro_torch.configs import get_config
+    from repro_torch.utils.roofline import lm_step_flops
+
+    t0 = time.perf_counter()
+    try:
+        out, err = proc.communicate(
+            timeout=DRYRUN_TIMEOUT - (t0 - proc.started))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, err = proc.communicate()
+        raise SmokeFailure(f"phase 38: the dry run did not end within "
+                           f"{DRYRUN_TIMEOUT} s: {err[-3000:]}") from None
+    check(proc.returncode == 0, f"phase 38: the dry run exited "
+          f"{proc.returncode}: {err[-4000:]}")
+    recs = json.loads(out.strip().splitlines()[-1])
+    card_bytes = recs.pop("card_bytes")
+    lines = []
+    for name, rec in recs.items():
+        mem, r = rec["memory"], rec["roofline"]
+        lines.append(
+            f"  {name}: {rec['arch']} {rec['kind']} on {rec['mesh']} "
+            f"({rec['trace_seconds']} s to trace): peak "
+            f"{mem['total_bytes_per_chip'] / 1e9:.2f} GB ("
+            + ", ".join(f"{k} {v / 1e9:.2f}" for k, v in
+                        mem["peak_by_category"].items())
+            + f"), FLOPs {r['flops_per_chip']:.4e}, HBM bytes "
+            f"{r['hbm_bytes_per_chip']:.4e}, collective bytes "
+            f"{r['collective_bytes_per_chip']:.4e}; t_compute "
+            f"{r['t_compute_s'] * 1e3:.2f} ms, t_memory "
+            f"{r['t_memory_s'] * 1e3:.2f} ms, t_collective "
+            f"{r['t_collective_s'] * 1e3:.2f} ms, {r['bottleneck']}-bound; "
+            f"kernel calls {rec['kernel_calls']}")
+
+    print("phase 38: the dry run's records (fake tensors, the card's "
+          "paths; predictions with the NVIDIA H100 80GB HBM3 constants):")
+    for line in lines:
+        print(line)
+    check(card_bytes <= DRYRUN_CARD_BYTES, f"phase 38: the trace held "
+          f"{card_bytes} bytes on the card at once (bar {DRYRUN_CARD_BYTES})")
+    cfg = get_config(LM_ARCH)
+    train, prefill, shard = recs["train"], recs["prefill"], recs["shard"]
+    peaks = {"train": (train, train_metrics["peak_gb"], "phase 28's step"),
+             "prefill": (prefill, ssm_metrics["prefill_peak_gb"],
+                         "phase 18's 4 x 4,096 prefill")}
+    ratios = {}
+    for name, (rec, measured, what) in peaks.items():
+        got = rec["memory"]["total_bytes_per_chip"] / 1e9
+        ratios[name] = got / measured
+        check(abs(got / measured - 1) <= DRYRUN_BAND,
+              f"phase 38: the predicted peak of {what}, {got:.2f} GB, is "
+              f"{got / measured:.3f} x the measured {measured:.2f} GB "
+              f"(band +-{DRYRUN_BAND:.0%})")
+    b6 = train["kernel_calls"].get("flash_attention", 0)
+    check(b6 == train_b6 == 2 * cfg.num_layers,
+          f"phase 38: B6 traced {b6} times in the step, launched "
+          f"{train_b6} (expected {2 * cfg.num_layers})")
+    b7 = prefill["kernel_calls"].get("mamba1_scan_gated", 0)
+    layers = get_config(SSM_ARCH).num_layers
+    check(b7 == ssm_launches["prefill"] == layers,
+          f"phase 38: B7 traced {b7} times in the prefill, launched "
+          f"{ssm_launches['prefill']} (expected {layers})")
+    roof = lm_step_flops(cfg, TRAIN_BATCH, LM_SEQ)
+    excess = _attention_excess(cfg, TRAIN_BATCH, LM_SEQ)
+    flops = train["roofline"]["flops_per_chip"]
+    off = abs(flops - (roof + excess)) / roof
+    check(off <= DRYRUN_FLOP_TOL,
+          f"phase 38: the traced step's FLOPs {flops:.4e} are {off:.2%} "
+          f"of phase 28's roofline ({roof:.4e}) away from it plus the "
+          f"attention's excess ({excess:.4e}); bar {DRYRUN_FLOP_TOL:.0%}")
+    arch, shape, batch_size, seq = TRAIN_SHARD_CASES[0]
+    step = shard_steps[arch, shape]
+    want = {a: {"count": int(c["all_reduce"]), "bytes": int(c["bytes"])}
+            for a, c in step["counts"].items()}
+    want.update({k: {"count": c["calls"], "bytes": c["bytes"]}
+                 for k, c in step["split"].items()})
+    got = shard["collectives_by_axis"]
+    check(got == want, f"phase 38: the fake {shape[0]} x {shape[1]} step's "
+          f"collectives {got} differ from phase 36's rank 0 {want}")
+    check(shard["kernel_calls"].get("flash_attention") == step["launches"],
+          f"phase 38: B6 traced {shard['kernel_calls']} times on the fake "
+          f"mesh, launched {step['launches']} on rank 0")
+    overhead = _op_overhead(torch, dev)
+    decode_ms = ssm_metrics["decode_ms_per_token"]
+    b7_op, b7_bare = overhead["B7 gated (4, 1, 8192, 16)"]
+    print(f"phase 38: the dry run against this run: {LM_ARCH}'s train "
+          f"step peak "
+          f"{train['memory']['total_bytes_per_chip'] / 1e9:.2f} GB = "
+          f"{ratios['train']:.3f} x phase 28's {train_metrics['peak_gb']:.2f}"
+          f" GB, {SSM_ARCH}'s prefill {ratios['prefill']:.3f} x phase 18's "
+          f"{ssm_metrics['prefill_peak_gb']:.2f} GB (band "
+          f"+-{DRYRUN_BAND:.0%}); B6 traced {b6} (launched {train_b6}), B7 "
+          f"{b7} (launched {ssm_launches['prefill']}); the step's FLOPs "
+          f"{flops:.4e} = {flops / roof:.4f} x phase 28's roofline "
+          f"{roof:.4e}, {(flops - excess) / roof:.4f} x it without the "
+          f"attention the card runs beyond that count ({excess:.4e}: B6's "
+          f"recompute and the plain backward's chunks; bar "
+          f"{DRYRUN_FLOP_TOL:.0%}); the fake {shape[0]} x {shape[1]} step's "
+          f"collectives equal phase 36's rank 0 exactly: "
+          + json.dumps(got) + f"; the three traces took "
+          f"{sum(r['trace_seconds'] for r in recs.values()):.1f} s in "
+          f"their process, {time.perf_counter() - t0:.1f} s waited for "
+          f"here, and held at most {card_bytes} bytes on the card")
+    print("  the operator binding's host cost a call (op: the wrapper and "
+          "torch.ops.repro_torch; bare: the launch alone; us, the lower of"
+          " two runs of " + f"{OP_CALLS}): " + "; ".join(
+              f"{k} {a:.2f} vs {b:.2f} (+{a - b:.2f})"
+              for k, (a, b) in overhead.items())
+          + f"; B7 {layers} a decode step: +{(b7_op - b7_bare) * layers / 1e3:.3f}"
+          f" ms/token against phase 18's {decode_ms:.2f} ms/token")
+    return recs, overhead
+
+
 SERVE_PHASES = (2, 3, 4)  # the serving path's phases, runnable alone
 TRAIN_PHASES = (5, 6, 7, 8)  # the sparse training path's, runnable alone
 SCAN_PHASES = (17, 18, 19, 20)  # the SSM path's phases, runnable alone
@@ -6608,6 +6887,8 @@ TUNE_PHASES = (30, 31)  # the autotune sweep and the tuning flags, likewise
 SHARD_PHASES = (32, 33)  # sharded training at paper width, the drivers
 SHARD_SERVE_PHASES = (34, 35)  # sharded LM serving, full width and reduced
 SHARD_TRAIN_PHASES = (36, 37)  # sharded LM training, full width and reduced
+DRYRUN_PHASES = (38,)  # the dry run, alone with the phases it is held to
+DRYRUN_NEEDS = {18, 28, 36}
 
 
 def _serving_model(torch, dev):
@@ -6648,9 +6929,14 @@ def _run_only(torch, dev, only, t_start) -> int:
     """Phase 1 and the given serving (2-4), sparse training (5-8), SSM
     (17-20), hybrid or MoE (21-24), streaming (25-27), LM training
     (28-29), autotuning (30-31), sharded training (32-33), sharded LM
-    serving (34-35) or sharded LM training (36-37) phases alone
+    serving (34-35) or sharded LM training (36-37) phases alone, or the
+    dry run (38) with the phases it is held to (18, 28, 36)
     (``--only``): a partial run, so it prints no kernels line and no
     result line."""
+    got = {}  # what phase 38 holds the dry run to
+    if 38 in only and not DRYRUN_NEEDS <= only:
+        raise SmokeFailure(f"--only 38 needs phases {sorted(DRYRUN_NEEDS)} "
+                           "beside it")
     if only & {2, 4}:
         model = _serving_model(torch, dev)
     if only & set(TRAIN_PHASES):
@@ -6676,7 +6962,7 @@ def _run_only(torch, dev, only, t_start) -> int:
         elif phase == 17:
             phase_scan_kernel(torch, dev)
         elif phase == 18:
-            phase_ssm_lm(torch, dev)
+            got[18] = phase_ssm_lm(torch, dev)
         elif phase == 19:
             phase_lm_card_vs_cpu(torch, dev, SSM_ARCH, 19, "B7")
         elif phase == 20:
@@ -6698,7 +6984,7 @@ def _run_only(torch, dev, only, t_start) -> int:
         elif phase == 27:
             phase_card_tests()
         elif phase == 28:
-            phase_lm_train(torch, dev)
+            got[28] = phase_lm_train(torch, dev)
         elif phase == 29:
             phase_lm_train_card_vs_cpu(torch, dev)
         elif phase == 30:
@@ -6716,9 +7002,15 @@ def _run_only(torch, dev, only, t_start) -> int:
         elif phase == 35:
             phase_serve_shard_reduced(torch, dev)
         elif phase == 36:
-            phase_train_shard(torch, dev)
-        else:
+            got[36] = phase_train_shard(torch, dev)
+        elif phase == 37:
             phase_train_shard_reduced(torch, dev)
+        else:
+            (train_b6, train_metrics), ssm, shard = got[28], got[18], got[36]
+            phase_dryrun(torch, dev, start_dryrun(), train_metrics,
+                         train_b6, ssm[3], ssm[1], shard[2])
+        # the next phase gets the card as the whole script leaves it
+        torch.cuda.empty_cache()
     print(f"phases 1 and {sorted(only)} passed in "
           f"{time.perf_counter() - t_start:.1f} s (partial run: no result)")
     return 0
@@ -6727,19 +7019,20 @@ def _run_only(torch, dev, only, t_start) -> int:
 def main(argv: list[str]) -> int:
     """``chip_smoke.py`` runs every phase; ``chip_smoke.py --only 2,3,4``
     (or ``5,6,8``, or ``17,20``, or ``21,22,23,24``, or ``25,26,27``, or
-    ``28,29``, or ``30,31``, or ``32,33``, or ``34,35``, or ``36,37``)
-    runs phase 1 and
+    ``28,29``, or ``30,31``, or ``32,33``, or ``34,35``, or ``36,37``, or
+    ``18,28,36,38``) runs phase 1 and
     the named phases of the serving path (2-4), the sparse training path
     (5-8), the SSM path (17-20), the hybrid and MoE paths (21-24), the
     streaming path (25-27), the LM training path (28-29), the autotuning
     path (30-31), the sharded training path (32-33), the sharded LM
-    serving path (34-35) or the sharded LM training path (36-37) alone."""
+    serving path (34-35) or the sharded LM training path (36-37) alone,
+    or the dry run (38) beside the phases it is held to."""
     import torch
 
     only = set()
     alone = (SERVE_PHASES + TRAIN_PHASES + SCAN_PHASES + FAMILY_PHASES
              + STREAM_PHASES + LM_TRAIN_PHASES + TUNE_PHASES + SHARD_PHASES
-             + SHARD_SERVE_PHASES + SHARD_TRAIN_PHASES)
+             + SHARD_SERVE_PHASES + SHARD_TRAIN_PHASES + DRYRUN_PHASES)
     if argv:
         if len(argv) != 2 or argv[0] != "--only":
             raise SmokeFailure(f"usage: chip_smoke.py [--only "
@@ -6853,18 +7146,25 @@ def main(argv: list[str]) -> int:
     serve_sharded, serve_sharded_err = phase_serve_shard(torch, dev)
     for name, e in serve_sharded_err.items():
         err[name] = max(err[name], e)
-    train_shard_b6, train_shard_err = phase_train_shard(torch, dev)
+    train_shard_b6, train_shard_err, shard_steps = phase_train_shard(torch,
+                                                                     dev)
     err["flash_attention"] = max(err["flash_attention"], train_shard_err)
     # the phases whose numbers are gates, not times, run at once after
     # every timed one: the card tests (phase 27, a pytest process of their
-    # own), the sharded drivers against their unsharded runs (phase 33)
-    # and the reduced sharded serving and training checks (phases 35, 37)
+    # own), the sharded drivers against their unsharded runs (phase 33),
+    # the reduced sharded serving and training checks (phases 35, 37) and
+    # the dry run's trace (phase 38's process, on the host alone); phase
+    # 38's gates and its timing of the operator binding follow them
+    dry = start_dryrun()
     with ThreadPoolExecutor(4) as pool:
         jobs = [pool.submit(phase_card_tests),
                 pool.submit(_in_tmp, phase_shard_drivers, torch, dev),
                 pool.submit(phase_serve_shard_reduced, torch, dev),
                 pool.submit(phase_train_shard_reduced, torch, dev)]
         train_shard_reduced = [job.result() for job in jobs][-1]
+    dry_recs, op_overhead = phase_dryrun(
+        torch, dev, dry, train_metrics, train_b6, ssm_metrics, ssm_launches,
+        shard_steps)
 
     kernels = []
     for name in ("lsplm_sparse_fused_forward",
@@ -6936,6 +7236,13 @@ def main(argv: list[str]) -> int:
     print(f"hybrid serving ({HYBRID_ARCH}): " + json.dumps(hybrid_metrics))
     print(f"MoE serving ({MOE_ARCH}): " + json.dumps(moe_metrics))
     print(f"LM training ({LM_ARCH}): " + json.dumps(train_metrics))
+    print("dry run (predictions from fake tensors): " + json.dumps(
+        {k: {"peak_gb": r["memory"]["total_bytes_per_chip"] / 1e9,
+             "flops": r["roofline"]["flops_per_chip"],
+             "kernel_calls": r["kernel_calls"],
+             "collectives": r["collectives_by_axis"]}
+         for k, r in dry_recs.items()}) + "; operator binding us a call "
+        "(op, bare): " + json.dumps(op_overhead))
     print(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -6950,3 +7257,5 @@ if __name__ == "__main__":
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         sys.exit(1)
+    finally:
+        _stop_children()

@@ -1,13 +1,16 @@
 """Architecture registry: ``--arch <id>`` lookup + input-shape contracts.
 
-The port's counterpart of ``repro/configs/__init__.py``. The reference's
-``input_specs`` builds ``jax.ShapeDtypeStruct`` stand-ins for the XLA dry
-run and has no counterpart here: PyTorch runs eagerly and the port has no
-dry run (``ROADMAP.md`` A15).
+The port's counterpart of ``repro/configs/__init__.py``.
+``input_specs(cfg, shape_name, ...)`` returns stand-ins for every model
+input of a workload shape: tensors on ``meta`` (shapes and dtypes only,
+no allocation), or made under ``FakeTensorMode`` on the device the dry
+run traces (``launch/dryrun.py``).
 """
 from __future__ import annotations
 
 import importlib
+
+import torch
 
 from repro_torch.configs.base import ArchConfig
 
@@ -55,3 +58,46 @@ def decode_cache_len(cfg: ArchConfig, shape_name: str) -> int:
     if uses_sliding_window(cfg, shape_name):
         return min(cfg.sliding_window, spec["seq_len"])
     return spec["seq_len"]
+
+
+def input_specs(cfg: ArchConfig, shape_name: str,
+                dtype: torch.dtype = torch.bfloat16,
+                device: str | torch.device = "meta") -> dict:
+    """Stand-ins for the workload's model inputs, the reference's leaves
+    with its shapes and dtypes: ``tokens`` / ``labels`` (int32),
+    ``embeds`` / ``prefix_embeds`` / ``embed`` (``dtype``), ``token``
+    and ``pos`` (int32), as uninitialised tensors on ``device``."""
+    spec = INPUT_SHAPES[shape_name]
+    B, S = spec["global_batch"], spec["seq_len"]
+    i32 = torch.int32
+
+    def sds(shape, dt):
+        return torch.empty(shape, dtype=dt, device=device)
+
+    if spec["kind"] == "train":
+        if cfg.embeds_in:  # audio: frame embeddings from the codec stub
+            return {"embeds": sds((B, S, cfg.d_model), dtype),
+                    "labels": sds((B, S), i32)}
+        if cfg.num_prefix_embeds:  # vlm: patch embeddings + text tokens
+            P = cfg.num_prefix_embeds
+            return {"prefix_embeds": sds((B, P, cfg.d_model), dtype),
+                    "tokens": sds((B, S - P), i32),
+                    "labels": sds((B, S - P), i32)}
+        return {"tokens": sds((B, S), i32), "labels": sds((B, S), i32)}
+
+    if spec["kind"] == "prefill":
+        if cfg.embeds_in:
+            return {"embeds": sds((B, S, cfg.d_model), dtype)}
+        if cfg.num_prefix_embeds:
+            P = cfg.num_prefix_embeds
+            return {"prefix_embeds": sds((B, P, cfg.d_model), dtype),
+                    "tokens": sds((B, S - P), i32)}
+        return {"tokens": sds((B, S), i32)}
+
+    # decode: ONE new token against a cache of decode_cache_len positions
+    if cfg.embeds_in:
+        tok = {"embed": sds((B, cfg.d_model), dtype)}
+    else:
+        tok = {"token": sds((B,), i32)}
+    tok["pos"] = sds((), i32)
+    return tok

@@ -74,13 +74,24 @@ def nll(theta: torch.Tensor, batch: CTRBatch) -> torch.Tensor:
                            batch.weight)
 
 
+def promoted_matmul(x: torch.Tensor, theta: torch.Tensor) -> torch.Tensor:
+    """x @ Theta in the two operands' promoted dtype, as ``jnp.matmul``
+    promotes them: bf16 features against an fp32 Theta multiply in fp32
+    (the operands themselves when they share a dtype)."""
+    dt = torch.promote_types(x.dtype, theta.dtype)
+    return x.to(dt) @ theta.to(dt)
+
+
 def nll_common_feature(theta: torch.Tensor,
                        batch: CommonFeatureBatch) -> torch.Tensor:
     """Eq. 5 with the common-feature decomposition (Eq. 13):
-    z = x_c @ Theta_c (once per session, gathered) + x_nc @ Theta_nc."""
+    z = x_c @ Theta_c (once per session, gathered) + x_nc @ Theta_nc
+    (features of another dtype than Theta's promoted,
+    :func:`promoted_matmul`)."""
     d_c = batch.x_common.shape[-1]
-    z_c = batch.x_common @ theta[:d_c]  # (G, 2m), once per session
-    z = z_c[batch.session_id.long()] + batch.x_noncommon @ theta[d_c:]
+    z_c = promoted_matmul(batch.x_common, theta[:d_c])  # once per session
+    z = z_c[batch.session_id.long()] + promoted_matmul(batch.x_noncommon,
+                                                       theta[d_c:])
     log_p1, log_p0 = logps_from_z(z)
     return _nll_from_logps(log_p1, log_p0, batch.y.to(log_p1.dtype),
                            batch.weight)

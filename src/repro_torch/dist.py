@@ -31,6 +31,7 @@ from repro_torch.core.objective import (
     CommonFeatureBatch,
     CTRBatch,
     _nll_from_logps,
+    promoted_matmul,
 )
 from repro_torch.kernels.lsplm_sparse_fused.ops import logps_from_z
 from repro_torch.launch.mesh import sum_fp32
@@ -111,10 +112,11 @@ def sharded_nll(theta: torch.Tensor, batch, mesh, *,
     ``nll`` with the two sums put in)."""
     if common_feature:
         d_c = batch.x_common.shape[-1]
-        z_c = batch.x_common @ theta[:d_c]
-        z = z_c[batch.session_id.long()] + batch.x_noncommon @ theta[d_c:]
+        z_c = promoted_matmul(batch.x_common, theta[:d_c])
+        z = z_c[batch.session_id.long()] + promoted_matmul(
+            batch.x_noncommon, theta[d_c:])
     else:
-        z = batch.x @ theta
+        z = promoted_matmul(batch.x, theta)
     z = sum_fp32(z, mesh, "model")
     log_p1, log_p0 = logps_from_z(z)
     loss = _nll_from_logps(log_p1, log_p0, batch.y.to(log_p1.dtype),

@@ -1,5 +1,7 @@
 """The port's hand-written CUDA kernels, one package each, with their
-plain versions and launch wrappers (built by ``_build``)."""
+plain versions and launch wrappers (built by ``_build``; B3's, B6's and
+B7's launches are PyTorch operators, ``_ops``, which a fake-tensor trace
+can see)."""
 from __future__ import annotations
 
 import torch

@@ -3,9 +3,12 @@
 The kernel lives in ``csrc/flash_attention.cu`` (see its header for the
 design and what bounds it) and replaces the Pallas kernel of
 ``repro/kernels/flash_attention/flash_attention.py``. The wrapper checks
-its tensors, allocates the output with ``torch.empty``, launches on
-PyTorch's current stream without synchronising, raises if the launch was
-refused, and adds one to :data:`LAUNCHES`. It has no backward, so it
+its tensors and calls the operator ``torch.ops.repro_torch.flash_attention``
+(``kernels/_ops.py``), whose CUDA kernel allocates the output with
+``torch.empty``, launches on PyTorch's current stream without
+synchronising, raises if the launch was refused, and adds one to
+:data:`LAUNCHES`; under ``FakeTensorMode`` its fake gives the output's
+shape instead (the dry run). It has no backward, so it
 refuses an input that requires a gradient under grad mode
 (``ops.causal_attention`` is the differentiable entry).
 
@@ -28,7 +31,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import _build, refuse_grad
+from repro_torch.kernels import _build, _ops, refuse_grad
 
 # launches of the wrapper, for runs that must show they went through the
 # kernel (reset by the caller, read after the run)
@@ -118,6 +121,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          "kernel's instantiations)")
     if B > 65535 or H > 65535 or S >= 2**31:
         raise ValueError(f"{name}: B and H must be <= 65535 and S < 2^31")
+    return _OP(q, k, v, bool(causal))
+
+
+def _launch(q, k, v, causal):
+    """The operator's CUDA kernel: the launch, on checked tensors."""
+    name = "flash_attention"
+    B, S, H, hd = q.shape
     o = torch.empty((B, S, H, hd), dtype=q.dtype, device=q.device)
     if B * S * H == 0:
         return o
@@ -139,3 +149,23 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise RuntimeError(f"{name}: kernel launch failed: {msg} ({rc})")
     LAUNCHES[name] += 1
     return o
+
+
+def _fake(q, k, v, causal):
+    return q.new_empty(q.shape)
+
+
+def _flops(q, k, v, causal, out_shape=None) -> int:
+    """4 B H S_q S_k hd (the two products), halved when causal."""
+    B, S, H, hd = q
+    return 4 * B * H * S * k[1] * hd // (2 if causal else 1)
+
+
+def _hbm_bytes(q, k, v, causal) -> int:
+    """q, k and v read once, the output written once."""
+    return _ops.nbytes(q, k, v, q)
+
+
+_OP = _ops.define("flash_attention", "(Tensor q, Tensor k, Tensor v, "
+                  "bool causal) -> Tensor", _launch, _fake, _flops,
+                  _hbm_bytes)

@@ -15,10 +15,13 @@ points here:
   softplus(dt_raw + dt_bias) with A = -exp(A_log), in x's dtype, and hT
   fp32.
 
-Each wrapper checks its tensors, allocates y and hT with
-``torch.empty``, launches on PyTorch's current stream without
+Each wrapper checks its tensors and calls its operator,
+``torch.ops.repro_torch.mamba1_scan`` or ``...mamba1_scan_gated``
+(``kernels/_ops.py``), whose CUDA kernel picks G, allocates y and hT
+with ``torch.empty``, launches on PyTorch's current stream without
 synchronising, raises if the launch was refused, and adds one to its
-key of :data:`LAUNCHES`. Neither has a backward, so each refuses an
+key of :data:`LAUNCHES`; under ``FakeTensorMode`` its fake gives y's and
+hT's shapes instead (the dry run). Neither has a backward, so each refuses an
 input that requires a gradient under grad mode
 (``ops.gated_selective_scan`` is the differentiable entry of the gated
 mode, ``ops.plain_scan`` the contract's). x, B_in and C_in are float32 or bfloat16; every
@@ -36,7 +39,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import _build, refuse_grad
+from repro_torch.kernels import _build, _ops, refuse_grad
 
 # launches of each wrapper, for runs that must show they went through the
 # kernel (reset by the caller, read after the run)
@@ -160,20 +163,29 @@ def _on_card(name, x, tensors) -> None:
         raise ValueError(f"{name}: every tensor must lie on {x.device}")
 
 
-def _group(name, x, N, group) -> int:
-    """G for a launch of checked inputs (``group`` if given)."""
+def _check_group(name, x, N, group) -> int:
+    """The operator's ``group`` argument for checked inputs: ``group``
+    itself, or 0 when None (the CUDA kernel picks G from B * di, the
+    steps and the card's SMs, :func:`threads_per_channel`)."""
     if N not in STATE_SIZES:
         raise ValueError(f"{name}: state size N = {N} not in {STATE_SIZES} "
                          "(the kernel's instantiations)")
     if x.shape[0] > 65535:
         raise ValueError(f"{name}: B must be <= 65535")
     if group is None:
-        return threads_per_channel(x.shape[0] * x.shape[2], x.shape[1],
-                                   _sm_count(x.device), N)
+        return 0
     if group not in GROUPS or group > N:
         raise ValueError(f"{name}: group = {group} not in {GROUPS} or "
                          f"above N = {N}")
     return group
+
+
+def _group(x, N, group) -> int:
+    """G for a launch: ``group``, or from the card when 0."""
+    if group:
+        return group
+    return threads_per_channel(x.shape[0] * x.shape[2], x.shape[1],
+                               _sm_count(x.device), N)
 
 
 def _rows(*tensors):
@@ -204,8 +216,15 @@ def mamba1_scan(dt: torch.Tensor, x: torch.Tensor, B_in: torch.Tensor,
     refuse_grad(name, "ops.plain_scan", dt, x, B_in, C_in, A, D, h0)
     _on_card(name, x, [dt, B_in, C_in, A, D, h0])
     check_inputs(name, dt, x, B_in, C_in, A, D, h0)
+    group = _check_group(name, x, B_in.shape[2], group)
+    return _SCAN(dt, x, B_in, C_in, A, D, h0, group)
+
+
+def _launch_scan(dt, x, B_in, C_in, A, D, h0, group):
+    """The contract operator's CUDA kernel: the launch, on checked
+    tensors."""
     N = B_in.shape[2]
-    G = _group(name, x, N, group)
+    G = _group(x, N, group)
     if B_in.dtype != x.dtype:  # one type for all three: widen (exact)
         x, B_in, C_in = (t.float() for t in (x, B_in, C_in))
     Bb, S, di = x.shape
@@ -215,7 +234,7 @@ def mamba1_scan(dt: torch.Tensor, x: torch.Tensor, B_in: torch.Tensor,
     y = torch.empty((Bb, S, di), dtype=torch.float32, device=x.device)
     hT = torch.empty((Bb, di, N), dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    _finish(name, _lib().mamba1_scan_forward(
+    _finish("mamba1_scan", _lib().mamba1_scan_forward(
         dt.data_ptr(), x.data_ptr(), B_in.data_ptr(), C_in.data_ptr(),
         A.data_ptr(), D.data_ptr(), None if h0 is None else h0.data_ptr(),
         y.data_ptr(), hT.data_ptr(), Bb, S, di, N, G, *strides,
@@ -238,8 +257,15 @@ def mamba1_scan_gated(dt_raw: torch.Tensor, dt_bias: torch.Tensor,
                 C_in, A_log, D, z, h0)
     _on_card(name, x, [dt_raw, dt_bias, B_in, C_in, A_log, D, z, h0])
     check_gated_inputs(name, dt_raw, dt_bias, x, B_in, C_in, A_log, D, z, h0)
+    group = _check_group(name, x, B_in.shape[2], group)
+    return _GATED(dt_raw, dt_bias, x, B_in, C_in, A_log, D, z, h0, group)
+
+
+def _launch_gated(dt_raw, dt_bias, x, B_in, C_in, A_log, D, z, h0, group):
+    """The gated operator's CUDA kernel: the launch, on checked
+    tensors."""
     N = B_in.shape[2]
-    G = _group(name, x, N, group)
+    G = _group(x, N, group)
     Bb, S, di = x.shape
     (dt_raw, x, z, B_in, C_in), strides = _rows(dt_raw, x, z, B_in, C_in)
     dt_bias, A_log, D = (t.contiguous() for t in (dt_bias, A_log, D))
@@ -247,9 +273,64 @@ def mamba1_scan_gated(dt_raw: torch.Tensor, dt_bias: torch.Tensor,
     y = torch.empty((Bb, S, di), dtype=x.dtype, device=x.device)
     hT = torch.empty((Bb, di, N), dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    _finish(name, _lib().mamba1_scan_gated_forward(
+    _finish("mamba1_scan_gated", _lib().mamba1_scan_gated_forward(
         dt_raw.data_ptr(), dt_bias.data_ptr(), x.data_ptr(),
         B_in.data_ptr(), C_in.data_ptr(), A_log.data_ptr(), D.data_ptr(),
         z.data_ptr(), None if h0 is None else h0.data_ptr(), y.data_ptr(),
         hT.data_ptr(), Bb, S, di, N, G, *strides, _DTYPES[x.dtype], stream))
     return y, hT
+
+
+def _fake_scan(dt, x, B_in, C_in, A, D, h0, group):
+    Bb, S, di = x.shape
+    return (x.new_empty((Bb, S, di), dtype=torch.float32),
+            x.new_empty((Bb, di, B_in.shape[2]), dtype=torch.float32))
+
+
+def _fake_gated(dt_raw, dt_bias, x, B_in, C_in, A_log, D, z, h0, group):
+    Bb, S, di = x.shape
+    return (x.new_empty((Bb, S, di)),
+            x.new_empty((Bb, di, B_in.shape[2]), dtype=torch.float32))
+
+
+def _flops(x_shape, N) -> int:
+    """The reference's count of a selective scan, 8 B S di N: the decay
+    and its exponential, the state's update and the read-out's
+    multiply-add (``repro/launch/dryrun.py`` ``_ssm_scan_corrections``)."""
+    Bb, S, di = x_shape
+    return 8 * Bb * S * di * N
+
+
+def _scan_flops(dt, x, B_in, C_in, A, D, h0, group, out_shape=None) -> int:
+    return _flops(x, B_in[2])
+
+
+def _gated_flops(dt_raw, dt_bias, x, B_in, C_in, A_log, D, z, h0, group,
+                 out_shape=None) -> int:
+    return _flops(x, B_in[2])
+
+
+def _scan_bytes(dt, x, B_in, C_in, A, D, h0, group) -> int:
+    """Every input read once, y and hT written once."""
+    Bb, S, di = x.shape
+    return _ops.nbytes(dt, x, B_in, C_in, A, D, h0) + 4 * Bb * di * (
+        S + B_in.shape[2])
+
+
+def _gated_bytes(dt_raw, dt_bias, x, B_in, C_in, A_log, D, z, h0,
+                 group) -> int:
+    """Every input read once, y (x's dtype) and hT written once."""
+    Bb, S, di = x.shape
+    return (_ops.nbytes(dt_raw, dt_bias, x, B_in, C_in, A_log, D, z, h0, x)
+            + 4 * Bb * di * B_in.shape[2])
+
+
+_SCAN = _ops.define(
+    "mamba1_scan", "(Tensor dt, Tensor x, Tensor B_in, Tensor C_in, "
+    "Tensor A, Tensor D, Tensor? h0, int group) -> (Tensor, Tensor)",
+    _launch_scan, _fake_scan, _scan_flops, _scan_bytes)
+_GATED = _ops.define(
+    "mamba1_scan_gated", "(Tensor dt_raw, Tensor dt_bias, Tensor x, "
+    "Tensor B_in, Tensor C_in, Tensor A_log, Tensor D, Tensor z, "
+    "Tensor? h0, int group) -> (Tensor, Tensor)", _launch_gated,
+    _fake_gated, _gated_flops, _gated_bytes)

@@ -3,9 +3,12 @@
 The kernel lives in ``csrc/owlqn_direction.cu`` (see its header for the
 design and what bounds it) and replaces the Pallas kernel of
 ``repro/kernels/owlqn_direction/owlqn_direction.py``. The wrapper checks
-its tensors, allocates d with ``torch.empty``, launches on PyTorch's
-current stream without synchronising, raises if the launch was refused,
-and adds one to :data:`LAUNCHES`. Unlike the TPU kernel it needs no row
+its tensors and calls the operator ``torch.ops.repro_torch.owlqn_direction``
+(``kernels/_ops.py``), whose CUDA kernel allocates d with ``torch.empty``,
+launches on PyTorch's current stream without synchronising, raises if the
+launch was refused, and adds one to :data:`LAUNCHES`; under
+``FakeTensorMode`` its fake gives d's shape instead (the dry run). Unlike
+the TPU kernel it needs no row
 count divisible by a block: the kernel masks the last tile. The kernel
 picks its design from 2m and the tensors' alignment (64-row tiles, four
 threads a row, for 2m = 4, 8, ..., 32 on 16-byte aligned tensors, else
@@ -19,7 +22,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _ops
 
 # launches of the wrapper, for runs that must show they went through the
 # kernel (reset by the caller, read after the run)
@@ -65,16 +68,42 @@ def owlqn_direction(theta: torch.Tensor, grad: torch.Tensor, lam: float,
         raise ValueError(f"{name}: theta and grad must be contiguous")
     if theta.numel() >= 2**31:
         raise ValueError(f"{name}: sizes must fit in int32")
+    return _OP(theta, grad, float(lam), float(beta))
+
+
+def _launch(theta, grad, lam, beta):
+    """The operator's CUDA kernel: the launch, on checked tensors."""
+    name = "owlqn_direction"
     d_rows, m2 = theta.shape
     out = torch.empty_like(theta)
     if d_rows == 0:
         return out
     stream = torch.cuda.current_stream(theta.device).cuda_stream
     rc = _lib().owlqn_direction(theta.data_ptr(), grad.data_ptr(),
-                                out.data_ptr(), d_rows, m2, float(lam),
-                                float(beta), stream)
+                                out.data_ptr(), d_rows, m2, lam, beta,
+                                stream)
     if rc != 0:
         msg = _lib().owlqn_direction_error_string(rc).decode()
         raise RuntimeError(f"{name}: kernel launch failed: {msg} ({rc})")
     LAUNCHES[name] += 1
     return out
+
+
+def _flops(theta, grad, lam, beta, out_shape=None) -> int:
+    """~16 operations an element: the row's sum of squares and its
+    square root, the three cases' products, clamps and signs, the
+    select."""
+    return 16 * theta[0] * theta[1]
+
+
+def _fake(theta, grad, lam, beta):
+    return torch.empty_like(theta)
+
+
+def _hbm_bytes(theta, grad, lam, beta) -> int:
+    """Theta and the gradient read once, d written once."""
+    return _ops.nbytes(theta, grad, theta)
+
+
+_OP = _ops.define("owlqn_direction", "(Tensor theta, Tensor grad, float lam, "
+                  "float beta) -> Tensor", _launch, _fake, _flops, _hbm_bytes)

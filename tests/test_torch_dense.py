@@ -11,8 +11,8 @@ one within 1e-4 (``benchmarks/bench_common_feature.py:57``); after 6
 OWLQN+ steps f rtol 2e-4, Theta rtol 2e-3 / atol 2e-5 and the zero
 pattern EQUAL (``tests/test_shard_step.py:59-109``); scores p atol 1e-6
 across packages, pruned <= 1e-6 from full, int8 <= 1e-2 from fp32. Both
-packages get the same numpy Theta0. The ``cuda``-marked tests run the
-dense path on a card and skip without one.
+packages get the same numpy Theta0. The dense path on a card is
+``test_torch_dense_card.py``'s (it imports no JAX).
 """
 import jax
 import jax.numpy as jnp
@@ -33,7 +33,6 @@ from repro_torch.core import objective as tobj
 from repro_torch import data as tdata
 from repro_torch import serve as tserve
 from repro_torch.io import checkpoint as tckpt
-from repro_torch.kernels.lsplm_fused import lsplm_fused as b5
 from repro_torch.launch import train as ttrain
 from repro_torch.optim import owlqn_plus as towlqn
 
@@ -418,32 +417,5 @@ def test_launch_train_runs_a_prebuilt_problem_as_its_own(mode):
         assert a == b
 
 
-# ------------------------------------------------------------ on the card
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
-    return torch.device("cuda")
-
-
-@pytest.mark.cuda
-def test_dense_path_on_card_matches_cpu(cuda, batches):
-    _, tb = batches
-    cb = tdata.pad_to_multiple(tb, 1)
-    gb = cb._replace(**{f: getattr(cb, f).to(cuda) for f in CF_FIELDS
-                        + ("weight",)})
-    theta = torch.from_numpy(_theta0(50, 12, seed=11))
-    l_c, g_c = tcore.smooth_loss_and_grad(theta, cb, common_feature=True)
-    l_g, g_g = tcore.smooth_loss_and_grad(theta.to(cuda), gb,
-                                          common_feature=True)
-    np.testing.assert_allclose(float(l_g), float(l_c), rtol=2e-5)
-    g_scale = max(1.0, float(g_c.abs().max()))
-    np.testing.assert_allclose(g_g.cpu().numpy() / g_scale,
-                               g_c.numpy() / g_scale, atol=3e-5)
-    x = tdata.to_dense_batch(tb).x
-    before = b5.LAUNCHES["lsplm_fused_forward"]
-    p_g = tserve.predict(theta.to(cuda), x.to(cuda))
-    torch.cuda.synchronize()
-    assert b5.LAUNCHES["lsplm_fused_forward"] == before + 1
-    torch.testing.assert_close(p_g.cpu(), tserve.predict(theta, x),
-                               rtol=1e-5, atol=1e-6)
+# The cuda-marked tests of this file are in ``tests/test_torch_dense_card.py``,
+# which imports no JAX, so the card's machine collects them.

@@ -4,12 +4,11 @@ the JAX reference on the same numpy inputs.
 
 Tolerances: rtol 1e-5 / atol 1e-6 (``tests/test_kernels.py:89-90``), and
 the zero/non-zero pattern of the direction EQUAL exactly, on inputs with
-exact-zero elements, -0.0 and whole zero rows (case c). The
-``cuda``-marked tests hold the Eq. 9 kernel (B3) against its plain
-version on a card -- bitwise at 2m = 24 and 70, where the plain version's
-row sums take the kernel's association -- with both of its designs (the
-row tile on aligned tensors, a warp per row on an unaligned view), and
-skip without one.
+exact-zero elements, -0.0 and whole zero rows (case c). The Eq. 9
+kernel (B3) against its plain version on a card -- bitwise at 2m = 24 and
+70, where the plain version's row sums take the kernel's association --
+with both of its designs is ``test_torch_direction_card.py``'s (it
+imports no JAX).
 """
 import numpy as np
 import jax.numpy as jnp
@@ -164,46 +163,5 @@ def test_lbfgs_empty_history_is_identity():
     assert not tlbfgs.any_valid(th)
 
 
-# ------------------------------------------------------------ on the card
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
-    return torch.device("cuda")
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("m2", [2, 24, 70, 128])
-def test_direction_kernel_matches_plain_on_card(cuda, m2):
-    theta, grad = _inputs(10, d=5000, m2=m2)
-    t, g = torch.from_numpy(theta).to(cuda), torch.from_numpy(grad).to(cuda)
-    for lam, beta in LAM_BETA:
-        got = tk.owlqn_direction(t, g, lam, beta)
-        want = owlqn_direction_ref(t, g, lam, beta)
-        torch.cuda.synchronize()
-        torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
-        assert torch.equal(got == 0, want == 0)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("m2", [24, 70])
-def test_direction_kernel_bitwise_plain_on_card(cuda, m2):
-    """B3 equals its plain version bit for bit (the zero pattern too), on
-    aligned tensors and on views one float off 16-byte alignment (the
-    warp-per-row design), and is repeatable."""
-    theta, grad = _inputs(11, d=5000, m2=m2)
-    t, g = torch.from_numpy(theta).to(cuda), torch.from_numpy(grad).to(cuda)
-    flat = torch.zeros(2 * theta.size + 2, device=cuda)
-    tu = flat[1:theta.size + 1].view(theta.shape)
-    gu = flat[theta.size + 2:].view(grad.shape)
-    tu.copy_(t)
-    gu.copy_(g)
-    for lam, beta in LAM_BETA:
-        got = tk.owlqn_direction(t, g, lam, beta)
-        want = owlqn_direction_ref(t, g, lam, beta)
-        unaligned = tk.owlqn_direction(tu, gu, lam, beta)
-        again = tk.owlqn_direction(t, g, lam, beta)
-        torch.cuda.synchronize()
-        assert float((got - want).abs().max()) == 0.0, (lam, beta)
-        assert torch.equal(got == 0, want == 0)
-        assert torch.equal(unaligned, got) and torch.equal(again, got)
+# The cuda-marked tests of this file are in ``tests/test_torch_direction_card.py``,
+# which imports no JAX, so the card's machine collects them.

@@ -2,10 +2,9 @@
 the same numpy inputs: the plain version against the Pallas kernel in
 interpret mode and against its jnp oracle, at the shapes and bars of
 ``tests/test_kernels.py`` (fp32 rtol/atol 1e-5, bf16 2e-2), plus the
-input rules the kernel and its plain version share. The ``cuda``-marked
-tests hold the CUDA kernel against the plain version on a card (bitwise
-repeatable, a row's bits independent of its batch, Theta's strided
-halves taken as they lie) and skip without one.
+input rules the kernel and its plain version share. The CUDA kernel
+against the plain version on a card is ``test_torch_lsplm_fused_card.py``'s
+(it imports no JAX).
 """
 import numpy as np
 import jax.numpy as jnp
@@ -16,7 +15,6 @@ from repro.kernels.lsplm_fused.lsplm_fused import lsplm_fused_forward as jfused
 from repro.kernels.lsplm_fused.ref import lsplm_forward_ref as jref
 from repro_torch.kernels.lsplm_fused import lsplm_fused as tk
 from repro_torch.kernels.lsplm_fused.ops import lsplm_forward
-from repro_torch.kernels.lsplm_fused.ref import lsplm_forward_ref
 
 DTYPES = {"float32": (jnp.float32, torch.float32, 1e-5),
           "bfloat16": (jnp.bfloat16, torch.bfloat16, 2e-2)}
@@ -99,67 +97,5 @@ def test_chunk_count_depends_on_d_alone(d, chunks):
     assert tk.num_chunks(d) == chunks
 
 
-# ------------------------------------------------------------ on the card
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
-    return torch.device("cuda")
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("b,d,m", [(64, 128, 12), (128, 256, 4),
-                                   (32, 512, 1), (50, 100, 5), (1, 7, 5),
-                                   (257, 513, 5), (300, 4000, 12),
-                                   (70, 300, 64), (40, 200, 128)])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_kernel_matches_plain_on_card(cuda, b, d, m, dtype):
-    _, (x, u, w) = _both(_inputs(3, b, d, m), dtype)
-    x, u, w = x.to(cuda), u.to(cuda), w.to(cuda)
-    tol = DTYPES[dtype][2]
-    before = tk.LAUNCHES["lsplm_fused_forward"]
-    got = lsplm_forward(x, u, w)
-    again = lsplm_forward(x, u, w)
-    want = lsplm_forward_ref(x, u, w)
-    torch.cuda.synchronize()
-    assert tk.LAUNCHES["lsplm_fused_forward"] == before + 2
-    assert got.dtype == x.dtype and torch.equal(got, again)
-    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
-    theta = torch.cat([u, w], dim=1)
-    assert torch.equal(lsplm_forward(x, theta[:, :m], theta[:, m:]), got)
-    rows = [0, b // 2, b - 1]
-    assert torch.equal(lsplm_forward(x[rows], u, w), got[rows])
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("b,d", [(1, 2048 + 37), (33, 3 * 2048 + 512),
-                                 (33, 2048 - 8), (1, 5000 + 3),
-                                 (1100, 2048 + 37), (1100, 2 * 2048 + 8)])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_kernel_split_over_d_on_card(cuda, b, d, dtype):
-    """d not a multiple of the chunk (and, for odd d, x's rows read
-    element by element), B = 1, 33 and 1,100: within the bar of the
-    plain version and bitwise repeatable."""
-    _, (x, u, w) = _both(_inputs(4, b, d, 12), dtype)
-    x, u, w = x.to(cuda), u.to(cuda), w.to(cuda)
-    tol = DTYPES[dtype][2]
-    got = lsplm_forward(x, u, w)
-    again = lsplm_forward(x, u, w)
-    want = lsplm_forward_ref(x, u, w)
-    torch.cuda.synchronize()
-    assert torch.equal(got, again)
-    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_kernel_row_alone_equals_row_in_batch_of_3276(cuda, dtype):
-    """A row scored alone gives the same bits as the same row inside the
-    dense test batch's 3,276 rows, at d = 32,768 (16 chunks)."""
-    b, d = 3276, 32768
-    _, (x, u, w) = _both(_inputs(5, b, d, 12), dtype)
-    x, u, w = x.to(cuda), u.to(cuda), w.to(cuda)
-    batch = lsplm_forward(x, u, w)
-    for row in (0, 1, 1637, b - 1):
-        alone = lsplm_forward(x[row:row + 1], u, w)
-        assert torch.equal(alone, batch[row:row + 1])
+# The cuda-marked tests of this file are in ``tests/test_torch_lsplm_fused_card.py``,
+# which imports no JAX, so the card's machine collects them.

@@ -273,24 +273,8 @@ def test_predict_threads_plans_and_grads_match_reference(theta):
     np.testing.assert_allclose(grads[0], grads[1], rtol=1e-5, atol=1e-6)
 
 
-@pytest.mark.cuda
-def test_planned_scoring_bitwise_equals_unplanned_on_card(theta):
-    """On the card a planned score_sparse / predict_proba_sparse returns
-    the fused kernel's p, bit for bit the unplanned call's."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
-    from repro_torch.core import lsplm as tlsplm
-
-    _, tb, _ = _planned_batches(7)
-    th = torch.from_numpy(theta).cuda()
-    ids, vals = tb.ad_ids.cuda(), tb.ad_vals.cuda()
-    plan = tb.ad_plan.to(th.device)
-    bare = tscore.score_sparse(th, ids, vals)
-    assert torch.equal(tscore.score_sparse(th, ids, vals, plan=plan), bare)
-    params = tlsplm.params_from_theta(th)
-    assert torch.equal(tlsplm.predict_proba_sparse(params, ids, vals,
-                                                   plan=plan), bare)
-    assert torch.equal(tlsplm.predict_proba_sparse(params, ids, vals), bare)
+# test_planned_scoring_bitwise_equals_unplanned_on_card (cuda-marked) is in
+# ``tests/test_torch_serve_card.py``, which imports no JAX.
 
 
 @pytest.mark.parametrize("call", ["score_sparse", "score_sparse_logps",

@@ -6,8 +6,9 @@ Bars (the repo's own, ``tests/test_shard_step.py:59-109``): loss rtol
 2e-5; dTheta atol 3e-5 after dividing by ``g_scale = max(1, max|g|)``;
 after 6 OWLQN+ steps f rtol 2e-4, Theta rtol 2e-3 / atol 2e-5 and the
 zero pattern EQUAL. Generated arrays and plan leaves are equal exactly.
-Both packages get the same numpy Theta0. The ``cuda``-marked test checks
-on a card that a gradient is bitwise repeatable and skips without one.
+Both packages get the same numpy Theta0. That a gradient is bitwise
+repeatable on a card is ``test_torch_train_card.py``'s (it imports no
+JAX).
 """
 import numpy as np
 import jax
@@ -346,26 +347,5 @@ def test_sparse_problem_matches_reference_and_its_float64_witness():
                                rtol=2e-3, atol=2e-5)
 
 
-# ------------------------------------------------------------ on the card
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
-    return torch.device("cuda")
-
-
-@pytest.mark.cuda
-def test_loss_and_grad_bitwise_repeatable_on_card(cuda):
-    kw = _gen_kwargs(d=20000, sessions=256)
-    tb = tsparse.generate_sparse(**kw, device=cuda)
-    cb = tsparse.generate_sparse(**kw, device="cpu")
-    theta = torch.from_numpy(_theta0(20000, 12)).to(cuda)
-    l1, g1 = tobj.smooth_loss_and_grad(theta, tb)
-    l2, g2 = tobj.smooth_loss_and_grad(theta, tb)
-    torch.cuda.synchronize()
-    assert torch.equal(l1, l2) and torch.equal(g1, g2)
-    lc, gc = tobj.smooth_loss_and_grad(theta.cpu(), cb)
-    np.testing.assert_allclose(float(l1), float(lc), rtol=2e-5)
-    g_scale = max(1.0, float(gc.abs().max()))
-    np.testing.assert_allclose(g1.cpu().numpy() / g_scale,
-                               gc.numpy() / g_scale, atol=3e-5)
+# The cuda-marked tests of this file are in ``tests/test_torch_train_card.py``,
+# which imports no JAX, so the card's machine collects them.

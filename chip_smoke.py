@@ -1849,6 +1849,24 @@ def phase_attention_kernel(torch, dev):
     return max(err.values())
 
 
+def _twin(model, **over):
+    """The model's weights under its config with the fields ``over``
+    replaced, on its device: shared where the dtype stays (an int8 KV
+    cache), copied and widened where it changes (``dtype="float32"``)."""
+    import dataclasses
+
+    from repro_torch.models import Transformer
+
+    cfg = dataclasses.replace(model.cfg, **over)
+    if cfg.dtype == model.cfg.dtype:
+        twin = Transformer(cfg, device="meta")
+        twin.load_state_dict(model.state_dict(), assign=True)
+    else:
+        twin = Transformer(cfg, device=model.device)
+        twin.load_state_dict(model.state_dict())
+    return twin
+
+
 # ------------------------------------------------------------ phase 14
 LM_KERNELS = ("wgmma_attention_kernel", "fma_attention_kernel")
 GEMM_NAMES = ("nvjet", "gemm", "xmma")  # cuBLAS kernels' names hold one
@@ -1923,8 +1941,6 @@ def phase_lm(torch, dev):
     torch.Generator, prompts from the token stream; (a) prefill 4 x 4,096,
     (b) greedy generate of 32 tokens after it, (c) prefill 1 x 32,768.
     B6 launches once per layer per prefill."""
-    import dataclasses
-
     from repro_torch.configs import get_config
     from repro_torch.data.tokens import TokenStream
     from repro_torch.kernels.flash_attention.flash_attention import (
@@ -2015,9 +2031,7 @@ def phase_lm(torch, dev):
     agree = float((logits.argmax(-1) == plain_logits.argmax(-1)).float()
                   .mean())
     # witness: both bf16 runs against the same weights computed in fp32
-    model32 = transformer.Transformer(
-        dataclasses.replace(cfg, dtype="float32"), device=dev)
-    model32.load_state_dict(model.state_dict())
+    model32 = _twin(model, dtype="float32")
     logits32, _ = prefill(model32, tokens=prompts)
     del model32
     w_b6 = float((logits.float() - logits32).abs().max())
@@ -2099,13 +2113,51 @@ def phase_lm(torch, dev):
 
 
 # ------------------------------------------------------------ phase 15
+def _embeddings(torch, cfg, rows, n, seed):
+    """(rows, n, d) frame or patch embeddings from a numpy seed, at the
+    embedding table's scale (N(0, 1) d^-0.5), fp32 on the host."""
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy((rng.standard_normal(
+        (rows, n, cfg.d_model), dtype=np.float32) * cfg.d_model ** -0.5))
+
+
+def _greedy_decode(torch, model, logits, caches, pos, steps, embeds=None):
+    """``steps`` decode steps after a prefill of ``pos`` positions whose
+    last logits and caches these are, into decode buffers of pos + steps
+    slots in the model's activation dtype (``fill_caches``, as
+    ``generate``, whose caches are bf16): each step feeds the last
+    step's argmax, or with ``embeds`` (B, steps, d) its row of them (the
+    audio family). Returns the (B, steps) tokens (the argmax of every
+    logits, the prefill's first) and each step's logits."""
+    from repro_torch.models import decode_step, init_caches
+    from repro_torch.models.generate import fill_caches
+
+    B = logits.shape[0]
+    dec = fill_caches(init_caches(model.cfg, B, pos + steps,
+                                  dtype=getattr(torch, model.cfg.dtype),
+                                  device=model.device), caches)
+    toks, seen = [logits.argmax(-1).to(torch.int32)], []
+    for i in range(steps):
+        fed = ({"embed": embeds[:, i]} if embeds is not None
+               else {"token": toks[-1]})
+        lg, dec = decode_step(model, dec, pos=pos + i, **fed)
+        seen.append(lg)
+        toks.append(lg.argmax(-1).to(torch.int32))
+    return torch.stack(toks[:steps], 1), seen
+
+
 def phase_lm_card_vs_cpu(torch, dev, arch=LM_ARCH, phase=15, kernel="B6",
                          over=None, prompt_len=96):
     """A reduced ``arch`` (with the fields ``over`` replaced) in fp32 on
     the card (its kernel) and on the CPU (the plain version), on the same
-    weights: prefill logits of 2 prompts of ``prompt_len`` tokens within
-    LM_CPU_TOL and greedy tokens equal. Returns the CPU model, the card's
-    and the prompts."""
+    weights: prefill logits of 2 prompts of ``prompt_len`` positions
+    within LM_CPU_TOL and 16 greedy tokens equal (``generate``). A model
+    that takes embeddings gets them from a numpy seed: the vlm's prefix
+    (``num_prefix_embeds`` patches in front of the tokens) decodes its
+    greedy tokens step by step, the audio family prefills frame
+    embeddings and decodes 16 more through ``decode_step(embed=)``, each
+    step's logits within LM_CPU_TOL and its argmax equal. Returns the CPU
+    model, the card's and the prompts."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -2118,33 +2170,63 @@ def phase_lm_card_vs_cpu(torch, dev, arch=LM_ARCH, phase=15, kernel="B6",
     cpu = init_model(cfg, torch.Generator().manual_seed(SEED), device="cpu")
     card = Transformer(cfg, device=dev)
     card.load_state_dict(cpu.state_dict())
+    P, new = cfg.num_prefix_embeds, 16
     prompts = TokenStream(cfg.vocab_size, seed=SEED).batch(
-        2, prompt_len + 1)["tokens"]
-    lc, _ = prefill(card, tokens=torch.from_numpy(prompts).to(dev))
-    lh, _ = prefill(cpu, tokens=torch.from_numpy(prompts))
+        2, prompt_len - P + 1)["tokens"]
+    feed = {"tokens": torch.from_numpy(prompts)}
+    if cfg.embeds_in:
+        feed = {"embeds": _embeddings(torch, cfg, 2, prompt_len + new,
+                                      SEED + phase)}
+        prompts, steps = feed["embeds"][:, :prompt_len], \
+            feed["embeds"][:, prompt_len:]
+        feed["embeds"] = prompts
+    elif P:
+        feed["prefix_embeds"] = _embeddings(torch, cfg, 2, P, SEED + phase)
+    lc, cc = prefill(card, **{k: v.to(dev) for k, v in feed.items()})
+    lh, ch = prefill(cpu, **feed)
     err = (lc.cpu() - lh).abs()
     check(bool((err <= LM_CPU_TOL + LM_CPU_TOL * lh.abs()).all()),
-          f"reduced LM prefill logits, card vs CPU, beyond {LM_CPU_TOL}: "
-          f"max |err| {float(err.max()):.3e}")
-    new = 16
-    tc = generate(card, torch.from_numpy(prompts).to(dev), new,
-                  temperature=0.0).cpu()
-    th = generate(cpu, torch.from_numpy(prompts), new, temperature=0.0)
-    check(torch.equal(tc, th), "greedy tokens differ between card and CPU")
+          f"reduced {arch} prefill logits, card vs CPU, beyond "
+          f"{LM_CPU_TOL}: max |err| {float(err.max()):.3e}")
+    if cfg.embeds_in or P:  # decode step by step, each step held
+        emb = steps if cfg.embeds_in else None
+        tc, sc = _greedy_decode(torch, card, lc, cc, prompt_len, new,
+                                None if emb is None else emb.to(dev))
+        th, sh = _greedy_decode(torch, cpu, lh, ch, prompt_len, new, emb)
+        derr = max(float((a.cpu() - b).abs().max()) for a, b in zip(sc, sh))
+        check(all(bool(((a.cpu() - b).abs()
+                        <= LM_CPU_TOL + LM_CPU_TOL * b.abs()).all())
+                  for a, b in zip(sc, sh)),
+              f"reduced {arch} decode logits, card vs CPU, beyond "
+              f"{LM_CPU_TOL}: max |err| {derr:.3e}")
+        tc = tc.cpu()
+        how = (f"{new} decode steps on seeded frame embeddings "
+               f"(decode_step(embed=)) within it (max |err| {derr:.3e}), "
+               f"argmax equal" if cfg.embeds_in else
+               f"after {P} patch embeddings in front of the tokens, {new} "
+               f"greedy decode steps within it (max |err| {derr:.3e}) and "
+               "tokens equal")
+    else:
+        tc = generate(card, torch.from_numpy(prompts).to(dev), new,
+                      temperature=0.0).cpu()
+        th = generate(cpu, torch.from_numpy(prompts), new, temperature=0.0)
+        how = f"{new} greedy tokens equal"
+    check(torch.equal(tc, th), f"reduced {arch}: greedy tokens differ "
+          "between card and CPU")
     print(f"phase {phase}: reduced {arch} ({cfg.num_layers} layers, d "
-          f"{cfg.d_model}, family {cfg.family}, fp32) card ({kernel}) vs "
-          f"CPU (plain): prefill logits of 2 x "
-          f"{prompts.shape[1]} max |err| {float(err.max()):.3e} (bar "
-          f"{LM_CPU_TOL}); {new} greedy tokens equal")
+          f"{cfg.d_model}, H {cfg.num_heads} x hd {cfg.resolved_head_dim}, "
+          f"family {cfg.family}, fp32) card ({kernel}) vs CPU (plain): "
+          f"prefill logits of 2 x {prompt_len} positions max |err| "
+          f"{float(err.max()):.3e} (bar {LM_CPU_TOL}); {how}")
     return cpu, card, prompts
 
 
 # ------------------------------------------------------------ phase 16
-def phase_attention_times(torch, dev):
-    """B6 at the LM path's shapes (4 x 4,096 and 1 x 32,768, 32 heads
-    over 8, hd 64, bf16, causal) and at zamba2-2.7b's (4 x 4,096, 32
-    heads, hd 80) beside its plain version, its bound and torch's
-    scaled_dot_product_attention (the library column only)."""
+def _b6_time_row(torch, dev, rng, flush, B, S, H, kvh, hd, runs, warm,
+                 phase):
+    """B6 on random bf16 q, k, v of one causal shape beside its plain
+    version, its bound and torch's scaled_dot_product_attention (the
+    library column only): the row, printed."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention.flash_attention import (
@@ -2152,41 +2234,47 @@ def phase_attention_times(torch, dev):
     )
     from repro_torch.kernels.flash_attention.ops import plain_attention
 
+    q, k, v = _b6_inputs(torch, dev, rng, B, S, H, kvh, hd, torch.bfloat16)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    nbytes = B * S * (2 * H + 2 * kvh) * hd * q.element_size()
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = 2 * B * H * S * S * hd / BF16_OPS_PER_S
+    row = {"b": B, "s": S, "h": H, "kvh": kvh, "hd": hd,
+           "dtype": "bfloat16", "causal": True,
+           "ms": _time_ms(torch, lambda: flash_attention(q, k, v), flush,
+                          runs, warm),
+           "plain_ms": _time_ms(torch, lambda: plain_attention(q, k, v),
+                                flush, runs, warm),
+           "library_ms": _time_ms(
+               torch, lambda: F.scaled_dot_product_attention(
+                   qt, kt, vt, is_causal=True, enable_gqa=True),
+               flush, runs, warm),
+           "bound_ms": max(t_bytes, t_ops) * 1e3,
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    print(f"phase {phase}: flash_attention {B} x {S:,} x {H} heads (KV "
+          f"{kvh}) x {hd}, bf16, causal: kernel {row['ms']:.3f} ms, "
+          f"plain {row['plain_ms']:.3f} ms, bound {row['bound_ms']:.4f} "
+          f"ms ({row['bound_by']}, {row['bound_ms'] / row['ms']:.1%} of "
+          f"it reached; {2 * B * H * S * S * hd / row['ms'] / 1e9:.1f} "
+          f"TFLOP/s), library {row['library_ms']:.3f} ms "
+          f"(scaled_dot_product_attention, {row['ms'] / row['library_ms']:.2f}x"
+          f" faster than the kernel); median of {runs}")
+    return row
+
+
+def phase_attention_times(torch, dev):
+    """B6 at the LM path's shapes (4 x 4,096 and 1 x 32,768, 32 heads
+    over 8, hd 64, bf16, causal) and at zamba2-2.7b's (4 x 4,096, 32
+    heads, hd 80) beside its plain version, its bound and torch's
+    scaled_dot_product_attention (the library column only)."""
     rng = np.random.default_rng(SEED + 16)
     flush = torch.empty(128 * 2**20 // 4, dtype=torch.float32, device=dev)
-    out = []
-    for B, S, H, kvh, hd, runs, warm in (
-            (LM_BATCH, LM_SEQ, 32, 8, 64, TIMED_RUNS, WARM_RUNS),
-            (1, LM_LONG, 32, 8, 64, LONG_RUNS, 1),
-            (LM_BATCH, LM_SEQ, 32, 32, 80, TIMED_RUNS, WARM_RUNS)):
-        q, k, v = _b6_inputs(torch, dev, rng, B, S, H, kvh, hd,
-                             torch.bfloat16)
-        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        nbytes = B * S * (2 * H + 2 * kvh) * hd * q.element_size()
-        t_bytes = nbytes / HBM_BYTES_PER_S
-        t_ops = 2 * B * H * S * S * hd / BF16_OPS_PER_S
-        row = {"b": B, "s": S, "h": H, "kvh": kvh, "hd": hd,
-               "dtype": "bfloat16", "causal": True,
-               "ms": _time_ms(torch, lambda: flash_attention(q, k, v), flush,
-                              runs, warm),
-               "plain_ms": _time_ms(torch, lambda: plain_attention(q, k, v),
-                                    flush, runs, warm),
-               "library_ms": _time_ms(
-                   torch, lambda: F.scaled_dot_product_attention(
-                       qt, kt, vt, is_causal=True, enable_gqa=True),
-                   flush, runs, warm),
-               "bound_ms": max(t_bytes, t_ops) * 1e3,
-               "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
-        out.append(row)
-        print(f"phase 16: flash_attention {B} x {S:,} x {H} heads (KV "
-              f"{kvh}) x {hd}, bf16, causal: kernel {row['ms']:.3f} ms, "
-              f"plain {row['plain_ms']:.3f} ms, bound {row['bound_ms']:.4f} "
-              f"ms ({row['bound_by']}, {row['bound_ms'] / row['ms']:.1%} of "
-              f"it reached; {2 * B * H * S * S * hd / row['ms'] / 1e9:.1f} "
-              f"TFLOP/s), library {row['library_ms']:.3f} ms "
-              f"(scaled_dot_product_attention); median of {runs}")
-        del q, k, v, qt, kt, vt
-    return out
+    return [_b6_time_row(torch, dev, rng, flush, *shape, 16)
+            for shape in ((LM_BATCH, LM_SEQ, 32, 8, 64, TIMED_RUNS,
+                           WARM_RUNS),
+                          (1, LM_LONG, 32, 8, 64, LONG_RUNS, 1),
+                          (LM_BATCH, LM_SEQ, 32, 32, 80, TIMED_RUNS,
+                           WARM_RUNS))]
 
 
 # ------------------------------------------------------------ phase 17
@@ -2406,8 +2494,6 @@ def phase_ssm_lm(torch, dev):
     Gates: B7 against plain on layer 0's real inputs, the model with B7
     against the model on the plain scan, and (in fp32, the bf16 run
     printed beside it) decode after prefill against the forward."""
-    import dataclasses
-
     from repro_torch.configs import get_config
     from repro_torch.data.tokens import TokenStream
     from repro_torch.kernels.mamba_scan.mamba_scan import LAUNCHES as B7
@@ -2548,9 +2634,7 @@ def phase_ssm_lm(torch, dev):
         model, caches)
     del caches
     derr16, dbar16 = _within(torch, step_logits, fwd_logits, LM_TOL)
-    model32 = transformer.Transformer(
-        dataclasses.replace(cfg, dtype="float32"), device=dev)
-    model32.load_state_dict(model.state_dict())
+    model32 = _twin(model, dtype="float32")
     _, caches32 = prefill(model32, tokens=prompts)
     step32, fwd32, dec32, _ = handoff(model32, caches32)
     del model32, caches32, dec32
@@ -2775,12 +2859,12 @@ def phase_scan_times(torch, dev):
 
 
 # ------------------------------------------------------------ phase 21
-def _first_attention_inputs(torch, model, tokens):
-    """The first full-sequence attention call's q, k, v for ``tokens``,
-    as the model makes them (layer 0's, or the hybrid's shared block in
-    group 0): one prefill with ``attention_ops.causal_attention``
-    wrapped to keep its first call's arguments (every call still runs
-    the kernel)."""
+def _first_attention_inputs(torch, model, tokens=None, **feed):
+    """The first full-sequence attention call's q, k, v for ``tokens``
+    (or the embeddings in ``feed``), as the model makes them (layer 0's,
+    or the hybrid's shared block in group 0): one prefill with
+    ``attention_ops.causal_attention`` wrapped to keep its first call's
+    arguments (every call still runs the kernel)."""
     from repro_torch.models import prefill, transformer
 
     seen = []
@@ -2793,7 +2877,7 @@ def _first_attention_inputs(torch, model, tokens):
 
     transformer.attention_ops.causal_attention = keep_first
     try:
-        prefill(model, tokens=tokens)
+        prefill(model, tokens=tokens, **feed)
     finally:
         transformer.attention_ops.causal_attention = attention
     return seen[0]
@@ -2909,8 +2993,6 @@ def phase_hybrid_lm(torch, dev):
     real q, k, v, and (in fp32, the bf16 runs printed beside them) the
     model with B6 against the model on plain attention and decode after
     prefill against the forward of the same tokens."""
-    import dataclasses
-
     from repro_torch.configs import get_config
     from repro_torch.data.tokens import TokenStream
     from repro_torch.models import (
@@ -2979,9 +3061,7 @@ def phase_hybrid_lm(torch, dev):
     perr16, pbar16 = _within(torch, logits, plain_logits, LM_TOL)
     agree16 = float((logits.argmax(-1) == plain_logits.argmax(-1)).float()
                     .mean())
-    model32 = transformer.Transformer(
-        dataclasses.replace(cfg, dtype="float32"), device=dev)
-    model32.load_state_dict(model.state_dict())
+    model32 = _twin(model, dtype="float32")
     logits32, caches32 = prefill(model32, tokens=prompts)
     plain32, _ = _with_plain_attention(
         lambda: prefill(model32, tokens=prompts))
@@ -3093,8 +3173,6 @@ def phase_moe_lm(torch, dev):
     q, k, v, and the model with B6 against the model on plain attention
     (in bf16 when no token's routing changes between the two, else in
     fp32 with the changes counted)."""
-    import dataclasses
-
     from repro_torch.configs import get_config
     from repro_torch.data.tokens import TokenStream
     from repro_torch.models import (
@@ -3104,7 +3182,6 @@ def phase_moe_lm(torch, dev):
         moe,
         prefill,
     )
-    from repro_torch.models import transformer
 
     cfg = get_config(MOE_ARCH)
     nl = cfg.num_layers
@@ -3177,9 +3254,7 @@ def phase_moe_lm(torch, dev):
                     .mean())
     del routes, plain_routes
     if flips16:
-        model32 = transformer.Transformer(
-            dataclasses.replace(cfg, dtype="float32"), device=dev)
-        model32.load_state_dict(model.state_dict())
+        model32 = _twin(model, dtype="float32")
         r32 = []
         fn = _recording(moe, "route", lambda out: r32.append(out[1]))
         try:
@@ -3730,7 +3805,8 @@ CARD_TESTS = (("tests/test_torch_stream_card.py",
                "tests/test_torch_hybrid_card.py",
                "tests/test_torch_dense_card.py",
                "tests/test_torch_serve_card.py",
-               "tests/test_torch_train_card.py"),
+               "tests/test_torch_train_card.py",
+               "tests/test_torch_lm_zoo_card.py"),
               ("tests/test_torch_shard_card.py",
                "tests/test_torch_lm_shard_card.py",
                "tests/test_torch_lm_train_shard_card.py"))
@@ -5112,6 +5188,10 @@ SERVE_SHARD_WORLDS = {4: ((2, 2),), 2: ((1, 2),)}
 # 3 greedy tokens (2 decode steps, the fp32 gate's count; cut from 16:
 # a weight_gather decode step gathers the experts' 1.2 GB over gloo)
 SERVE_SHARD_BATCH, SERVE_SHARD_SEQ, SERVE_SHARD_NEW = 4, 512, 3
+# the first-use prefill's length: the kernels, cuBLAS and gloo are set up
+# by any length, and a full one cost up to 4.5 s of gloo a case (one SSD
+# chunk, so the hybrid takes it)
+SERVE_SHARD_WARM = 64
 # the fp32 gates against one rank: prefill logits and this many decode
 # steps fed one rank's tokens, at an fp32 bar (sound runs on the H100 read
 # at most ~8e-5 (1 + |logit|))
@@ -5284,7 +5364,8 @@ def _serve_shard_case(torch, dev, mesh, arch, mode, feed=None,
                       checks=True, knobs=False):
     """One family at full width on ``mesh`` (the 1 x 1 mesh: one rank):
     bf16 weights from init_model(mesh=) on a seeded generator, the
-    prompts' rows of this rank, a first-use prefill, then the counted run
+    prompts' rows of this rank, a first-use prefill of their first
+    SERVE_SHARD_WARM tokens, then the counted run
     (B6, B7 and the mesh's all-reduces from 0): a timed prefill, then
     (uncounted) the same prefill under the profiler (its wall and device
     time; the logits the checks read), then
@@ -5324,7 +5405,7 @@ def _serve_shard_case(torch, dev, mesh, arch, mode, feed=None,
         SERVE_SHARD_BATCH, SERVE_SHARD_SEQ + 1)["tokens"]).to(dev)
     rows = batch_rows(prompts, mesh)
     at = dict(mesh=mesh, moe_serving_mode=mode)
-    prefill(model, tokens=rows, **at)  # first use
+    prefill(model, tokens=rows[:, :SERVE_SHARD_WARM], **at)  # first use
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     _reset((B6, B7))
@@ -6877,6 +6958,672 @@ def phase_dryrun(torch, dev, proc, train_metrics, train_b6, ssm_metrics,
     return recs, overhead
 
 
+# ------------------------------------------------------------ phase 39
+# the zoo's configs no phase above runs (ROADMAP A15i), each at full width
+# and depth in bf16: {arch: the parameters init_model draws}
+ZOO_PARAMS = {"olmo-1b": 1_176_764_416, "internvl2-2b": 1_889_146_880,
+              "musicgen-medium": 1_365_394_944,
+              "mistral-nemo-12b": 12_247_782_400}
+ZOO_LONG = ("olmo-1b", "mistral-nemo-12b")  # these also prefill 1 x 32,768
+# B6 at hd 128: mistral-nemo's two prefill shapes (32 heads over 8 KV
+# heads) and olmo's (16 MHA heads)
+ZOO_B6_SHAPES = ((LM_BATCH, LM_SEQ, 32, 8, 128, TIMED_RUNS, WARM_RUNS),
+                 (1, LM_LONG, 32, 8, 128, LONG_RUNS, 1),
+                 (LM_BATCH, LM_SEQ, 16, 16, 128, TIMED_RUNS, WARM_RUNS))
+
+
+def _zoo_feed(torch, dev, cfg):
+    """A 4 x 4,096-position prompt of ``cfg`` and the input after it:
+    (prefill's kwargs, decode_step's kwarg for position 4,096 -- a (B,)
+    token or a (B, d) frame embedding --, the forward's kwargs over all
+    4,097 positions). Tokens come from the token stream; musicgen's frame
+    embeddings and internvl2's 256 patch embeddings (in front of 3,840
+    tokens) from a numpy seed, in bf16 on the card."""
+    from repro_torch.data.tokens import TokenStream
+
+    def emb(n):
+        return _embeddings(torch, cfg, LM_BATCH, n, SEED + 39).to(
+            dev, torch.bfloat16)
+
+    if cfg.embeds_in:
+        e = emb(LM_SEQ + 1)
+        return ({"embeds": e[:, :LM_SEQ]}, {"embed": e[:, LM_SEQ]},
+                {"embeds": e})
+    P = cfg.num_prefix_embeds
+    toks = torch.from_numpy(TokenStream(cfg.vocab_size, seed=SEED).batch(
+        LM_BATCH, LM_SEQ - P + 2)["tokens"]).to(dev)
+    pre = {"prefix_embeds": emb(P)} if P else {}
+    return ({"tokens": toks[:, :-1], **pre}, {"token": toks[:, -1]},
+            {"tokens": toks, **pre})
+
+
+def _logit_gate(torch, got, want):
+    """(max |err|, share of the rtol = atol = LM_TOL bar, argmax equal)."""
+    err, bar = _within(torch, got, want, LM_TOL)
+    return err, bar, torch.equal(got.argmax(-1), want.argmax(-1))
+
+
+def _decode_bound_ms(model, dec, valid) -> float:
+    """A decode step's least time: every matmul weight read once (the
+    embedding table only where tied, as the head) and the ``valid``
+    cache positions of k and v, over the card's memory rate."""
+    weights = sum(p.numel() * p.element_size() for name, p in
+                  model.named_parameters()
+                  if name != "embed" or model.cfg.tie_embeddings)
+    kv = sum(c[:, :, :valid].numel() * c.element_size()
+             for n, c in dec.items() if n in ("k", "v"))
+    return (weights + kv) / HBM_BYTES_PER_S * 1e3
+
+
+def _zoo_model(torch, dev, arch):
+    """(a) (b) (c) and the gates of phase 39 on one config; the model is
+    freed on return. Returns (B6 launches by run, B6's max |err| on layer
+    0's q, k, v, the metrics)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        LAUNCHES as B6,
+    )
+    from repro_torch.models import (
+        decode_step,
+        forward,
+        init_caches,
+        init_model,
+        prefill,
+    )
+    from repro_torch.models import transformer
+    from repro_torch.models.generate import fill_caches, generate
+
+    cfg = get_config(arch)
+    nl = cfg.num_layers
+    t0 = time.perf_counter()
+    model = init_model(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                       device=dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    check(n_params == ZOO_PARAMS[arch], f"{arch} has {n_params:,} "
+          f"parameters, not {ZOO_PARAMS[arch]:,}")
+    feed, nxt, full = _zoo_feed(torch, dev, cfg)
+    long_prompt = (torch.from_numpy(TokenStream(cfg.vocab_size, seed=SEED)
+                                    .batch(1, LM_LONG + 1)["tokens"]).to(dev)
+                   if arch in ZOO_LONG else None)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    prefill(model, **{k: v[:, :SSM_SHORT] for k, v in feed.items()})
+
+    launches, secs = {}, {}
+
+    def run(name, fn):
+        """``fn()`` with B6's count set to 0 just before and read just
+        after, timed on the host (synchronised)."""
+        _reset((B6,))
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t
+        launches[name] = B6["flash_attention"]
+        return out
+
+    torch.cuda.reset_peak_memory_stats()
+    logits, caches = run("prefill", lambda: prefill(model, **feed))
+    if cfg.embeds_in or cfg.num_prefix_embeds:
+        # no generate: musicgen decodes seeded frame embeddings, internvl2
+        # its greedy tokens after the patch prefix, step by step
+        emb = (_embeddings(torch, cfg, LM_BATCH, LM_NEW, SEED + 40).to(
+            dev, torch.bfloat16) if cfg.embeds_in else None)
+        out, _ = run("decode", lambda: _greedy_decode(
+            torch, model, logits, caches, LM_SEQ, LM_NEW, emb))
+        how = ("32 decode steps on seeded frame embeddings (decode_step("
+               "embed=))" if cfg.embeds_in else
+               "32 greedy decode steps after the patch prefix")
+    else:
+        out = run("generate", lambda: generate(model, feed["tokens"], LM_NEW,
+                                               temperature=0.0))
+        how = f"greedy generate of {LM_NEW} tokens (its prefill included)"
+    if long_prompt is not None:
+        long_logits, long_caches = run("prefill_32k", lambda: prefill(
+            model, tokens=long_prompt))
+        check(long_logits.shape == (1, cfg.vocab_size)
+              and bool(torch.isfinite(long_logits.float()).all()),
+              f"{arch}: 32k prefill logits have the wrong shape or are not "
+              "finite")
+        del long_logits, long_caches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    for name, count in launches.items():
+        want = 0 if name == "decode" else nl
+        check(count == want, f"{arch}: B6 launched {count} times in {name}, "
+              f"not {want}")
+    check(logits.shape == (LM_BATCH, cfg.vocab_size)
+          and bool(torch.isfinite(logits.float()).all()),
+          f"{arch}: prefill logits have the wrong shape or are not finite")
+    check(caches["k"].shape == (nl, LM_BATCH, LM_SEQ, cfg.num_kv_heads,
+                                cfg.resolved_head_dim),
+          f"{arch}: prefill caches have shape {tuple(caches['k'].shape)}")
+    check(out.shape == (LM_BATCH, LM_NEW) and int(out.min()) >= 0
+          and int(out.max()) < cfg.vocab_size,
+          f"{arch}: decoded tokens have the wrong shape or are out of range")
+    check(torch.equal(out[:, 0], logits.argmax(-1).to(out.dtype)),
+          f"{arch}: the first greedy token is not the prefill logits' argmax")
+    del out
+
+    # B6 against plain on layer 0's q, k, v of (a)
+    q, k, v = _first_attention_inputs(torch, model, **feed)
+    b6_err = _check_b6(torch, q, k, v, True, f"{arch}'s layer 0 q, k, v "
+                       f"({LM_BATCH} x {LM_SEQ:,}, hd {q.shape[-1]})")
+    del q, k, v
+    # the model on plain attention; decode of position 4,096 after (a)
+    # against the forward of all 4,097 positions there
+    plain_logits, _ = _with_plain_attention(lambda: prefill(model, **feed))
+    dec = fill_caches(init_caches(cfg, LM_BATCH, LM_SEQ + LM_NEW,
+                                  device=dev), caches)
+    del caches
+    step_logits, dec = decode_step(model, dec, pos=LM_SEQ, **nxt)
+    hidden, _ = forward(model, return_hidden=True, **full)
+    fwd_logits = transformer.lm_logits(model, hidden[:, LM_SEQ])
+    del hidden
+    gates = {"plain": (logits, plain_logits),
+             "decode": (step_logits, fwd_logits)}
+    bf16 = {g: _logit_gate(torch, *pair) for g, pair in gates.items()}
+    fp32 = {}
+    if not all(bar <= 1.0 and same for _, bar, same in bf16.values()):
+        # bf16 misses: the same weights in fp32 on row 0 are gated instead
+        one = {k: v[:1] for k, v in feed.items()}
+        model32 = _twin(model, dtype="float32")
+        l32, c32 = prefill(model32, **one)
+        p32, _ = _with_plain_attention(lambda: prefill(model32, **one))
+        d32 = fill_caches(init_caches(cfg, 1, LM_SEQ + 1,
+                                      dtype=torch.float32, device=dev), c32)
+        del c32
+        s32, _ = decode_step(model32, d32, pos=LM_SEQ,
+                             **{k: v[:1] for k, v in nxt.items()})
+        h32, _ = forward(model32, return_hidden=True,
+                         **{k: v[:1] for k, v in full.items()})
+        f32 = transformer.lm_logits(model32, h32[:, LM_SEQ])
+        del model32, d32, h32
+        torch.cuda.empty_cache()
+        fp32 = {"plain": _logit_gate(torch, l32, p32),
+                "decode": _logit_gate(torch, s32, f32)}
+    for g, (err, bar, same) in (fp32 or bf16).items():
+        what = ("prefill logits with B6 vs plain attention" if g == "plain"
+                else f"decode of position {LM_SEQ:,} after (a) vs the "
+                f"forward of {LM_SEQ + 1:,} positions")
+        check(bar <= 1.0 and same, f"{arch}: {'fp32' if fp32 else 'bf16'} "
+              f"{what} beyond rtol = atol = {LM_TOL} or argmax unequal: max "
+              f"|err| {err:.3e}, {bar:.2f} of the bar, argmax equal {same}")
+
+    if "decode" in secs:
+        decode_ms = secs["decode"] * 1e3 / LM_NEW
+        pos, tok = LM_SEQ + 1, nxt
+    else:
+        decode_ms, last, dec = _timed_decode(
+            torch, model, dec, step_logits.argmax(-1).to(torch.int32), LM_SEQ)
+        pos, tok = LM_SEQ + LM_NEW // 2 + 1, {"token": last}
+    _, wall_us, kernels = _device_profile(
+        torch, lambda: decode_step(model, dec, pos=pos, **tok))
+    busy_ms = sum(v[0] for v in kernels.values()) / 1e3
+    bound_ms = _decode_bound_ms(model, dec, pos + 1)
+    _print_profile(f"one {arch} decode step", wall_us, kernels)
+    _print_elementwise(kernels, LM_KERNELS)
+    metrics = {"parameters": n_params, "setup_s": setup_s,
+               "prefill_tokens_per_s": LM_BATCH * LM_SEQ / secs["prefill"],
+               "decode_ms_per_token": decode_ms, "peak_gb": peak_gb,
+               "decode_step_device_ms": busy_ms,
+               "decode_step_wall_ms": wall_us / 1e3,
+               "decode_step_bound_ms": bound_ms}
+    if "prefill_32k" in secs:
+        metrics["prefill_32k_tokens_per_s"] = LM_LONG / secs["prefill_32k"]
+    line = "; ".join(
+        f"{g}: bf16 max |err| {e:.3e} ({b:.2f} of the bar), argmax "
+        f"{'equal' if same else 'unequal'}"
+        + (f"; fp32 on row 0 (gated) max |err| {fp32[g][0]:.3e} "
+           f"({fp32[g][1]:.2f}), argmax equal" if fp32 else "")
+        for g, (e, b, same) in bf16.items())
+    print(f"phase 39: {arch} ({cfg.family}, {nl} layers, d {cfg.d_model}, "
+          f"H {cfg.num_heads} / KVH {cfg.num_kv_heads} x hd "
+          f"{cfg.resolved_head_dim}, {n_params:,} parameters, bf16 from a "
+          f"seeded torch.Generator, set-up {setup_s:.2f} s): (a) prefill "
+          f"{LM_BATCH} x {LM_SEQ:,} in {secs['prefill'] * 1e3:.1f} ms = "
+          f"{metrics['prefill_tokens_per_s']:,.0f} tokens/s; (b) {how} in "
+          f"{secs.get('decode', secs.get('generate')):.2f} s, tokens in "
+          "range"
+          + (f"; (c) prefill 1 x {LM_LONG:,} in {secs['prefill_32k']:.2f} s "
+             f"= {metrics['prefill_32k_tokens_per_s']:,.0f} tokens/s"
+             if "prefill_32k" in secs else "")
+          + f"; peak memory {peak_gb:.2f} GB; B6 launches {launches}")
+    print(f"  B6 vs plain on layer 0's q, k, v: max |err| {b6_err:.3e} (bar "
+          f"{B6_TOL['bfloat16']}), repeatable; rtol = atol = {LM_TOL}: "
+          f"{line}; decode {decode_ms:.2f} ms/token at batch {LM_BATCH} "
+          f"(host wall, {'(b)' if 'decode' in secs else 'mean of 16 greedy steps'}); "
+          f"one decode step profiled: {wall_us / 1e3:.2f} ms wall, "
+          f"{busy_ms:.2f} ms of device kernels (idle "
+          f"{1 - busy_ms * 1e3 / wall_us:.1%}), bound {bound_ms:.2f} ms (its "
+          f"weights and {pos + 1:,} cache positions read once at "
+          f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s)")
+    del model, dec, logits, plain_logits, step_logits, fwd_logits
+    torch.cuda.empty_cache()
+    return launches, b6_err, metrics
+
+
+def phase_zoo_lm(torch, dev):
+    """The zoo's serving paths at full width and depth in bf16 (ROADMAP
+    A15i): olmo-1b, internvl2-2b, musicgen-medium and mistral-nemo-12b,
+    one at a time (each model and the allocator's cache freed before the
+    next): (a) prefill of 4 x 4,096 positions, (b) 32 greedy decode steps
+    after it (``generate`` for the token models; internvl2's after its
+    patch prefix and musicgen's on seeded frame embeddings, through
+    ``decode_step``), (c) a 1 x 32,768 prefill for olmo and
+    mistral-nemo. Gates: the parameter count, B6 once per layer per
+    prefill, B6 vs plain on layer 0's q, k, v, last-token logits with B6
+    vs the same model on plain attention and decode of position 4,096
+    after (a) vs the forward of the 4,097 positions, both at rtol = atol
+    = 5e-2 with argmax equal (in fp32 on row 0 where bf16 misses),
+    tokens in range. Then B6 timed at hd 128 at mistral-nemo's and olmo's
+    prefill shapes. Returns ({arch: {run: B6 launches}}, B6's max |err|,
+    {arch: metrics}, the timing rows)."""
+    t_phase, launches, errs, metrics = time.perf_counter(), {}, [], {}
+    for arch in ZOO_PARAMS:
+        launches[arch], err, metrics[arch] = _zoo_model(torch, dev, arch)
+        errs.append(err)
+    rng = np.random.default_rng(SEED + 39)
+    flush = torch.empty(128 * 2**20 // 4, dtype=torch.float32, device=dev)
+    rows = [_b6_time_row(torch, dev, rng, flush, *shape, 39)
+            for shape in ZOO_B6_SHAPES]
+    print(f"phase 39 took {time.perf_counter() - t_phase:.1f} s")
+    return launches, max(errs), metrics, rows
+
+
+# ------------------------------------------------------------ phase 40
+def _quantiles(x) -> str:
+    """min / median / max of a tensor's elements, or "-" when empty."""
+    if not x.numel():
+        return "-"
+    x = x.float().flatten().sort().values
+    return (f"{float(x[0]):.3f} / {float(x[x.numel() // 2]):.3f} / "
+            f"{float(x[-1]):.3f}")
+
+
+INT8_STEPS = 64  # decode steps from empty caches, int8 against bf16
+INT8_TOL = 0.2  # tests/test_int8_kv.py:34 (rtol = atol)
+WINDOW_PROMPT, WINDOW_NEW = 8000, 256  # the 8,192-slot ring wraps at step 192
+LONG_500K_POS = 524_280  # long_500k's last 8 decode positions start here
+
+
+def phase_decode_variants(torch, dev):
+    """The two decode variants at llama3.2-1b's full width (bf16): (a)
+    the int8 KV cache, batch 4, 64 steps from empty caches through
+    ``decode_step`` against the bf16-cache decode of the same tokens; (b)
+    the sliding-window ring of ``cfg.sliding_window`` = 8,192 slots:
+    ``generate(window=True)`` of 256 tokens after a 4 x 8,000 prompt,
+    whose ring wraps at step 192, against ``window=False`` bit for bit
+    before the wrap and, after it, each step's logits against a witness
+    that attends over the same 8,192 positions in position order; (c)
+    the reference's long_500k shape: a ring filled by a prefill of 8,192
+    tokens, then 8 window decode steps at positions 524,280-524,287.
+    Returns ({path: B6 launches}, metrics)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        LAUNCHES as B6,
+    )
+    from repro_torch.models import (
+        decode_step,
+        init_caches,
+        init_model,
+        prefill,
+    )
+    from repro_torch.models import generate as G
+    from repro_torch.models import layers as L
+
+    t_phase, cfg = time.perf_counter(), get_config(LM_ARCH)
+    W = cfg.sliding_window
+    model = init_model(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                       device=dev)
+    stream = TokenStream(cfg.vocab_size, seed=SEED + 40)
+
+    # (a) the int8 cache: the same weights (shared, not copied) under
+    # kv_cache_dtype="int8"
+    model8 = _twin(model, kv_cache_dtype="int8")
+    toks = torch.from_numpy(stream.batch(LM_BATCH, INT8_STEPS + 1)[
+        "tokens"]).to(dev)
+
+    def decode_run(m):
+        decode_step(m, init_caches(m.cfg, LM_BATCH, 1, device=dev),
+                    token=toks[:, 0], pos=0)  # first use
+        caches = init_caches(m.cfg, LM_BATCH, INT8_STEPS, device=dev)
+        out = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t in range(INT8_STEPS):
+            lg, caches = decode_step(m, caches, token=toks[:, t], pos=t)
+            out.append(lg)
+        torch.cuda.synchronize()
+        return (torch.stack(out), caches,
+                (time.perf_counter() - t0) * 1e3 / INT8_STEPS)
+
+    _reset((B6,))
+    l16, c16, ms16 = decode_run(model)
+    l8, c8, ms8 = decode_run(model8)
+    int8_b6 = B6["flash_attention"]
+    check(c8["k"].dtype == torch.int8 and c8["k_scale"].dtype
+          == torch.bfloat16, "the int8 caches are not int8 codes with bf16 "
+          "scales")
+    check(bool(torch.isfinite(l8.float()).all()), "int8-cache logits are "
+          "not finite")
+    err8, bar8 = _within(torch, l8, l16, INT8_TOL)
+    check(bar8 <= 1.0, f"int8-cache logits beyond rtol = atol = {INT8_TOL} "
+          f"of the bf16 cache's: max |err| {err8:.3e}")
+    # top-1 is printed, not gated: a random model's bf16 logits over
+    # 128,256 tokens lie within a few bf16 ulps at the top of some rows
+    # (the top-2 gaps printed), where the int8 cache's logit error picks
+    # either (ROADMAP C)
+    flip = l8.argmax(-1) != l16.argmax(-1)  # (steps, B)
+    agree = int((~flip).all(-1).sum())
+    top2 = l16.float().topk(2, -1).values
+    gap = top2[..., 0] - top2[..., 1]
+    row_err = (l8.float() - l16.float()).abs().amax(-1)
+    for name in ("k", "v"):
+        check(bool((c8[name].abs().amax(-1) == 127).all()),
+              f"an int8 {name} slot's max |code| is not 127")
+    print(f"phase 40: (a) int8 KV cache ({LM_ARCH}, full width, batch "
+          f"{LM_BATCH}, {INT8_STEPS} decode steps from empty caches, the "
+          f"same tokens): logits within rtol = atol = {INT8_TOL} of the bf16"
+          f" cache's (max |err| {err8:.3e}, {bar8:.2f} of the bar), every "
+          f"written (token, head) slot's max |code| 127 in k and v; top-1 "
+          f"(printed) equal on all {LM_BATCH} rows in {agree} of "
+          f"{INT8_STEPS} steps, {int(flip.sum())} of {flip.numel()} "
+          f"(step, row) argmaxes flipped, where the bf16 cache's top-2 gap "
+          f"was {_quantiles(gap[flip])} against a row's max |err| "
+          f"{_quantiles(row_err[flip])} (all rows: gap "
+          f"{_quantiles(gap)}, max |err| {_quantiles(row_err)}); "
+          f"{ms8:.2f} ms/token with "
+          f"the int8 cache (it dequantises the whole valid cache each step) "
+          f"against {ms16:.2f} with bf16 (host wall); B6 {int8_b6} (decode "
+          "attention is plain PyTorch, as in the reference)")
+    del model8, l8, l16, c8, c16
+
+    # (b) the ring: generate(window=True) with every decode step's logits
+    # kept; window=False up to the wrap, keeping its caches
+    prompt = torch.from_numpy(stream.batch(LM_BATCH, WINDOW_PROMPT + 1)[
+        "tokens"]).to(dev)
+    wrap = W - WINDOW_PROMPT  # decode step i runs at WINDOW_PROMPT + i
+    kept = []
+    launches = {}
+    step = _recording(G, "decode_step", lambda out: kept.append(out[0]))
+    try:
+        _reset((B6,))
+        t0 = time.perf_counter()
+        tok_w = G.generate(model, prompt, WINDOW_NEW, temperature=0.0,
+                           window=True)
+        torch.cuda.synchronize()
+        window_s = time.perf_counter() - t0
+        launches["generate_window"] = B6["flash_attention"]
+    finally:
+        G.decode_step = step
+    seen = {}
+    step = _recording(G, "decode_step",
+                      lambda out: seen.__setitem__("caches", out[1]))
+    try:
+        _reset((B6,))
+        tok_f = G.generate(model, prompt, wrap + 1, temperature=0.0)
+        launches["generate_full"] = B6["flash_attention"]
+    finally:
+        G.decode_step = step
+    check(tok_w.shape == (LM_BATCH, WINDOW_NEW) and int(tok_w.min()) >= 0
+          and int(tok_w.max()) < cfg.vocab_size and len(kept)
+          == WINDOW_NEW - 1, "window tokens have the wrong shape or are out "
+          "of range")
+    check(torch.equal(tok_w[:, :wrap + 1], tok_f), f"window decode's first "
+          f"{wrap + 1} tokens (before the ring wraps) differ from "
+          "window=False's")
+    # the witness: window=False's caches, grown, decoding the window run's
+    # tokens from the wrap on, attending over the last W positions of its
+    # position-ordered cache (last_window; the identity on a ring's W)
+    full = G.fill_caches(init_caches(cfg, LM_BATCH, WINDOW_PROMPT
+                                     + WINDOW_NEW, device=dev),
+                         seen.pop("caches"))
+    plain = L.decode_attention
+
+    def last_window(q, k, v, valid, **kw):
+        lo = max(0, valid - W)
+        return plain(q, k[:, lo:valid], v[:, lo:valid], valid - lo, **kw)
+
+    def after_wrap(m, full, ring=None, rows=LM_BATCH):
+        """(worst (share of the bar, max |err|), argmax flips) of the ring's
+        logits (``kept``, or ``ring`` decoded here) against the witness on
+        ``full`` at every step after the wrap."""
+        worst, flips = (0.0, 0.0), 0
+        L.decode_attention = last_window
+        try:
+            for i in range(wrap, WINDOW_NEW - 1):
+                fed = {"token": tok_w[:rows, i], "pos": WINDOW_PROMPT + i}
+                got = (kept[i] if ring is None else
+                       decode_step(m, ring, window=True, **fed)[0])
+                lg, full = decode_step(m, full, **fed)
+                err, bar = _within(torch, got, lg, LM_TOL)
+                worst = max(worst, (bar, err))
+                flips += int((got.argmax(-1) != lg.argmax(-1)).sum())
+        finally:
+            L.decode_attention = plain
+        return worst, flips
+
+    worst16, flips16 = after_wrap(model, full)
+    del full, kept
+    gated = "bf16"
+    worst, flips = worst16, flips16
+    if worst16[0] > 1.0 or flips16:
+        # bf16 misses (the ring sums its W positions in another order, and
+        # 16 bf16 layers carry that past the bar): the same weights in fp32
+        # on row 0, with fp32 caches, are gated instead, the ring and the
+        # witness both from one prefill of the W positions before the wrap
+        # (the prompt and the window run's first tokens)
+        gated = "fp32 on row 0"
+        model32 = _twin(model, dtype="float32")
+        _, c32 = prefill(model32, tokens=torch.cat([prompt[:1],
+                                                    tok_w[:1, :wrap]], 1))
+        ring = G.fill_caches(init_caches(cfg, 1, W, dtype=torch.float32,
+                                         device=dev), c32)
+        full = G.fill_caches(init_caches(cfg, 1, WINDOW_PROMPT + WINDOW_NEW,
+                                         dtype=torch.float32, device=dev),
+                             c32)
+        del c32
+        worst, flips = after_wrap(model32, full, ring, rows=1)
+        del model32, ring, full
+        torch.cuda.empty_cache()
+    check(worst[0] <= 1.0 and flips == 0, f"{gated}: window decode after "
+          f"the wrap vs the position-ordered witness beyond rtol = atol = "
+          f"{LM_TOL} or argmax unequal: {worst[0]:.2f} of the bar (max "
+          f"|err| {worst[1]:.3e}), {flips} argmax flips")
+    print(f"phase 40: (b) the ring ({W:,} slots): generate(window=True) of "
+          f"{WINDOW_NEW} tokens after a {LM_BATCH} x {WINDOW_PROMPT:,} prompt "
+          f"in {window_s:.2f} s ({(WINDOW_NEW - 1) / window_s:.1f} steps/s "
+          f"with its prefill), the ring wrapping at step {wrap}; the first "
+          f"{wrap + 1} tokens bitwise window=False's; after the wrap "
+          f"{WINDOW_NEW - 1 - wrap} steps' logits vs a witness attending "
+          f"over the same {W:,} positions in position order: bf16 max |err| "
+          f"{worst16[1]:.3e} ({worst16[0]:.2f} of the rtol = atol = "
+          f"{LM_TOL} bar), {flips16} argmax flips"
+          + (f"; fp32 on row 0 (gated) max |err| {worst[1]:.3e} "
+             f"({worst[0]:.2f}), argmax equal" if gated != "bf16" else
+             " (gated)") + f"; B6 {launches}")
+
+    # (c) long_500k: a ring filled by one prefill of W tokens, then 8
+    # window decode steps ending at position 524,287
+    long_prompt = torch.from_numpy(stream.batch(1, W + 1)["tokens"]).to(dev)
+    _reset((B6,))
+    logits, caches = prefill(model, tokens=long_prompt)
+    launches["long_500k_prefill"] = B6["flash_attention"]
+    ring = G.fill_caches(init_caches(cfg, 1, W, device=dev), caches)
+    del caches
+    tok = logits.argmax(-1).to(torch.int32)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = []
+    for pos in range(LONG_500K_POS, LONG_500K_POS + 8):
+        lg, ring = decode_step(model, ring, token=tok, pos=pos, window=True)
+        outs.append(lg)
+        tok = lg.argmax(-1).to(torch.int32)
+    torch.cuda.synchronize()
+    long_ms = (time.perf_counter() - t0) * 1e3 / 8
+    check(all(bool(torch.isfinite(o.float()).all()) for o in outs),
+          "long_500k decode logits are not finite")
+    for run, want in (("generate_window", cfg.num_layers),
+                      ("generate_full", cfg.num_layers),
+                      ("long_500k_prefill", cfg.num_layers)):
+        check(launches[run] == want, f"B6 launched {launches[run]} times in "
+              f"{run}, not {want}")
+    print(f"phase 40: (c) long_500k: batch 1, a ring of {W:,} slots filled "
+          f"by a prefill of {W:,} tokens, then 8 window decode steps at "
+          f"positions {LONG_500K_POS:,}-{LONG_500K_POS + 7:,}: logits "
+          f"finite, {long_ms:.2f} ms/token (host wall)")
+    del model, ring
+    torch.cuda.empty_cache()
+    print(f"phase 40 took {time.perf_counter() - t_phase:.1f} s")
+    return ({"lm_serve_int8": int8_b6,
+             "lm_serve_window": sum(launches.values()),
+             **{f"lm_serve_window/{r}": n for r, n in launches.items()}},
+            {"int8_ms_per_token": ms8, "bf16_cache_ms_per_token": ms16,
+             "window_steps_per_s": (WINDOW_NEW - 1) / window_s,
+             "long_500k_ms_per_token": long_ms})
+
+
+# ------------------------------------------------------------ phase 41
+ZOO_CPU = {"mistral-nemo-12b": {"head_dim": 128}, "olmo-1b": {},
+           "internvl2-2b": {}, "musicgen-medium": {}}
+ZOO_CPU_RING = 64  # the reduced sliding_window
+
+
+def _rope_ulps(torch, pos, hd, theta, dev):
+    """How far the card's rope tables at ``pos`` lie from the CPU's beyond
+    1e-6 (cos and sin's own rounding on the two devices), in ulps of the
+    fp32 angle (the largest over cos and sin), and how far the inverse
+    frequencies each side's fp32 ``pow`` gives lie apart, in their own
+    ulps. Two frequencies k ulps apart put the angles at most 2k + 1 of
+    the angle's ulps apart (a position times a frequency's ulp is within
+    two of the product's, and each product rounds once)."""
+    from repro_torch.models import layers as L
+
+    inv = [(1.0 / (theta ** (torch.arange(0, hd, 2, dtype=torch.float32,
+                                          device=w) / hd))).cpu()
+           for w in ("cpu", dev)]
+    inv_ulps = float(((inv[1] - inv[0]).abs() / torch.from_numpy(
+        np.spacing(inv[0].numpy()))).max())
+    ulp = torch.from_numpy(np.spacing((pos[:, None].float() * inv[0])
+                                      .numpy()))
+    tables = [L.rope_cos_sin(pos.to(w), hd, theta) for w in ("cpu", dev)]
+    return max(float((((a - b.cpu()).abs() - 1e-6).clamp(min=0) / ulp)
+                     .max()) for a, b in zip(*tables)), inv_ulps
+
+
+def phase_zoo_card_vs_cpu(torch, dev):
+    """Phase 15's check on the four configs reduced, fp32, B6 on the card
+    and plain attention on the CPU, the same weights (mistral-nemo with
+    head_dim 128: d 256, H 4 x 128 = 512 != d; internvl2 with its patch
+    prefix; musicgen on frame embeddings, decoding with ``embed=``); then
+    on reduced mistral-nemo an int8-cache decode of 16 steps from empty
+    caches, and window decode: ``generate(window=True)`` past the
+    64-slot ring's wrap, and a ring filled by a prefill of 64 tokens
+    decoding at positions 524,280-524,287. Logits within LM_CPU_TOL,
+    greedy tokens equal."""
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.models import (
+        decode_step,
+        init_caches,
+        prefill,
+    )
+    from repro_torch.models import layers as L
+    from repro_torch.models.generate import fill_caches, generate
+
+    t_phase = time.perf_counter()
+    for arch, over in ZOO_CPU.items():
+        cpu, card, _ = phase_lm_card_vs_cpu(torch, dev, arch, 41, over=over)
+        if arch == "mistral-nemo-12b":
+            models = {"cpu": cpu, "card": card}
+    cfg = models["cpu"].cfg
+    W = cfg.sliding_window
+    check(W == ZOO_CPU_RING, f"the reduced window is {W}")
+    toks = TokenStream(cfg.vocab_size, seed=SEED + 41).batch(
+        2, W + 17)["tokens"]
+
+    def on(where):
+        return torch.from_numpy(toks).to("cpu" if where == "cpu" else dev)
+
+    def held(a, b, what, tol=LM_CPU_TOL):
+        err = (a.cpu() - b).abs()
+        check(bool((err <= tol + tol * b.abs()).all()),
+              f"reduced mistral-nemo {what}, card vs CPU, beyond {tol}: max "
+              f"|err| {float(err.max()):.3e}")
+        check(torch.equal(a.cpu().argmax(-1), b.argmax(-1)), f"reduced "
+              f"mistral-nemo {what}: argmax differs between card and CPU")
+        return float(err.max())
+
+    # int8: the same weights under kv_cache_dtype="int8", 16 steps from
+    # empty caches. The two sides quantise fp32 k and v that differ in the
+    # last bits, so a value whose k / scale lies that near a half step
+    # takes codes one apart: up to the first such slot the logits are held
+    # at LM_CPU_TOL, from it on at the int8 cache's own bar (INT8_TOL)
+    out = {}
+    for where, m in models.items():
+        m8 = _twin(m, kv_cache_dtype="int8")
+        caches = init_caches(m8.cfg, 2, 16, device=m8.device)
+        out[where] = [decode_step(m8, caches, token=on(where)[:, t],
+                                  pos=t)[0] for t in range(16)]
+        out[where + "_codes"] = torch.stack([caches["k"], caches["v"]]).to(
+            "cpu", torch.int32)
+    apart = (out["card_codes"] - out["cpu_codes"]).abs()
+    check(int(apart.max()) <= 1, f"reduced mistral-nemo int8 codes, card vs "
+          f"CPU, {int(apart.max())} apart")
+    slots = apart.amax(dim=(0, 1, 2, 4, 5)).nonzero()
+    first = int(slots[0]) if slots.numel() else 16
+    err8 = max(held(a, b, f"int8-cache decode step {t}",
+                    LM_CPU_TOL if t < first else INT8_TOL)
+               for t, (a, b) in enumerate(zip(out["card"], out["cpu"])))
+    codes = int(apart.sum())
+    # the ring: generate past the wrap, then positions near 2^19
+    gen = {w: generate(m, on(w)[:, :W - 4], 16, temperature=0.0,
+                       window=True).cpu() for w, m in models.items()}
+    check(torch.equal(gen["card"], gen["cpu"]), "reduced mistral-nemo window "
+          "generate: tokens differ between card and CPU")
+    # the rope tables there, card vs CPU in ulps of the fp32 angle (an
+    # fp32 pow on each side: ROADMAP C), then the ring on the CPU's tables
+    # on both devices
+    hd, theta = cfg.resolved_head_dim, cfg.rope_theta
+    pos = torch.arange(LONG_500K_POS, LONG_500K_POS + 8)
+    rope, inv_ulps = _rope_ulps(torch, pos, hd, theta, dev)
+    check(rope <= 2 * inv_ulps + 1, f"rope tables at positions "
+          f"{LONG_500K_POS:,}-{LONG_500K_POS + 7:,}, card vs CPU, {rope:.2f} "
+          f"ulps of the fp32 angle apart, beyond the {2 * inv_ulps + 1:.0f} "
+          f"that inverse frequencies {inv_ulps:.0f} ulps apart explain")
+    cpu_tables = L.rope_cos_sin
+    L.rope_cos_sin = lambda p, hd, th: tuple(
+        t.to(p.device) for t in cpu_tables(p.cpu(), hd, th))
+    far = {}
+    try:
+        for where, m in models.items():
+            logits, caches = prefill(m, tokens=on(where)[:, :W])
+            ring = fill_caches(init_caches(cfg, 2, W, dtype=torch.float32,
+                                           device=m.device), caches)
+            far[where] = [decode_step(m, ring, token=on(where)[:, W + i],
+                                      pos=LONG_500K_POS + i, window=True)[0]
+                          for i in range(8)]
+    finally:
+        L.rope_cos_sin = cpu_tables
+    errw = max(held(a, b, f"window decode at position {LONG_500K_POS + i}")
+               for i, (a, b) in enumerate(zip(far["card"], far["cpu"])))
+    print(f"phase 41: reduced mistral-nemo (hd 128) with an int8 KV cache, "
+          f"16 decode steps from empty caches: logits max |err| {err8:.3e} "
+          f"(bar {LM_CPU_TOL} up to the first slot whose codes differ, "
+          f"{first}, then {INT8_TOL}), argmax equal, {codes} of "
+          f"{apart.numel()} k and v codes one apart; generate(window=True)"
+          f" of 16 tokens after {W - 4} (the {W}-slot ring wraps) tokens "
+          f"equal; a ring filled by a prefill of {W} tokens decoding at "
+          f"positions {LONG_500K_POS:,}-{LONG_500K_POS + 7:,} on the CPU's "
+          f"rope tables: logits max |err| {errw:.3e}, argmax equal; the "
+          f"card's own tables there {rope:.2f} ulps of the fp32 angle from "
+          f"the CPU's beyond 1e-6, its inverse frequencies (an fp32 pow on each side) "
+          f"{inv_ulps:.0f} ulps from theirs (bar: 2 x that + 1)")
+    print(f"phase 41 took {time.perf_counter() - t_phase:.1f} s")
+
+
 SERVE_PHASES = (2, 3, 4)  # the serving path's phases, runnable alone
 TRAIN_PHASES = (5, 6, 7, 8)  # the sparse training path's, runnable alone
 SCAN_PHASES = (17, 18, 19, 20)  # the SSM path's phases, runnable alone
@@ -6888,6 +7635,7 @@ SHARD_PHASES = (32, 33)  # sharded training at paper width, the drivers
 SHARD_SERVE_PHASES = (34, 35)  # sharded LM serving, full width and reduced
 SHARD_TRAIN_PHASES = (36, 37)  # sharded LM training, full width and reduced
 DRYRUN_PHASES = (38,)  # the dry run, alone with the phases it is held to
+ZOO_PHASES = (39, 40, 41)  # the zoo's configs and decode variants, likewise
 DRYRUN_NEEDS = {18, 28, 36}
 
 
@@ -6929,8 +7677,8 @@ def _run_only(torch, dev, only, t_start) -> int:
     """Phase 1 and the given serving (2-4), sparse training (5-8), SSM
     (17-20), hybrid or MoE (21-24), streaming (25-27), LM training
     (28-29), autotuning (30-31), sharded training (32-33), sharded LM
-    serving (34-35) or sharded LM training (36-37) phases alone, or the
-    dry run (38) with the phases it is held to (18, 28, 36)
+    serving (34-35), sharded LM training (36-37) or zoo (39-41) phases
+    alone, or the dry run (38) with the phases it is held to (18, 28, 36)
     (``--only``): a partial run, so it prints no kernels line and no
     result line."""
     got = {}  # what phase 38 holds the dry run to
@@ -7005,6 +7753,12 @@ def _run_only(torch, dev, only, t_start) -> int:
             got[36] = phase_train_shard(torch, dev)
         elif phase == 37:
             phase_train_shard_reduced(torch, dev)
+        elif phase == 39:
+            phase_zoo_lm(torch, dev)
+        elif phase == 40:
+            phase_decode_variants(torch, dev)
+        elif phase == 41:
+            phase_zoo_card_vs_cpu(torch, dev)
         else:
             (train_b6, train_metrics), ssm, shard = got[28], got[18], got[36]
             phase_dryrun(torch, dev, start_dryrun(), train_metrics,
@@ -7020,19 +7774,21 @@ def main(argv: list[str]) -> int:
     """``chip_smoke.py`` runs every phase; ``chip_smoke.py --only 2,3,4``
     (or ``5,6,8``, or ``17,20``, or ``21,22,23,24``, or ``25,26,27``, or
     ``28,29``, or ``30,31``, or ``32,33``, or ``34,35``, or ``36,37``, or
-    ``18,28,36,38``) runs phase 1 and
+    ``18,28,36,38``, or ``39,40,41``) runs phase 1 and
     the named phases of the serving path (2-4), the sparse training path
     (5-8), the SSM path (17-20), the hybrid and MoE paths (21-24), the
     streaming path (25-27), the LM training path (28-29), the autotuning
     path (30-31), the sharded training path (32-33), the sharded LM
-    serving path (34-35) or the sharded LM training path (36-37) alone,
-    or the dry run (38) beside the phases it is held to."""
+    serving path (34-35), the sharded LM training path (36-37) or the
+    zoo's other configs and the decode variants (39-41) alone, or the
+    dry run (38) beside the phases it is held to."""
     import torch
 
     only = set()
     alone = (SERVE_PHASES + TRAIN_PHASES + SCAN_PHASES + FAMILY_PHASES
              + STREAM_PHASES + LM_TRAIN_PHASES + TUNE_PHASES + SHARD_PHASES
-             + SHARD_SERVE_PHASES + SHARD_TRAIN_PHASES + DRYRUN_PHASES)
+             + SHARD_SERVE_PHASES + SHARD_TRAIN_PHASES + DRYRUN_PHASES
+             + ZOO_PHASES)
     if argv:
         if len(argv) != 2 or argv[0] != "--only":
             raise SmokeFailure(f"usage: chip_smoke.py [--only "
@@ -7126,8 +7882,12 @@ def main(argv: list[str]) -> int:
     phase_lm_card_vs_cpu(torch, dev, HYBRID_ARCH, 22, **HYBRID_CPU)
     moe_launches, moe_err, moe_metrics = phase_moe_lm(torch, dev)
     phase_moe_card_vs_cpu(torch, dev)
+    zoo_launches, zoo_err, zoo_metrics, zoo_times = phase_zoo_lm(torch, dev)
+    times["flash_attention"] += zoo_times
+    variant_launches, variant_metrics = phase_decode_variants(torch, dev)
+    phase_zoo_card_vs_cpu(torch, dev)
     err["flash_attention"] = max(err["flash_attention"], hybrid_err,
-                                 moe_err)
+                                 moe_err, zoo_err)
 
     with tempfile.TemporaryDirectory() as tmp:
         stream_launches, stream_err = phase_stream(torch, dev, Path(tmp))
@@ -7191,6 +7951,11 @@ def main(argv: list[str]) -> int:
                 by_path[path] = sum(runs.values())
                 by_path.update({f"{path}/{step}": n
                                 for step, n in runs.items()})
+            for arch, runs in zoo_launches.items():
+                by_path[f"lm_serve_zoo/{arch}"] = sum(runs.values())
+                by_path.update({f"lm_serve_zoo/{arch}/{step}": n
+                                for step, n in runs.items()})
+            by_path.update(variant_launches)
             by_path["lm_train/step"] = train_b6
             by_path.update({f"lm_train_reduced/{arch}": n["B6"]
                             for arch, n in train_cpu_launches.items()
@@ -7235,6 +8000,8 @@ def main(argv: list[str]) -> int:
     print(f"SSM serving ({SSM_ARCH}): " + json.dumps(ssm_metrics))
     print(f"hybrid serving ({HYBRID_ARCH}): " + json.dumps(hybrid_metrics))
     print(f"MoE serving ({MOE_ARCH}): " + json.dumps(moe_metrics))
+    print("zoo serving: " + json.dumps(zoo_metrics))
+    print(f"decode variants ({LM_ARCH}): " + json.dumps(variant_metrics))
     print(f"LM training ({LM_ARCH}): " + json.dumps(train_metrics))
     print("dry run (predictions from fake tensors): " + json.dumps(
         {k: {"peak_gb": r["memory"]["total_bytes_per_chip"] / 1e9,

@@ -27,6 +27,10 @@ trainable at full width and depth, 4 x 4,096 tokens a step, B6 in the
 forward and its checkpointed recompute, the plain attention backward,
 AdamW; then a reduced model of each family against the CPU and B6's and
 B7's autograd Functions against their plain versions' gradients) and the
+Mamba1 training path (``make_train_step`` on falcon-mamba-7b at full
+width and 16 of its 64 layers, 4 x 4,096 tokens a step, B7 in the forward
+and its recompute and B7's backward kernel in the backward, against its
+plain version on layer 0's real inputs) and the
 autotuning path (``repro_torch.tune.sweep`` over B1, B4 and B2 at the
 reference's sweep shapes, every config parity-gated, the committed
 ``cuda-sm90.json`` held to ``check_table``; then ``--tune``,
@@ -50,8 +54,9 @@ falcon-mamba and zamba2 on 2 x 2, llama and falcon-mamba under
 and zamba2 on 2 x 1, against the CPU's ranks) and the dry run
 (``repro_torch.launch.dryrun``, in a process of its own: llama3.2-1b's
 train step, falcon-mamba-7b's prefill and llama's fp32 step on a fake 2 x
-2 mesh, traced on fake tensors and held against the peaks, launches and
-collectives those steps measured on the card), shows that each path
+2 mesh and falcon-mamba-7b's 16-layer step, traced on fake tensors and
+held against the peaks, launches and collectives those steps measured on
+the card), shows that each path
 launched its kernels, holds the card's OWLQN+
 trajectories and a reduced LM of each family against the CPU's, times
 the kernels beside their plain versions, their bound and one library
@@ -65,6 +70,7 @@ It imports nothing of JAX and nothing of the JAX package ``repro``.
 """
 from __future__ import annotations
 
+import functools
 import json
 import os
 import re
@@ -130,6 +136,12 @@ LONG_RUNS = 5  # timed runs of B6 at S = 32,768
 SSM_ARCH = "falcon-mamba-7b"
 SSM_PARAMS = 7_272_665_088
 SSM_SHORT = 512  # prompt length of the B7-vs-plain-scan model comparison
+# phase 42 trains SSM_TRAIN_LAYERS of the 64 layers (fp32 AdamW at 64 needs
+# ~116 GB); one layer's parameters: norm 4,096, in_proj 4,096 x 16,384,
+# conv 4 x 8,192 + 8,192, x_proj 8,192 x 288, dt_proj 256 x 8,192,
+# dt_bias, A_log 8,192 x 16, D, out_proj 8,192 x 4,096
+SSM_TRAIN_LAYERS = 16
+SSM_LAYER_PARAMS = 105_312_256
 B7_TOL = 2e-5  # y and hT, tests/test_kernels.py:175
 SFU_EXP_PER_S = 16 * 132 * 1.98e9  # 16 a clock per SM (CC 9.0) x 132 SMs
 B7_PLAIN_RUNS = 1  # timed runs of the plain scan at S >= 4,096
@@ -162,6 +174,8 @@ SOURCES = {
     "flash_attention":
         "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
     "mamba1_scan": "src/repro_torch/kernels/mamba_scan/csrc/mamba_scan.cu",
+    "mamba1_scan_gated_backward":
+        "src/repro_torch/kernels/mamba_scan/csrc/mamba_scan_bwd.cu",
 }
 REPLACES = {
     "lsplm_sparse_fused_forward":
@@ -176,6 +190,10 @@ REPLACES = {
     "flash_attention":
         "src/repro/kernels/flash_attention/flash_attention.py:29",
     "mamba1_scan": "src/repro/kernels/mamba_scan/mamba_scan.py:32",
+    # B7's gradient: the reference's Pallas scan has no VJP, and its model
+    # trains through the lax.scan of src/repro/models/ssm.py:64 (:87)
+    "mamba1_scan_gated_backward":
+        "src/repro/kernels/mamba_scan/mamba_scan.py:32",
 }
 
 
@@ -2714,12 +2732,10 @@ def phase_ssm_lm(torch, dev):
 
 
 # ------------------------------------------------------------ phase 20
-def _sass_step_block(lib_path: Path, kernel_re: str):
-    """The straight-line SASS block of B7 that holds the most MUFU.EX2
-    (the scan of one group of steps), from ``cuobjdump -sass`` of the
-    built library, for the kernel whose mangled name matches
-    ``kernel_re``: (its instruction count, {mnemonic: count}), or None
-    when cuobjdump is missing or nothing matches."""
+@functools.lru_cache(maxsize=None)
+def _sass_dump(lib_path: Path):
+    """``cuobjdump -sass`` of a built library (run once a library: it
+    takes seconds), or None when cuobjdump is missing or fails."""
     import shutil
 
     from repro_torch.kernels import _build
@@ -2727,10 +2743,21 @@ def _sass_step_block(lib_path: Path, kernel_re: str):
     tool = shutil.which("cuobjdump") or str(Path(_build.nvcc()).with_name(
         "cuobjdump"))
     try:
-        sass = subprocess.run([tool, "-sass", str(lib_path)],
+        return subprocess.run([tool, "-sass", str(lib_path)],
                               capture_output=True, text=True,
                               timeout=120).stdout
     except (OSError, subprocess.SubprocessError):
+        return None
+
+
+def _sass_step_block(lib_path: Path, kernel_re: str):
+    """The straight-line SASS block of B7 that holds the most MUFU.EX2
+    (the scan of one group of steps), from ``cuobjdump -sass`` of the
+    built library, for the kernel whose mangled name matches
+    ``kernel_re``: (its instruction count, {mnemonic: count}), or None
+    when cuobjdump is missing or nothing matches."""
+    sass = _sass_dump(lib_path)
+    if sass is None:
         return None
     for body in re.split(r"Function : ", sass)[1:]:
         if not re.match(kernel_re, body):
@@ -3800,6 +3827,7 @@ CARD_TESTS = (("tests/test_torch_stream_card.py",
                "tests/test_torch_sparse_card.py",
                "tests/test_torch_moe_card.py",
                "tests/test_torch_mamba_scan_card.py",
+               "tests/test_torch_mamba_scan_backward_card.py",
                "tests/test_torch_lsplm_fused_card.py",
                "tests/test_torch_direction_card.py",
                "tests/test_torch_hybrid_card.py",
@@ -4208,7 +4236,8 @@ def _card_vs_cpu_training(torch, dev, arch, kernels):
                for name, m in (("cpu", cpu), ("cuda", card))}
         torch.cuda.synchronize()
         launches = {"B6": B6["flash_attention"],
-                    "B7": B7["mamba1_scan_gated"]}
+                    "B7": B7["mamba1_scan_gated"],
+                    "B7_bwd": B7["mamba1_scan_gated_backward"]}
     finally:
         moe.dispatch_plan = plan
     (l_cpu, _, g_cpu), (l_card, _, g_card) = out["cpu"], out["cuda"]
@@ -4230,11 +4259,13 @@ def _card_vs_cpu_training(torch, dev, arch, kernels):
               "assignments, or not one dispatch per layer in the forward "
               "and one in the recompute")
     # each attention layer (the hybrid: each group's shared block) and
-    # each Mamba1 layer launches its kernel twice: forward and recompute
+    # each Mamba1 layer launches its kernel twice: forward and recompute;
+    # each Mamba1 layer's backward launches B7's backward kernel once
     ssm = cfg.family == "ssm"
     attention = (0 if ssm else cfg.num_layers // cfg.shared_attn_every
                  if cfg.family == "hybrid" else cfg.num_layers)
-    want = {"B6": 2 * attention, "B7": 2 * cfg.num_layers * ssm}
+    want = {"B6": 2 * attention, "B7": 2 * cfg.num_layers * ssm,
+            "B7_bwd": cfg.num_layers * ssm}
     check(launches == want, f"{arch}: launches {launches} in a forward "
           f"and backward, not {want}")
 
@@ -4282,19 +4313,118 @@ def _ulp_bar(torch, g, dtype) -> float:
     return torch.finfo(dtype).eps * 2.0 ** np.floor(np.log2(top))
 
 
+# B7's backward kernel against its plain version: the per-(b, t, c)
+# gradients and dh0 bitwise, a sum within B7_SUM_REL of its terms'
+# magnitudes + B7_SUM_ABS (the kernel sums in another order)
+B7_SUM_REL, B7_SUM_ABS = 1e-6, 1e-7
+B7_PER_ELEMENT = ("dt_raw", "x", "z", "h0")
+
+
+def _check_b7_backward(torch, args, dy, dhT, tag, repeats=3):
+    """B7's backward kernel (``mamba1_scan_gated_backward``) against
+    ``plain_gated_scan_backward`` on the card, on the gated scan's inputs
+    ``args`` and the output gradients dy and dhT: ddt_raw, dx, dz and dh0
+    bitwise; ddt_bias, dB_in and dC_in (fp32 from both), dA_log and dD
+    within B7_SUM_REL sum|terms| + B7_SUM_ABS; ``repeats`` launches
+    bitwise. Returns (max |err| over the sums, the worst sum's share of
+    its bar, ms of the plain version's one run by CUDA events)."""
+    from repro_torch.kernels.mamba_scan import mamba_scan as ms
+    from repro_torch.kernels.mamba_scan import ops
+
+    runs = [ms.mamba1_scan_gated_backward(*args, dy, dhT)
+            for _ in range(repeats)]
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    want = ops.plain_gated_scan_backward(*args, dy, dhT)
+    end.record()
+    end.synchronize()
+    plain_ms = start.elapsed_time(end)
+    mags = ops.gated_scan_backward_magnitudes(*args, dy, dhT)
+    torch.cuda.synchronize()
+    err = share = 0.0
+    for i, name in enumerate(ms.GATED_INPUTS):
+        got, w = runs[0][i], want[i]
+        if w is None:
+            check(all(r[i] is None for r in runs), f"B7 backward returned "
+                  f"a gradient of {name} at {tag}, the plain version none")
+            continue
+        check(got.dtype == w.dtype and got.shape == w.shape,
+              f"B7 backward d{name} dtype/shape at {tag}")
+        check(all(torch.equal(r[i], got) for r in runs[1:]),
+              f"B7 backward d{name} not bitwise repeatable over {repeats} "
+              f"launches at {tag}")
+        if name in B7_PER_ELEMENT:
+            if not torch.equal(got, w):
+                e = (got.float() - w.float()).abs()
+                raise SmokeFailure(
+                    f"B7 backward d{name} not bitwise plain_gated_scan_"
+                    f"backward's at {tag}: {int((got != w).sum())} elements "
+                    f"differ, max |err| {float(e.max()):.3e}")
+            continue
+        e = (got - w).abs()
+        bar = B7_SUM_REL * mags[name] + B7_SUM_ABS
+        check(bool((e <= bar).all()), f"B7 backward d{name} vs plain at "
+              f"{tag}: max |err| {float(e.max()):.3e}, "
+              f"{float((e / bar).max()):.3f} of B7_SUM_REL sum|terms| + "
+              f"B7_SUM_ABS")
+        err, share = max(err, float(e.max())), max(share,
+                                                   float((e / bar).max()))
+    return err, share, plain_ms
+
+
+def _b7_function_vs_autograd(torch, args, dy, dhT, tag, count=True):
+    """The gradient through ``ops.gated_selective_scan`` 's Function on
+    the card against autograd of ``plain_gated_scan`` on the same leaves:
+    each leaf within 1e-6 max|g| (fp32) or one bf16 ulp of max|g| (bf16),
+    B6's bars; with ``count``, one launch each of B7's gated mode and its
+    backward kernel. Returns the worst leaf's share of its bar."""
+    from repro_torch.kernels.mamba_scan import ops
+    from repro_torch.kernels.mamba_scan.mamba_scan import GATED_INPUTS
+    from repro_torch.kernels.mamba_scan.mamba_scan import LAUNCHES as B7
+
+    grads = []
+    for fn in (ops.gated_selective_scan, ops.plain_gated_scan):
+        leaves = [None if a is None else a.clone().requires_grad_()
+                  for a in args]
+        if count:
+            _reset((B7,))
+        y, hT = fn(*leaves)
+        outs = [(y, dy)] + ([(hT, dhT)] if dhT is not None else [])
+        grads.append(torch.autograd.grad(
+            [o for o, _ in outs], [t for t in leaves if t is not None],
+            [g for _, g in outs]))
+        if count and fn is ops.gated_selective_scan:
+            check(B7["mamba1_scan_gated"] == 1
+                  and B7["mamba1_scan_gated_backward"] == 1,
+                  f"B7's Function at {tag}: launches {dict(B7)}, not one "
+                  "forward and one backward")
+    names = [n for n, a in zip(GATED_INPUTS, args) if a is not None]
+    worst = 0.0
+    for name, g, w in zip(names, *grads):
+        bar = _ulp_bar(torch, w.float(), w.dtype)
+        err = float((g.float() - w.float()).abs().max())
+        check(g.dtype == w.dtype and err <= bar, f"B7 Function d{name} vs "
+              f"autograd of plain_gated_scan at {tag}: max |err| {err:.3e} "
+              f"> {bar:.3e}")
+        worst = max(worst, err / bar if bar else 0.0)
+    return worst
+
+
 def phase_lm_train_card_vs_cpu(torch, dev):
     """The training path's gates at reduced size and on the Functions:
     (a) llama (B6), falcon-mamba (B7), zamba2 (B6 + Mamba2) and
     granite-moe (B6 + MoE) card vs CPU (``_card_vs_cpu_training``); (b)
     B6's Function against autograd of plain_attention on one ``do`` at
     llama's full-width layer shape in bf16 and a reduced one in fp32; (c)
-    B7's Function against autograd of plain_gated_scan, bitwise."""
+    B7's Function (its forward and its backward kernel) against autograd
+    of plain_gated_scan at B6's bars (:func:`_b7_function_vs_autograd`),
+    and the backward kernel against plain_gated_scan_backward
+    (:func:`_check_b7_backward`), in fp32 and bf16."""
     from repro_torch.kernels.flash_attention import ops as attn_ops
     from repro_torch.kernels.flash_attention.flash_attention import (
         LAUNCHES as B6,
     )
-    from repro_torch.kernels.mamba_scan import ops as scan_ops
-    from repro_torch.kernels.mamba_scan.mamba_scan import LAUNCHES as B7
 
     t_phase = time.perf_counter()
     print("phase 29: LM training, reduced, card vs CPU on the same weights")
@@ -4330,25 +4460,25 @@ def phase_lm_train_card_vs_cpu(torch, dev):
 
     Bq, S, di, N = B7_GRAD_SHAPE
     f = lambda *s: torch.randn(s, generator=gen, device=dev)  # noqa: E731
-    args = [3 * f(Bq, S, di), f(di) - 3, f(Bq, S, di), f(Bq, S, N),
-            f(Bq, S, N), 0.5 * f(di, N), f(di), f(Bq, S, di), None]
-    dy, dh = f(Bq, S, di), f(Bq, di, N)
-    results = []
-    for fn in (scan_ops.gated_selective_scan, scan_ops.plain_gated_scan):
-        leaves = [None if a is None else a.clone().requires_grad_()
-                  for a in args]
-        _reset((B7,))
-        y, hT = fn(*leaves)
-        results.append(torch.autograd.grad(
-            [y, hT], [t for t in leaves if t is not None], [dy, dh]))
-        if fn is scan_ops.gated_selective_scan:
-            check(B7["mamba1_scan_gated"] == 1,
-                  "the Function did not launch B7")
-    same = all(torch.equal(a, b) for a, b in zip(*results))
-    check(same, "B7 Function gradients differ from autograd of "
-          "plain_gated_scan")
-    print(f"  B7 Function vs autograd of plain_gated_scan at (B, S, di, N) "
-          f"= {B7_GRAD_SHAPE}: all 8 input gradients bitwise equal")
+    for dtype, h0 in ((torch.float32, False), (torch.bfloat16, True)):
+        args = [3 * f(Bq, S, di), f(di) - 3, f(Bq, S, di), f(Bq, S, N),
+                f(Bq, S, N), 0.5 * f(di, N), f(di), f(Bq, S, di),
+                f(Bq, di, N) if h0 else None]
+        for i in (0, 2, 3, 4, 7):
+            args[i] = args[i].to(dtype)
+        dy, dh = f(Bq, S, di).to(dtype), f(Bq, di, N)
+        tag = f"(B, S, di, N) = {B7_GRAD_SHAPE} {str(dtype)[6:]} h0={h0}"
+        share = _b7_function_vs_autograd(torch, args, dy, dh, tag)
+        err, sum_share, _ = _check_b7_backward(torch, args, dy, dh, tag)
+        print(f"  B7 Function (gated B7 + the backward kernel, one launch "
+              f"each) vs autograd of plain_gated_scan at {tag}: all "
+              f"{sum(a is not None for a in args)} input gradients within "
+              f"their bars (worst {share:.3f} of 1e-6 max|g| fp32 / one "
+              f"bf16 ulp); the kernel vs plain_gated_scan_backward: "
+              f"ddt_raw, dx, dz{', dh0' if h0 else ''} bitwise, the sums "
+              f"within {B7_SUM_REL} sum|terms| + {B7_SUM_ABS} (max |err| "
+              f"{err:.3e}, worst {sum_share:.3f} of the bar), 3 launches "
+              f"bitwise")
     print(f"phase 29 took {time.perf_counter() - t_phase:.1f} s")
     return launches
 
@@ -5630,8 +5760,9 @@ def phase_serve_shard(torch, dev):
     """Sharded LM serving at full width and depth (bf16 weights from a
     seeded generator): each family of SERVE_SHARD_CASES on one rank (the
     1 x 1 mesh) in this process, then on its meshes as spawned ranks
-    sharing the one card over gloo (this process holds no model then).
-    Prompts 4 x 512, SERVE_SHARD_NEW greedy tokens. Gates, on every rank
+    sharing the one card over gloo (this process holds no model then;
+    the 4-rank and the 2-rank world run at once). Prompts 4 x 512,
+    SERVE_SHARD_NEW greedy tokens. Gates, on every rank
     of every
     mesh (in its first run of each family) and on one rank: B6 within
     its bf16 bar on the rank's q, k, v,
@@ -5677,13 +5808,25 @@ def phase_serve_shard(torch, dev):
               + _plain_line(bar32, bars16) + split)
     feeds = {arch: r["tokens"] for arch, r in one.items()}
     runs = {}
-    for size, shapes in SERVE_SHARD_WORLDS.items():
+
+    def run_world(size, shapes):
         t0 = time.perf_counter()
         world = run_ranks(_serve_shard_world, size, shapes, feeds,
                           device=dev)
+        return world, time.perf_counter() - t0
+
+    # the worlds run at once (the script's budget, A19): every time a
+    # mesh's ranks take is taken beside the other world's load, and is
+    # printed as contended
+    with ThreadPoolExecutor(len(SERVE_SHARD_WORLDS)) as pool:
+        jobs = {size: pool.submit(run_world, size, shapes)
+                for size, shapes in SERVE_SHARD_WORLDS.items()}
+        worlds = {size: job.result() for size, job in jobs.items()}
+    for size, shapes in SERVE_SHARD_WORLDS.items():
+        world, secs = worlds[size]
         print(f"  a world of {size} ranks on one card ran the meshes "
-              f"{list(shapes)} in {time.perf_counter() - t0:.1f} s, spawn "
-              f"and set-up included")
+              f"{list(shapes)} in {secs:.1f} s, spawn and set-up included, "
+              "beside the other world")
         runs.update({shape: [r[shape] for r in world] for shape in shapes})
     by_path = {"flash_attention": {}, "mamba1_scan": {}}
     errs = {"flash_attention": 0.0, "mamba1_scan": 0.0}
@@ -5784,8 +5927,10 @@ def phase_serve_shard(torch, dev):
             tok_s = SERVE_SHARD_BATCH * SERVE_SHARD_SEQ / r0["prefill_s"]
             one_s = SERVE_SHARD_BATCH * SERVE_SHARD_SEQ / ref["prefill_s"]
             print(f"  {tag} ({data * model} ranks, backend "
-                  f"{ranks[0]['backend']}): prefill {tok_s:,.0f} tokens/s "
-                  f"({tok_s / one_s:.2f}x one rank's {one_s:,.0f}), decode "
+                  f"{ranks[0]['backend']}): contended (the other world of "
+                  f"ranks ran on the card at the same time): prefill "
+                  f"{tok_s:,.0f} tokens/s ({tok_s / one_s:.2f}x one rank's "
+                  f"{one_s:,.0f}, uncontended), decode "
                   f"{r0['decode_ms']:.2f} ms/token "
                   f"({r0['decode_ms'] / ref['decode_ms']:.2f}x one rank's "
                   f"{ref['decode_ms']:.2f}); ranks of a data shard bitwise "
@@ -5815,7 +5960,7 @@ def phase_serve_shard(torch, dev):
                      f"rank's top two logits lie "
                      f"{[round(g, 3) for _, g in flips]} bars apart"
                      if flips else ""))
-            print(f"    all-reduces per prefill: "
+            print(f"    all-reduces (host times contended) per prefill: "
                   f"{_per_group(r0['counts']['prefill'])}; per decode step:"
                   f" {_per_group(r0['counts']['decode'])}")
             if knob_bars:
@@ -5825,7 +5970,8 @@ def phase_serve_shard(torch, dev):
                           f" argmax equal, B6 (fp32) at q {q} vs plain max "
                           f"|err| {e:.3e}" for k, (b, e, q) in
                           knob_bars.items()))
-            print(f"    rank 0: set-up {r0['setup_s']:.1f} s, parameters "
+            print(f"    rank 0 (times contended): set-up "
+                  f"{r0['setup_s']:.1f} s, parameters "
                   f"{r0['param_bytes'] / 1e9:.3f} GB (one rank "
                   f"{ref['param_bytes'] / 1e9:.3f}), peak "
                   f"{r0['peak_gb']:.2f} GB; the timed prefill "
@@ -6134,11 +6280,12 @@ def _b6_function_vs_plain(torch, q, k, v, tag):
 
 def _train_shard_rank(rank, dev, arch, shape, batch_size, seq):
     """Phase 36 on one rank (module level: the spawned ranks import it):
-    ``arch`` at full width, trainable, on the mesh ``shape`` in fp32: the
-    gradient (B6 launches counted; the first attention call's q, k, v of
-    this rank's heads kept), an update from it, a timed train step (B6
-    and the mesh's all-reduces counted, the gradient it applied kept), a
-    third step under the profiler (B6 counted); B6 and its Function
+    ``arch`` at full width, trainable, on the mesh ``shape`` in fp32: a
+    first train step (its gradient and the parameters after it kept, B6
+    launches counted, the first attention call's q, k, v of this rank's
+    heads kept), a timed train step (B6 and the mesh's all-reduces
+    counted, the gradient it applied kept), a third step under the
+    profiler (B6 counted); B6 and its Function
     against plain at this rank's shapes, in fp32 (the body the run took)
     and in bf16 (the tensor-core body); then, one rank
     at a time, that rank's unsharded reference
@@ -6151,7 +6298,7 @@ def _train_shard_rank(rank, dev, arch, shape, batch_size, seq):
     from repro_torch.configs import get_config
     from repro_torch.data.tokens import TokenStream
     from repro_torch.launch.mesh import Mesh
-    from repro_torch.models import init_model, loss_and_grads
+    from repro_torch.models import init_model
     from repro_torch.models import make_train_step, transformer
     from repro_torch.models.sharding import batch_rows
     from repro_torch.optim import AdamW
@@ -6179,47 +6326,48 @@ def _train_shard_rank(rank, dev, arch, shape, batch_size, seq):
         seen.setdefault("qkv", tuple(t.detach().clone() for t in (q, k, v)))
         return kernel(q, k, v, **kw)
 
+    opt, step = make_train_step(model, lr=TRAIN_SHARD_LR)
+    params = dict(model.named_parameters())
+    state = opt.init(params)
+    kept, apply = [], AdamW.apply
+
+    def keeping_grads(self, grads, state, params):  # a step's own gradient
+        kept.append(grads)
+        return apply(self, grads, state, params)
+
+    # the first step's gradient is the first gradient the gates read (a
+    # step is loss_and_grads, then AdamW.apply on that gradient); what the
+    # one-rank references read waits in host memory, so the card holds
+    # one model at a time
     transformer.attention_ops.causal_attention = keeping
+    AdamW.apply = keeping_grads
     try:
         _reset((B6,))
         mesh.reset_counts()
         torch.cuda.reset_peak_memory_stats(dev)
         t0 = time.perf_counter()
-        loss, _, grads = loss_and_grads(model, rows)
+        state, m1 = step(state, rows)
         torch.cuda.synchronize()
         out["grad_s"] = time.perf_counter() - t0
-    finally:
+        launches = [B6["flash_attention"]]
+        grads = {n: g.detach().cpu() for n, g in kept.pop().items()}
+        after1 = {n: p.detach().cpu() for n, p in params.items()}
         transformer.attention_ops.causal_attention = kernel
-    launches = [B6["flash_attention"]]
-    opt, step = make_train_step(model, lr=TRAIN_SHARD_LR)
-    params = dict(model.named_parameters())
-    params, state = opt.apply(grads, opt.init(params), params)
-    # what the one-rank references read waits in host memory, so the card
-    # holds one model at a time
-    grads = {n: g.detach().cpu() for n, g in grads.items()}
-    after1 = {n: p.detach().cpu() for n, p in params.items()}
-    _reset((B6,))
-    mesh.reset_counts()
-    kept, apply = {}, AdamW.apply
-
-    def keeping(self, grads, state, params):  # the step's own gradient
-        kept.setdefault("grads", grads)
-        return apply(self, grads, state, params)
-
-    AdamW.apply = keeping
-    try:
+        _reset((B6,))
+        mesh.reset_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         state, m = step(state, rows)
         torch.cuda.synchronize()
         out["step_s"] = time.perf_counter() - t0
     finally:
+        transformer.attention_ops.causal_attention = kernel
         AdamW.apply = apply
-    grads2 = {n: g.detach().cpu() for n, g in kept.pop("grads").items()}
+    grads2 = {n: g.detach().cpu() for n, g in kept.pop().items()}
     out["counts"] = mesh.collective_counts()
     out["split"] = mesh.split_counts()
     launches.append(B6["flash_attention"])
-    out["losses"] = [float(loss), float(m["loss"])]
+    out["losses"] = [float(m1["loss"]), float(m["loss"])]
     after = {n: p.detach().cpu() for n, p in params.items()}
     _reset((B6,))
     (state, m), wall_us, kernels = _device_profile(
@@ -6336,7 +6484,7 @@ def phase_train_shard(torch, dev):
                 f"leaves with the most elements past {PARAM_BAR} (name, "
                 f"count, size): {u2['leaves']}")
             check(r["launches"] == [2 * units] * 3, f"{who}: B6 launches "
-                  f"{r['launches']} in the gradient and the two steps, not "
+                  f"{r['launches']} in the three steps, not "
                   f"{2 * units} each ({units} forward, {units} recompute)")
             check(r["losses"] == ranks[0]["losses"], f"{who}: losses "
                   f"{r['losses']} differ from rank 0's {ranks[0]['losses']}")
@@ -6405,8 +6553,8 @@ def phase_train_shard(torch, dev):
         mfu = {k: roof[k] / r0["step_s"] / BF16_OPS_PER_S for k in (
             "model_flops_per_chip", "model_flops_matmul_per_chip")}
         print(f"  a step {r0['step_s'] * 1e3:.1f} ms "
-              f"({tokens / r0['step_s']:,.0f} tokens/s; the first gradient "
-              f"{r0['grad_s'] * 1e3:.1f} ms); "
+              f"({tokens / r0['step_s']:,.0f} tokens/s; the first step, "
+              f"first use included, {r0['grad_s'] * 1e3:.1f} ms); "
               f"all-reduces a step: {_per_group(r0['counts'])}; of them FSDP"
               f" gathers {split['gather']['calls']} "
               f"({split['gather']['bytes'] / 1e9:.3f} GB) and reduce-"
@@ -6497,7 +6645,8 @@ def _train_shard_reduced(rank, dev, world):
             _reset((B6, B7))
             loss, _, grads = loss_and_grads(model, rows)
             launches = {"B6": B6["flash_attention"],
-                        "B7": B7["mamba1_scan_gated"]}
+                        "B7": B7["mamba1_scan_gated"],
+                        "B7_bwd": B7["mamba1_scan_gated_backward"]}
         finally:
             ssm.ops.gated_selective_scan = kernel
         cuts = model.leaf_specs()
@@ -6595,18 +6744,20 @@ def phase_train_shard_reduced(torch, dev):
     GRAD_ABS, TRAIN_CPU_STEPS updates' losses CE_RTOL and parameters 2 lr
     n and PARAM_BAR on PARAM_SHARE of the elements); B6 launched twice per
     attention unit and B7 twice per Mamba1 layer (forward, recompute) on
-    every card rank; B7's gated mode on a rank's channels bitwise its
-    plain version in layer 0's forward call and in its recompute, and the
-    gradient through its Function bitwise autograd of plain_gated_scan
-    there; then on the card the 1 x 1 mesh bitwise the unsharded step
-    (loss, every gradient, the parameters after two updates). Returns the
-    card ranks' B6 and B7 launches."""
+    every card rank, B7's backward kernel once per Mamba1 layer; B7's
+    gated mode on a rank's channels bitwise its plain version in layer
+    0's forward call and in its recompute, the gradient through its
+    Function within phase 29's Function bars of autograd of
+    plain_gated_scan there and the backward kernel at
+    :func:`_check_b7_backward` 's; then on the card the 1 x 1 mesh
+    bitwise the unsharded step (loss, every gradient, the parameters
+    after two updates). Returns the card ranks' launches of B6, B7 and
+    B7's backward."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels.mamba_scan import ops as scan_ops
     from repro_torch.launch.mesh import run_ranks
 
     t0 = time.perf_counter()
-    launches = {"B6": 0, "B7": 0}
+    launches = {"B6": 0, "B7": 0, "B7_bwd": 0}
     lines = []
     with ThreadPoolExecutor(2 * len(TRAIN_SHARD_REDUCED) + 1) as pool:
         worlds = {(world, d): pool.submit(
@@ -6634,7 +6785,8 @@ def phase_train_shard_reduced(torch, dev):
                 attention = (0 if cfg.family == "ssm" else cfg.num_layers
                              // (cfg.shared_attn_every or 1))
                 want = {"B6": 2 * attention,
-                        "B7": 2 * cfg.num_layers * (cfg.family == "ssm")}
+                        "B7": 2 * cfg.num_layers * (cfg.family == "ssm"),
+                        "B7_bwd": cfg.num_layers * (cfg.family == "ssm")}
                 check(c[case]["launches"] == want, f"{tag}: launches "
                       f"{c[case]['launches']} in a gradient, not {want}")
                 for k in launches:
@@ -6659,31 +6811,29 @@ def phase_train_shard_reduced(torch, dev):
                     f"parameters max |err| "
                     f"{float(diffs.max()):.2e}")
             if "scans" in c0:
+                worst_fn = 0.0
                 for when, args in c0["scans"].items():
                     args = tuple(None if a is None else a.to(dev)
                                  for a in args)
                     _check_b7_gated(torch, args, f"{tag} rank 0: layer 0's "
                                     f"gated scan ({when})", chained=False)
-                    grads = []
-                    for fn in (scan_ops.gated_selective_scan,
-                               scan_ops.plain_gated_scan):
-                        leaves = [None if a is None else
-                                  a.clone().requires_grad_() for a in args]
-                        y, hT = fn(*leaves)
-                        wrt = [t for t in leaves if t is not None]
-                        grads.append(torch.autograd.grad(
-                            [y, hT], wrt, [torch.ones_like(y),
-                                           torch.ones_like(hT)]))
-                    check(all(torch.equal(a, b) for a, b in zip(*grads)),
-                          f"{tag}: the gradient through B7's Function "
-                          f"differs from autograd of plain_gated_scan "
-                          f"({when})")
+                    at = f"{tag} rank 0: layer 0's gated scan ({when})"
+                    dy = torch.ones_like(args[2])
+                    dh = torch.ones(args[2].shape[0], args[2].shape[2],
+                                    args[3].shape[2], device=dev)
+                    # other phases launch B7 beside this one: no counts
+                    worst_fn = max(worst_fn, _b7_function_vs_autograd(
+                        torch, args, dy, dh, at, count=False))
+                    _check_b7_backward(torch, args, dy, dh, at)
                 check(c0["scan_calls"] == 2 * cfg.num_layers,
                       f"{tag}: {c0['scan_calls']} gated scans, not "
                       f"{2 * cfg.num_layers}")
                 line += ("; B7 gated on rank 0's channels bitwise plain in "
                          "layer 0's forward and recompute, its Function's "
-                         "gradient bitwise autograd of plain")
+                         "gradient within B6's bars of autograd of plain "
+                         f"(worst {worst_fn:.3f} of a bar), the backward "
+                         "kernel bitwise plain_gated_scan_backward on "
+                         "ddt_raw, dx, dz and within its bar on the sums")
             lines.append(line)
     check(not one_by_one, "the 1 x 1 mesh's step is not bitwise the unsharded"
           f" step on the card: {one_by_one}")
@@ -6691,7 +6841,8 @@ def phase_train_shard_reduced(torch, dev):
           f" (plain) at phase 29's bars: " + "; ".join(lines)
           + f"; the 1 x 1 mesh bitwise the unsharded step on the card "
           f"({LM_ARCH}, {SSM_ARCH}: loss, gradients, two updates); "
-          f"card launches B6 {launches['B6']}, B7 {launches['B7']}; "
+          f"card launches B6 {launches['B6']}, B7 {launches['B7']}, B7's "
+          f"backward {launches['B7_bwd']}; "
           f"{time.perf_counter() - t0:.1f} s")
     return launches
 
@@ -6711,6 +6862,10 @@ DRYRUN_CASES = {
     "prefill": (SSM_ARCH, "prefill", LM_BATCH, LM_SEQ, (1, 1), {}),
     # phase 36's llama step: fp32, 4 x 512, on a (fake) 2 x 2 mesh
     "shard": (LM_ARCH, "train", 4, 512, (2, 2), {"dtype": "float32"}),
+    # phase 42's step: falcon-mamba-7b trainable at SSM_TRAIN_LAYERS
+    # layers, 4 x 4,096, one card
+    "ssm_train": (SSM_ARCH, "train", TRAIN_BATCH, LM_SEQ, (1, 1),
+                  {"num_layers": SSM_TRAIN_LAYERS}),
 }
 DRYRUN_BAND = 0.25  # a predicted peak within +-25% of the measured one
 DRYRUN_FLOP_TOL = 0.01  # the traced FLOPs against the shapes' count
@@ -6746,10 +6901,13 @@ def start_dryrun():
     env = dict(os.environ)
     env["PYTHONPATH"] = str(ROOT / "src") + (
         os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+    # its output goes to files, so a trace that ends long before phase 38
+    # reads it never waits on a full pipe
+    logs = [tempfile.TemporaryFile("w+") for _ in range(2)]
     proc = subprocess.Popen(
         [sys.executable, "-c", _DRYRUN, json.dumps(DRYRUN_CASES)], cwd=ROOT,
-        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-    proc.started = time.perf_counter()
+        env=env, stdout=logs[0], stderr=logs[1], text=True)
+    proc.started, proc.logs = time.perf_counter(), logs
     _CHILDREN.append(proc)
     return proc
 
@@ -6829,7 +6987,7 @@ def _op_overhead(torch, dev) -> dict:
 
 
 def phase_dryrun(torch, dev, proc, train_metrics, train_b6, ssm_metrics,
-                 ssm_launches, shard_steps):
+                 ssm_launches, shard_steps, ssm_train_metrics):
     """The dry run against this run's measurements (DRYRUN_CASES, traced
     by :func:`start_dryrun` 's process on fake CUDA tensors, the card's
     paths: B6 and B7 as the operators whose fakes give their shapes).
@@ -6839,7 +6997,9 @@ def phase_dryrun(torch, dev, proc, train_metrics, train_b6, ssm_metrics,
     ``lm_step_flops`` (phase 28's roofline) plus the attention the card
     runs beyond that count (:func:`_attention_excess`); phase 18's 4 x
     4,096 prefill: B7 traced as often as it launched (64), the peak
-    within the band; phase 36's llama step on the fake 2 x 2 mesh: the
+    within the band; phase 42's Mamba1 step: the peak within the band,
+    B7 and its backward kernel traced as often as they launched (2 x
+    layers, layers); phase 36's llama step on the fake 2 x 2 mesh: the
     all-reduces and their bytes per group, and the FSDP gathers and
     reduce-scatters among them, equal to the ranks' measured counts
     exactly; the trace's process held at most DRYRUN_CARD_BYTES on the
@@ -6850,14 +7010,20 @@ def phase_dryrun(torch, dev, proc, train_metrics, train_b6, ssm_metrics,
     from repro_torch.utils.roofline import lm_step_flops
 
     t0 = time.perf_counter()
+
+    def read(log):
+        log.seek(0)
+        return log.read()
+
     try:
-        out, err = proc.communicate(
-            timeout=DRYRUN_TIMEOUT - (t0 - proc.started))
+        proc.wait(timeout=max(0.0, DRYRUN_TIMEOUT - (t0 - proc.started)))
     except subprocess.TimeoutExpired:
         proc.kill()
-        out, err = proc.communicate()
+        proc.wait()
         raise SmokeFailure(f"phase 38: the dry run did not end within "
-                           f"{DRYRUN_TIMEOUT} s: {err[-3000:]}") from None
+                           f"{DRYRUN_TIMEOUT} s: "
+                           f"{read(proc.logs[1])[-3000:]}") from None
+    out, err = (read(log) for log in proc.logs)
     check(proc.returncode == 0, f"phase 38: the dry run exited "
           f"{proc.returncode}: {err[-4000:]}")
     recs = json.loads(out.strip().splitlines()[-1])
@@ -6887,9 +7053,12 @@ def phase_dryrun(torch, dev, proc, train_metrics, train_b6, ssm_metrics,
           f"{card_bytes} bytes on the card at once (bar {DRYRUN_CARD_BYTES})")
     cfg = get_config(LM_ARCH)
     train, prefill, shard = recs["train"], recs["prefill"], recs["shard"]
+    ssm_train = recs["ssm_train"]
     peaks = {"train": (train, train_metrics["peak_gb"], "phase 28's step"),
              "prefill": (prefill, ssm_metrics["prefill_peak_gb"],
-                         "phase 18's 4 x 4,096 prefill")}
+                         "phase 18's 4 x 4,096 prefill"),
+             "ssm_train": (ssm_train, ssm_train_metrics["peak_gb"],
+                           "phase 42's Mamba1 step")}
     ratios = {}
     for name, (rec, measured, what) in peaks.items():
         got = rec["memory"]["total_bytes_per_chip"] / 1e9
@@ -6907,6 +7076,14 @@ def phase_dryrun(torch, dev, proc, train_metrics, train_b6, ssm_metrics,
     check(b7 == ssm_launches["prefill"] == layers,
           f"phase 38: B7 traced {b7} times in the prefill, launched "
           f"{ssm_launches['prefill']} (expected {layers})")
+    ssm_calls = {k: ssm_train["kernel_calls"].get(k, 0)
+                 for k in ("mamba1_scan_gated", "mamba1_scan_gated_backward")}
+    want = {"mamba1_scan_gated": 2 * SSM_TRAIN_LAYERS,
+            "mamba1_scan_gated_backward": SSM_TRAIN_LAYERS}
+    check(ssm_calls == ssm_train_metrics["launches_per_step"] == want,
+          f"phase 38: B7 and its backward traced {ssm_calls} in the Mamba1 "
+          f"step, launched {ssm_train_metrics['launches_per_step']} "
+          f"(expected {want})")
     roof = lm_step_flops(cfg, TRAIN_BATCH, LM_SEQ)
     excess = _attention_excess(cfg, TRAIN_BATCH, LM_SEQ)
     flops = train["roofline"]["flops_per_chip"]
@@ -6935,16 +7112,21 @@ def phase_dryrun(torch, dev, proc, train_metrics, train_b6, ssm_metrics,
           f"{train['memory']['total_bytes_per_chip'] / 1e9:.2f} GB = "
           f"{ratios['train']:.3f} x phase 28's {train_metrics['peak_gb']:.2f}"
           f" GB, {SSM_ARCH}'s prefill {ratios['prefill']:.3f} x phase 18's "
-          f"{ssm_metrics['prefill_peak_gb']:.2f} GB (band "
+          f"{ssm_metrics['prefill_peak_gb']:.2f} GB, its {SSM_TRAIN_LAYERS}-"
+          f"layer step {ratios['ssm_train']:.3f} x phase 42's "
+          f"{ssm_train_metrics['peak_gb']:.2f} GB (band "
           f"+-{DRYRUN_BAND:.0%}); B6 traced {b6} (launched {train_b6}), B7 "
-          f"{b7} (launched {ssm_launches['prefill']}); the step's FLOPs "
+          f"{b7} (launched {ssm_launches['prefill']}), in the Mamba1 step B7 "
+          f"{ssm_calls['mamba1_scan_gated']} and its backward "
+          f"{ssm_calls['mamba1_scan_gated_backward']} (as launched); the "
+          f"step's FLOPs "
           f"{flops:.4e} = {flops / roof:.4f} x phase 28's roofline "
           f"{roof:.4e}, {(flops - excess) / roof:.4f} x it without the "
           f"attention the card runs beyond that count ({excess:.4e}: B6's "
           f"recompute and the plain backward's chunks; bar "
           f"{DRYRUN_FLOP_TOL:.0%}); the fake {shape[0]} x {shape[1]} step's "
           f"collectives equal phase 36's rank 0 exactly: "
-          + json.dumps(got) + f"; the three traces took "
+          + json.dumps(got) + f"; the {len(recs)} traces took "
           f"{sum(r['trace_seconds'] for r in recs.values()):.1f} s in "
           f"their process, {time.perf_counter() - t0:.1f} s waited for "
           f"here, and held at most {card_bytes} bytes on the card")
@@ -7624,6 +7806,335 @@ def phase_zoo_card_vs_cpu(torch, dev):
     print(f"phase 41 took {time.perf_counter() - t_phase:.1f} s")
 
 
+# ------------------------------------------------------------ phase 42
+# Mamba1 training at full width (phase 42): the widths above at
+# SSM_TRAIN_LAYERS of the 64 layers, trainable in fp32, the train_4k shape
+# with its batch cut from 256 to 4 (TRAIN_BATCH x LM_SEQ), lr 3e-5
+SSM_TRAIN_SHORT = 512  # layer 0's scan inputs for the kernel-vs-plain gate
+B7_BWD_BEFORE = (512, 1024)  # where the autograd plain backward is timed
+B7_BWD_BEFORE_RUNS = 3  # its timed runs at each, after one warm-up run
+B7_BWD_KERNELS = ("mamba1_scan_gated_bwd_kernel",)
+
+
+def _scan_backward_bound(torch, args, dy):
+    """Least time of the gated scan's backward: each input and dy read
+    once and each input's gradient written once at the memory rate,
+    against its SFU operations at the SFU rate: N + 5 a (b, s, channel)
+    (da's N exponentials, softplus's exp and log, sigma(v)'s
+    reciprocal, sigma(z)'s exp and reciprocal)."""
+    x = args[2]
+    B, S, di = x.shape
+    N = args[3].shape[2]
+    inputs = sum(t.numel() * t.element_size() for t in args
+                 if t is not None)
+    nbytes = 2 * inputs + dy.numel() * dy.element_size()
+    ops = B * S * di * (N + 5)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / SFU_EXP_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", nbytes, ops)
+
+
+def _ssm_train_times(torch, dev):
+    """(c): the backward kernel at (TRAIN_BATCH, LM_SEQ, 8,192, 16) in
+    bf16 and fp32 (the model's inputs: B and C slices of one projection,
+    z half of another, no h0, no dhT) beside its bound; in bf16 also
+    held against its plain version on those inputs at
+    :func:`_check_b7_backward` 's bars, whose one run gives the plain
+    version's ms. Then the autograd plain backward that it replaces,
+    ``gated_scan_backward_plain``, at B7_BWD_BEFORE: one warm-up run,
+    then the median ms of B7_BWD_BEFORE_RUNS and their peak memory above
+    what was allocated before them, the kernel beside it. Returns (the
+    rows, the bf16 4 x 4,096 one first; the sums' max |err| at 4 x
+    4,096)."""
+    from repro_torch.kernels.mamba_scan import mamba_scan as ms
+    from repro_torch.kernels.mamba_scan import ops
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 42)
+    flush = torch.empty(128 * 2**20 // 4, dtype=torch.float32, device=dev)
+    di, N = 8192, 16
+    rows, err = [], None
+    for dtype in (torch.bfloat16, torch.float32):
+        args = _b7_gated_inputs(torch, dev, gen, TRAIN_BATCH, LM_SEQ, di, N,
+                                dtype, False, R=256)
+        dy = torch.randn(args[2].shape, generator=gen, device=dev).to(dtype)
+        bound_ms, bound_by, nbytes, nops = _scan_backward_bound(torch, args,
+                                                                dy)
+        row = {"mode": "backward", "b": TRAIN_BATCH, "s": LM_SEQ, "di": di,
+               "n": N, "dtype": str(dtype)[6:],
+               "ms": _time_ms(torch, lambda: ms.mamba1_scan_gated_backward(
+                   *args, dy, None), flush, runs=10),
+               "plain_ms": None, "library_ms": None, "bound_ms": bound_ms,
+               "bound_by": bound_by}
+        checked = "plain not run in fp32"
+        if dtype == torch.bfloat16:  # the main path's shape, held
+            err, share, row["plain_ms"] = _check_b7_backward(
+                torch, args, dy, None, "the main path's shape "
+                f"{(TRAIN_BATCH, LM_SEQ, di, N)} bf16")
+            checked = (f"plain_gated_scan_backward {row['plain_ms']:.1f} ms "
+                       "(one run); the kernel vs it: ddt_raw, dx, dz "
+                       f"bitwise, the sums within {B7_SUM_REL} sum|terms| "
+                       f"+ {B7_SUM_ABS} (max |err| {err:.3e}, worst "
+                       f"{share:.3f} of the bar), 3 launches bitwise")
+        rows.append(row)
+        print(f"phase 42: B7 backward kernel (B, S, di, N) = "
+              f"{(TRAIN_BATCH, LM_SEQ, di, N)} {row['dtype']}: "
+              f"{row['ms']:.3f} ms (median of 10), bound {bound_ms:.4f} ms "
+              f"({bound_by}: {nbytes / 1e9:.3f} GB, {nops:.3e} SFU "
+              f"operations; {bound_ms / row['ms']:.1%} of it reached); "
+              f"{checked}; library n/a (no single PyTorch call)")
+        del args, dy
+    torch.cuda.empty_cache()
+    for S in B7_BWD_BEFORE:
+        args = _b7_gated_inputs(torch, dev, gen, TRAIN_BATCH, S, di, N,
+                                torch.bfloat16, False, R=256)
+        dy = torch.randn(args[2].shape, generator=gen,
+                         device=dev).to(torch.bfloat16)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        if S == B7_BWD_BEFORE[0]:  # the warm-up run
+            ops.gated_scan_backward_plain(*args, dy, None)
+        runs = [_time_ms(torch, lambda: ops.gated_scan_backward_plain(
+            *args, dy, None), flush, 1, 0)
+            for _ in range(B7_BWD_BEFORE_RUNS)]
+        before_ms = float(np.median(runs))
+        peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+        kernel_ms = _time_ms(torch, lambda: ms.mamba1_scan_gated_backward(
+            *args, dy, None), flush, runs=10)
+        rows.append({"mode": "backward", "b": TRAIN_BATCH, "s": S, "di": di,
+                     "n": N, "dtype": "bfloat16", "ms": kernel_ms,
+                     "plain_autograd_ms": before_ms,
+                     "plain_autograd_runs_ms": runs,
+                     "plain_autograd_peak_gb": peak})
+        print(f"  before: gated_scan_backward_plain (autograd of the plain "
+              f"scan's loop, recomputed) at (B, S) = ({TRAIN_BATCH}, {S}) "
+              f"bf16: {before_ms:.1f} ms (median of "
+              + ", ".join(f"{t:.1f}" for t in runs) + " after a warm-up "
+              f"run at S = {B7_BWD_BEFORE[0]}), "
+              f"{peak:.2f} GB of peak memory above the inputs; the kernel "
+              f"{kernel_ms:.3f} ms ({before_ms / kernel_ms:,.0f}x)")
+        del args, dy
+    del flush
+    return rows, err
+
+
+def phase_ssm_train(torch, dev):
+    """Mamba1 training at full width: falcon-mamba-7b's widths at
+    SSM_TRAIN_LAYERS layers, trainable from a seeded torch.Generator, a 4
+    x 4,096 batch from the token stream. (c) first, on the card alone:
+    the backward kernel timed and held against its plain version at the
+    main path's shape (:func:`_ssm_train_times`). (a) one loss_fn
+    and backward: every gradient leaf finite and not all zero, B7's
+    gated mode 2 x layers (forward and checkpointed recompute), its
+    backward kernel once a layer, the contract mode and both plain
+    backwards never; (b) layer 0's real scan inputs at 4 x
+    SSM_SHORT, captured by a forward of the model, in bf16 (the model's
+    own call: no h0, no dhT) and widened to fp32 with h0 and dhT:
+    the kernel against plain_gated_scan_backward (:func:`_check_b7_backward`);
+    (d) make_train_step at lr 3e-5: a warm-up step and 3 timed steps (ms,
+    tokens/s, MFU, peak memory, both kernels' launches a step), the loss
+    finite and falling at each of the three updates, then a profiled
+    step: the backward kernel's share of its device time. Returns
+    (launches {path: n} of the backward kernel and of B7's forward, the
+    sums' max |err| at the main path's shape, the timing rows,
+    metrics)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.kernels.mamba_scan import mamba_scan as ms
+    from repro_torch.kernels.mamba_scan import ops
+    from repro_torch.models import init_model, loss_fn, make_train_step
+    from repro_torch.models import ssm
+
+    t_phase = time.perf_counter()
+    B7 = ms.LAUNCHES
+    rows, err = _ssm_train_times(torch, dev)
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(get_config(SSM_ARCH),
+                              num_layers=SSM_TRAIN_LAYERS)
+    layers = cfg.num_layers
+    t0 = time.perf_counter()
+    model = init_model(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                       device=dev, trainable=True)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    check(n_params == SSM_PARAMS - (64 - layers) * SSM_LAYER_PARAMS and all(
+        p.requires_grad and p.dtype == torch.float32
+        for p in model.parameters()),
+        f"{SSM_ARCH} at {layers} layers: {n_params:,} parameters, not "
+        f"{SSM_PARAMS:,} less {64 - layers} whole layers, fp32 with a "
+        "gradient")
+    raw = TokenStream(cfg.vocab_size, seed=SEED).batch(TRAIN_BATCH,
+                                                        LM_SEQ + 1)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in raw.items()}
+    tokens = TRAIN_BATCH * LM_SEQ
+
+    # (a) the gradient gate
+    plain_calls: list = []  # the plain versions' names, once a call
+    wrapped = {name: _recording(ops, name,
+                                lambda _, n=name: plain_calls.append(n))
+               for name in ("gated_scan_backward_plain",
+                            "plain_gated_scan_backward", "plain_gated_scan",
+                            "plain_scan")}
+    try:
+        _reset((B7,))
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        loss, _, grads = _loss_and_grads(torch, model, batch)
+        torch.cuda.synchronize()
+        grad_s = time.perf_counter() - t0
+        peak_grad = torch.cuda.max_memory_allocated() / 1e9
+        launches = dict(B7)
+    finally:
+        for name, fn in wrapped.items():
+            setattr(ops, name, fn)
+    want = {"mamba1_scan": 0, "mamba1_scan_gated": 2 * layers,
+            "mamba1_scan_gated_backward": layers}
+    check(launches == want and not plain_calls,
+          f"phase 42: launches {launches} in a loss_fn and backward, not "
+          f"{want}, or a plain version ran on the card: "
+          f"{sorted(set(plain_calls))}")
+    bad = [n for n, g in grads.items()
+           if not bool(torch.isfinite(g).all()) or not bool(g.any())]
+    check(not bad, f"phase 42: gradient leaves not finite or all zero: "
+          f"{bad[:8]}")
+    scan_leaves = [n for n in grads if re.search(
+        r"\.(A_log|D|dt_bias|dt_proj|x_proj)$", n)]
+    check(len(scan_leaves) == 5 * layers,
+          f"{len(scan_leaves)} A_log/D/dt_bias/dt_proj/x_proj leaves, not "
+          f"{5 * layers}")
+    norms = {n: float(grads[n].norm()) for n in scan_leaves}
+    print(f"phase 42: {SSM_ARCH} trainable at full width, {layers} of 64 "
+          f"layers ({n_params:,} fp32 parameters, built in {setup_s:.2f} "
+          f"s), batch {TRAIN_BATCH} x {LM_SEQ}: loss_fn + backward "
+          f"{grad_s:.2f} s, loss {float(loss):.6f}, peak {peak_grad:.2f} GB;"
+          f" B7 gated {launches['mamba1_scan_gated']} ({layers} forward, "
+          f"{layers} in the checkpointed recompute), B7's backward kernel "
+          f"{launches['mamba1_scan_gated_backward']}, contract mode 0, no "
+          f"plain version; all {len(grads)} gradient leaves finite and "
+          f"nonzero (the scan's own leaves' norms "
+          f"{min(norms.values()):.3e}..{max(norms.values()):.3e})")
+    del grads, loss
+
+    # (b) layer 0's real scan inputs, the kernel against plain
+    short = {k: v[:, :SSM_TRAIN_SHORT] for k, v in batch.items()}
+    seen, scan = [], ssm.ops.gated_selective_scan
+
+    def keep_first(*args):
+        if not seen:
+            seen.append(tuple(None if a is None else a.detach().clone()
+                              for a in args))
+        return scan(*args)
+
+    ssm.ops.gated_selective_scan = keep_first
+    try:
+        with torch.no_grad():
+            loss_fn(model, short)
+    finally:
+        ssm.ops.gated_selective_scan = scan
+    args = list(seen[0])
+    gen = torch.Generator(device=dev).manual_seed(SEED + 142)
+    check(args[2].dtype == torch.bfloat16 and args[8] is None
+          and args[2].shape == (TRAIN_BATCH, SSM_TRAIN_SHORT, cfg.d_inner),
+          f"phase 42: layer 0's scan inputs {args[2].dtype} "
+          f"{tuple(args[2].shape)}, h0 {args[8] is not None}")
+    x, N = args[2], args[3].shape[2]
+    dy = torch.randn(x.shape, generator=gen, device=dev)
+    h0 = torch.randn((x.shape[0], x.shape[2], N), generator=gen, device=dev)
+    dh = torch.randn(h0.shape, generator=gen, device=dev)
+    wide = [None if a is None else a.float() for a in args]
+    wide[8] = h0
+    lines = []
+    for tag, case, g_y, g_h in (
+            ("bf16, no h0 or dhT (the model's call)", args,
+             dy.to(torch.bfloat16), None),
+            ("bf16 with h0 and dhT", args[:8] + [h0], dy.to(torch.bfloat16),
+             dh),
+            ("fp32 with h0 and dhT", wide, dy, dh),
+            ("fp32, no h0 or dhT", wide[:8] + [None], dy, None)):
+        e, share, _ = _check_b7_backward(torch, case, g_y, g_h,
+                                         f"layer 0's scan inputs, {tag}")
+        lines.append(f"{tag}: max |err| {e:.3e} ({share:.3f} of the bar)")
+    print(f"  B7's backward kernel vs plain_gated_scan_backward on layer "
+          f"0's scan inputs at (B, S, di, N) = {tuple(x.shape) + (N,)}: "
+          f"ddt_raw, dx, dz (and dh0) bitwise, the sums within "
+          f"{B7_SUM_REL} sum|terms| + {B7_SUM_ABS}, 3 launches bitwise; "
+          + "; ".join(lines))
+    del seen, args, wide, case, dy, h0, dh
+
+    # (d) the train step
+    opt, step = make_train_step(model, lr=PROBE_LR)
+    state = opt.init(dict(model.named_parameters()))
+    state, warm = step(state, batch)
+    losses, secs, counts = [float(warm["loss"])], [], []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(TRAIN_STEPS):
+        _reset((B7,))
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        losses.append(float(metrics["loss"]))
+        counts.append((B7["mamba1_scan_gated"],
+                       B7["mamba1_scan_gated_backward"]))
+    peak_train = torch.cuda.max_memory_allocated() / 1e9
+    check(all(np.isfinite(losses)) and all(
+        b < a for a, b in zip(losses, losses[1:])),
+        f"phase 42: at lr {PROBE_LR} the loss is not finite or did not "
+        f"fall at each update: {losses}")
+    check(all(c == (2 * layers, layers) for c in counts),
+          f"phase 42: B7 (forward, backward) launches a step {counts}, not "
+          f"{(2 * layers, layers)}")
+    step_s = float(np.mean(secs))
+    flops = 6 * n_params * tokens
+    mfu = flops / step_s / BF16_OPS_PER_S
+    (state, _), wall_us, kernels = _device_profile(
+        torch, lambda: step(state, batch))
+    busy_us = sum(v[0] for v in kernels.values())
+    split = {"B7 backward": 0.0, "B7 forward": 0.0, "GEMMs": 0.0,
+             "the rest": 0.0}
+    for name, (us, _) in kernels.items():
+        key = ("B7 backward" if any(k in name for k in B7_BWD_KERNELS) else
+               "B7 forward" if any(k in name for k in SSM_KERNELS) else
+               "GEMMs" if _is_gemm(name) else "the rest")
+        split[key] += us
+    print(f"  train step (make_train_step, lr {PROBE_LR}): loss "
+          + " -> ".join(f"{x:.6f}" for x in losses) + " (warm-up step, then "
+          f"{TRAIN_STEPS} timed: falls at each update); "
+          f"{step_s * 1e3:.1f} ms a step (" + ", ".join(
+              f"{t * 1e3:.1f}" for t in secs) + f"), {tokens / step_s:,.0f} "
+          f"tokens/s, MFU {mfu:.2%} (6 N T = {flops:.4e} FLOP a step over "
+          f"{BF16_OPS_PER_S:.3g} FLOP/s dense bf16), peak memory "
+          f"{peak_train:.2f} GB; a step launches B7 gated {counts[0][0]} "
+          f"and its backward kernel {counts[0][1]}")
+    _print_profile("a Mamba1 train step", wall_us, kernels,
+                   B7_BWD_KERNELS + SSM_KERNELS, "B7 + its backward")
+    if busy_us:
+        print("  a Mamba1 train step's device time: " + "; ".join(
+            f"{k} {us / 1e3:.1f} ms ({us / busy_us:.1%})"
+            for k, us in split.items()))
+        _print_elementwise(kernels, B7_BWD_KERNELS + SSM_KERNELS)
+    del model, state, opt, step
+    torch.cuda.empty_cache()
+    print(f"phase 42 took {time.perf_counter() - t_phase:.1f} s")
+    paths = {"backward": {"lm_train_ssm": launches[
+        "mamba1_scan_gated_backward"], "lm_train_ssm/step": counts[0][1]},
+        "forward": {"lm_train_ssm": launches["mamba1_scan_gated"],
+                    "lm_train_ssm/step": counts[0][0]}}
+    return paths, err, rows, {
+        "layers": layers, "params": n_params, "ms_per_step": step_s * 1e3,
+        "tokens_per_s": tokens / step_s, "mfu": mfu, "flop_per_step": flops,
+        "peak_gb": peak_train, "peak_gb_gradient": peak_grad,
+        "losses": losses, "launches_per_step": {
+            "mamba1_scan_gated": counts[0][0],
+            "mamba1_scan_gated_backward": counts[0][1]},
+        "device_split_ms": {k: v / 1e3 for k, v in split.items()},
+        "backward_share": split["B7 backward"] / busy_us if busy_us else
+        None}
+
+
 SERVE_PHASES = (2, 3, 4)  # the serving path's phases, runnable alone
 TRAIN_PHASES = (5, 6, 7, 8)  # the sparse training path's, runnable alone
 SCAN_PHASES = (17, 18, 19, 20)  # the SSM path's phases, runnable alone
@@ -7636,7 +8147,8 @@ SHARD_SERVE_PHASES = (34, 35)  # sharded LM serving, full width and reduced
 SHARD_TRAIN_PHASES = (36, 37)  # sharded LM training, full width and reduced
 DRYRUN_PHASES = (38,)  # the dry run, alone with the phases it is held to
 ZOO_PHASES = (39, 40, 41)  # the zoo's configs and decode variants, likewise
-DRYRUN_NEEDS = {18, 28, 36}
+SSM_TRAIN_PHASES = (42,)  # Mamba1 training at full width, likewise
+DRYRUN_NEEDS = {18, 28, 36, 42}
 
 
 def _serving_model(torch, dev):
@@ -7677,10 +8189,10 @@ def _run_only(torch, dev, only, t_start) -> int:
     """Phase 1 and the given serving (2-4), sparse training (5-8), SSM
     (17-20), hybrid or MoE (21-24), streaming (25-27), LM training
     (28-29), autotuning (30-31), sharded training (32-33), sharded LM
-    serving (34-35), sharded LM training (36-37) or zoo (39-41) phases
-    alone, or the dry run (38) with the phases it is held to (18, 28, 36)
-    (``--only``): a partial run, so it prints no kernels line and no
-    result line."""
+    serving (34-35), sharded LM training (36-37), zoo (39-41) or Mamba1
+    training (42) phases alone, or the dry run (38, run last) with the
+    phases it is held to (18, 28, 36, 42) (``--only``): a partial run,
+    so it prints no kernels line and no result line."""
     got = {}  # what phase 38 holds the dry run to
     if 38 in only and not DRYRUN_NEEDS <= only:
         raise SmokeFailure(f"--only 38 needs phases {sorted(DRYRUN_NEEDS)} "
@@ -7690,7 +8202,7 @@ def _run_only(torch, dev, only, t_start) -> int:
     if only & set(TRAIN_PHASES):
         problem, test, setup_s = _sparse_problem(torch, dev)
         train, theta0, _ = problem
-    for phase in sorted(only):
+    for phase in sorted(only, key=lambda p: (p == 38, p)):
         if phase == 2:
             phase_kernels(torch, dev, *model)
         elif phase == 3:
@@ -7759,10 +8271,12 @@ def _run_only(torch, dev, only, t_start) -> int:
             phase_decode_variants(torch, dev)
         elif phase == 41:
             phase_zoo_card_vs_cpu(torch, dev)
+        elif phase == 42:
+            got[42] = phase_ssm_train(torch, dev)
         else:
             (train_b6, train_metrics), ssm, shard = got[28], got[18], got[36]
             phase_dryrun(torch, dev, start_dryrun(), train_metrics,
-                         train_b6, ssm[3], ssm[1], shard[2])
+                         train_b6, ssm[3], ssm[1], shard[2], got[42][3])
         # the next phase gets the card as the whole script leaves it
         torch.cuda.empty_cache()
     print(f"phases 1 and {sorted(only)} passed in "
@@ -7774,21 +8288,22 @@ def main(argv: list[str]) -> int:
     """``chip_smoke.py`` runs every phase; ``chip_smoke.py --only 2,3,4``
     (or ``5,6,8``, or ``17,20``, or ``21,22,23,24``, or ``25,26,27``, or
     ``28,29``, or ``30,31``, or ``32,33``, or ``34,35``, or ``36,37``, or
-    ``18,28,36,38``, or ``39,40,41``) runs phase 1 and
+    ``18,28,36,42,38``, or ``39,40,41``, or ``42``) runs phase 1 and
     the named phases of the serving path (2-4), the sparse training path
     (5-8), the SSM path (17-20), the hybrid and MoE paths (21-24), the
     streaming path (25-27), the LM training path (28-29), the autotuning
     path (30-31), the sharded training path (32-33), the sharded LM
-    serving path (34-35), the sharded LM training path (36-37) or the
-    zoo's other configs and the decode variants (39-41) alone, or the
-    dry run (38) beside the phases it is held to."""
+    serving path (34-35), the sharded LM training path (36-37), the
+    zoo's other configs and the decode variants (39-41) or the Mamba1
+    training path (42) alone, or the dry run (38) beside the phases it
+    is held to."""
     import torch
 
     only = set()
     alone = (SERVE_PHASES + TRAIN_PHASES + SCAN_PHASES + FAMILY_PHASES
              + STREAM_PHASES + LM_TRAIN_PHASES + TUNE_PHASES + SHARD_PHASES
              + SHARD_SERVE_PHASES + SHARD_TRAIN_PHASES + DRYRUN_PHASES
-             + ZOO_PHASES)
+             + ZOO_PHASES + SSM_TRAIN_PHASES)
     if argv:
         if len(argv) != 2 or argv[0] != "--only":
             raise SmokeFailure(f"usage: chip_smoke.py [--only "
@@ -7895,8 +8410,15 @@ def main(argv: list[str]) -> int:
         err[name] = max(err[name], e)
     with tempfile.TemporaryDirectory() as tmp:
         monitored_launches = phase_stream_gates(torch, dev, Path(tmp))
+    # phase 38's trace runs on the host alone, in a process of its own,
+    # beside the device-bound training steps of phases 28, 29 and 42 (the
+    # script's budget, A19)
+    dry = start_dryrun()
     train_b6, train_metrics = phase_lm_train(torch, dev)
     train_cpu_launches = phase_lm_train_card_vs_cpu(torch, dev)
+    ssm_train_paths, err["mamba1_scan_gated_backward"], \
+        times["mamba1_scan_gated_backward"], ssm_train_metrics = \
+        phase_ssm_train(torch, dev)
     phase_tune_sweep(torch, dev)
     with tempfile.TemporaryDirectory() as tmp:
         phase_tune_drivers(torch, dev, Path(tmp))
@@ -7913,9 +8435,9 @@ def main(argv: list[str]) -> int:
     # every timed one: the card tests (phase 27, a pytest process of their
     # own), the sharded drivers against their unsharded runs (phase 33),
     # the reduced sharded serving and training checks (phases 35, 37) and
-    # the dry run's trace (phase 38's process, on the host alone); phase
-    # 38's gates and its timing of the operator binding follow them
-    dry = start_dryrun()
+    # the end of the dry run's trace (phase 38's process, on the host
+    # alone, started before phase 28); phase 38's gates and its timing of
+    # the operator binding follow them
     with ThreadPoolExecutor(4) as pool:
         jobs = [pool.submit(phase_card_tests),
                 pool.submit(_in_tmp, phase_shard_drivers, torch, dev),
@@ -7924,13 +8446,14 @@ def main(argv: list[str]) -> int:
         train_shard_reduced = [job.result() for job in jobs][-1]
     dry_recs, op_overhead = phase_dryrun(
         torch, dev, dry, train_metrics, train_b6, ssm_metrics, ssm_launches,
-        shard_steps)
+        shard_steps, ssm_train_metrics)
 
     kernels = []
     for name in ("lsplm_sparse_fused_forward",
                  "lsplm_sparse_fused_int8_forward",
                  "lsplm_sparse_scatter", "owlqn_direction",
-                 "lsplm_fused_forward", "flash_attention", "mamba1_scan"):
+                 "lsplm_fused_forward", "flash_attention", "mamba1_scan",
+                 "mamba1_scan_gated_backward"):
         main_shape, *others = times[name]
         by_path = {"serve": serve_launches.get(name, 0),
                    "train": train_launches.get(name, 0),
@@ -7973,15 +8496,22 @@ def main(argv: list[str]) -> int:
                             if n["B7"]})
             by_path["serve_sharded"] = sum(serve_sharded[name].values())
             by_path.update(serve_sharded[name])
+            by_path.update(ssm_train_paths["forward"])
             # B7 trains sharded at reduced width only (phase 37):
             # falcon-mamba's full width needs ~116 GB on one card
             by_path["train_shard_reduced"] = train_shard_reduced["B7"]
+        if name == "mamba1_scan_gated_backward":
+            by_path = dict(ssm_train_paths["backward"])
+            by_path.update({f"lm_train_reduced/{arch}": n["B7_bwd"]
+                            for arch, n in train_cpu_launches.items()
+                            if n["B7_bwd"]})
+            by_path["train_shard_reduced"] = train_shard_reduced["B7_bwd"]
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name],
             "launches": next((by_path[path] for path in (
-                "lm_serve_ssm", "lm_serve", "train", "serve",
-                "dense_train")
+                "lm_serve_ssm", "lm_train_ssm", "lm_serve", "train",
+                "serve", "dense_train")
                 if by_path.get(path)), 0),
             "launches_by_path": by_path,
             "max_abs_err": err[name], "ms": main_shape["ms"],
@@ -8003,6 +8533,8 @@ def main(argv: list[str]) -> int:
     print("zoo serving: " + json.dumps(zoo_metrics))
     print(f"decode variants ({LM_ARCH}): " + json.dumps(variant_metrics))
     print(f"LM training ({LM_ARCH}): " + json.dumps(train_metrics))
+    print(f"Mamba1 training ({SSM_ARCH}, {SSM_TRAIN_LAYERS} layers): "
+          + json.dumps(ssm_train_metrics))
     print("dry run (predictions from fake tensors): " + json.dumps(
         {k: {"peak_gb": r["memory"]["total_bytes_per_chip"] / 1e9,
              "flops": r["roofline"]["flops_per_chip"],

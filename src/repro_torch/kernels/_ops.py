@@ -1,8 +1,8 @@
 """The launches a traced step can reach, as PyTorch operators.
 
-B3, B6 and B7 are reached through ctypes launches, which read their
-tensors' ``data_ptr()``: a tensor without storage (``FakeTensorMode``'s,
-the dry run's) cannot pass through one. So each of those launches is an
+B3, B6, B7 and B7's backward are reached through ctypes launches, which
+read their tensors' ``data_ptr()``: a tensor without storage
+(``FakeTensorMode``'s, the dry run's) cannot pass through one. So each of those launches is an
 operator of the ``repro_torch`` namespace (``torch.ops.repro_torch.<name>``),
 defined here with ``torch.library``, with
 

@@ -15,16 +15,27 @@ points here:
   softplus(dt_raw + dt_bias) with A = -exp(A_log), in x's dtype, and hT
   fp32.
 
+The gated mode's gradient is a kernel of its own, ``csrc/mamba_scan_bwd.cu``
+(see its header), one more entry point:
+
+* :func:`mamba1_scan_gated_backward` takes the gated mode's inputs and
+  the output gradients dy (in x's dtype) and dhT (fp32), either None,
+  and returns every input's gradient in that input's dtype, None where
+  ``needs`` says no (``ops.gated_selective_scan`` 's Function calls it).
+
 Each wrapper checks its tensors and calls its operator,
-``torch.ops.repro_torch.mamba1_scan`` or ``...mamba1_scan_gated``
-(``kernels/_ops.py``), whose CUDA kernel picks G, allocates y and hT
-with ``torch.empty``, launches on PyTorch's current stream without
-synchronising, raises if the launch was refused, and adds one to its
-key of :data:`LAUNCHES`; under ``FakeTensorMode`` its fake gives y's and
-hT's shapes instead (the dry run). Neither has a backward, so each refuses an
-input that requires a gradient under grad mode
-(``ops.gated_selective_scan`` is the differentiable entry of the gated
-mode, ``ops.plain_scan`` the contract's). x, B_in and C_in are float32 or bfloat16; every
+``torch.ops.repro_torch.mamba1_scan``, ``...mamba1_scan_gated`` or
+``...mamba1_scan_gated_backward`` (``kernels/_ops.py``), whose CUDA
+kernel picks G (the forward's), allocates its outputs with
+``torch.empty``, launches on PyTorch's current stream without
+synchronising, raises if the launch was refused, and adds one to its key
+of :data:`LAUNCHES`; under ``FakeTensorMode`` its fake gives the outputs'
+shapes instead (the dry run). The backward's operator returns the
+kernel's partial sums and its checkpoint workspace, and the wrapper adds
+the partials up with torch's sum (glue). None of the three is itself
+differentiable, so each refuses an input that requires a gradient under
+grad mode (``ops.gated_selective_scan`` is the differentiable entry of
+the gated mode, ``ops.plain_scan`` the contract's). x, B_in and C_in are float32 or bfloat16; every
 (B, S, .) operand is read through its batch and position strides as long
 as its last dim is unit-stride, so a bf16 activation, the column slices
 of one (B, S, R + 2N) projection and the z half of the in_proj output go
@@ -36,6 +47,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import torch
 
@@ -43,9 +55,11 @@ from repro_torch.kernels import _build, _ops, refuse_grad
 
 # launches of each wrapper, for runs that must show they went through the
 # kernel (reset by the caller, read after the run)
-LAUNCHES = {"mamba1_scan": 0, "mamba1_scan_gated": 0}
+LAUNCHES = {"mamba1_scan": 0, "mamba1_scan_gated": 0,
+            "mamba1_scan_gated_backward": 0}
 
 _SOURCE = "mamba_scan"
+_BWD_SOURCE = "mamba_scan_bwd"
 STATE_SIZES = (4, 8, 16, 32)  # the kernel's instantiations
 GROUPS = (1, 2, 4)  # threads per (batch row, channel), at most N
 # threads a grid should have per SM before a channel is split over more
@@ -56,6 +70,14 @@ GROUPS = (1, 2, 4)  # threads per (batch row, channel), at most N
 _THREADS_PER_SM = 192
 _SHORT_SCAN = 64  # steps
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the backward kernel: a thread a channel, BWD_THREADS channels a block;
+# the states it keeps for a chunk of steps fill _BWD_STATE_FLOATS, at
+# most 16 steps (csrc/mamba_scan_bwd.cu chunk_steps)
+BWD_THREADS = 128
+_BWD_STATE_FLOATS = 16384
+# input order of the gated mode; bit i of the backward's ``needs``
+GATED_INPUTS = ("dt_raw", "dt_bias", "x", "B_in", "C_in", "A_log", "D",
+                "z", "h0")
 
 
 @functools.cache
@@ -71,6 +93,30 @@ def _lib() -> ctypes.CDLL:
     lib.mamba1_scan_error_string.argtypes = [i32]
     lib.mamba1_scan_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.cache
+def _bwd_lib() -> ctypes.CDLL:
+    lib = _build.load(_BWD_SOURCE)
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.mamba1_scan_gated_backward.argtypes = ([ptr] * 20 + [i32] * 4
+                                               + [i64] * 12 + [i32, ptr])
+    lib.mamba1_scan_gated_backward.restype = i32
+    lib.mamba1_scan_gated_backward_chunk.argtypes = [i32]
+    lib.mamba1_scan_gated_backward_chunk.restype = i32
+    lib.mamba1_scan_gated_backward_error_string.argtypes = [i32]
+    lib.mamba1_scan_gated_backward_error_string.restype = ctypes.c_char_p
+    for n in STATE_SIZES:
+        if lib.mamba1_scan_gated_backward_chunk(n) != backward_chunk(n):
+            raise RuntimeError(f"{_BWD_SOURCE}: the kernel's chunk at N = "
+                               f"{n} is not backward_chunk's")
+    return lib
+
+
+def backward_chunk(N: int) -> int:
+    """Steps of one chunk of the backward kernel at state size N: its
+    workspace keeps the state entering every this-many steps."""
+    return min(16, _BWD_STATE_FLOATS // (BWD_THREADS * N))
 
 
 @functools.cache
@@ -199,9 +245,9 @@ def _rows(*tensors):
     return out, strides
 
 
-def _finish(name, rc):
+def _finish(name, rc, error_string=None):
     if rc != 0:
-        msg = _lib().mamba1_scan_error_string(rc).decode()
+        msg = (error_string or _lib().mamba1_scan_error_string)(rc).decode()
         raise RuntimeError(f"{name}: kernel launch failed: {msg} ({rc})")
     LAUNCHES[name] += 1
 
@@ -281,6 +327,157 @@ def _launch_gated(dt_raw, dt_bias, x, B_in, C_in, A_log, D, z, h0, group):
     return y, hT
 
 
+def check_gated_backward_inputs(name: str, args, dy, dhT) -> None:
+    """The rules the gated backward kernel and its plain version share:
+    the gated mode's inputs ``args``, dy (B, S, di) in x's dtype and dhT
+    (B, di, N) fp32, either None. Raises ``ValueError``."""
+    check_gated_inputs(name, *args)
+    x, B_in = args[2], args[3]
+    if dy is not None and (dy.shape != x.shape or dy.dtype != x.dtype):
+        raise ValueError(f"{name}: dy must be x's shape and dtype "
+                         f"{tuple(x.shape)} {x.dtype}, got "
+                         f"{tuple(dy.shape)} {dy.dtype}")
+    want = (x.shape[0], x.shape[2], B_in.shape[2])
+    if dhT is not None and dhT.shape != want:
+        raise ValueError(f"{name}: dhT must be (B, di, N) = {want}, got "
+                         f"{tuple(dhT.shape)}")
+    _check_f32(name, "dhT", [dhT])
+
+
+def needs_mask(needs, h0) -> int:
+    """The operator's ``needs``: bit i set when input i (GATED_INPUTS'
+    order) wants a gradient; h0's bit only when h0 is given."""
+    needs = (True,) * len(GATED_INPUTS) if needs is None else tuple(needs)
+    if len(needs) != len(GATED_INPUTS):
+        raise ValueError(f"needs: one bool per input {GATED_INPUTS}, got "
+                         f"{len(needs)}")
+    mask = sum(1 << i for i, need in enumerate(needs) if need)
+    return mask if h0 is not None else mask & ~(1 << 8)
+
+
+def mamba1_scan_gated_backward(dt_raw, dt_bias, x, B_in, C_in, A_log, D, z,
+                               h0, dy, dhT, *, needs=None):
+    """The gated scan's gradients on the card: for the output gradients dy
+    (of y, in x's dtype) and dhT (of hT, fp32), either None, a tuple with
+    one entry per input (GATED_INPUTS), None where the input is None or
+    its ``needs`` entry is false (``needs``: one bool per input, default
+    all). Each is in its input's dtype but dB_in and dC_in, the sums over
+    channels, which stay fp32 (``ops._GatedScan`` rounds them to B_in's
+    dtype). One launch of the backward kernel, then torch sums of its
+    partials. Its plain version is ``ops.plain_gated_scan_backward``."""
+    name = "mamba1_scan_gated_backward"
+    args = (dt_raw, dt_bias, x, B_in, C_in, A_log, D, z, h0)
+    refuse_grad(name, "ops.gated_scan_backward_plain", *args, dy, dhT)
+    _on_card(name, x, [dt_raw, dt_bias, B_in, C_in, A_log, D, z, h0, dy,
+                       dhT])
+    check_gated_backward_inputs(name, args, dy, dhT)
+    _check_group(name, x, B_in.shape[2], None)
+    mask = needs_mask(needs, h0)
+    grads = [None] * len(GATED_INPUTS)
+    if not mask or (dy is None and dhT is None):
+        return tuple(grads)
+    dy = torch.zeros_like(x) if dy is None else dy
+    ddt_raw, dx, dz, dh0, part_bc, part_A, part_D, part_bias, _ = \
+        _GATED_BWD(*args, dy, dhT, mask)
+    out = {0: ddt_raw, 2: dx, 7: dz, 8: dh0}
+    if part_bc.numel():  # the block partials, summed: (B, S, 2N) fp32
+        N = B_in.shape[2]
+        bc = part_bc.sum(2)
+        out[3], out[4] = bc[..., :N], bc[..., N:]
+    if part_A.numel():
+        out[5] = -torch.exp(A_log) * part_A.sum(0)
+    if part_D.numel():
+        out[6] = part_D.sum(0)
+    if part_bias.numel():
+        out[1] = part_bias.sum(0)
+    for i, g in out.items():
+        if mask >> i & 1:
+            grads[i] = g if i in (3, 4) else g.to(args[i].dtype)
+    return tuple(grads)
+
+
+def _backward_shapes(x_shape, x_dtype, N, needs):
+    """(shape, dtype) of the backward operator's outputs, in order:
+    ddt_raw, dx, dz (B, S, di) in x's dtype; dh0 (B, di, N); the block
+    partials of dB and dC (B, S, ceil(di / BWD_THREADS), 2N); those of
+    dA_log (B, di, N), dD and ddt_bias (B, di); the checkpoint workspace
+    (B, ceil(S / backward_chunk(N)), di, N); all but the first three
+    fp32. An output no ``needs`` bit asks for is (0,)."""
+    Bb, S, di = x_shape
+    f32 = torch.float32
+    blocks = -(-di // BWD_THREADS)
+    chunks = -(-S // backward_chunk(N))
+
+    def out(bits, shape, dtype=f32):
+        return (shape if any(needs >> i & 1 for i in bits) else (0,), dtype)
+
+    return [out((0,), (Bb, S, di), x_dtype), out((2,), (Bb, S, di), x_dtype),
+            out((7,), (Bb, S, di), x_dtype), out((8,), (Bb, di, N)),
+            out((3, 4), (Bb, S, blocks, 2 * N)), out((5,), (Bb, di, N)),
+            out((6,), (Bb, di)), out((1,), (Bb, di)),
+            ((Bb, chunks, di, N), f32)]
+
+
+def _backward_outputs(x, N, needs):
+    """The backward operator's outputs (:func:`_backward_shapes`),
+    uninitialised, on x's device."""
+    return tuple(x.new_empty(shape, dtype=dtype) for shape, dtype in
+                 _backward_shapes(x.shape, x.dtype, N, needs))
+
+
+def _launch_gated_backward(dt_raw, dt_bias, x, B_in, C_in, A_log, D, z, h0,
+                           dy, dhT, needs):
+    """The backward operator's CUDA kernel: the launch, on checked
+    tensors."""
+    N = B_in.shape[2]
+    Bb, S, di = x.shape
+    (dt_raw, x, z, B_in, C_in, dy), strides = _rows(dt_raw, x, z, B_in,
+                                                    C_in, dy)
+    dt_bias, A_log, D = (t.contiguous() for t in (dt_bias, A_log, D))
+    h0, dhT = (None if t is None else t.contiguous() for t in (h0, dhT))
+    outs = _backward_outputs(x, N, needs)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    lib = _bwd_lib()
+
+    def ptr(t):
+        return None if t is None or t.numel() == 0 else t.data_ptr()
+
+    # the kernel's stride order: dt_raw, x, z, B, C, dy
+    _finish("mamba1_scan_gated_backward", lib.mamba1_scan_gated_backward(
+        *(ptr(t) for t in (dt_raw, dt_bias, x, B_in, C_in, A_log, D, z, h0,
+                           dy, dhT)), outs[8].data_ptr(),
+        *(ptr(t) for t in outs[:8]), Bb, S, di, N, *strides,
+        _DTYPES[x.dtype], stream), lib.mamba1_scan_gated_backward_error_string)
+    return outs
+
+
+def _fake_gated_backward(dt_raw, dt_bias, x, B_in, C_in, A_log, D, z, h0,
+                         dy, dhT, needs):
+    return _backward_outputs(x, B_in.shape[2], needs)
+
+
+def _gated_backward_flops(dt_raw, dt_bias, x, B_in, C_in, A_log, D, z, h0,
+                          dy, dhT, needs, out_shape=None) -> int:
+    """32 B S di N: the forward's state update twice (pass 1 and the
+    chunk's recompute, 5 a state-step: dt A, its exponential, the two
+    products and their sum) and the walk's 22 (the update again, h C and
+    its fold, the adjoint's product and sum, g B, g (da h), A times it
+    and their folds, the dA_log sum's product and sum, the dB and dC
+    terms and their sums, the carried da g)."""
+    Bb, S, di = x
+    return 32 * Bb * S * di * B_in[2]
+
+
+def _gated_backward_bytes(dt_raw, dt_bias, x, B_in, C_in, A_log, D, z, h0,
+                          dy, dhT, needs) -> int:
+    """Every input read once, every output written once, and the
+    checkpoint workspace read back once."""
+    outs = [math.prod(shape) * dtype.itemsize for shape, dtype in
+            _backward_shapes(x.shape, x.dtype, B_in.shape[2], needs)]
+    return (_ops.nbytes(dt_raw, dt_bias, x, B_in, C_in, A_log, D, z, h0, dy,
+                        dhT) + sum(outs) + outs[-1])
+
+
 def _fake_scan(dt, x, B_in, C_in, A, D, h0, group):
     Bb, S, di = x.shape
     return (x.new_empty((Bb, S, di), dtype=torch.float32),
@@ -334,3 +531,10 @@ _GATED = _ops.define(
     "Tensor B_in, Tensor C_in, Tensor A_log, Tensor D, Tensor z, "
     "Tensor? h0, int group) -> (Tensor, Tensor)", _launch_gated,
     _fake_gated, _gated_flops, _gated_bytes)
+_GATED_BWD = _ops.define(
+    "mamba1_scan_gated_backward", "(Tensor dt_raw, Tensor dt_bias, "
+    "Tensor x, Tensor B_in, Tensor C_in, Tensor A_log, Tensor D, Tensor z, "
+    "Tensor? h0, Tensor dy, Tensor? dhT, int needs) -> (Tensor, Tensor, "
+    "Tensor, Tensor, Tensor, Tensor, Tensor, Tensor, Tensor)",
+    _launch_gated_backward, _fake_gated_backward, _gated_backward_flops,
+    _gated_backward_bytes)

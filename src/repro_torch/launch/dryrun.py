@@ -31,9 +31,9 @@ so the port runs the step itself, eagerly, on tensors without storage
   * the build and the step run under ``utils/memtrack.py`` 's
     :class:`~repro_torch.utils.memtrack.MemTracker`: live storages by
     category and their peak, and over the step the FLOPs (the formulas
-    ``FlopCounterMode`` adds up), the HBM bytes and the calls of B3, B6
-    and B7 (whose operators' fakes, FLOP formulas and byte counts are in
-    ``kernels/_ops.py``).
+    ``FlopCounterMode`` adds up), the HBM bytes and the calls of B3, B6,
+    B7 and B7's backward kernel (whose operators' fakes, FLOP formulas
+    and byte counts are in ``kernels/_ops.py``).
 
 The traced device is ``cuda`` (the card's paths: B6 and B7 as traced
 operators) unless ``--device cpu`` is asked for. A torch built without
@@ -306,7 +306,8 @@ def fit_table(records: list[dict]) -> str:
     memory per rank in GB (``!`` past the card's 80 GB), the FLOPs per
     rank in TFLOP, the roofline's three terms in ms (compute / memory /
     collective) and its bound; then B6's and B7's calls per rank (from
-    the first mesh's record). A failure's cell names its error."""
+    the first mesh's record; B7's backward kernel's beside its
+    forward's). A failure's cell names its error."""
     meshes, rows = [], {}
     for r in records:
         if r["mesh"] not in meshes:
@@ -333,10 +334,12 @@ def fit_table(records: list[dict]) -> str:
             order.get(kv[0][1], len(order)))):
         first = next((r for r in by.values() if "roofline" in r), None)
         calls = first["kernel_calls"] if first else {}
+        bwd = calls.get("mamba1_scan_gated_backward", 0)
         out.append(f"| {arch} | {shape} | " + " | ".join(
             cell(by.get(m)) for m in meshes)
             + f" | {calls.get('flash_attention', 0)} / "
-            f"{calls.get('mamba1_scan_gated', 0)} |")
+            f"{calls.get('mamba1_scan_gated', 0)}"
+            + (f" + {bwd} backward" if bwd else "") + " |")
     return "\n".join(out)
 
 
@@ -432,7 +435,8 @@ def main(argv=None) -> int:
 
     if args.jobs > 1:
         # the longest traces first: the Mamba1 family's training steps
-        # (B7's backward is a loop over time), then the others'
+        # (on the CPU's paths B7's backward is a loop over time), then
+        # the others'
         ssm = {a for a in list_archs() if get_config(a).family == "ssm"}
         combos.sort(key=lambda c: (INPUT_SHAPES[c[1]]["kind"] != "train",
                                    c[0] not in ssm))

@@ -8,7 +8,10 @@ and ``{"conv": (B, K-1, di+2N), "ssm": (B, nh, p, N) fp32}`` for Mamba2.
 
 The selective scan goes through
 ``kernels/mamba_scan/ops.gated_selective_scan``: B7's gated mode on the
-card, its plain version on the CPU. The reference's layer runs its own
+card, its plain version on the CPU. Under training its gradient is B7's
+backward kernel on the card (one launch a layer's backward, after the
+gated forward's launch in the layer's checkpointed recompute), and
+autograd of the plain version on the CPU. The reference's layer runs its own
 ``lax.scan`` for the full sequence and repeats the recurrence in jnp for
 decode; here both are the same scan, decode at S = 1 from the carried
 state. Around it the reference's op order and dtypes are kept: the

@@ -41,10 +41,11 @@ updates the caches it is given in place (the reference returns new
 arrays) and returns them.
 
 Training differentiates through B6 and B7: their ``ops`` entries are
-``torch.autograd.Function`` s on the card whose backward is the plain
-version's gradient, recomputed (the reference has no backward kernel).
-With remat, each B6 forward runs twice a step: once in the forward and
-once in its block's recompute.
+``torch.autograd.Function`` s on the card. B6's backward is the plain
+version's gradient, recomputed; B7's is a backward kernel of its own,
+one launch a layer (the reference has no backward kernel of either).
+With remat, each B6 and B7 forward runs twice a step: once in the
+forward and once in its block's recompute.
 
 Sharded serving (tensor and expert parallelism over a
 :class:`~repro_torch.launch.mesh.Mesh`, ``ROADMAP.md`` A12b). A model

@@ -26,9 +26,9 @@ operator a step runs, meant for the dry run (``launch/dryrun.py``) under
   nothing, so the bytes are the traffic of the step as it runs, each
   operator's operands making a round trip through device memory.
 
-One mode does all of it: a trace runs millions of operators (a Mamba1
-layer's backward is a loop over time), and each mode on the stack costs
-each of them a dispatch. A small tracker of its own, not
+One mode does all of it: a trace runs millions of operators (on the
+CPU's paths a Mamba1 layer's backward is a loop over time), and each
+mode on the stack costs each of them a dispatch. A small tracker of its own, not
 ``torch.distributed._tools.mem_tracker``: that API is private, differs
 between torch releases and refuses to track a second iteration.
 """

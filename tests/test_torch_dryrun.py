@@ -333,23 +333,23 @@ def test_lsplm_cli_records_each_variant(monkeypatch, tmp_path, capsys):
 
 
 # --------------------------------------------------- the operators' fakes
-def _fake_vs_plain(op_call, plain_call, make):
-    """``op_call`` on fake CUDA tensors of ``make`` 's shapes and dtypes
-    against ``plain_call`` on real CPU tensors: outputs' shapes and
-    dtypes equal."""
+def _fake_vs_plain(op_call, plain_call, make, device="cuda"):
+    """``op_call`` on fake ``device`` tensors of ``make`` 's shapes and
+    dtypes against ``plain_call`` on real CPU tensors: outputs' shapes
+    and dtypes equal."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     real = make("cpu")
     want = plain_call(*real)
     with FakeTensorMode():
         fake = [None if t is None else torch.empty(
-            t.shape, dtype=t.dtype, device="cuda") for t in real]
+            t.shape, dtype=t.dtype, device=device) for t in real]
         got = op_call(*fake)
     want = want if isinstance(want, tuple) else (want,)
     got = got if isinstance(got, tuple) else (got,)
     assert [(tuple(t.shape), t.dtype) for t in got] == \
         [(tuple(t.shape), t.dtype) for t in want]
-    assert all(t.device.type == "cuda" for t in got)
+    assert all(t.device.type == device for t in got)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -372,7 +372,13 @@ def test_flash_attention_fake_is_plains_shape(dtype, causal):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("h0", [False, True])
-def test_mamba_scan_fakes_are_plains_shapes(dtype, h0):
+def test_mamba_scan_fakes_are_plains_shapes(dtype, h0, monkeypatch):
+    """B7's two modes and its backward: the wrappers under
+    ``FakeTensorMode`` give the plain versions' shapes and dtypes. The
+    backward's wrapper slices its operator's outputs, which a torch built
+    without CUDA cannot do on a fake CUDA tensor: it runs on fake CPU
+    tensors, its device check lifted; its operator runs on meta tensors
+    too."""
     from repro_torch.kernels.mamba_scan import ops
     from repro_torch.kernels.mamba_scan import mamba_scan as tk
 
@@ -397,6 +403,40 @@ def test_mamba_scan_fakes_are_plains_shapes(dtype, h0):
 
     _fake_vs_plain(tk.mamba1_scan_gated, ops.plain_gated_scan, gated)
     _fake_vs_plain(tk.mamba1_scan, ops.plain_scan, contract)
+
+    # the backward: the wrapper on fake CUDA tensors against the plain
+    # version, for dy with and without dhT and two needs patterns
+    def backward(dev):
+        g = torch.Generator().manual_seed(2)
+        grads = [torch.randn((B, S, di), generator=g).to(dtype),
+                 torch.randn((B, di, N), generator=g)]
+        return gated(dev) + [t.to(dev) for t in grads]
+
+    odd = (True, False) * 4 + (True,)
+    monkeypatch.setattr(tk, "_on_card", lambda *args: None)
+    for needs in (None, odd):
+        for keep_dhT in (True, False):
+            def call(fn, *args, needs=needs, keep_dhT=keep_dhT):
+                *inputs, dy, dhT = args
+                return fn(*inputs, dy, dhT if keep_dhT else None,
+                          needs=needs)
+
+            def strip(out):  # the entries that are tensors
+                return tuple(t for t in out if t is not None)
+
+            _fake_vs_plain(
+                lambda *a: strip(call(tk.mamba1_scan_gated_backward, *a)),
+                lambda *a: strip(call(ops.plain_gated_scan_backward, *a)),
+                backward, device="cpu")
+    # the operator itself on meta tensors: its outputs' shapes and dtypes
+    meta = [None if t is None else t.to("meta") for t in backward("cpu")]
+    mask = tk.needs_mask(None, meta[8])
+    outs = torch.ops.repro_torch.mamba1_scan_gated_backward(*meta, mask)
+    assert [(tuple(t.shape), t.dtype) for t in outs] == [
+        (tuple(shape), dt) for shape, dt in tk._backward_shapes(
+            (B, S, di), dtype, N, mask)]
+    assert outs[4].shape == (B, S, 1, 2 * N)  # one block of 128 channels
+    assert outs[8].shape == (B, -(-S // tk.backward_chunk(N)), di, N)
 
 
 def test_owlqn_direction_fake_is_plains_shape():
@@ -424,6 +464,7 @@ def test_the_operators_are_counted():
     from repro_torch.kernels.flash_attention.flash_attention import (
         flash_attention,
     )
+    from repro_torch.kernels.mamba_scan import mamba_scan as tk
     from repro_torch.kernels.mamba_scan.mamba_scan import mamba1_scan_gated
     from repro_torch.kernels.owlqn_direction.owlqn_direction import (
         owlqn_direction,
@@ -444,20 +485,34 @@ def test_the_operators_are_counted():
             flash_attention(q, k, k, causal=True)
             flash_attention(q, k, k, causal=False)
             mamba1_scan_gated(*scan)
+            # the backward's operator (the wrapper's glue sums aside)
+            tk._GATED_BWD(*scan, e(B, S, di), None,
+                          tk.needs_mask(None, None))
             owlqn_direction(th, th, 0.1, 0.1)
     counts = {str(op): n for op, n in fc.get_flop_counts()["Global"].items()}
     assert tc.flops == fc.get_total_flops()
     assert counts == {"repro_torch.flash_attention": 6 * B * H * S * S * hd,
                       "repro_torch.mamba1_scan_gated": 8 * B * S * di * N,
+                      "repro_torch.mamba1_scan_gated_backward":
+                          32 * B * S * di * N,
                       "repro_torch.owlqn_direction": 16 * 100 * 24}
     assert tc.calls == {"flash_attention": 2, "mamba1_scan_gated": 1,
+                        "mamba1_scan_gated_backward": 1,
                         "owlqn_direction": 1}
     # q, k, v read and o written; dt_raw, x, z, B_in, C_in, dt_bias,
     # A_log and D read and y and hT written; Theta, the gradient, d
     attn = 2 * (2 * B * S * H * hd + 2 * B * S * KVH * hd) * 2
     scan_b = (4 * B * S * di + 2 * B * S * N) * 2 + 2 * di * 4 \
         + di * N * 4 + B * di * N * 4
-    assert tc.hbm_bytes == attn + scan_b + 3 * 100 * 24 * 4
+    # the backward: the same inputs and dy read, ddt_raw, dx, dz written
+    # (bf16), the partials of dB/dC (one block), dA_log, dD, ddt_bias and
+    # the workspace of S / 8 checkpoints written, the workspace read back
+    chunks = S // tk.backward_chunk(N)
+    bwd_b = (4 * B * S * di + 2 * B * S * N) * 2 + 2 * di * 4 \
+        + di * N * 4 + 3 * B * S * di * 2 + (B * S * 2 * N + B * di * N
+                                             + 2 * B * di) * 4 \
+        + 2 * B * chunks * di * N * 4
+    assert tc.hbm_bytes == attn + scan_b + bwd_b + 3 * 100 * 24 * 4
     with pytest.raises(NotImplementedError):
         torch.ops.repro_torch.flash_attention(
             torch.zeros(1, 2, 1, 8), torch.zeros(1, 2, 1, 8),
@@ -481,6 +536,53 @@ def test_tracked_flops_are_flop_counter_modes(arch):
                 memtrack.MemTracker("cpu") as mem, mem.counting():
             step(state, {"tokens": toks, "labels": toks})
     assert mem.flops == fc.get_total_flops() > 0
+
+
+class _Dispatches(torch.utils._python_dispatch.TorchDispatchMode):
+    """Counts the operators dispatched under it."""
+
+    def __init__(self):
+        super().__init__()
+        self.n = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.n += 1
+        return func(*args, **(kwargs or {}))
+
+
+def test_mamba_train_step_traces_in_bounded_time(monkeypatch):
+    """Reduced falcon-mamba's train step on the card's path, B7's forward
+    and its backward kernel as traced operators, dispatches the same
+    operators at S = 4,096 as at S = 64 (on the CPU's path the backward
+    is autograd of a loop over time: a graph of S steps), and traces in
+    seconds: 2 layers give 4 forward calls (forward and recompute) and 2
+    backward calls. A torch built without CUDA cannot differentiate a
+    fake CUDA tensor, so the card's path runs on fake CPU tensors: the
+    wrappers' device check lifted and ``gated_selective_scan`` routed
+    through its Function, as a CUDA tensor routes it."""
+    import time
+
+    from repro_torch.kernels.mamba_scan import mamba_scan as tk
+    from repro_torch.kernels.mamba_scan import ops
+
+    monkeypatch.setattr(tk, "_on_card", lambda *args: None)
+    monkeypatch.setattr(ops, "gated_selective_scan",
+                        lambda *args: ops._GatedScan.apply(*args))
+    cfg = tconfigs.get_config("falcon-mamba-7b").reduced()
+    dispatched, secs = {}, {}
+    for seq in (64, 4096):
+        monkeypatch.setitem(tconfigs.INPUT_SHAPES, "train_4k",
+                            dict(kind="train", seq_len=seq, global_batch=2))
+        t0 = time.perf_counter()
+        with _Dispatches() as count, dryrun.fake_world(1, 1) as m:
+            tr = dryrun.trace_combo(cfg, "train_4k", m, device="cpu")
+        secs[seq] = time.perf_counter() - t0
+        dispatched[seq] = count.n
+        assert tr.calls == {"mamba1_scan_gated": 4,
+                            "mamba1_scan_gated_backward": 2}, tr.calls
+        assert tr.flops > 0 and tr.peak["peak_bytes"] > 0
+    assert dispatched[4096] == dispatched[64] > 0, dispatched
+    assert secs[4096] < 60, secs
 
 
 # ---------------------------------------------------------- the tracker

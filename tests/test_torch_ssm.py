@@ -317,7 +317,8 @@ def test_cpu_model_takes_the_plain_scan():
     out = generate(model, torch.from_numpy(_tokens(model.cfg, 5, (B, 5))), 3,
                    temperature=0.0)
     assert out.shape == (B, 3) and tk.LAUNCHES == before
-    assert set(before) == {"mamba1_scan", "mamba1_scan_gated"}
+    assert set(before) == {"mamba1_scan", "mamba1_scan_gated",
+                           "mamba1_scan_gated_backward"}
 
 
 def test_init_model_draws_from_the_generator():

@@ -2750,12 +2750,20 @@ def _sass_dump(lib_path: Path):
         return None
 
 
-def _sass_step_block(lib_path: Path, kernel_re: str):
-    """The straight-line SASS block of B7 that holds the most MUFU.EX2
-    (the scan of one group of steps), from ``cuobjdump -sass`` of the
-    built library, for the kernel whose mangled name matches
-    ``kernel_re``: (its instruction count, {mnemonic: count}), or None
-    when cuobjdump is missing or nothing matches."""
+def _most_ex2(blocks):
+    """B7's scan of one group of steps: the block with the most
+    MUFU.EX2, or None when no block has one."""
+    best = max(blocks, key=lambda b: b.count("MUFU.EX2"))
+    return best if "MUFU.EX2" in best else None
+
+
+def _sass_step_block(lib_path: Path, kernel_re: str, pick=_most_ex2):
+    """The straight-line SASS block that ``pick`` chooses from the blocks
+    of the kernel whose mangled name matches ``kernel_re``, in
+    ``cuobjdump -sass`` of the built library (by default B7's scan of one
+    group of steps, the block with the most MUFU.EX2): (its instruction
+    count, {mnemonic: count}), or None when cuobjdump is missing, nothing
+    matches or ``pick`` finds no block."""
     sass = _sass_dump(lib_path)
     if sass is None:
         return None
@@ -2776,8 +2784,8 @@ def _sass_step_block(lib_path: Path, kernel_re: str):
             if op in ("BRA", "EXIT", "RET"):
                 blocks.append(cur)
                 cur = []
-        best = max(blocks + [cur], key=lambda b: b.count("MUFU.EX2"))
-        if "MUFU.EX2" not in best:
+        best = pick(blocks + [cur])
+        if best is None:
             return None
         mix: dict[str, int] = {}
         for op in best:
@@ -7811,9 +7819,12 @@ def phase_zoo_card_vs_cpu(torch, dev):
 # SSM_TRAIN_LAYERS of the 64 layers, trainable in fp32, the train_4k shape
 # with its batch cut from 256 to 4 (TRAIN_BATCH x LM_SEQ), lr 3e-5
 SSM_TRAIN_SHORT = 512  # layer 0's scan inputs for the kernel-vs-plain gate
-B7_BWD_BEFORE = (512, 1024)  # where the autograd plain backward is timed
+# where the autograd plain backward is timed (4 x 1,024 cut for the
+# script's time; PERF.md keeps its earlier figures there)
+B7_BWD_BEFORE = (512,)
 B7_BWD_BEFORE_RUNS = 3  # its timed runs at each, after one warm-up run
-B7_BWD_KERNELS = ("mamba1_scan_gated_bwd_kernel",)
+B7_BWD_KERNELS = ("mamba1_scan_gated_bwd_kernel",
+                  "mamba1_scan_gated_bwd_ckpt_kernel")
 
 
 def _scan_backward_bound(torch, args, dy):
@@ -7834,18 +7845,30 @@ def _scan_backward_bound(torch, args, dy):
             "bytes" if t_bytes >= t_ops else "operations", nbytes, ops)
 
 
+def _walk_block(blocks):
+    """B7's backward kernel's walk back through one step (the body of the
+    walk's loop): the block with the most FMUL among those without a MUFU
+    (the walk reads da back and runs no exponential), or None."""
+    cands = [b for b in blocks if not any(op.startswith("MUFU") for op in b)]
+    best = max(cands, key=lambda b: b.count("FMUL"), default=None)
+    return best if best and "FMUL" in best else None
+
+
 def _ssm_train_times(torch, dev):
     """(c): the backward kernel at (TRAIN_BATCH, LM_SEQ, 8,192, 16) in
     bf16 and fp32 (the model's inputs: B and C slices of one projection,
-    z half of another, no h0, no dhT) beside its bound; in bf16 also
-    held against its plain version on those inputs at
-    :func:`_check_b7_backward` 's bars, whose one run gives the plain
-    version's ms. Then the autograd plain backward that it replaces,
-    ``gated_scan_backward_plain``, at B7_BWD_BEFORE: one warm-up run,
-    then the median ms of B7_BWD_BEFORE_RUNS and their peak memory above
-    what was allocated before them, the kernel beside it. Returns (the
-    rows, the bf16 4 x 4,096 one first; the sums' max |err| at 4 x
-    4,096)."""
+    z half of another, no h0, no dhT) at every G beside its bound, with
+    each instantiation's registers, spills, shared memory and resident
+    warps an SM; in bf16 also held against its plain version on those
+    inputs at :func:`_check_b7_backward` 's bars (at the G the wrapper
+    picks), whose one run gives the plain version's ms; then the walk's
+    SASS per (channel, state, step) at every G. Then the autograd plain
+    backward that it replaces, ``autograd_gated_scan_backward``, at
+    B7_BWD_BEFORE: one warm-up run, then the median ms of
+    B7_BWD_BEFORE_RUNS and their peak memory above what was allocated
+    before them, the kernel beside it. Returns (the rows, the bf16 4 x
+    4,096 one first; the sums' max |err| at 4 x 4,096)."""
+    from repro_torch.kernels import _build
     from repro_torch.kernels.mamba_scan import mamba_scan as ms
     from repro_torch.kernels.mamba_scan import ops
 
@@ -7853,17 +7876,21 @@ def _ssm_train_times(torch, dev):
     flush = torch.empty(128 * 2**20 // 4, dtype=torch.float32, device=dev)
     di, N = 8192, 16
     rows, err = [], None
+    picked = ms.backward_group(N)
     for dtype in (torch.bfloat16, torch.float32):
         args = _b7_gated_inputs(torch, dev, gen, TRAIN_BATCH, LM_SEQ, di, N,
                                 dtype, False, R=256)
         dy = torch.randn(args[2].shape, generator=gen, device=dev).to(dtype)
         bound_ms, bound_by, nbytes, nops = _scan_backward_bound(torch, args,
                                                                 dy)
+        by_group = {g: _time_ms(torch, lambda: ms.mamba1_scan_gated_backward(
+            *args, dy, None, group=g), flush, runs=10) for g in ms.GROUPS}
+        res = {g: ms.backward_resources(N, g, dtype) for g in ms.GROUPS}
         row = {"mode": "backward", "b": TRAIN_BATCH, "s": LM_SEQ, "di": di,
-               "n": N, "dtype": str(dtype)[6:],
-               "ms": _time_ms(torch, lambda: ms.mamba1_scan_gated_backward(
-                   *args, dy, None), flush, runs=10),
-               "plain_ms": None, "library_ms": None, "bound_ms": bound_ms,
+               "n": N, "dtype": str(dtype)[6:], "group": picked,
+               "ms": by_group[picked], "ms_by_group": by_group,
+               "resources_by_group": res, "plain_ms": None,
+               "library_ms": None, "bound_ms": bound_ms,
                "bound_by": bound_by}
         checked = "plain not run in fp32"
         if dtype == torch.bfloat16:  # the main path's shape, held
@@ -7878,11 +7905,39 @@ def _ssm_train_times(torch, dev):
         rows.append(row)
         print(f"phase 42: B7 backward kernel (B, S, di, N) = "
               f"{(TRAIN_BATCH, LM_SEQ, di, N)} {row['dtype']}: "
-              f"{row['ms']:.3f} ms (median of 10), bound {bound_ms:.4f} ms "
-              f"({bound_by}: {nbytes / 1e9:.3f} GB, {nops:.3e} SFU "
-              f"operations; {bound_ms / row['ms']:.1%} of it reached); "
-              f"{checked}; library n/a (no single PyTorch call)")
+              f"{row['ms']:.3f} ms at G={picked} (median of 10; by G: "
+              + ", ".join(f"{g}: {t:.3f}" for g, t in by_group.items())
+              + f"), bound {bound_ms:.4f} ms ({bound_by}: "
+              f"{nbytes / 1e9:.3f} GB, {nops:.3e} SFU operations; "
+              f"{bound_ms / row['ms']:.1%} of it reached); {checked}; "
+              "library n/a (no single PyTorch call)")
+        print(f"  resources by G ({row['dtype']}): " + "; ".join(
+            f"G={g}: the walk's kernel {r['registers']} registers, "
+            f"{r['spill_bytes']} spill bytes a thread, "
+            f"{r['shared_bytes'] / 1024:.1f} KB shared, {r['threads']} "
+            f"threads a block, {r['blocks_per_sm']} block(s) = "
+            f"{r['warps_per_sm']} warps an SM; pass 1's "
+            f"{r['pass1_registers']} registers, {r['pass1_spill_bytes']} "
+            f"spill bytes, {r['pass1_warps_per_sm']} warps an SM"
+            for g, r in res.items()))
         del args, dy
+    lib = _build.build_all(["mamba_scan_bwd"])["mamba_scan_bwd"]
+    for g in ms.GROUPS:
+        found = _sass_step_block(
+            lib, rf"\S*mamba1_scan_gated_bwd_kernelILi{N}ELi{g}E"
+            r"13__nv_bfloat16", _walk_block)
+        if found is None:
+            print(f"  SASS of B7's backward walk N={N} G={g}: not measured "
+                  "(cuobjdump missing or no block found)")
+            continue
+        count, mix = found
+        m = N // g
+        print(f"  SASS of B7's backward walk N={N} G={g} bf16: one step of "
+              f"the walk holds {count} instructions on one thread; per "
+              f"(channel, state, step), for its {m} states: "
+              f"{count / m:.1f}; mix " + ", ".join(
+                  f"{op} {n}" for op, n in sorted(
+                      mix.items(), key=lambda kv: -kv[1])[:10]))
     torch.cuda.empty_cache()
     for S in B7_BWD_BEFORE:
         args = _b7_gated_inputs(torch, dev, gen, TRAIN_BATCH, S, di, N,
@@ -7893,8 +7948,8 @@ def _ssm_train_times(torch, dev):
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
         if S == B7_BWD_BEFORE[0]:  # the warm-up run
-            ops.gated_scan_backward_plain(*args, dy, None)
-        runs = [_time_ms(torch, lambda: ops.gated_scan_backward_plain(
+            ops.autograd_gated_scan_backward(*args, dy, None)
+        runs = [_time_ms(torch, lambda: ops.autograd_gated_scan_backward(
             *args, dy, None), flush, 1, 0)
             for _ in range(B7_BWD_BEFORE_RUNS)]
         before_ms = float(np.median(runs))
@@ -7906,7 +7961,7 @@ def _ssm_train_times(torch, dev):
                      "plain_autograd_ms": before_ms,
                      "plain_autograd_runs_ms": runs,
                      "plain_autograd_peak_gb": peak})
-        print(f"  before: gated_scan_backward_plain (autograd of the plain "
+        print(f"  before: autograd_gated_scan_backward (autograd of the plain "
               f"scan's loop, recomputed) at (B, S) = ({TRAIN_BATCH}, {S}) "
               f"bf16: {before_ms:.1f} ms (median of "
               + ", ".join(f"{t:.1f}" for t in runs) + " after a warm-up "
@@ -7975,7 +8030,7 @@ def phase_ssm_train(torch, dev):
     plain_calls: list = []  # the plain versions' names, once a call
     wrapped = {name: _recording(ops, name,
                                 lambda _, n=name: plain_calls.append(n))
-               for name in ("gated_scan_backward_plain",
+               for name in ("autograd_gated_scan_backward",
                             "plain_gated_scan_backward", "plain_gated_scan",
                             "plain_scan")}
     try:

@@ -70,10 +70,11 @@ GROUPS = (1, 2, 4)  # threads per (batch row, channel), at most N
 _THREADS_PER_SM = 192
 _SHORT_SCAN = 64  # steps
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# the backward kernel: a thread a channel, BWD_THREADS channels a block;
-# the states it keeps for a chunk of steps fill _BWD_STATE_FLOATS, at
-# most 16 steps (csrc/mamba_scan_bwd.cu chunk_steps)
-BWD_THREADS = 128
+# the backward kernel: BWD_CHANNELS channels a block, G lanes each (G of
+# GROUPS); the states it keeps for a chunk of steps fill
+# _BWD_STATE_FLOATS, at most 16 steps (csrc/mamba_scan_bwd.cu
+# chunk_steps)
+BWD_CHANNELS = 128
 _BWD_STATE_FLOATS = 16384
 # input order of the gated mode; bit i of the backward's ``needs``
 GATED_INPUTS = ("dt_raw", "dt_bias", "x", "B_in", "C_in", "A_log", "D",
@@ -99,9 +100,11 @@ def _lib() -> ctypes.CDLL:
 def _bwd_lib() -> ctypes.CDLL:
     lib = _build.load(_BWD_SOURCE)
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.mamba1_scan_gated_backward.argtypes = ([ptr] * 20 + [i32] * 4
+    lib.mamba1_scan_gated_backward.argtypes = ([ptr] * 20 + [i32] * 5
                                                + [i64] * 12 + [i32, ptr])
     lib.mamba1_scan_gated_backward.restype = i32
+    lib.mamba1_scan_gated_backward_resources.argtypes = [i32, i32, i32, ptr]
+    lib.mamba1_scan_gated_backward_resources.restype = i32
     lib.mamba1_scan_gated_backward_chunk.argtypes = [i32]
     lib.mamba1_scan_gated_backward_chunk.restype = i32
     lib.mamba1_scan_gated_backward_error_string.argtypes = [i32]
@@ -116,7 +119,38 @@ def _bwd_lib() -> ctypes.CDLL:
 def backward_chunk(N: int) -> int:
     """Steps of one chunk of the backward kernel at state size N: its
     workspace keeps the state entering every this-many steps."""
-    return min(16, _BWD_STATE_FLOATS // (BWD_THREADS * N))
+    return min(16, _BWD_STATE_FLOATS // (BWD_CHANNELS * N))
+
+
+def backward_group(N: int) -> int:
+    """G of the backward kernel at state size N: the most lanes a
+    channel, the largest of :data:`GROUPS` up to N. The kernel's shared
+    memory holds one block of BWD_CHANNELS channels an SM at every G, so
+    the warps an SM holds are 4 G whatever B, S, di and the SM count,
+    and more warps hide more of the walk's latency (chip_smoke.py phase
+    42 times every G)."""
+    return max(g for g in GROUPS if g <= N)
+
+
+def backward_resources(N: int, G: int, dtype: torch.dtype) -> dict:
+    """What the compiler and the card give the backward kernel's (N, G,
+    dtype) instantiation: the walk's kernel's registers and spill (local)
+    bytes a thread, dynamic shared bytes and threads a block, resident
+    blocks and warps an SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``);
+    pass 1's kernel's registers, spill bytes and resident warps an SM
+    (128-thread blocks). Needs a card."""
+    out = (ctypes.c_int * 8)()
+    rc = _bwd_lib().mamba1_scan_gated_backward_resources(N, G,
+                                                         _DTYPES[dtype], out)
+    if rc != 0:
+        msg = _bwd_lib().mamba1_scan_gated_backward_error_string(rc)
+        raise RuntimeError(f"backward_resources: {msg.decode()} ({rc})")
+    regs, spill, smem, threads, blocks, regs1, spill1, blocks1 = out
+    return {"registers": regs, "spill_bytes": spill, "shared_bytes": smem,
+            "threads": threads, "blocks_per_sm": blocks,
+            "warps_per_sm": blocks * threads // 32,
+            "pass1_registers": regs1, "pass1_spill_bytes": spill1,
+            "pass1_warps_per_sm": blocks1 * 4}
 
 
 @functools.cache
@@ -356,29 +390,31 @@ def needs_mask(needs, h0) -> int:
 
 
 def mamba1_scan_gated_backward(dt_raw, dt_bias, x, B_in, C_in, A_log, D, z,
-                               h0, dy, dhT, *, needs=None):
+                               h0, dy, dhT, *, needs=None, group=None):
     """The gated scan's gradients on the card: for the output gradients dy
     (of y, in x's dtype) and dhT (of hT, fp32), either None, a tuple with
     one entry per input (GATED_INPUTS), None where the input is None or
     its ``needs`` entry is false (``needs``: one bool per input, default
     all). Each is in its input's dtype but dB_in and dC_in, the sums over
     channels, which stay fp32 (``ops._GatedScan`` rounds them to B_in's
-    dtype). One launch of the backward kernel, then torch sums of its
-    partials. Its plain version is ``ops.plain_gated_scan_backward``."""
+    dtype). One launch of the backward kernel (its two grids, pass 1 and
+    the walk back), then torch sums of its partials. ``group`` forces G (lanes a channel; default:
+    :func:`backward_group`). Its plain version is
+    ``ops.plain_gated_scan_backward``."""
     name = "mamba1_scan_gated_backward"
     args = (dt_raw, dt_bias, x, B_in, C_in, A_log, D, z, h0)
-    refuse_grad(name, "ops.gated_scan_backward_plain", *args, dy, dhT)
+    refuse_grad(name, "ops.autograd_gated_scan_backward", *args, dy, dhT)
     _on_card(name, x, [dt_raw, dt_bias, B_in, C_in, A_log, D, z, h0, dy,
                        dhT])
     check_gated_backward_inputs(name, args, dy, dhT)
-    _check_group(name, x, B_in.shape[2], None)
+    group = _check_group(name, x, B_in.shape[2], group)
     mask = needs_mask(needs, h0)
     grads = [None] * len(GATED_INPUTS)
     if not mask or (dy is None and dhT is None):
         return tuple(grads)
     dy = torch.zeros_like(x) if dy is None else dy
     ddt_raw, dx, dz, dh0, part_bc, part_A, part_D, part_bias, _ = \
-        _GATED_BWD(*args, dy, dhT, mask)
+        _GATED_BWD(*args, dy, dhT, mask, group)
     out = {0: ddt_raw, 2: dx, 7: dz, 8: dh0}
     if part_bc.numel():  # the block partials, summed: (B, S, 2N) fp32
         N = B_in.shape[2]
@@ -399,13 +435,13 @@ def mamba1_scan_gated_backward(dt_raw, dt_bias, x, B_in, C_in, A_log, D, z,
 def _backward_shapes(x_shape, x_dtype, N, needs):
     """(shape, dtype) of the backward operator's outputs, in order:
     ddt_raw, dx, dz (B, S, di) in x's dtype; dh0 (B, di, N); the block
-    partials of dB and dC (B, S, ceil(di / BWD_THREADS), 2N); those of
+    partials of dB and dC (B, S, ceil(di / BWD_CHANNELS), 2N); those of
     dA_log (B, di, N), dD and ddt_bias (B, di); the checkpoint workspace
     (B, ceil(S / backward_chunk(N)), di, N); all but the first three
     fp32. An output no ``needs`` bit asks for is (0,)."""
     Bb, S, di = x_shape
     f32 = torch.float32
-    blocks = -(-di // BWD_THREADS)
+    blocks = -(-di // BWD_CHANNELS)
     chunks = -(-S // backward_chunk(N))
 
     def out(bits, shape, dtype=f32):
@@ -426,11 +462,12 @@ def _backward_outputs(x, N, needs):
 
 
 def _launch_gated_backward(dt_raw, dt_bias, x, B_in, C_in, A_log, D, z, h0,
-                           dy, dhT, needs):
+                           dy, dhT, needs, group=0):
     """The backward operator's CUDA kernel: the launch, on checked
-    tensors."""
+    tensors (``group`` 0: G from :func:`backward_group`)."""
     N = B_in.shape[2]
     Bb, S, di = x.shape
+    G = group or backward_group(N)
     (dt_raw, x, z, B_in, C_in, dy), strides = _rows(dt_raw, x, z, B_in,
                                                     C_in, dy)
     dt_bias, A_log, D = (t.contiguous() for t in (dt_bias, A_log, D))
@@ -446,30 +483,31 @@ def _launch_gated_backward(dt_raw, dt_bias, x, B_in, C_in, A_log, D, z, h0,
     _finish("mamba1_scan_gated_backward", lib.mamba1_scan_gated_backward(
         *(ptr(t) for t in (dt_raw, dt_bias, x, B_in, C_in, A_log, D, z, h0,
                            dy, dhT)), outs[8].data_ptr(),
-        *(ptr(t) for t in outs[:8]), Bb, S, di, N, *strides,
+        *(ptr(t) for t in outs[:8]), Bb, S, di, N, G, *strides,
         _DTYPES[x.dtype], stream), lib.mamba1_scan_gated_backward_error_string)
     return outs
 
 
 def _fake_gated_backward(dt_raw, dt_bias, x, B_in, C_in, A_log, D, z, h0,
-                         dy, dhT, needs):
+                         dy, dhT, needs, group=0):
     return _backward_outputs(x, B_in.shape[2], needs)
 
 
 def _gated_backward_flops(dt_raw, dt_bias, x, B_in, C_in, A_log, D, z, h0,
-                          dy, dhT, needs, out_shape=None) -> int:
-    """32 B S di N: the forward's state update twice (pass 1 and the
+                          dy, dhT, needs, group=0, out_shape=None) -> int:
+    """27 B S di N: the forward's state update twice (pass 1 and the
     chunk's recompute, 5 a state-step: dt A, its exponential, the two
-    products and their sum) and the walk's 22 (the update again, h C and
-    its fold, the adjoint's product and sum, g B, g (da h), A times it
-    and their folds, the dA_log sum's product and sum, the dB and dC
-    terms and their sums, the carried da g)."""
+    products and their sum) and the walk's 17, which reads h_t and da_t
+    back from the recompute (da h_{t-1}, h C and its fold, the adjoint's
+    product and sum, g B and its fold, g (da h), A times it and its fold,
+    the dA_log sum's product and sum, the dB and dC terms and their sums
+    over channels, the carried da g)."""
     Bb, S, di = x
-    return 32 * Bb * S * di * B_in[2]
+    return 27 * Bb * S * di * B_in[2]
 
 
 def _gated_backward_bytes(dt_raw, dt_bias, x, B_in, C_in, A_log, D, z, h0,
-                          dy, dhT, needs) -> int:
+                          dy, dhT, needs, group=0) -> int:
     """Every input read once, every output written once, and the
     checkpoint workspace read back once."""
     outs = [math.prod(shape) * dtype.itemsize for shape, dtype in
@@ -534,7 +572,8 @@ _GATED = _ops.define(
 _GATED_BWD = _ops.define(
     "mamba1_scan_gated_backward", "(Tensor dt_raw, Tensor dt_bias, "
     "Tensor x, Tensor B_in, Tensor C_in, Tensor A_log, Tensor D, Tensor z, "
-    "Tensor? h0, Tensor dy, Tensor? dhT, int needs) -> (Tensor, Tensor, "
-    "Tensor, Tensor, Tensor, Tensor, Tensor, Tensor, Tensor)",
+    "Tensor? h0, Tensor dy, Tensor? dhT, int needs, int group=0) -> "
+    "(Tensor, Tensor, Tensor, Tensor, Tensor, Tensor, Tensor, Tensor, "
+    "Tensor)",
     _launch_gated_backward, _fake_gated_backward, _gated_backward_flops,
     _gated_backward_bytes)

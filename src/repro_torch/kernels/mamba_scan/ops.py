@@ -24,7 +24,7 @@ kernel is that loop. Its plain version is :func:`plain_gated_scan_backward`,
 the same adjoint recurrence as a reverse loop over time in PyTorch, in
 the kernel's fp32 op order. On the CPU, :func:`gated_selective_scan`
 stays differentiable through autograd of :func:`plain_gated_scan`;
-:func:`gated_scan_backward_plain` recomputes that autograd graph from
+:func:`autograd_gated_scan_backward` recomputes that autograd graph from
 saved inputs and is the tests' oracle for both.
 """
 from __future__ import annotations
@@ -66,14 +66,14 @@ def plain_gated_scan(dt_raw, dt_bias, x, B_in, C_in, A_log, D, z, h0=None):
     return (y * F.silu(z.to(f32))).to(x.dtype), h
 
 
-def gated_scan_backward_plain(dt_raw, dt_bias, x, B_in, C_in, A_log, D, z,
-                              h0, dy, dhT, needs=None):
+def autograd_gated_scan_backward(dt_raw, dt_bias, x, B_in, C_in, A_log, D,
+                                 z, h0, dy, dhT, needs=None):
     """The gradients of :func:`plain_gated_scan` for the output gradients
     dy (of y) and dhT (of hT; either may be None), recomputed under
     autograd, on any device: a tuple with one entry per input, None for
     an input that is None or whose ``needs`` entry is false (``needs``:
     one bool per input, default all). The same graph as autograd of
-    :func:`plain_gated_scan`, so the same bits. Not to be confused with
+    :func:`plain_gated_scan`, so the same bits: the oracle of
     :func:`plain_gated_scan_backward`, the backward kernel's plain
     version."""
     inputs = (dt_raw, dt_bias, x, B_in, C_in, A_log, D, z, h0)
@@ -171,9 +171,8 @@ def plain_gated_scan_backward(dt_raw, dt_bias, x, B_in, C_in, A_log, D, z,
     over (b, t) are taken in another order). A tuple with one entry per
     input (``mamba_scan.GATED_INPUTS``), None where the input is None or
     its ``needs`` entry is false, each in its input's dtype but dB_in and
-    dC_in, which stay fp32, as the kernel's wrapper returns them. Not to
-    be confused with :func:`gated_scan_backward_plain`, autograd of
-    :func:`plain_gated_scan` (the tests' oracle for both)."""
+    dC_in, which stay fp32, as the kernel's wrapper returns them. The
+    tests hold it to :func:`autograd_gated_scan_backward`."""
     args = (dt_raw, dt_bias, x, B_in, C_in, A_log, D, z, h0)
     check_gated_backward_inputs("plain_gated_scan_backward", args, dy, dhT)
     mask = needs_mask(needs, h0)

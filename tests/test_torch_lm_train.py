@@ -387,7 +387,7 @@ def test_gated_scan_backward_plain_is_autograd(h0, dtype):
     y, hT = scan_ops.plain_gated_scan(*leaves)
     wrt = [t for t in leaves if t is not None]
     want = torch.autograd.grad([y, hT], wrt, [dy, dh])
-    got = [g for g in scan_ops.gated_scan_backward_plain(*args, dy, dh)
+    got = [g for g in scan_ops.autograd_gated_scan_backward(*args, dy, dh)
            if g is not None]
     assert len(got) == len(want)
     for g, w in zip(got, want):
@@ -395,7 +395,7 @@ def test_gated_scan_backward_plain_is_autograd(h0, dtype):
     # only y's gradient: hT's contribution left out, as autograd leaves it
     y, _ = scan_ops.plain_gated_scan(*leaves)
     want = torch.autograd.grad(y, wrt, dy)
-    got = [g for g in scan_ops.gated_scan_backward_plain(*args, dy, None)
+    got = [g for g in scan_ops.autograd_gated_scan_backward(*args, dy, None)
            if g is not None]
     for g, w in zip(got, want):
         assert torch.equal(g, w)
